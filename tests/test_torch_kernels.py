@@ -1,0 +1,187 @@
+"""Port parity: the kernel wrappers against the JAX package's kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions (the only
+reason being that the tensors lie on the CPU); the JAX kernels run their
+Pallas bodies in interpret mode.  Tolerances: float64 1e-12 (the same
+arithmetic, summed in another order), float32 2e-4 (``tests/test_kernels.py``).
+The CUDA kernels themselves are held against the plain versions on the
+card by ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dispatch as jdispatch
+from repro.kernels import ops as jops
+from repro_torch.core import dispatch as tdispatch
+from repro_torch.kernels import diag_scan as tkern
+from repro_torch.kernels import ops as tops
+
+F64 = dict(rtol=1e-12, atol=1e-12)
+F32 = dict(rtol=2e-4, atol=2e-4)
+
+
+def _scan_case(rng, case):
+    """(a, x, h0, tol) numpy inputs for one diag_scan case."""
+    b, t, n = case["shape"]
+    cplx = case.get("complex", False)
+    dtype = case.get("dtype", np.float64)
+    a_shape = {"static": (n,), "time": (t, n), "full": (b, t, n)}[case["a"]]
+    a = rng.uniform(0.3, 0.97, size=a_shape)
+    x = rng.normal(size=(b, t, n))
+    h0 = rng.normal(size=(b, n)) if case.get("h0") else None
+    if cplx:
+        a = a * np.exp(1j * rng.uniform(0, np.pi, size=a_shape))
+        x = x + 1j * rng.normal(size=(b, t, n))
+        if h0 is not None:
+            h0 = h0 + 1j * rng.normal(size=(b, n))
+    cast = (lambda v: None if v is None else v.astype(
+        np.complex64 if cplx else np.float32)) if dtype == np.float32 else (
+        lambda v: v)
+    return cast(a), cast(x), cast(h0), F32 if dtype == np.float32 else F64
+
+
+SCAN_CASES = [
+    dict(shape=(3, 70, 20), a="static"),
+    dict(shape=(2, 37, 16), a="time", complex=True),
+    dict(shape=(2, 50, 20), a="full", h0=True),
+    dict(shape=(4, 45, 33), a="static", complex=True, h0=True),
+    dict(shape=(2, 64, 24), a="static", dtype=np.float32),
+]
+
+
+def _t(v, device="cpu"):
+    return None if v is None else torch.tensor(v, device=device)
+
+
+def _j(v):
+    return None if v is None else jnp.asarray(v)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_diag_scan_wrapper_matches_jax_kernel(case):
+    a, x, h0, tol = _scan_case(np.random.default_rng(0), case)
+    want = jops.diag_scan(_j(a), _j(x), _j(h0), block_b=2, block_t=16,
+                          block_n=16)
+    before = tops.diag_scan.launches
+    got = tops.diag_scan(_t(a), _t(x), _t(h0))
+    assert tops.diag_scan.launches == before      # the CPU takes the plain path
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def _split(v, cplx):
+    if v is None:
+        return None, None
+    return (_t(v.real.copy()), _t(v.imag.copy())) if cplx else (_t(v), None)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_diag_scan_lanes_wrapper_matches_jax_kernel(case):
+    """The (re, im) lane entry that the prefill route calls."""
+    a, x, h0, tol = _scan_case(np.random.default_rng(0), case)
+    want = np.asarray(jops.diag_scan(_j(a), _j(x), _j(h0), block_b=2,
+                                     block_t=16, block_n=16))
+    cplx = case.get("complex", False)
+    before = tops.diag_scan.launches
+    got_re, got_im = tops.diag_scan_lanes(*_split(a, cplx), *_split(x, cplx),
+                                          *_split(h0, cplx))
+    assert tops.diag_scan.launches == before
+    np.testing.assert_allclose(got_re.numpy(), want.real, **tol)
+    if cplx:
+        np.testing.assert_allclose(got_im.numpy(), want.imag, **tol)
+    else:
+        assert got_im is None
+
+
+def _decode_case(rng, *, b=4, nc=20, d=1, batched=False, dtype=np.float64):
+    lead = (b,) if batched else ()
+    mag = rng.uniform(0.5, 0.95, size=(nc,))
+    ph = rng.uniform(0, np.pi, size=(nc,))
+    ops = dict(
+        a_re=mag * np.cos(ph), a_im=mag * np.sin(ph),
+        h_re=rng.normal(size=(b, nc)), h_im=rng.normal(size=(b, nc)),
+        y0=rng.normal(size=(b, d)),
+        wd_re=0.3 * rng.normal(size=lead + (d, nc)),
+        wd_im=0.3 * rng.normal(size=lead + (d, nc)),
+        wy=0.2 * rng.normal(size=lead + (d, d)),
+        b_out=0.1 * rng.normal(size=lead + (d,)),
+        wh_re=0.1 * rng.normal(size=lead + (nc, d)),
+        wh_im=0.1 * rng.normal(size=lead + (nc, d)))
+    return {k: v.astype(dtype) for k, v in ops.items()}
+
+
+DECODE_NAMES = ("a_re", "a_im", "h_re", "h_im", "y0", "wd_re", "wd_im", "wy",
+                "b_out", "wh_re", "wh_im")
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("d", [1, 2])
+def test_decode_fused_wrapper_matches_jax_kernel(batched, ensemble, d):
+    rng = np.random.default_rng(1)
+    ops = _decode_case(rng, d=d, batched=batched)
+    mask = np.array([True, False, True, True])
+    want = jops.decode_fused(*[_j(ops[k]) for k in DECODE_NAMES],
+                             jnp.asarray(mask), k=9, ensemble=ensemble)
+    before = tops.decode_fused.launches
+    got = tops.decode_fused(*[_t(ops[k]) for k in DECODE_NAMES],
+                            torch.tensor(mask), k=9, ensemble=ensemble)
+    assert tops.decode_fused.launches == before
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+    # Frozen rows keep their state and output.
+    np.testing.assert_array_equal(got[0][1].numpy(), ops["h_re"][1])
+    np.testing.assert_array_equal(got[3][:, 1].numpy(),
+                                  np.repeat(ops["y0"][1:2], 9, axis=0))
+
+
+@pytest.mark.parametrize("use_feedback", [False, True])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+def test_run_decode_fused_matches_jax(use_feedback, ensemble):
+    """The packed-Q funnel (lane split, weight slicing, mean seed) against
+    the JAX funnel; the CPU tensors take the wrapper's plain version."""
+    rng = np.random.default_rng(2)
+    nr, npairs, b, d = 3, 8, 4, 1
+    n = nr + 2 * npairs
+    lam_q = np.concatenate([rng.uniform(-0.9, 0.9, nr),
+                            0.6 * rng.normal(size=2 * npairs)])
+    w_drive = rng.normal(size=(d, n))
+    f = n + 1 + (d if use_feedback else 0)
+    w_out = 0.1 * rng.normal(size=(f, d))
+    states, y_prev = rng.normal(size=(b, n)), rng.normal(size=(b, d))
+    mask = np.array([True, True, False, True])
+    kw = dict(use_bias=True, use_feedback=use_feedback, ensemble=ensemble)
+    want = jdispatch.run_decode_fused(
+        jnp.asarray(lam_q), nr, *map(jnp.asarray, (w_drive, w_out, states,
+                                                   y_prev, mask)),
+        6, method="pallas", **kw)
+    got = tdispatch.run_decode_fused(
+        _t(lam_q), nr, _t(w_drive), _t(w_out), _t(states), _t(y_prev),
+        torch.tensor(mask), 6, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+
+
+def test_decode_layout_limits():
+    assert tkern.decode_layout(8, 525, 1, 8) == (128, 5)
+    assert tkern.decode_layout(1, 525, 1, 8) == (1024, 1)
+    assert tkern.decode_layout(16, 20, 3, 8) == (32, 1)
+    with pytest.raises(ValueError, match="NC <= 1024"):
+        tkern.decode_layout(8, 1100, 1, 8)
+    with pytest.raises(ValueError, match="1 <= B <= 1024"):
+        tkern.decode_layout(2048, 4, 1, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tkern.decode_layout(64, 4, 64, 8)
+
+
+def test_wrappers_reject_other_devices():
+    x = torch.zeros((1, 4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device type 'meta'"):
+        tops.diag_scan(torch.zeros(3, device="meta"), x)
+    with pytest.raises(ValueError, match="share one device"):
+        tops.diag_scan(torch.zeros(3), x)
+    with pytest.raises(ValueError, match=r"\(B, T, N\)"):
+        tops.diag_scan(torch.zeros(3), torch.zeros(4, 3))
