@@ -4,18 +4,33 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version at the serving path's shapes, times
-both, serves the full-width reservoir workload (n=1024, 8 slots, 16
-sessions, 1024-token prompts, 128 closed-loop tokens, float64) through
-``repro_torch.launch.serve`` on the card, checks that the path went through
-both kernels, and holds the card's engine against the port's CPU engine on
-the same 8-session workload.  Any failed phase exits non-zero.  The last
-line of standard output is ``{"ok": true, "device": {...}}``; the line
-before it lists every kernel with its error, times, bound and launches.
+kernel (the diagonal scan, its backward, the fused decode) against its plain
+PyTorch version at the main paths' shapes and times both, then drives the
+port's three main paths on the card, each with the launch counts set to 0
+just before it and read just after:
+
+1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
+   workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
+   closed-loop tokens, float64), held against the port's CPU engine;
+2. ``repro_torch.launch.train``: the paper's reservoir LM ``linear-esn`` at
+   its published width (12 layers, d_model 768, d_rnn 1024, d_ff 2048, vocab
+   50304), batch 8 x 1024 tokens, 10 AdamW steps, float32 — every scan and
+   its gradient through the kernels, 12 forward and 12 backward launches a
+   step; a 2-layer full-width trainer is held against the CPU's;
+3. ``repro_torch.launch.serve --arch linear-esn``: the LM decode loop at
+   full width, its last logits held against a CPU run.
+
+Any failed phase exits non-zero.  The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it names the card and its
+power limit, and the one before that lists every kernel with its error,
+times, bound and launches.
 
 Tolerances: float64 ``max|d| <= 1e-9 * max(1, max|ref|)`` — the kernels
-contract multiply-adds into FMAs and sum the readout in another order;
-float32 2e-4, as the JAX package's kernel tests.
+contract multiply-adds into FMAs and sum in another order; float32 2e-4, as
+the JAX package's kernel tests (scaled by ``max(1, max|ref|)`` for the
+backward, whose ``da`` sums 8192 terms); the LM on the card against the CPU
+1e-4 relative (float32 with TF32 off: cuBLAS and the CPU sum in different
+orders).
 """
 import json
 import subprocess
@@ -32,8 +47,14 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 PEAK_CONTRACT_FLOPS = {"float64": 67e12, "float32": 67e12}
 F64_TOL, F32_TOL = 1e-9, 2e-4
+LM_TOL = 1e-4
 SERVE_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--sessions",
               "16", "--prompt-len", "1024", "--gen", "128"]
+TRAIN_STEPS = 10
+TRAIN_ARGS = ["--arch", "linear-esn", "--vocab", "50304", "--batch", "8",
+              "--seq", "1024", "--steps", str(TRAIN_STEPS)]
+LM_SERVE_ARGS = ["--arch", "linear-esn", "--batch", "4", "--prompt-len",
+                 "64", "--gen", "32"]
 
 
 def fail(msg: str) -> None:
@@ -157,6 +178,8 @@ def check_diag_scan(ops, ref, copy_bw):
         # name, shape, a, complex, h0, dtype, timed
         ("wave", (8, 1024, 525), "static", True, False, "float64", True),
         ("fit", (1, 2000, 525), "static", True, False, "float64", True),
+        # linear-esn training: B=8, T=1024, d_rnn=1024, complex64 lanes
+        ("train", (8, 1024, 1024), "static", True, False, "float32", True),
         ("time-a", (3, 77, 130), "time", True, False, "float64", False),
         ("full-a-h0", (2, 50, 20), "full", False, True, "float64", False),
         ("ragged-h0", (5, 333, 257), "static", True, True, "float64", False),
@@ -186,6 +209,84 @@ def check_diag_scan(ops, ref, copy_bw):
             row.update(bound(*scan_cost(a, x, h0), dtype, copy_bw))
         rows.append(row)
         print(json.dumps({"diag_scan": row}), flush=True)
+    return rows
+
+
+def scan_bwd_cost(lanes, grads):
+    """Bytes (each input read once — a, g, the saved h, h0 — and each output
+    written once — dx, da at a's shape, dh0) and flops of one backward."""
+    a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im = lanes
+    ins = [v for v in lanes if v is not None]
+    outs = [v for v in grads if v is not None]
+    nbytes = h_re.element_size() * (sum(v.numel() for v in ins)
+                                    + sum(v.numel() for v in outs))
+    # Per lane-step: s = g + conj(a) s and da += s conj(h_prev).
+    flops = g_re.numel() * (16 if g_im is not None else 4)
+    return nbytes, flops
+
+
+def max_err_scaled(got, want, tol):
+    """(max |got - want|, tol * max(1, max|ref|)) for one gradient."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    d = float((got - want).abs().max()) if want.numel() else 0.0
+    return d, tol * max(1.0, float(want.abs().max()) if want.numel() else 1.0)
+
+
+def check_diag_scan_bwd(ops, ref, copy_bw):
+    """The backward kernel against the plain reverse-time loop, on the same
+    forward output and incoming gradient."""
+    import torch
+    cases = [
+        # name, shape, a, complex, h0, dtype, timed
+        ("train", (8, 1024, 1024), "static", True, False, "float32", True),
+        ("train-f64", (8, 1024, 1024), "static", True, False, "float64",
+         True),
+        ("time-a", (3, 77, 130), "time", True, False, "float64", False),
+        ("full-a-h0", (2, 50, 20), "full", False, True, "float64", False),
+        ("ragged-h0", (5, 333, 257), "static", True, True, "float64", False),
+        ("real", (4, 100, 129), "static", False, False, "float64", False),
+    ]
+    rows = []
+    for name, shape, a_kind, cplx, with_h0, dtype, timed in cases:
+        a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype)
+        (a_re, a_im), (h0_re, h0_im) = split_lanes(a), split_lanes(h0)
+        h_re, h_im = ops.diag_scan_lanes(a_re, a_im, *split_lanes(x), h0_re,
+                                         h0_im)
+        g = torch.Generator().manual_seed(7)
+        real = h_re.dtype
+        g_re = torch.randn(shape, generator=g, dtype=real).to("cuda")
+        g_im = (torch.randn(shape, generator=g, dtype=real).to("cuda")
+                if cplx else None)
+        lanes = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
+        got = ops.diag_scan_bwd(*lanes)
+        want = ref.diag_scan_lanes_bwd_ref(*lanes)
+        tol = F32_TOL if dtype == "float32" else F64_TOL
+        errs = {}
+        for out, gv, wv in zip(("da_re", "da_im", "dx_re", "dx_im", "dh0_re",
+                                "dh0_im"), got, want):
+            if (gv is None) != (wv is None):
+                fail(f"diag_scan_bwd {name}: {out} missing on one side")
+            if wv is None:
+                continue
+            if gv.shape != wv.shape:
+                fail(f"diag_scan_bwd {name}: {out} shape {tuple(gv.shape)} "
+                     f"!= {tuple(wv.shape)}")
+            errs[out] = max_err_scaled(gv, wv, tol)
+        for out, (e, t) in errs.items():
+            if e > t:
+                fail(f"diag_scan_bwd {name} {out}: max|d| {e:.3e} > {t:.3e}")
+        row = {"case": name, "shape": list(shape), "dtype": dtype,
+               **worst_of(list(errs.values())),
+               "per_output": {o: {"max_abs_err": e, "tol": t}
+                              for o, (e, t) in errs.items()}}
+        if timed:
+            row["ms"] = time_ms(lambda: ops.diag_scan_bwd(*lanes), reps=20)
+            row["plain_ms"] = time_ms(
+                lambda: ref.diag_scan_lanes_bwd_ref(*lanes), reps=2,
+                warmup=1)
+            row.update(bound(*scan_bwd_cost(lanes, got), dtype, copy_bw))
+        rows.append(row)
+        print(json.dumps({"diag_scan_bwd": row}), flush=True)
     return rows
 
 
@@ -330,23 +431,10 @@ def engine_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine):
     return worst
 
 
-def profile_serve(serve):
-    """Device time by kernel over the serving loop (warmup + 16 sessions)
-    of a freshly built engine, under ``torch.profiler``; the busy share is
-    over the loop's wall time inside the profiled window (the profiler's
-    own per-op cost included)."""
-    import torch
+def device_summary(prof, wall_ms):
+    """Device busy time (union of kernel and copy intervals) and the top
+    device consumers of one ``torch.profiler`` window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    args = serve.build_parser().parse_args(SERVE_ARGS)
-    engine, sig, train_t = serve.build_engine(args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve.serve_sessions(engine, args, sig, train_t)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels and copies), so nothing is counted
     # twice through the CPU ops that launched it.
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -366,6 +454,111 @@ def profile_serve(serve):
                     for k, (ms, c) in top]}
 
 
+def profiled(fn):
+    """``device_summary`` of one call of ``fn`` under ``torch.profiler``;
+    the busy share is over the call's wall time inside the profiled window
+    (the profiler's own per-op cost included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof, wall_ms)
+
+
+def profile_serve(serve):
+    """Device time by kernel over the serving loop (warmup + 16 sessions)
+    of a freshly built engine."""
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    engine, sig, train_t = serve.build_engine(args)
+    return profiled(lambda: serve.serve_sessions(engine, args, sig, train_t))
+
+
+def profile_train_step(train, Trainer, TrainConfig, MarkovTokens):
+    """Device time by kernel over one full-width training step (the main
+    path's configuration), after one untimed step."""
+    import torch
+    args = train.build_parser().parse_args(TRAIN_ARGS)
+    cfg = train.arch_config(args)
+    data = MarkovTokens(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq)
+    tr = Trainer(cfg, TrainConfig(steps=1, log_every=0, lr=args.lr), data,
+                 device="cuda")
+    state = tr.init_state(0)
+    batch = {"tokens": torch.as_tensor(data.batch_at(0)["tokens"],
+                                       device="cuda")}
+
+    def step():
+        return tr.step_fn(state["params"], state["opt"], state["ef"], batch)
+    step()
+    return profiled(step)
+
+
+def leafwise(got, want):
+    """max over leaves of max|got - want| / max|want| (flattened trees)."""
+    worst, worst_key = 0.0, None
+    for k, w in want.items():
+        d = float((got[k].cpu() - w).abs().max())
+        scale = float(w.abs().max())
+        r = d / scale if scale else (0.0 if d == 0 else float("inf"))
+        if r >= worst:
+            worst, worst_key = r, k
+    return worst, worst_key
+
+
+def lm_trainer_vs_cpu(lm, loss_and_grads, Trainer, TrainConfig,
+                      MarkovTokens, get_config, tree):
+    """A 2-layer linear-esn at full width (d_model 768, d_rnn 1024, d_ff
+    2048; vocab 512), batch 2 x 256 tokens: the first step's gradients and
+    three AdamW steps' losses on the card against the CPU, from the same
+    weights (``lm_params_from_numpy``)."""
+    import dataclasses
+    import torch
+    cfg = dataclasses.replace(get_config("linear-esn"), n_layers=2,
+                              vocab=512, dtype="float32")
+    weights = tree.tree_map(lambda v: v.numpy(), lm.init_params(
+        torch.Generator().manual_seed(0), cfg, "cpu"))
+    data = MarkovTokens(vocab=cfg.vocab, batch=2, seq_len=256)
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = lm.lm_params_from_numpy(weights, device)
+        batch = {"tokens": torch.as_tensor(data.batch_at(0)["tokens"],
+                                           device=device)}
+        _, _, grads = loss_and_grads(cfg, params, batch)
+        tr = Trainer(cfg, TrainConfig(steps=3, log_every=0), data,
+                     device=device)
+        tr.run(start_state=tr.state_of(params))
+        out[device] = (tree.flatten(grads), tr.losses)
+    (g_gpu, l_gpu), (g_cpu, l_cpu) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    grad_rel, grad_key = leafwise(g_gpu, g_cpu)
+    res = {"losses_cuda": l_gpu, "losses_cpu": l_cpu,
+           "max_rel_loss_err": loss_rel, "worst_leaf_grad_err": grad_rel,
+           "worst_leaf": grad_key, "tol": LM_TOL}
+    if not (np.isfinite(l_gpu).all() and loss_rel <= LM_TOL
+            and grad_rel <= LM_TOL):
+        fail(f"card trainer vs CPU trainer: {res}")
+    return res
+
+
+def lm_serve_vs_cpu(serve, res):
+    """The LM serve loop's last logits on the card against a CPU run of the
+    same command (same seed, same weights)."""
+    cpu = serve.main(LM_SERVE_ARGS + ["--device", "cpu"])
+    want = cpu["last_logits"]
+    err = float((res["last_logits"] - want).abs().max())
+    rel = err / float(want.abs().max())
+    same_tokens = bool(np.array_equal(res["tokens"], cpu["tokens"]))
+    out = {"max_abs_err": err, "max_rel_err": rel, "tol": LM_TOL,
+           "same_tokens": same_tokens, "cpu_decode_tok_s": cpu["decode_tok_s"]}
+    if rel > LM_TOL or not same_tokens:
+        fail(f"LM serve on the card vs the CPU: {out}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -375,12 +568,35 @@ def main() -> None:
     if not (src / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are missing: no {src / 'repro_torch'}")
     sys.path.insert(0, str(src))
+    from repro_torch import tree
+    from repro_torch.configs import get_config
     from repro_torch.core import dispatch, esn
     from repro_torch.core.params import ESNConfig
+    from repro_torch.data.pipeline import MarkovTokens
     from repro_torch.data.signals import mso_series
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
     from repro_torch.serve.engine import ReservoirEngine
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           loss_and_grads)
+    counters = {"diag_scan": ops.diag_scan, "diag_scan_bwd": ops.diag_scan_bwd,
+                "decode_fused": ops.decode_fused}
+
+    def drive(path, fn, expected):
+        """Run one main path with every launch count set to 0 just before
+        it and read just after; fail if a kernel of the path never ran."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        for name in expected:
+            if got[name] < 1:
+                fail(f"main path {path} never launched the {name} kernel")
+        launches[path] = got
+        return out
+    launches = {}
 
     phase("1 device")
     smi = subprocess.run(
@@ -391,6 +607,8 @@ def main() -> None:
     print(smi_line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    # Both False (PyTorch's default for matmuls): the card computes float32
+    # products in float32, as the CPU does.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -413,17 +631,11 @@ def main() -> None:
     phase("4 decode_fused kernel vs plain")
     decode_rows = check_decode_fused(ops, ref, copy_bw)
 
-    phase("5 main path: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
-    ops.diag_scan.launches = 0
-    ops.decode_fused.launches = 0
-    res = serve.main(SERVE_ARGS)
-    torch.cuda.synchronize()
-    launches = {"diag_scan": ops.diag_scan.launches,
-                "decode_fused": ops.decode_fused.launches}
-    print(json.dumps({"serve": res, "launches": launches}), flush=True)
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"the main path never launched the {name} kernel")
+    phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
+    res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
+                ("diag_scan", "decode_fused"))
+    print(json.dumps({"serve": res,
+                      "launches": launches["serve_reservoir"]}), flush=True)
     if not res["finite"] or res["sessions"] != 16:
         fail(f"serving loop: finite={res['finite']}, "
              f"sessions={res['sessions']} (expected 16)")
@@ -431,28 +643,87 @@ def main() -> None:
         esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
     print(json.dumps({"profile": profile_serve(serve)}), flush=True)
 
-    phase("6 summary")
+    phase("6 diag_scan_bwd kernel vs plain")
+    bwd_rows = check_diag_scan_bwd(ops, ref, copy_bw)
+
+    phase("7 main path 2: repro_torch.launch.train " + " ".join(TRAIN_ARGS))
+    torch.cuda.reset_peak_memory_stats()
+    res = drive("train", lambda: train.main(TRAIN_ARGS),
+                ("diag_scan", "diag_scan_bwd"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = get_config("linear-esn").n_layers
+    train_out = {k: res[k] for k in ("arch", "params", "batch", "seq",
+                                     "steps_run", "losses", "ms_per_step",
+                                     "tokens_per_s", "finite")}
+    print(json.dumps({"train": train_out, "peak_memory_gb": peak_gb,
+                      "launches": launches["train"]}), flush=True)
+    if not res["finite"] or res["steps_run"] != TRAIN_STEPS:
+        fail(f"training: finite={res['finite']}, steps={res['steps_run']}")
+    for name in ("diag_scan", "diag_scan_bwd"):
+        if launches["train"][name] != n_layers * TRAIN_STEPS:
+            fail(f"training launched {name} {launches['train'][name]} "
+                 f"times, expected {n_layers} a step x {TRAIN_STEPS}")
+    print(json.dumps({"profile_train_step": profile_train_step(
+        train, Trainer, TrainConfig, MarkovTokens)}), flush=True)
+
+    phase("8 card trainer vs CPU trainer (2 layers, full width)")
+    print(json.dumps({"trainer_vs_cpu": lm_trainer_vs_cpu(
+        lm, loss_and_grads, Trainer, TrainConfig, MarkovTokens, get_config,
+        tree)}), flush=True)
+
+    phase("9 main path 3: repro_torch.launch.serve " + " ".join(LM_SERVE_ARGS))
+    res = drive("serve_lm", lambda: serve.main(LM_SERVE_ARGS), ("diag_scan",))
+    print(json.dumps({"serve_lm": {k: v for k, v in res.items()
+                                   if k not in ("tokens", "last_logits")},
+                      "launches": launches["serve_lm"]}), flush=True)
+    if not res["finite"]:
+        fail("LM serve: the last logits are not finite")
+    print(json.dumps({"serve_lm_vs_cpu": lm_serve_vs_cpu(serve, res)}),
+          flush=True)
+
+    phase("10 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
-    wave = scan_rows[0]
-    fit = scan_rows[1]
+    rows = {r["case"]: r for r in scan_rows}
+    wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
+    bwd = {r["case"]: r for r in bwd_rows}
+    bwd_train = bwd["train"]
     dec = next(r for r in decode_rows if "ms" in r)
+
+    def count(name):
+        return {"launches": sum(p[name] for p in launches.values()),
+                "launches_by_path": {p: c[name] for p, c in launches.items()}}
     # max_abs_err / tol are those of the timed main-path case;
     # worst_err_over_tol is the largest ratio over every case checked.
     kernels = [
         dict(name="diag_scan", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/diag_scan.py:57",
-             launches=launches["diag_scan"],
+             **count("diag_scan"),
              max_abs_err=wave["max_abs_err"], tol=wave["tol"],
              worst_err_over_tol=max(r["err_over_tol"] for r in scan_rows),
              shape=wave["shape"],
              **{k: wave[k] for k in keys}, library_ms=None,
              fit_shape={"shape": fit["shape"],
-                        **{k: fit[k] for k in keys}}),
+                        **{k: fit[k] for k in keys}},
+             train_shape={"shape": fwd_train["shape"], "dtype": "float32",
+                          **{k: fwd_train[k] for k in keys}}),
+        dict(name="diag_scan_bwd", route="cuda",
+             source="src/repro_torch/csrc/diag_scan.cu",
+             replaces="src/repro/kernels/ops.py:85",
+             replaces_note="_bwd runs diag_scan_pallas_raw "
+                           "(src/repro/kernels/diag_scan.py:57) on flipped "
+                           "arrays, then reduces da and dh0 in XLA",
+             **count("diag_scan_bwd"),
+             max_abs_err=bwd_train["max_abs_err"], tol=bwd_train["tol"],
+             worst_err_over_tol=max(r["err_over_tol"] for r in bwd_rows),
+             shape=bwd_train["shape"], dtype="float32",
+             **{k: bwd_train[k] for k in keys}, library_ms=None,
+             f64={"shape": bwd["train-f64"]["shape"],
+                  **{k: bwd["train-f64"][k] for k in keys}}),
         dict(name="decode_fused", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/diag_scan.py:157",
-             launches=launches["decode_fused"],
+             **count("decode_fused"),
              max_abs_err=dec["max_abs_err"], tol=dec["tol"],
              worst_err_over_tol=max(r["err_over_tol"] for r in decode_rows),
              shape=dec["shape"],

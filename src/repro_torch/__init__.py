@@ -2,11 +2,14 @@
 reference it is held against).
 
 Entry points default to the GPU: every builder, carry-over function, the
-serving engine and the serving driver take ``device=None``, which means
-``"cuda"``, and raise when no GPU is present unless the caller passes
-``device="cpu"``.  The two hot kernels of the serving path
-(``kernels.ops.diag_scan`` and ``kernels.ops.decode_fused``) are hand-written
-CUDA C++ under ``csrc/``, built with ``nvcc`` at first use.
+serving engine, the LM, the trainer and both drivers (``launch.serve``,
+``launch.train``) take ``device=None``, which means ``"cuda"``, and raise
+when no GPU is present unless the caller passes ``device="cpu"``.  The hot
+kernels are hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at
+first use: the diagonal scan with its backward (``kernels.ops.diag_scan`` /
+``diag_scan_lanes``, a ``torch.autograd.Function``), which carries the
+serving prefill and every reservoir layer of the LM in training and
+decoding, and the fused closed-loop decode (``kernels.ops.decode_fused``).
 """
 from __future__ import annotations
 

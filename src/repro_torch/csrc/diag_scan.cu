@@ -10,7 +10,7 @@
 // diag_scan: h_t = a_t * h_{t-1} + x_t on (re, im) lanes.
 //
 // Replaces: src/repro/kernels/diag_scan.py::diag_scan_pallas_raw (body
-//   _kernel), forward only.
+//   _kernel) as the forward of the scan.
 // Bound on this card: device-memory bytes.  Each lane-step reads x (re, im)
 //   and writes h (re, im): 32 bytes in float64 against 8 flops, far below
 //   the H100's flop/byte balance.
@@ -26,6 +26,28 @@
 // Known weak spot: a single long sequence (B = 1, N ~ 525 lanes) launches
 //   only ceil(N/128) blocks on 132 SMs; a time-parallel chunked schedule is
 //   later work.
+//
+// ---------------------------------------------------------------------------
+// diag_scan_bwd: the gradient of diag_scan, one reverse-time pass.
+//
+// Replaces: the backward of src/repro/kernels/ops.py::diag_scan (_bwd), which
+//   runs diag_scan_pallas_raw again on flipped arrays with right-shifted
+//   coefficients and reduces da / dh0 in separate XLA ops.  Here every flip
+//   would be a copy, so one kernel walks time backwards instead.
+// Computes, with g the incoming gradient and h the saved forward output
+//   (PyTorch's convention for complex gradients, which on the (re, im) lanes
+//   is exactly the real gradient):
+//     s_t = g_t + conj(a_{t+1}) * s_{t+1}      (s_T = 0)
+//     dx_t = s_t,  da_t = s_t * conj(h_{t-1}) (h_{-1} = h0, zero if absent),
+//     dh0 = conj(a_0) * s_0.
+// Bound on this card: device-memory bytes.  Each lane-step reads g and h
+//   (re, im) and writes dx (re, im): 48 bytes in float32 against 16 flops.
+// Design: the forward's layout — one thread per (b, lane), grid
+//   (ceil(N/128), B), the carry s and the running da in registers, `a` read
+//   through its (b, t) strides (a static Λ loaded once).  For `a` static in
+//   time (a_st == 0) da is summed over t in registers and written once per
+//   (b, lane) as a (B, N) partial; otherwise it is written per step as
+//   (B, T, N).  The wrapper sums the partials down to a's own shape.
 //
 // ---------------------------------------------------------------------------
 // decode_fused: K closed-loop decode steps in one launch.
@@ -124,6 +146,100 @@ int diag_scan_launch(const T* a_re, const T* a_im, long long a_sb,
     diag_scan_kernel<T, false><<<grid, threads, 0, stream>>>(
         a_re, a_im, a_sb, a_st, x_re, x_im, h0_re, h0_im, h0_sb, o_re, o_im,
         n_t, n_lanes);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool CPLX>
+__global__ void diag_scan_bwd_kernel(const T* __restrict__ a_re,
+                                     const T* __restrict__ a_im,
+                                     long long a_sb, long long a_st,
+                                     const T* __restrict__ h_re,
+                                     const T* __restrict__ h_im,
+                                     const T* __restrict__ g_re,
+                                     const T* __restrict__ g_im,
+                                     const T* __restrict__ h0_re,
+                                     const T* __restrict__ h0_im,
+                                     long long h0_sb,
+                                     T* __restrict__ dx_re,
+                                     T* __restrict__ dx_im,
+                                     T* __restrict__ da_re,
+                                     T* __restrict__ da_im,
+                                     T* __restrict__ dh0_re,
+                                     T* __restrict__ dh0_im, int n_t,
+                                     int n_lanes) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (n >= n_lanes) return;
+  T h0r = T(0), h0i = T(0);
+  if (h0_re != nullptr) {
+    h0r = h0_re[b * h0_sb + n];
+    if (CPLX) h0i = h0_im[b * h0_sb + n];
+  }
+  const long long a_off = b * a_sb + n;
+  const bool stat = a_st == 0;
+  // a_{t+1} for the step at t; s_T = 0 makes its value at t = T-1 moot.
+  T anr = stat ? a_re[a_off] : T(0);
+  T ani = (stat && CPLX) ? a_im[a_off] : T(0);
+  T sr = T(0), si = T(0), dar = T(0), dai = T(0);
+  long long off = ((long long)b * n_t + (n_t - 1)) * n_lanes + n;
+#pragma unroll 4
+  for (int t = n_t - 1; t >= 0; --t, off -= n_lanes) {
+    if (CPLX) {
+      const T nr = g_re[off] + anr * sr + ani * si;
+      si = g_im[off] + anr * si - ani * sr;
+      sr = nr;
+      dx_im[off] = si;
+    } else {
+      sr = g_re[off] + anr * sr;
+    }
+    dx_re[off] = sr;
+    T hpr = h0r, hpi = h0i;
+    if (t > 0) {
+      hpr = h_re[off - n_lanes];
+      if (CPLX) hpi = h_im[off - n_lanes];
+    }
+    const T cr = CPLX ? sr * hpr + si * hpi : sr * hpr;
+    const T ci = CPLX ? si * hpr - sr * hpi : T(0);
+    if (stat) {
+      dar += cr;
+      dai += ci;
+    } else {
+      da_re[off] = cr;
+      if (CPLX) da_im[off] = ci;
+      anr = a_re[a_off + (long long)t * a_st];
+      if (CPLX) ani = a_im[a_off + (long long)t * a_st];
+    }
+  }
+  const long long bn = (long long)b * n_lanes + n;
+  if (stat) {
+    da_re[bn] = dar;
+    if (CPLX) da_im[bn] = dai;
+  }
+  // anr, ani now hold a_0.
+  dh0_re[bn] = CPLX ? anr * sr + ani * si : anr * sr;
+  if (CPLX) dh0_im[bn] = anr * si - ani * sr;
+}
+
+template <typename T>
+int diag_scan_bwd_launch(const T* a_re, const T* a_im, long long a_sb,
+                         long long a_st, const T* h_re, const T* h_im,
+                         const T* g_re, const T* g_im, const T* h0_re,
+                         const T* h0_im, long long h0_sb, T* dx_re, T* dx_im,
+                         T* da_re, T* da_im, T* dh0_re, T* dh0_im, int n_b,
+                         int n_t, int n_lanes, int cplx,
+                         cudaStream_t stream) {
+  if (n_b == 0 || n_t == 0 || n_lanes == 0) return (int)cudaGetLastError();
+  const int threads = 128;
+  dim3 grid((n_lanes + threads - 1) / threads, n_b);
+  if (cplx) {
+    diag_scan_bwd_kernel<T, true><<<grid, threads, 0, stream>>>(
+        a_re, a_im, a_sb, a_st, h_re, h_im, g_re, g_im, h0_re, h0_im, h0_sb,
+        dx_re, dx_im, da_re, da_im, dh0_re, dh0_im, n_t, n_lanes);
+  } else {
+    diag_scan_bwd_kernel<T, false><<<grid, threads, 0, stream>>>(
+        a_re, a_im, a_sb, a_st, h_re, h_im, g_re, g_im, h0_re, h0_im, h0_sb,
+        dx_re, dx_im, da_re, da_im, dh0_re, dh0_im, n_t, n_lanes);
   }
   return (int)cudaGetLastError();
 }
@@ -324,6 +440,32 @@ int diag_scan_f64(const double* a_re, const double* a_im, long long a_sb,
   return diag_scan_launch<double>(a_re, a_im, a_sb, a_st, x_re, x_im, h0_re,
                                   h0_im, h0_sb, o_re, o_im, n_b, n_t, n_lanes,
                                   cplx, (cudaStream_t)stream);
+}
+
+int diag_scan_bwd_f32(const float* a_re, const float* a_im, long long a_sb,
+                      long long a_st, const float* h_re, const float* h_im,
+                      const float* g_re, const float* g_im, const float* h0_re,
+                      const float* h0_im, long long h0_sb, float* dx_re,
+                      float* dx_im, float* da_re, float* da_im, float* dh0_re,
+                      float* dh0_im, int n_b, int n_t, int n_lanes, int cplx,
+                      void* stream) {
+  return diag_scan_bwd_launch<float>(a_re, a_im, a_sb, a_st, h_re, h_im, g_re,
+                                   g_im, h0_re, h0_im, h0_sb, dx_re, dx_im,
+                                   da_re, da_im, dh0_re, dh0_im, n_b, n_t,
+                                   n_lanes, cplx, (cudaStream_t)stream);
+}
+
+int diag_scan_bwd_f64(const double* a_re, const double* a_im, long long a_sb,
+                      long long a_st, const double* h_re, const double* h_im,
+                      const double* g_re, const double* g_im, const double* h0_re,
+                      const double* h0_im, long long h0_sb, double* dx_re,
+                      double* dx_im, double* da_re, double* da_im, double* dh0_re,
+                      double* dh0_im, int n_b, int n_t, int n_lanes, int cplx,
+                      void* stream) {
+  return diag_scan_bwd_launch<double>(a_re, a_im, a_sb, a_st, h_re, h_im, g_re,
+                                   g_im, h0_re, h0_im, h0_sb, dx_re, dx_im,
+                                   da_re, da_im, dh0_re, dh0_im, n_b, n_t,
+                                   n_lanes, cplx, (cudaStream_t)stream);
 }
 
 int decode_fused_f32(const float* a_re, const float* a_im, long long a_sb,

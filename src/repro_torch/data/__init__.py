@@ -1,1 +1,2 @@
-"""Reference input signals."""
+"""Reference input signals (``signals``) and the LM token pipelines
+(``pipeline``)."""

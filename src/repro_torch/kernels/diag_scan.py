@@ -1,13 +1,15 @@
 """Launchers of the Hopper kernels in ``csrc/diag_scan.cu``.
 
-``diag_scan_lanes_cuda`` (split (re, im) lanes), ``diag_scan_cuda`` (real or
-complex tensors, split into lanes) and ``decode_fused_cuda`` take CUDA
-tensors, check every
-input (device, dtype, shape, contiguity, the one-block limits of the decode
-kernel), allocate the outputs with ``torch.empty``, and launch on PyTorch's
-current stream without synchronising.  They raise when the C entry point
-reports a CUDA error.  ``kernels.ops`` routes CPU tensors to the plain
-versions instead; nothing here runs without a GPU.
+``diag_scan_lanes_cuda`` (the scan on split (re, im) lanes),
+``diag_scan_lanes_bwd_cuda`` (its gradient, one reverse-time pass) and
+``decode_fused_cuda`` take CUDA tensors, check every input (device, dtype,
+shape, contiguity, the one-block limits of the decode kernel), allocate the
+outputs with ``torch.empty``, and launch on PyTorch's current stream without
+synchronising.  They raise when the C entry point reports a CUDA error.  They
+are raw launchers: they record nothing for autograd (``kernels.ops`` wraps
+the scan and its backward in a ``torch.autograd.Function``) and route
+nothing (``kernels.ops`` sends CPU tensors to the plain versions instead);
+nothing here runs without a GPU.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import torch
 from . import build
 from .ref import live_mask
 
-__all__ = ["diag_scan_cuda", "diag_scan_lanes_cuda", "decode_fused_cuda",
-           "decode_layout",
+__all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
+           "decode_fused_cuda", "decode_layout",
            "DECODE_MAX_THREADS", "DECODE_MAX_PER_THREAD",
            "DECODE_MAX_SMEM_BYTES"]
 
@@ -35,13 +37,14 @@ _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "diag_scan": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _LL, _VP, _VP,
                   _INT, _INT, _INT, _INT, _VP],
+    "diag_scan_bwd": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
+                      _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                      _VP],
     "decode_fused": [_VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL,
                      _VP, _LL, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP,
                      _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
-         torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def _entry(name: str, dtype: torch.dtype):
@@ -69,21 +72,6 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _same_device(device: torch.device, **tensors) -> None:
-    for name, t in tensors.items():
-        if t is not None and t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-
-
-def _lanes(v: torch.Tensor, dtype: torch.dtype, cplx: bool):
-    """Contiguous (re, im) lane tensors of ``v`` in the real ``dtype``."""
-    if cplx:
-        v = v.to(torch.complex128 if dtype == torch.float64
-                 else torch.complex64)
-        return v.real.contiguous(), v.imag.contiguous()
-    return v.to(dtype).contiguous(), None
-
-
 # --------------------------------------------------------------------------- #
 # B1: diag_scan                                                                #
 # --------------------------------------------------------------------------- #
@@ -104,16 +92,10 @@ def _lane_strides(name, re, im, shape):
     return strides
 
 
-def diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
-    """h_t = a_t h_{t-1} + x_t on split (re, im) lanes through the kernel.
-
-    ``x_*``: contiguous (B, T, N); ``a_*``: anything that broadcasts to
-    (B, T, N) lane-wise — (N,), (T, N), (B, T, N) — read through strides,
-    never materialized; ``h0_*``: broadcasts to (B, N).  All float32 or all
-    float64; ``a_im``, ``x_im`` and ``h0_im`` are all None for a real scan.
-    Returns ``(o_re, o_im)`` (``o_im`` None for a real scan).  Forward
-    only: raises if any input requires grad.
-    """
+def _scan_operands(x_re, x_im, named):
+    """Check the operands of one scan (forward or backward) against the
+    lanes ``x_re`` / ``x_im`` (B, T, N); returns ``(device, dtype, cplx)``.
+    ``named`` maps each further operand's name to its tensor (or None)."""
     if x_re.ndim != 3:
         raise ValueError(f"x must be (B, T, N), got {tuple(x_re.shape)}")
     dev, dtype = x_re.device, x_re.dtype
@@ -123,27 +105,34 @@ def diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
         raise TypeError(f"diag_scan kernel takes float32/float64 lanes, "
                         f"got {dtype}")
     cplx = x_im is not None
+    a_im, h0_re, h0_im = named["a_im"], named["h0_re"], named["h0_im"]
     if (a_im is not None) != cplx or (
             h0_re is not None and (h0_im is not None) != cplx) or (
             h0_re is None and h0_im is not None):
         raise ValueError("a_im, x_im and h0_im must be given together (a "
                          "complex scan) or all be None (a real scan)")
-    named = dict(a_re=a_re, a_im=a_im, x_re=x_re, x_im=x_im, h0_re=h0_re,
-                 h0_im=h0_im)
     for name, v in named.items():
-        if v is None:
-            continue
-        if v.device != dev or v.dtype != dtype:
+        if v is not None and (v.device != dev or v.dtype != dtype):
             raise ValueError(f"{name} must be a {dtype} tensor on {dev}, "
                              f"got {v.dtype} on {v.device}")
-        if v.requires_grad:
-            raise RuntimeError(
-                "the diag_scan CUDA kernel has no backward yet: inputs must "
-                "not require grad")
-    b, t, n = x_re.shape
     if not x_re.is_contiguous() or (cplx and (
             x_im.shape != x_re.shape or not x_im.is_contiguous())):
         raise ValueError("x_re and x_im must be contiguous (B, T, N) tensors")
+    return dev, dtype, cplx
+
+
+def diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
+    """h_t = a_t h_{t-1} + x_t on split (re, im) lanes through the kernel.
+
+    ``x_*``: contiguous (B, T, N); ``a_*``: anything that broadcasts to
+    (B, T, N) lane-wise — (N,), (T, N), (B, T, N) — read through strides,
+    never materialized; ``h0_*``: broadcasts to (B, N).  All float32 or all
+    float64; ``a_im``, ``x_im`` and ``h0_im`` are all None for a real scan.
+    Returns ``(o_re, o_im)`` (``o_im`` None for a real scan).
+    """
+    dev, dtype, cplx = _scan_operands(x_re, x_im, dict(
+        a_re=a_re, a_im=a_im, h0_re=h0_re, h0_im=h0_im))
+    b, t, n = x_re.shape
     a_sb, a_st, _ = _lane_strides("a", a_re, a_im, (b, t, n))
     h0_sb, _ = _lane_strides("h0", h0_re, h0_im, (b, n))
     o_re = torch.empty((b, t, n), dtype=dtype, device=dev)
@@ -156,34 +145,50 @@ def diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
     return o_re, o_im
 
 
-def diag_scan_cuda(a, x, h0=None):
-    """h_t = a_t h_{t-1} + x_t through the CUDA kernel, on real or complex
-    tensors (float32/float64, complex64/128): ``x`` (B, T, N), ``a``
-    broadcasting to it, ``h0`` to (B, N).  Splits complex operands into
-    (re, im) lanes for :func:`diag_scan_lanes_cuda`."""
-    if x.ndim != 3:
-        raise ValueError(f"x must be (B, T, N), got {tuple(x.shape)}")
-    if x.device.type != "cuda":
-        raise ValueError(f"diag_scan_cuda needs CUDA tensors, got {x.device}")
-    _same_device(x.device, a=a, h0=h0)
-    if any(v is not None and v.requires_grad for v in (a, x, h0)):
-        raise RuntimeError(
-            "the diag_scan CUDA kernel has no backward yet: inputs must not "
-            "require grad")
-    dtypes = [a.dtype, x.dtype] + ([] if h0 is None else [h0.dtype])
-    out_dtype = dtypes[0]
-    for d in dtypes[1:]:
-        out_dtype = torch.promote_types(out_dtype, d)
-    if out_dtype not in _REAL:
-        raise TypeError(f"diag_scan kernel takes float32/float64 or "
-                        f"complex64/complex128, got {out_dtype}")
-    real = _REAL[out_dtype]
-    cplx = out_dtype.is_complex
-    a_re, a_im = _lanes(a, real, cplx)
-    x_re, x_im = _lanes(x, real, cplx)
-    h0_re, h0_im = (None, None) if h0 is None else _lanes(h0, real, cplx)
-    o_re, o_im = diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re, h0_im)
-    return torch.complex(o_re, o_im) if cplx else o_re
+def diag_scan_lanes_bwd_cuda(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
+                             h0_im=None):
+    """The gradient of :func:`diag_scan_lanes_cuda` through the reverse-time
+    kernel: ``a_*`` and ``h0_*`` as given to the forward, ``h_*`` its output,
+    ``g_*`` the gradient of that output (``_im`` operands None for a real
+    scan).  Returns ``(da_re, da_im, dx_re, dx_im, dh0_re, dh0_im)``: ``da``
+    summed to the shape of ``a_re``, ``dx`` (B, T, N), ``dh0`` summed to the
+    shape of ``h0_re`` (None without ``h0``) — PyTorch's convention, which on
+    the lanes is the real gradient.
+    """
+    g_re = g_re.contiguous()
+    g_im = None if g_im is None else g_im.contiguous()
+    dev, dtype, cplx = _scan_operands(g_re, g_im, dict(
+        a_re=a_re, a_im=a_im, h0_re=h0_re, h0_im=h0_im, h_re=h_re,
+        h_im=h_im))
+    b, t, n = g_re.shape
+    if h_re.shape != g_re.shape or not h_re.is_contiguous() or (cplx and (
+            h_im is None or h_im.shape != g_re.shape
+            or not h_im.is_contiguous())):
+        raise ValueError("h_re and h_im must be the forward's contiguous "
+                         "(B, T, N) output")
+    a_sb, a_st, _ = _lane_strides("a", a_re, a_im, (b, t, n))
+    h0_sb, _ = _lane_strides("h0", h0_re, h0_im, (b, n))
+    dx_re = torch.empty((b, t, n), dtype=dtype, device=dev)
+    dx_im = torch.empty_like(dx_re) if cplx else None
+    # da per (b, lane) when a is static in time, else per (b, t, lane).
+    da_shape = (b, 1, n) if a_st == 0 else (b, t, n)
+    new = torch.zeros if t == 0 else torch.empty
+    da_re = new(da_shape, dtype=dtype, device=dev)
+    da_im = new(da_shape, dtype=dtype, device=dev) if cplx else None
+    dh0_re = new((b, n), dtype=dtype, device=dev)
+    dh0_im = new((b, n), dtype=dtype, device=dev) if cplx else None
+    rc = _entry("diag_scan_bwd", dtype)(
+        _ptr(a_re), _ptr(a_im), a_sb, a_st, _ptr(h_re), _ptr(h_im),
+        _ptr(g_re), _ptr(g_im), _ptr(h0_re), _ptr(h0_im), h0_sb,
+        _ptr(dx_re), _ptr(dx_im), _ptr(da_re), _ptr(da_im), _ptr(dh0_re),
+        _ptr(dh0_im), b, t, n, int(cplx), _stream(dev))
+    _check(rc)
+
+    def to(v, like):
+        return None if v is None or like is None else v.sum_to_size(
+            like.shape)
+    return (to(da_re, a_re), to(da_im, a_im), dx_re, dx_im,
+            to(dh0_re, h0_re), to(dh0_im, h0_im))
 
 
 # --------------------------------------------------------------------------- #

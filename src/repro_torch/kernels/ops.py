@@ -5,13 +5,26 @@ CPU tensor takes the plain PyTorch version (``kernels.ref``); any other
 device raises.  There is no fallback from a CUDA tensor to the plain version.
 Each wrapper counts its kernel launches in its ``launches`` attribute, so a
 run can show that its main path went through the kernels.
+
+The scan is differentiable: :func:`diag_scan_lanes` is a
+``torch.autograd.Function`` whose forward is the ``diag_scan`` kernel and
+whose backward is the ``diag_scan_bwd`` kernel (each with its own counter),
+and :func:`diag_scan` builds the complex entry on top of it, so
+``torch.complex`` and ``.real``/``.imag`` carry the gradient.
 """
 from __future__ import annotations
 
-from . import ref
-from .diag_scan import decode_fused_cuda, diag_scan_cuda, diag_scan_lanes_cuda
+import torch
+from torch.autograd.function import once_differentiable
 
-__all__ = ["diag_scan", "diag_scan_lanes", "decode_fused"]
+from . import ref
+from .diag_scan import (decode_fused_cuda, diag_scan_lanes_bwd_cuda,
+                        diag_scan_lanes_cuda)
+
+__all__ = ["diag_scan", "diag_scan_lanes", "diag_scan_bwd", "decode_fused"]
+
+_REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
+         torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def _route(*tensors) -> str:
@@ -26,16 +39,45 @@ def _route(*tensors) -> str:
     return kind
 
 
+def _lanes(v, dtype: torch.dtype, cplx: bool):
+    """Contiguous (re, im) lanes of ``v`` in the real ``dtype`` (im None for
+    a real scan); differentiable."""
+    if v is None:
+        return None, None
+    if cplx:
+        v = v.to(torch.complex128 if dtype == torch.float64
+                 else torch.complex64)
+        return v.real.contiguous(), v.imag.contiguous()
+    return v.to(dtype).contiguous(), None
+
+
 def diag_scan(a, x, h0=None):
     """h_t = a_t h_{t-1} + x_t over ``x`` (B, T, N); ``a``: (N,) / (T, N) /
     (B, T, N), real or complex; ``h0``: broadcasts to (B, N).  Returns all
-    states (B, T, N) in the promoted dtype.  Forward only on CUDA."""
+    states (B, T, N) in the promoted dtype (float32/64 or complex64/128),
+    differentiable in ``a``, ``x`` and ``h0`` through :func:`diag_scan_lanes`
+    (PyTorch's convention for complex gradients)."""
     if x.ndim != 3:
         raise ValueError(f"x must be (B, T, N), got {tuple(x.shape)}")
-    if _route(a, x, h0) == "cpu":
-        return ref.diag_scan_ref(a, x, h0)
-    out = diag_scan_cuda(a, x, h0)
-    if x.numel():                   # an empty scan launches nothing
+    _route(a, x, h0)
+    out_dtype = torch.promote_types(a.dtype, x.dtype)
+    if h0 is not None:
+        out_dtype = torch.promote_types(out_dtype, h0.dtype)
+    if out_dtype not in _REAL:
+        raise TypeError(f"diag_scan takes float32/float64 or "
+                        f"complex64/complex128, got {out_dtype}")
+    real, cplx = _REAL[out_dtype], out_dtype.is_complex
+    o_re, o_im = diag_scan_lanes(*_lanes(a, real, cplx), *_lanes(x, real, cplx),
+                                 *_lanes(h0, real, cplx))
+    return torch.complex(o_re, o_im) if cplx else o_re
+
+
+def _scan_forward(a_re, a_im, x_re, x_im, h0_re, h0_im):
+    args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
+    if _route(*args) == "cpu":
+        return ref.diag_scan_lanes_ref(*args)
+    out = diag_scan_lanes_cuda(*args)
+    if x_re.numel():                # an empty scan launches nothing
         diag_scan.launches += 1
     return out
 
@@ -43,20 +85,52 @@ def diag_scan(a, x, h0=None):
 diag_scan.launches = 0
 
 
+def diag_scan_bwd(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None, h0_im=None):
+    """The gradient of the lane scan (operands as in
+    ``ref.diag_scan_lanes_bwd_ref``): the ``diag_scan_bwd`` kernel on CUDA,
+    the plain reverse-time loop on the CPU.  Returns ``(da_re, da_im, dx_re,
+    dx_im, dh0_re, dh0_im)``, ``da``/``dh0`` summed to the shapes of
+    ``a_re``/``h0_re``; counts in ``diag_scan_bwd.launches``."""
+    args = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
+    if _route(*args) == "cpu":
+        return ref.diag_scan_lanes_bwd_ref(*args)
+    out = diag_scan_lanes_bwd_cuda(*args)
+    if g_re.numel():
+        diag_scan_bwd.launches += 1
+    return out
+
+
+diag_scan_bwd.launches = 0
+
+
+class _DiagScanLanes(torch.autograd.Function):
+    """The lane scan with its backward; the kernels see detached tensors."""
+
+    @staticmethod
+    def forward(ctx, a_re, a_im, x_re, x_im, h0_re, h0_im):
+        h_re, h_im = _scan_forward(a_re, a_im, x_re, x_im, h0_re, h0_im)
+        ctx.save_for_backward(a_re, a_im, h0_re, h0_im, h_re, h_im)
+        return h_re, h_im
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_re, g_im):
+        a_re, a_im, h0_re, h0_im, h_re, h_im = ctx.saved_tensors
+        return diag_scan_bwd(a_re, a_im, h_re, h_im, g_re, g_im, h0_re,
+                             h0_im)
+
+
 def diag_scan_lanes(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
-    """The same scan on split (re, im) lanes: ``x_*`` (B, T, N), ``a_*``
-    (N,) / (T, N) / (B, T, N), ``h0_*`` broadcasting to (B, N); the ``_im``
-    operands all None for a real scan.  Returns ``(h_re, h_im)``.  Launches
-    the ``diag_scan`` kernel and counts in ``diag_scan.launches``."""
+    """The scan on split (re, im) lanes: ``x_*`` (B, T, N), ``a_*`` (N,) /
+    (T, N) / (B, T, N), ``h0_*`` broadcasting to (B, N); the ``_im``
+    operands all None for a real scan.  Returns ``(h_re, h_im)``.
+    Differentiable in every operand: the forward launches the ``diag_scan``
+    kernel (``diag_scan.launches``), the backward the ``diag_scan_bwd``
+    kernel (``diag_scan_bwd.launches``)."""
     if x_re.ndim != 3:
         raise ValueError(f"x must be (B, T, N), got {tuple(x_re.shape)}")
-    args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
-    if _route(*args) == "cpu":
-        return ref.diag_scan_lanes_ref(*args)
-    out = diag_scan_lanes_cuda(*args)
-    if x_re.numel():
-        diag_scan.launches += 1
-    return out
+    _route(a_re, a_im, x_re, x_im, h0_re, h0_im)
+    return _DiagScanLanes.apply(a_re, a_im, x_re, x_im, h0_re, h0_im)
 
 
 def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,

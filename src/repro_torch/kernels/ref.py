@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["diag_scan_ref", "diag_scan_lanes_ref", "decode_fused_ref"]
+__all__ = ["diag_scan_ref", "diag_scan_lanes_ref", "diag_scan_lanes_bwd_ref",
+           "decode_fused_ref"]
 
 
 def diag_scan_ref(a, x, h0=None):
@@ -37,6 +38,55 @@ def diag_scan_lanes_ref(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
     hs = diag_scan_ref(torch.complex(a_re, a_im), torch.complex(x_re, x_im),
                        h0)
     return hs.real, hs.imag
+
+
+def diag_scan_lanes_bwd_ref(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
+                            h0_im=None):
+    """The gradient of :func:`diag_scan_lanes_ref`, one step at a time
+    backwards in time.  ``a_*`` and ``h0_*`` as given to the forward, ``h_*``
+    its output (B, T, N), ``g_*`` the gradient of that output (``_im``
+    operands None for a real scan).  With s_T = 0:
+
+        s_t = g_t + conj(a_{t+1}) s_{t+1},   dx_t = s_t,
+        da_t = s_t conj(h_{t-1}) (h_{-1} = h0, zero if absent),
+        dh0 = conj(a_0) s_0
+
+    (PyTorch's convention for complex gradients, which on the (re, im) lanes
+    is the real gradient).  Returns ``(da_re, da_im, dx_re, dx_im, dh0_re,
+    dh0_im)`` with ``da`` summed to the shape of ``a_re`` and ``dh0`` to that
+    of ``h0_re`` (None without ``h0``).
+    """
+    cplx = g_im is not None
+    b, t, n = g_re.shape
+    full = (b, t, n)
+
+    def lanes(re, im, shape):
+        zero = g_re.new_zeros(shape)
+        return (zero if re is None else torch.broadcast_to(re, shape),
+                zero if im is None else torch.broadcast_to(im, shape))
+    ar, ai = lanes(a_re, a_im, full)
+    pr, pi = lanes(h0_re, h0_im, (b, n))
+    sr, si = g_re.new_zeros((b, n)), g_re.new_zeros((b, n))
+    nr, ni = sr, si                         # a_{t+1}; moot while s = 0
+    dx_re, dx_im = torch.empty_like(g_re), torch.empty_like(g_re)
+    da_re, da_im = torch.empty_like(g_re), torch.empty_like(g_re)
+    for i in reversed(range(t)):
+        gi = g_im[:, i] if cplx else 0.0
+        sr, si = g_re[:, i] + nr * sr + ni * si, gi + nr * si - ni * sr
+        dx_re[:, i], dx_im[:, i] = sr, si
+        hr, hi = (h_re[:, i - 1], h_im[:, i - 1] if cplx else 0.0) if i \
+            else (pr, pi)
+        da_re[:, i] = sr * hr + si * hi
+        da_im[:, i] = si * hr - sr * hi
+        nr, ni = ar[:, i], ai[:, i]
+    if t == 0:
+        nr = ni = g_re.new_zeros((b, n))
+    dh0_re, dh0_im = nr * sr + ni * si, nr * si - ni * sr
+
+    def to(v, like):
+        return None if like is None else v.sum_to_size(like.shape)
+    return (to(da_re, a_re), to(da_im, a_im), dx_re,
+            dx_im if cplx else None, to(dh0_re, h0_re), to(dh0_im, h0_im))
 
 
 def _mm(v, w):

@@ -1,4 +1,5 @@
-"""Serving driver: the ReservoirEngine session loop on the GPU.
+"""Serving drivers on the GPU: the ReservoirEngine session loop and the LM
+loop.
 
 Sessions arrive, queue in the wave scheduler, are admitted in same-bucket
 waves (each wave ONE batched prefill through the CUDA scan kernel for long
@@ -8,23 +9,36 @@ per wave of ``--gen`` tokens), and are released:
     PYTHONPATH=src python -m repro_torch.launch.serve --reservoir \\
         --n 1024 --slots 8 --sessions 16 --prompt-len 1024 --gen 128
 
-``--device cpu`` runs the same loop on the host with the plain PyTorch
+The LM loop (without ``--reservoir``) prefills random prompts token by
+token and decodes greedily (or samples at ``--temperature``) through the
+decode caches, for archs whose blocks are all reservoir layers:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch linear-esn \\
+        --batch 4 --prompt-len 64 --gen 32
+
+It runs in float32, as the training driver does (the JAX loop keeps the
+config's bfloat16), so the card's logits can be held against the CPU's.
+Other archs exit naming ROADMAP A12.
+
+``--device cpu`` runs either loop on the host with the plain PyTorch
 versions of the kernels.  Reservoir flags of the JAX driver whose planes are
-not ported yet exit with a message naming the ROADMAP item; the LM loop
-(``--arch``) is not ported yet either.
+not ported yet exit with a message naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..configs import get_config, smoke_config
 from ..core import esn as esn_fn
 from ..core.params import ESNConfig
 from ..data.signals import mso_series
+from ..models import lm
 from ..serve.engine import ReservoirEngine
 
 #: Flags of the JAX driver that later slices port -> the ROADMAP item.
@@ -44,10 +58,6 @@ _NOT_PORTED = {
     "cold_dir": "A8 (serve/store.py paging)",
     "snapshot": "A8 (serve/store.py snapshot/restore)",
     "profile_dir": "A6 (ProfilerTracker -> torch.profiler)",
-    "arch": "A12 (LM serving loop)",
-    "smoke": "A12 (LM serving loop)",
-    "batch": "A12 (LM serving loop)",
-    "temperature": "A12 (LM serving loop)",
 }
 
 
@@ -147,11 +157,82 @@ def serve_reservoir(args) -> dict:
     return serve_sessions(engine, args, sig, train_t)
 
 
+# ----------------------------------------------------------------------- lm
+def serve_lm(args) -> dict:
+    """The LM loop: token-by-token prefill of ``--batch`` random prompts,
+    then ``--gen`` decoded tokens.  Returns the timings, the generated
+    tokens and the last step's logits."""
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    try:
+        lm.check_ported(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
+    params = lm.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                            device)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(args.batch, args.prompt_len)), device=device)
+    sampler = torch.Generator().manual_seed(args.seed + 1)
+
+    def pick(logits):
+        last = logits[:, -1].float()
+        if args.temperature > 0:      # drawn on the host: same on any device
+            probs = torch.softmax(last / args.temperature, -1).cpu()
+            return torch.multinomial(probs, 1, generator=sampler).to(device)
+        return torch.argmax(last, -1)[:, None]
+
+    with torch.no_grad():
+        cache = lm.make_decode_cache(params, cfg, args.batch,
+                                     args.prompt_len + args.gen)
+        t0 = time.perf_counter()
+        logits = None
+        for t in range(args.prompt_len):
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           prompts[:, t:t + 1])
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        cur = pick(logits)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(args.gen):
+            out.append(cur[:, 0].cpu())
+            logits, cache = lm.decode_step(params, cfg, cache, cur)
+            cur = pick(logits)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
+    toks = torch.stack(out, 1).numpy() if out else np.zeros((args.batch, 0))
+    last = logits[:, -1].float().cpu()
+    res = {"arch": cfg.name, "device": str(device), "batch": args.batch,
+           "prompt_len": args.prompt_len, "gen": args.gen,
+           "prefill_s": t_prefill, "decode_s": t_decode,
+           "prefill_tok_s": args.batch * args.prompt_len / max(t_prefill,
+                                                               1e-9),
+           "decode_tok_s": args.batch * args.gen / max(t_decode, 1e-9),
+           "tokens": toks, "last_logits": last,
+           "finite": bool(torch.isfinite(last).all())}
+    print(f"arch={cfg.name} batch={args.batch} on {device}: "
+          f"prefill={args.prompt_len}tok in {t_prefill:.3f}s  "
+          f"decode={args.gen}tok in {t_decode:.3f}s "
+          f"({res['decode_tok_s']:.1f} tok/s)")
+    for i in range(min(args.batch, 4)):
+        print(f"  req{i}: {toks[i, :12].tolist()}")
+    return res
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="recurrentgemma-2b",
+                    help="the LM loop's arch (reservoir-only archs are "
+                         "ported: linear-esn)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the LM loop on the arch's reduced smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--reservoir", action="store_true",
-                    help="serve streaming reservoir sessions (the only loop "
-                         "ported so far)")
+                    help="serve streaming reservoir sessions via "
+                         "ReservoirEngine instead of the LM loop")
     ap.add_argument("--n", type=int, default=512, help="reservoir size")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--sessions", type=int, default=16)
@@ -185,8 +266,7 @@ def main(argv=None) -> dict:
             raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
                              f"ROADMAP {item}")
     if not args.reservoir:
-        raise SystemExit("only the --reservoir loop is ported; the LM loop "
-                         f"waits for ROADMAP {_NOT_PORTED['arch']}")
+        return serve_lm(args)
     return serve_reservoir(args)
 
 

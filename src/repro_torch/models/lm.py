@@ -1,0 +1,236 @@
+"""Decoder LM assembly of the port, reduced to reservoir layers (the JAX
+package's ``models/lm.py``): the paper's own LM family, ``linear-esn`` — a
+stack of LinearReservoir mixers with SwiGLU MLPs.
+
+The parameter tree is a nested dict under the JAX key names (``embed``,
+``layers/res/nu``, ``layers/mlp/wi``, ``final_norm``, ``head``); a
+homogeneous stack keeps the leading layer dimension, which
+:func:`_stack_forward` indexes layer by layer (the loop that JAX's
+``lax.scan`` over layers compiles).  :func:`lm_params_from_numpy` carries a
+JAX ``init_params`` tree over, so both packages compute the same function.
+Configs with other mixers, MoE or an encoder raise ``NotImplementedError``
+naming ROADMAP A12.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .. import resolve_device
+from ..tree import tree_map
+from . import blocks
+from .blocks import NULL_PROFILE, ShardProfile, apply_norm, constrain, init_norm
+
+__all__ = ["MIXERS", "layer_kinds", "check_ported", "init_layer",
+           "apply_layer", "init_params", "forward", "loss_fn",
+           "make_decode_cache", "decode_step", "lm_params_from_numpy",
+           "NULL_PROFILE", "ShardProfile"]
+
+MIXERS = ("attn", "swa", "local", "rglru", "mlstm", "slstm", "reservoir")
+
+
+def layer_kinds(cfg):
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+def _is_homogeneous(cfg):
+    return len(set(layer_kinds(cfg))) == 1 and cfg.scan_layers
+
+
+def check_ported(cfg) -> None:
+    """Raise unless every block of ``cfg`` is ported (reservoir mixers and
+    dense MLPs, decoder-only)."""
+    other = sorted(set(layer_kinds(cfg)) - {"reservoir"})
+    if other:
+        blocks.not_ported(f"{cfg.name}: the {', '.join(other)} mixer(s)")
+    if cfg.n_experts:
+        blocks.not_ported(f"{cfg.name}: the MoE block")
+    if cfg.is_encoder_decoder:
+        blocks.not_ported(f"{cfg.name}: the encoder-decoder stack")
+
+
+# --------------------------------------------------------------------------- #
+# Per-layer init / apply                                                       #
+# --------------------------------------------------------------------------- #
+def init_layer(gen, cfg, kind, dtype):
+    p = {"norm1": init_norm(cfg.d_model, dtype, cfg.norm)}
+    if kind != "reservoir":
+        blocks.not_ported(f"the {kind!r} mixer")
+    p["res"] = blocks.init_reservoir(gen, cfg, dtype,
+                                     n_state=cfg.d_rnn or cfg.d_model)
+    if cfg.n_experts > 0:
+        blocks.not_ported("the MoE block")
+    if cfg.d_ff > 0:
+        p["norm2"] = init_norm(cfg.d_model, dtype, cfg.norm)
+        p["mlp"] = blocks.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   gated=cfg.act != "gelu",
+                                   bias=cfg.norm == "layernorm")
+    return p
+
+
+def apply_layer(p, x, cfg, kind, prof=NULL_PROFILE, *, cache=None):
+    """Returns ``(x, new_cache, aux)``; ``aux`` holds the MoE losses, zero
+    for the ported blocks."""
+    if kind != "reservoir":
+        blocks.not_ported(f"the {kind!r} mixer")
+    zero = x.new_zeros((), dtype=torch.float32)
+    aux = {"load_balance": zero, "router_z": zero}
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    mix, st = blocks.apply_reservoir(p["res"], h, cfg,
+                                     cache=cache and cache.get("res"))
+    x = x + mix
+    if "norm2" in p:
+        h2 = apply_norm(p["norm2"], x, cfg.norm)
+        x = x + blocks.apply_mlp(p["mlp"], h2, cfg.act,
+                                 gated=cfg.act != "gelu")
+    return x, {"res": st}, aux
+
+
+# --------------------------------------------------------------------------- #
+# Whole-model init                                                             #
+# --------------------------------------------------------------------------- #
+def init_params(gen: torch.Generator, cfg, device=None):
+    """Random parameters drawn from the CPU generator ``gen`` (so a seed
+    gives the same weights on every device), then moved to ``device``
+    (``None``: the GPU)."""
+    dev = resolve_device(device)
+    check_ported(cfg)
+    dtype = blocks.torch_dtype(cfg.dtype)
+    p = {"embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen)
+                   * 0.02).to(dtype)}
+    kinds = layer_kinds(cfg)
+    layers = [init_layer(gen, cfg, k, dtype) for k in kinds]
+    if _is_homogeneous(cfg):
+        p["layers"] = tree_map(lambda *xs: torch.stack(xs), *layers)
+    else:
+        p["layers"] = {f"layer_{i}": lp for i, lp in enumerate(layers)}
+    p["final_norm"] = init_norm(cfg.d_model, dtype, cfg.norm)
+    if not cfg.tie_embeddings:
+        p["head"] = (torch.randn((cfg.d_model, cfg.vocab), generator=gen)
+                     * 0.02).to(dtype)
+    return tree_map(lambda v: v.to(dev), p)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """The port's tree of a nested dict of numpy arrays (the JAX
+    ``init_params`` output, or any state tree, taken through ``np.asarray``):
+    same keys, values and dtypes, on ``device`` (``None``: the GPU)."""
+    dev = resolve_device(device)
+
+    def one(v):
+        arr = np.asarray(v)
+        if arr.dtype.name == "bfloat16":      # ml_dtypes: no numpy bridge
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.tensor(arr, device=dev)
+    return tree_map(one, tree)
+
+
+# --------------------------------------------------------------------------- #
+# Forward passes                                                               #
+# --------------------------------------------------------------------------- #
+def _embed_tokens(p, cfg, tokens, prof):
+    x = constrain(p["embed"][tokens.long()], None, prof)
+    if cfg.embed_scale:
+        x = x * float(np.sqrt(cfg.d_model).astype(np.float32))
+    return x
+
+
+def _layer(tree, cfg, i):
+    """Layer ``i``'s slice of a stacked (homogeneous) or per-layer tree."""
+    if _is_homogeneous(cfg):
+        return tree_map(lambda v: v[i], tree)
+    return tree[f"layer_{i}"]
+
+
+def _collect(cfg, caches):
+    if _is_homogeneous(cfg):
+        return tree_map(lambda *xs: torch.stack(xs), *caches)
+    return {f"layer_{i}": c for i, c in enumerate(caches)}
+
+
+def _stack_forward(p, x, cfg, prof=NULL_PROFILE, *, mode, remat=False):
+    """Full-sequence stack (train / prefill), one layer after another.
+    Caches come back in prefill mode only; ``remat`` recomputes each layer
+    in the backward (``torch.utils.checkpoint``) instead of keeping its
+    activations."""
+    caches, auxes = [], []
+    for i, kind in enumerate(layer_kinds(cfg)):
+        lp = _layer(p["layers"], cfg, i)
+
+        def run(x, lp=lp, kind=kind):
+            return apply_layer(lp, x, cfg, kind, prof)
+        if remat:
+            x, nc, aux = checkpoint(run, x, use_reentrant=False)
+        else:
+            x, nc, aux = run(x)
+        x = constrain(x, None, prof)
+        caches.append(nc)
+        auxes.append(aux)
+    aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+    return x, (_collect(cfg, caches) if mode == "prefill" else None), aux
+
+
+def forward(p, cfg, batch, prof: ShardProfile = NULL_PROFILE, *,
+            mode="train", remat=False):
+    """Full-sequence forward.  ``batch``: ``{"tokens": (B, S)}``.  Returns
+    ``(logits (B, S, V), caches, aux)``."""
+    x = _embed_tokens(p, cfg, batch["tokens"], prof)
+    x, new_caches, aux = _stack_forward(p, x, cfg, prof, mode=mode,
+                                        remat=remat)
+    x = apply_norm(p["final_norm"], x, cfg.norm)
+    head = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return x @ head.to(x.dtype), new_caches, aux
+
+
+def loss_fn(p, cfg, batch, prof=NULL_PROFILE, **kw):
+    """Next-token cross-entropy (float32), plus the MoE aux losses."""
+    logits, _, aux = forward(p, cfg, batch, prof, mode="train", **kw)
+    tokens = batch["tokens"].long()
+    labels = batch["labels"].long() if "labels" in batch else torch.cat(
+        [tokens[:, 1:], tokens[:, :1] * 0], dim=1)
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    total = nll + 0.01 * aux["load_balance"] + 1e-4 * aux["router_z"]
+    return total, {"nll": nll, **aux}
+
+
+# --------------------------------------------------------------------------- #
+# Decode                                                                       #
+# --------------------------------------------------------------------------- #
+def make_decode_cache(p, cfg, batch_size, max_len):
+    """Empty decode caches on the params' device, shaped as
+    :func:`_stack_forward` returns them: per reservoir layer the carried
+    state ``{"res": {"h_re", "h_im"}}`` (B, N) float32, with a leading layer
+    dimension for a homogeneous stack.  (``max_len`` sizes the attention
+    caches, which are not ported.)"""
+    check_ported(cfg)
+    dev = p["embed"].device
+    n = cfg.d_rnn or cfg.d_model
+    lead = (cfg.n_layers,) if _is_homogeneous(cfg) else ()
+
+    def one():
+        return {"res": {k: torch.zeros(lead + (batch_size, n),
+                                       dtype=torch.float32, device=dev)
+                        for k in ("h_re", "h_im")}}
+    if lead:
+        return one()
+    return {f"layer_{i}": one() for i in range(cfg.n_layers)}
+
+
+def decode_step(p, cfg, cache, tokens, prof=NULL_PROFILE):
+    """One token for every sequence.  ``tokens``: (B, 1).  Returns
+    ``(logits (B, 1, V), cache)``."""
+    x = _embed_tokens(p, cfg, tokens, prof)
+    caches = []
+    for i, kind in enumerate(layer_kinds(cfg)):
+        x, nc, _ = apply_layer(_layer(p["layers"], cfg, i), x, cfg, kind,
+                               prof, cache=_layer(cache, cfg, i))
+        caches.append(nc)
+    x = apply_norm(p["final_norm"], x, cfg.norm)
+    head = p["embed"].T if cfg.tie_embeddings else p["head"]
+    return x @ head.to(x.dtype), _collect(cfg, caches)

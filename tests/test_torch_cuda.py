@@ -1,13 +1,18 @@
 """The port's CUDA kernels on the card, held against their plain versions.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
-one; this file imports no JAX, so it runs where only PyTorch is installed:
+one; this file imports no JAX, so it runs where only PyTorch is installed
+(``--noconftest`` skips ``tests/conftest.py``, which configures JAX):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float64 ``1e-9 * max(1, max|ref|)`` (the kernels contract
-multiply-adds into FMAs and sum the readout in a tree); float32 2e-4.
+multiply-adds into FMAs and sum the readout in a tree); float32 2e-4 (the
+JAX package's kernel tests), scaled by ``max(1, max|ref|)`` for gradients,
+whose ``da`` sums thousands of terms in another order.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +21,12 @@ from repro_torch.core import dispatch
 from repro_torch.core import esn
 from repro_torch.core.params import ESNConfig
 from repro_torch.data.signals import mso_series
+from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
+from repro_torch.models import lm
 from repro_torch.serve.engine import ReservoirEngine
+from repro_torch.train.trainer import loss_and_grads
+from repro_torch.tree import flatten, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -115,11 +124,99 @@ def test_empty_scan_counts_no_launch(dev):
     assert ops.diag_scan.launches == before
 
 
-def test_diag_scan_kernel_refuses_grad(dev):
-    a, x, _ = scan_inputs((1, 8, 4), "static", False, False, torch.float64,
-                          dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.diag_scan(a.requires_grad_(), x)
+def _close_scaled(got, want, dtype):
+    """max|d| <= tol * max(1, max|ref|): 2e-4 in float32, 1e-9 in float64."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    tol = 2e-4 if dtype == torch.float32 else 1e-9
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def _split(v, cplx):
+    if v is None:
+        return None, None
+    return (v.real.contiguous(), v.imag.contiguous()) if cplx else (v, None)
+
+
+BWD_CASES = {
+    # the training shape of linear-esn: B=8, T=1024, d_rnn=1024, static a
+    "train-f32": ((8, 1024, 1024), "static", True, False, torch.float32),
+    "train-f64": ((8, 1024, 1024), "static", True, False, torch.float64),
+    "time-a": ((3, 77, 130), "time", True, False, torch.float64),
+    "full-a-h0": ((2, 50, 20), "full", False, True, torch.float64),
+    "ragged-h0": ((5, 333, 257), "static", True, True, torch.float64),
+    "real": ((4, 100, 129), "static", False, False, torch.float64),
+}
+
+
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_diag_scan_bwd_kernel_matches_plain(dev, name):
+    shape, a_kind, cplx, with_h0, dtype = BWD_CASES[name]
+    a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype, dev)
+    (a_re, a_im), (h0_re, h0_im) = _split(a, cplx), _split(h0, cplx)
+    h_re, h_im = ops.diag_scan_lanes(a_re, a_im, *_split(x, cplx), h0_re,
+                                     h0_im)
+    g = torch.Generator().manual_seed(7)
+    g_re = torch.randn(shape, generator=g, dtype=dtype).to(dev)
+    g_im = torch.randn(shape, generator=g, dtype=dtype).to(dev) if cplx \
+        else None
+    args = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
+    before = ops.diag_scan_bwd.launches
+    got = ops.diag_scan_bwd(*args)
+    assert ops.diag_scan_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    want = ref.diag_scan_lanes_bwd_ref(*args)
+    for name_, g_, w_ in zip(("da_re", "da_im", "dx_re", "dx_im", "dh0_re",
+                              "dh0_im"), got, want):
+        if w_ is None:
+            assert g_ is None, name_
+            continue
+        assert g_.shape == w_.shape, name_
+        _close_scaled(g_, w_, dtype)
+
+
+def test_diag_scan_autograd_runs_both_kernels(dev):
+    """``ops.diag_scan``'s gradient on the card equals the CPU's, and the
+    backward went through the backward kernel."""
+    a, x, h0 = scan_inputs((3, 200, 70), "static", True, True,
+                           torch.float64, dev)
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        leaves = [v.detach().to(device).requires_grad_() for v in (a, x, h0)]
+        fwd, bwd = ops.diag_scan.launches, ops.diag_scan_bwd.launches
+        h = ops.diag_scan(*leaves)
+        (h.real * h.imag).sum().backward()
+        launched = (ops.diag_scan.launches - fwd,
+                    ops.diag_scan_bwd.launches - bwd)
+        assert launched == ((1, 1) if device.type == "cuda" else (0, 0))
+        grads[device.type] = [v.grad for v in leaves]
+    for g_, w_ in zip(grads["cuda"], grads["cpu"]):
+        _close_scaled(g_, w_, torch.float64)
+
+
+def test_lm_train_step_card_matches_cpu(dev):
+    """One loss-and-gradient step of a 2-layer reservoir LM from the same
+    weights: the card (kernels forward and backward) against the CPU (their
+    plain versions), float32 with TF32 off."""
+    cfg = dataclasses.replace(smoke_config("linear-esn"), n_layers=2)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 64)))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        fwd, bwd = ops.diag_scan.launches, ops.diag_scan_bwd.launches
+        p = tree_map(lambda v: v.to(device), params)
+        loss, _, grads = loss_and_grads(cfg, p, {"tokens": toks.to(device)})
+        if device.type == "cuda":
+            assert (ops.diag_scan.launches - fwd,
+                    ops.diag_scan_bwd.launches - bwd) == (2, 2)
+        out[device.type] = (float(loss), flatten(grads))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, w_ in g_cpu.items():
+        d = float((g_gpu[k].cpu() - w_).abs().max())
+        assert d <= 1e-4 * float(w_.abs().max()), k
 
 
 def decode_inputs(b, nc, d, batched, device, seed=1):

@@ -184,8 +184,12 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
                        "--device", "cpu"])
     assert res["sessions"] == 3 and res["finite"]
     assert res["prefill_tokens"] == 120 and res["decode_tokens"] == 12
-    for flag in (["--park-host-rows", "4"], ["--autotune"], ["--arch", "x"]):
+    for flag in (["--park-host-rows", "4"], ["--autotune"]):
         with pytest.raises(SystemExit, match="not ported yet: ROADMAP A"):
             tserve.main(["--reservoir", "--device", "cpu", *flag])
-    with pytest.raises(SystemExit, match="only the --reservoir loop"):
-        tserve.main(["--device", "cpu"])
+    # Without --reservoir the LM loop runs (its default arch,
+    # recurrentgemma-2b, has blocks that are not ported yet).
+    for argv in (["--device", "cpu"], ["--arch", "smollm-135m", "--smoke",
+                                       "--device", "cpu"]):
+        with pytest.raises(SystemExit, match="not ported yet: ROADMAP A12"):
+            tserve.main(argv)

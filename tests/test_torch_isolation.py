@@ -9,9 +9,13 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import smoke_config
 from repro_torch.core import esn, params
-from repro_torch.launch import serve
+from repro_torch.data.pipeline import MarkovTokens
+from repro_torch.launch import serve, train
+from repro_torch.models import lm
 from repro_torch.serve.engine import ReservoirEngine
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -48,6 +52,7 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_default_to_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = params.ESNConfig(n=16)
+    lm_cfg = smoke_config("linear-esn")
     calls = [lambda: repro_torch.resolve_device(),
              lambda: esn.dpg_params(cfg),
              lambda: esn.diag_params(cfg),
@@ -55,7 +60,12 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
              lambda: params.params_from_numpy("standard", {}, cfg),
              lambda: params.readout_from_numpy([[1.0]]),
              lambda: ReservoirEngine(esn.dpg_params(cfg, device="cpu")),
-             lambda: serve.main(["--reservoir", "--n", "16"])]
+             lambda: serve.main(["--reservoir", "--n", "16"]),
+             lambda: serve.main(["--arch", "linear-esn", "--smoke"]),
+             lambda: train.main(["--smoke", "--steps", "1"]),
+             lambda: Trainer(lm_cfg, TrainConfig(), MarkovTokens(128, 2, 8)),
+             lambda: lm.init_params(torch.Generator(), lm_cfg),
+             lambda: lm.lm_params_from_numpy({})]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

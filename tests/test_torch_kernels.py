@@ -7,10 +7,12 @@ arithmetic, summed in another order), float32 2e-4 (``tests/test_kernels.py``).
 The CUDA kernels themselves are held against the plain versions on the
 card by ``tests/test_torch_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.autograd import gradcheck
 
 from repro.core import dispatch as jdispatch
 from repro.kernels import ops as jops
@@ -94,6 +96,88 @@ def test_diag_scan_lanes_wrapper_matches_jax_kernel(case):
         np.testing.assert_allclose(got_im.numpy(), want.imag, **tol)
     else:
         assert got_im is None
+
+
+def _assert_scaled(got, want, tol):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    err = float(np.abs(np.asarray(got) - want).max()) if want.size else 0.0
+    assert err <= tol * scale, (err, tol * scale)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_diag_scan_grads_match_jax_vjp(case):
+    """Gradients of a real loss of the scan, through both port entries,
+    against ``jax.grad`` through the JAX kernel's custom VJP.  JAX returns
+    the conjugate of PyTorch's convention for complex inputs, so the lanes
+    hold (re, -im) of JAX's gradient and the complex entry its ``conj``."""
+    a, x, h0, _ = _scan_case(np.random.default_rng(4), case)
+    cplx = case.get("complex", False)
+    tol = 1e-4 if case.get("dtype") == np.float32 else 1e-10
+    rng = np.random.default_rng(5)
+    w_re, w_im = (rng.normal(size=x.shape).astype(x.real.dtype)
+                  for _ in range(2))
+    inputs = [v for v in (a, x, h0) if v is not None]
+
+    def jloss(*args):
+        h = jops.diag_scan(*args, block_b=2, block_t=16, block_n=16)
+        return jnp.sum(h.real * w_re + h.imag * w_im)
+    want = jax.grad(jloss, argnums=tuple(range(len(inputs))))(
+        *map(jnp.asarray, inputs))
+    want = [np.conj(np.asarray(w)) for w in want]
+
+    # The complex (or real) entry.
+    leaves = [_t(v).requires_grad_() for v in inputs]
+    fwd, bwd = tops.diag_scan.launches, tops.diag_scan_bwd.launches
+    h = tops.diag_scan(*leaves, *([None] * (3 - len(leaves))))
+    loss = (h.real * _t(w_re)).sum() + (
+        (h.imag * _t(w_im)).sum() if cplx else 0.0)
+    got = torch.autograd.grad(loss, leaves)
+    for g, w in zip(got, want):
+        _assert_scaled(g.numpy(), w, tol)
+
+    # The lane entry: each operand split into (re, im) leaves.
+    lanes = []
+    for v in inputs:
+        lanes += [_t(v.real.copy()).requires_grad_(),
+                  _t(v.imag.copy()).requires_grad_()] if cplx else [
+            _t(v).requires_grad_(), None]
+    lanes += [None] * (6 - len(lanes))
+    h_re, h_im = tops.diag_scan_lanes(*lanes)
+    loss = (h_re * _t(w_re)).sum() + (
+        (h_im * _t(w_im)).sum() if cplx else 0.0)
+    got = torch.autograd.grad(loss, [v for v in lanes if v is not None])
+    if cplx:
+        want = [part for w in want for part in (w.real, w.imag)]
+    for g, w in zip(got, want):
+        _assert_scaled(g.numpy(), w, tol)
+    assert (tops.diag_scan.launches, tops.diag_scan_bwd.launches) == (fwd,
+                                                                       bwd)
+
+
+@pytest.mark.parametrize("a_kind", ["static", "time", "full"])
+@pytest.mark.parametrize("cplx", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["no-h0", "h0"])
+def test_diag_scan_gradcheck(a_kind, cplx, with_h0):
+    """``torch.autograd.gradcheck`` (float64, finite differences) of the
+    scan's autograd.Function through both entries."""
+    case = dict(shape=(2, 5, 3), a=a_kind, complex=cplx, h0=with_h0)
+    a, x, h0, _ = _scan_case(np.random.default_rng(6), case)
+    inputs = tuple(_t(v).requires_grad_() for v in (a, x, h0)
+                   if v is not None)
+    assert gradcheck(lambda *v: tops.diag_scan(*v), inputs)
+    lanes = []
+    for v in (a, x, h0):
+        if v is None:
+            lanes += [None, None]
+        elif cplx:
+            lanes += [_t(v.real.copy()).requires_grad_(),
+                      _t(v.imag.copy()).requires_grad_()]
+        else:
+            lanes += [_t(v).requires_grad_(), None]
+    assert gradcheck(lambda *v: tuple(
+        o for o in tops.diag_scan_lanes(*v) if o is not None), tuple(lanes))
 
 
 def _decode_case(rng, *, b=4, nc=20, d=1, batched=False, dtype=np.float64):
