@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel (the diagonal scan, its backward, the fused decode) against its plain
-PyTorch version at the main paths' shapes and times both, then drives the
-port's three main paths on the card, each with the launch counts set to 0
-just before it and read just after:
+kernel (the diagonal scan, its backward, the fused decode, flash attention)
+against its plain PyTorch version at the main paths' shapes and times both,
+then drives the port's five main paths on the card, each with the launch
+counts set to 0 just before it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
    workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
@@ -18,7 +18,16 @@ just before it and read just after:
    its gradient through the kernels, 12 forward and 12 backward launches a
    step; a 2-layer full-width trainer is held against the CPU's;
 3. ``repro_torch.launch.serve --arch linear-esn``: the LM decode loop at
-   full width, its last logits held against a CPU run.
+   full width, its last logits held against a CPU run;
+4. ``repro_torch.launch.train --arch smollm-135m``: the attention LM at its
+   published widths (30 layers, d_model 576, 9 query / 3 KV heads of 64,
+   d_ff 1536, vocab 49152), batch 8 x 2048 tokens, 10 AdamW steps, float32 —
+   every attention forward through the flash kernel, two 1024-row query
+   chunks a layer, 60 launches a step; a 2-layer full-width trainer is held
+   against the CPU's;
+5. ``repro_torch.launch.serve --arch smollm-135m``: its decode loop over KV
+   caches (dense decode attention, as in the JAX package: no kernel),
+   held against a CPU run.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -28,9 +37,10 @@ times, bound and launches.
 Tolerances: float64 ``max|d| <= 1e-9 * max(1, max|ref|)`` — the kernels
 contract multiply-adds into FMAs and sum in another order; float32 2e-4, as
 the JAX package's kernel tests (scaled by ``max(1, max|ref|)`` for the
-backward, whose ``da`` sums 8192 terms); the LM on the card against the CPU
-1e-4 relative (float32 with TF32 off: cuBLAS and the CPU sum in different
-orders).
+backward, whose ``da`` sums 8192 terms); flash attention in bfloat16 5e-2
+(the JAX package's bf16 kernel test) and its ``lse`` 1e-5; the LM on the
+card against the CPU 1e-4 relative (float32 with TF32 off: cuBLAS and the
+CPU sum in different orders).
 """
 import json
 import subprocess
@@ -55,6 +65,11 @@ TRAIN_ARGS = ["--arch", "linear-esn", "--vocab", "50304", "--batch", "8",
               "--seq", "1024", "--steps", str(TRAIN_STEPS)]
 LM_SERVE_ARGS = ["--arch", "linear-esn", "--batch", "4", "--prompt-len",
                  "64", "--gen", "32"]
+SMOLLM_TRAIN_ARGS = ["--arch", "smollm-135m", "--vocab", "49152", "--batch",
+                     "8", "--seq", "2048", "--steps", str(TRAIN_STEPS)]
+SMOLLM_SERVE_ARGS = ["--arch", "smollm-135m", "--batch", "4", "--prompt-len",
+                     "64", "--gen", "32"]
+BF16_TOL, LSE_TOL = 5e-2, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -384,6 +399,105 @@ def check_decode_fused(ops, ref, copy_bw):
 
 
 # --------------------------------------------------------------------------- #
+# B3 flash attention                                                           #
+# --------------------------------------------------------------------------- #
+# name, (b, hq, hkv, sq, skv, d), causal, window, q_offset, kv_len, dtype,
+# timed.  The two timed cases are the launches of smollm-135m's training
+# step at batch 8 x 2048: _banded_attention's 1024-row query chunks.
+FLASH_CASES = [
+    ("chunk0", (8, 9, 3, 1024, 1024, 64), True, None, 0, None, "float32",
+     True),
+    ("chunk1", (8, 9, 3, 1024, 2048, 64), True, None, 1024, None, "float32",
+     True),
+    ("chunk1-bf16", (8, 9, 3, 1024, 2048, 64), True, None, 1024, None,
+     "bfloat16", False),
+    # the cases of tests/test_kernels.py
+    ("mha-causal", (1, 2, 2, 64, 64, 32), True, None, 0, None, "float32",
+     False),
+    ("gqa", (2, 4, 2, 64, 64, 16), True, None, 0, None, "float32", False),
+    ("mqa-ragged", (1, 3, 1, 40, 40, 8), True, None, 0, None, "float32",
+     False),
+    ("window16", (1, 2, 2, 64, 64, 32), True, 16, 0, None, "float32", False),
+    ("decode", (1, 2, 1, 1, 96, 16), True, None, 95, None, "float32", False),
+    ("cross-kv_len", (1, 2, 2, 48, 80, 16), False, None, 0, 70, "float32",
+     False),
+    ("bf16", (1, 2, 2, 32, 32, 16), True, None, 0, None, "bfloat16", False),
+]
+
+
+def flash_inputs(shape, dtype, seed=0):
+    import torch
+    b, hq, hkv, sq, skv, d = shape
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=g)
+    k = torch.randn((b, hkv, skv, d), generator=g)
+    v = torch.randn((b, hkv, skv, d), generator=g)
+    return [t.to(device="cuda", dtype=getattr(torch, dtype))
+            for t in (q, k, v)]
+
+
+def flash_cost(q, k, mask):
+    """Bytes (q, k, v read once, out and the float32 lse written once) and
+    the flops of the visible query-key pairs: q.k and p.v, 2 * head_dim
+    each."""
+    b, hq, sq, d = q.shape
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel())
+              + 4 * b * hq * sq)
+    pairs = int(mask.sum()) * b * hq
+    return nbytes, 4 * d * pairs
+
+
+def library_attention(q, k, v, mask):
+    """The yardstick: one PyTorch call computing the same function
+    (timed here only; the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def check_flash_attention(ops, ref, copy_bw):
+    """Each case through ``ops.flash_attention_fwd`` (the entry the model
+    calls) against the plain version on the same inputs: the output and
+    ``lse``; the training chunks are timed beside the plain version and
+    the library call."""
+    import torch
+    rows = []
+    for name, shape, causal, window, q_offset, kv_len, dtype, timed in \
+            FLASH_CASES:
+        q, k, v = flash_inputs(shape, dtype)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+        want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        err = float((out.float() - want.float()).abs().max())
+        lse_err = float(((lse - want_lse).abs()
+                         / want_lse.abs().clamp(min=1.0)).max())
+        if not bool(torch.isfinite(out.float()).all()) or err > tol \
+                or lse_err > LSE_TOL:
+            fail(f"flash_attention {name}: max|d| {err:.3e} (tol {tol}), "
+                 f"lse {lse_err:.3e} (tol {LSE_TOL})")
+        row = {"case": name, "shape": list(shape), "dtype": dtype,
+               "causal": causal, "window": window, "q_offset": q_offset,
+               "kv_len": kv_len, "max_abs_err": err, "tol": tol,
+               "err_over_tol": err / tol, "lse_max_rel_err": lse_err}
+        if timed:
+            row["ms"] = time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw),
+                                reps=20)
+            row["plain_ms"] = time_ms(lambda: ref.flash_attention_fwd_ref(
+                q, k, v, **kw), reps=2, warmup=1)
+            mask = ref.attention_mask(shape[3], shape[4], device="cuda", **kw)
+            lib = library_attention(q, k, v, mask)
+            row["library_ms"] = time_ms(
+                lambda: library_attention(q, k, v, mask), reps=20)
+            row["library_max_abs_err"] = float((lib - want).abs().max())
+            row.update(bound(*flash_cost(q, k, mask), dtype, copy_bw))
+        rows.append(row)
+        print(json.dumps({"flash_attention": row}), flush=True)
+    return rows
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: the main path                                                       #
 # --------------------------------------------------------------------------- #
 def engine_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine):
@@ -478,11 +592,12 @@ def profile_serve(serve):
     return profiled(lambda: serve.serve_sessions(engine, args, sig, train_t))
 
 
-def profile_train_step(train, Trainer, TrainConfig, MarkovTokens):
+def profile_train_step(train, Trainer, TrainConfig, MarkovTokens,
+                       argv=TRAIN_ARGS):
     """Device time by kernel over one full-width training step (the main
     path's configuration), after one untimed step."""
     import torch
-    args = train.build_parser().parse_args(TRAIN_ARGS)
+    args = train.build_parser().parse_args(argv)
     cfg = train.arch_config(args)
     data = MarkovTokens(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq)
     tr = Trainer(cfg, TrainConfig(steps=1, log_every=0, lr=args.lr), data,
@@ -510,18 +625,18 @@ def leafwise(got, want):
 
 
 def lm_trainer_vs_cpu(lm, loss_and_grads, Trainer, TrainConfig,
-                      MarkovTokens, get_config, tree):
-    """A 2-layer linear-esn at full width (d_model 768, d_rnn 1024, d_ff
-    2048; vocab 512), batch 2 x 256 tokens: the first step's gradients and
-    three AdamW steps' losses on the card against the CPU, from the same
-    weights (``lm_params_from_numpy``)."""
+                      MarkovTokens, get_config, tree, arch="linear-esn",
+                      batch=2, seq=256):
+    """A 2-layer ``arch`` at full width (vocab 512), ``batch`` x ``seq``
+    tokens: the first step's gradients and three AdamW steps' losses on the
+    card against the CPU, from the same weights (``lm_params_from_numpy``)."""
     import dataclasses
     import torch
-    cfg = dataclasses.replace(get_config("linear-esn"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               vocab=512, dtype="float32")
     weights = tree.tree_map(lambda v: v.numpy(), lm.init_params(
         torch.Generator().manual_seed(0), cfg, "cpu"))
-    data = MarkovTokens(vocab=cfg.vocab, batch=2, seq_len=256)
+    data = MarkovTokens(vocab=cfg.vocab, batch=batch, seq_len=seq)
     out = {}
     for device in ("cuda", "cpu"):
         params = lm.lm_params_from_numpy(weights, device)
@@ -544,10 +659,10 @@ def lm_trainer_vs_cpu(lm, loss_and_grads, Trainer, TrainConfig,
     return res
 
 
-def lm_serve_vs_cpu(serve, res):
+def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS):
     """The LM serve loop's last logits on the card against a CPU run of the
     same command (same seed, same weights)."""
-    cpu = serve.main(LM_SERVE_ARGS + ["--device", "cpu"])
+    cpu = serve.main(argv + ["--device", "cpu"])
     want = cpu["last_logits"]
     err = float((res["last_logits"] - want).abs().max())
     rel = err / float(want.abs().max())
@@ -557,6 +672,27 @@ def lm_serve_vs_cpu(serve, res):
     if rel > LM_TOL or not same_tokens:
         fail(f"LM serve on the card vs the CPU: {out}")
     return out
+
+
+def flash_summary(rows, counts, keys):
+    """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
+    (q_offset 1024 against 2048 keys), chunk 0 beside it."""
+    by = {r["case"]: r for r in rows}
+    c0, c1 = by["chunk0"], by["chunk1"]
+    lib = ("library_ms", "library_max_abs_err")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:81",
+                **counts, max_abs_err=c1["max_abs_err"], tol=c1["tol"],
+                worst_err_over_tol=max(r["err_over_tol"] for r in rows),
+                worst_lse_rel_err=max(r["lse_max_rel_err"] for r in rows),
+                bf16_max_abs_err=by["chunk1-bf16"]["max_abs_err"],
+                bf16_tol=by["chunk1-bf16"]["tol"],
+                shape=c1["shape"], q_offset=1024, dtype="float32",
+                **{k: c1[k] for k in keys}, **{k: c1[k] for k in lib},
+                chunk0={"shape": c0["shape"], "q_offset": 0,
+                        **{k: c0[k] for k in keys},
+                        **{k: c0[k] for k in lib}})
 
 
 def main() -> None:
@@ -581,7 +717,8 @@ def main() -> None:
     from repro_torch.train.trainer import (TrainConfig, Trainer,
                                            loss_and_grads)
     counters = {"diag_scan": ops.diag_scan, "diag_scan_bwd": ops.diag_scan_bwd,
-                "decode_fused": ops.decode_fused}
+                "decode_fused": ops.decode_fused,
+                "flash_attention_fwd": ops.flash_attention_fwd}
 
     def drive(path, fn, expected):
         """Run one main path with every launch count set to 0 just before
@@ -617,9 +754,10 @@ def main() -> None:
     compiled = build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": compiled}), flush=True)
-    for line in build.build_log("diag_scan").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for stem in ("diag_scan", "flash_attention"):
+        for line in build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {stem}:", line.strip(), flush=True)
     copy_bw = copy_bandwidth()
     print(json.dumps({"copy_bytes_per_s": copy_bw}), flush=True)
 
@@ -681,7 +819,52 @@ def main() -> None:
     print(json.dumps({"serve_lm_vs_cpu": lm_serve_vs_cpu(serve, res)}),
           flush=True)
 
-    phase("10 summary")
+    phase("10 flash_attention kernel vs plain")
+    flash_rows = check_flash_attention(ops, ref, copy_bw)
+
+    phase("11 main path 4: repro_torch.launch.train "
+          + " ".join(SMOLLM_TRAIN_ARGS))
+    torch.cuda.reset_peak_memory_stats()
+    res = drive("train_smollm", lambda: train.main(SMOLLM_TRAIN_ARGS),
+                ("flash_attention_fwd",))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    smollm = get_config("smollm-135m")
+    train_out = {k: res[k] for k in ("arch", "params", "batch", "seq",
+                                     "steps_run", "losses", "ms_per_step",
+                                     "tokens_per_s", "finite")}
+    print(json.dumps({"train_smollm": train_out, "peak_memory_gb": peak_gb,
+                      "launches": launches["train_smollm"]}), flush=True)
+    if not res["finite"] or res["steps_run"] != TRAIN_STEPS:
+        fail(f"smollm training: finite={res['finite']}, "
+             f"steps={res['steps_run']}")
+    want = smollm.n_layers * 2 * TRAIN_STEPS      # two query chunks a layer
+    if launches["train_smollm"]["flash_attention_fwd"] != want:
+        fail(f"smollm training launched flash_attention_fwd "
+             f"{launches['train_smollm']['flash_attention_fwd']} times, "
+             f"expected {want}")
+    print(json.dumps({"profile_train_smollm_step": profile_train_step(
+        train, Trainer, TrainConfig, MarkovTokens, SMOLLM_TRAIN_ARGS)}),
+        flush=True)
+
+    phase("12 card trainer vs CPU trainer (smollm-135m, 2 layers, full "
+          "width, 1 x 2048 tokens)")
+    print(json.dumps({"smollm_trainer_vs_cpu": lm_trainer_vs_cpu(
+        lm, loss_and_grads, Trainer, TrainConfig, MarkovTokens, get_config,
+        tree, arch="smollm-135m", batch=1, seq=2048)}), flush=True)
+
+    phase("13 main path 5: repro_torch.launch.serve "
+          + " ".join(SMOLLM_SERVE_ARGS) + " (decode attention is a dense "
+          "product, as in the JAX package: no TPU kernel on this path)")
+    res = drive("serve_smollm", lambda: serve.main(SMOLLM_SERVE_ARGS), ())
+    print(json.dumps({"serve_smollm": {k: v for k, v in res.items()
+                                       if k not in ("tokens", "last_logits")},
+                      "launches": launches["serve_smollm"]}), flush=True)
+    if not res["finite"]:
+        fail("smollm serve: the last logits are not finite")
+    print(json.dumps({"serve_smollm_vs_cpu": lm_serve_vs_cpu(
+        serve, res, SMOLLM_SERVE_ARGS)}), flush=True)
+
+    phase("14 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
@@ -728,6 +911,7 @@ def main() -> None:
              worst_err_over_tol=max(r["err_over_tol"] for r in decode_rows),
              shape=dec["shape"],
              **{k: dec[k] for k in keys}, library_ms=None),
+        flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -9,7 +9,9 @@ kernels are hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at
 first use: the diagonal scan with its backward (``kernels.ops.diag_scan`` /
 ``diag_scan_lanes``, a ``torch.autograd.Function``), which carries the
 serving prefill and every reservoir layer of the LM in training and
-decoding, and the fused closed-loop decode (``kernels.ops.decode_fused``).
+decoding, the fused closed-loop decode (``kernels.ops.decode_fused``), and
+flash attention (``kernels.ops.flash_attention_fwd``), the forward of every
+long-context attention layer of the attention LMs in training.
 """
 from __future__ import annotations
 

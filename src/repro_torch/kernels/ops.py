@@ -11,6 +11,13 @@ The scan is differentiable: :func:`diag_scan_lanes` is a
 whose backward is the ``diag_scan_bwd`` kernel (each with its own counter),
 and :func:`diag_scan` builds the complex entry on top of it, so
 ``torch.complex`` and ``.real``/``.imag`` carry the gradient.
+
+Attention has one kernel, ``flash_attention_fwd`` (``kernels.
+flash_attention``), with two entries: :func:`flash_attention_fwd` returns
+``(out, lse)`` and is what the model's ``jnp_flash`` calls;
+:func:`flash_attention` is the counterpart of the JAX package's wrapper, a
+``torch.autograd.Function`` whose backward recomputes through
+``ref.attention_ref``.  Both count in ``flash_attention_fwd.launches``.
 """
 from __future__ import annotations
 
@@ -20,8 +27,10 @@ from torch.autograd.function import once_differentiable
 from . import ref
 from .diag_scan import (decode_fused_cuda, diag_scan_lanes_bwd_cuda,
                         diag_scan_lanes_cuda)
+from .flash_attention import flash_attention_fwd_cuda
 
-__all__ = ["diag_scan", "diag_scan_lanes", "diag_scan_bwd", "decode_fused"]
+__all__ = ["diag_scan", "diag_scan_lanes", "diag_scan_bwd", "decode_fused",
+           "flash_attention_fwd", "flash_attention"]
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -147,3 +156,55 @@ def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,
 
 
 decode_fused.launches = 0
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0,
+                        kv_len=None, scale=None):
+    """Blocked online-softmax attention, ``(out, lse)``: the
+    ``flash_attention_fwd`` kernel on CUDA, ``ref.flash_attention_fwd_ref``
+    on the CPU.  q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with GQA, causal,
+    ``window``, ``q_offset`` and ``kv_len`` masks; ``out`` in q's dtype,
+    ``lse`` float32 (B, Hq, Sq).  No padding: the kernel masks its own
+    ragged edges.  Not differentiable by itself."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
+              scale=scale)
+    if _route(q, k, v) == "cpu":
+        return ref.flash_attention_fwd_ref(q, k, v, **kw)
+    out = flash_attention_fwd_cuda(q, k, v, **kw)
+    if q.numel():                   # an empty query grid launches nothing
+        flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through the dense
+    ``ref.attention_ref``, as the JAX wrapper's ``_fa_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = (causal, window, q_offset)
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)[0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        causal, window, q_offset = ctx.masks
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = ref.attention_ref(*qkv, causal=causal, window=window,
+                                    q_offset=q_offset)
+            grads = torch.autograd.grad(out, qkv, g)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, causal=True, window=None, q_offset=0):
+    """Attention with GQA / causal / window / ``q_offset`` (the JAX
+    package's ``kernels.ops.flash_attention`` without its TPU tile padding):
+    q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); differentiable in q, k, v."""
+    _route(q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)

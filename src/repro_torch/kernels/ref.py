@@ -5,7 +5,11 @@ from __future__ import annotations
 import torch
 
 __all__ = ["diag_scan_ref", "diag_scan_lanes_ref", "diag_scan_lanes_bwd_ref",
-           "decode_fused_ref"]
+           "decode_fused_ref", "NEG_INF", "attention_mask", "attention_ref",
+           "flash_attention_fwd_ref"]
+
+#: The score of a masked query-key pair (as in the JAX package).
+NEG_INF = -1e30
 
 
 def diag_scan_ref(a, x, h0=None):
@@ -133,3 +137,68 @@ def decode_fused_ref(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     ys = (torch.stack(ys) if ys else
           y0.new_zeros((0,) + tuple(y0.shape)))
     return hr, hi, y, ys
+
+
+def attention_mask(sq, skv, *, causal=True, window=None, q_offset=0,
+                   kv_len=None, device=None):
+    """(Sq, Skv) bool: key j is visible to query i (at position q_offset + i)
+    under the causal, sliding-window and key-length masks."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= k_pos <= q_pos
+    if window is not None:
+        m &= k_pos > q_pos - window
+    if kv_len is not None:
+        m &= k_pos < kv_len
+    return m
+
+
+def _gqa_scores(q, k, scale, mask):
+    """Masked float32 scores (B, Hkv, G, Sq, Skv) of q (B, Hq, Sq, D) against
+    k (B, Hkv, Skv, D), query head h reading KV head h // (Hq // Hkv)."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    return torch.where(mask, s, NEG_INF)
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, q_offset=0,
+                  scale=None):
+    """Dense softmax attention with GQA / causal / window in float32 — the
+    oracle of the flash kernel (and what its backward recomputes through).
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  Rows with no visible key
+    give zeros.  Returns q's shape and dtype."""
+    b, hq, sq, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    mask = attention_mask(sq, k.shape[2], causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    p = torch.softmax(_gqa_scores(q, k, scale, mask), dim=-1)
+    p = torch.where(mask.any(-1)[:, None], p, 0.0)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=None, q_offset=0,
+                            kv_len=None, scale=None):
+    """The flash kernel's function, densely: ``(out, lse)`` with ``out`` in
+    q's dtype and ``lse = m + log(l)`` (float32, (B, Hq, Sq); -1e30 for a row
+    with no visible key, whose output is zeros).  Masks as
+    :func:`attention_mask`; p is cast to v's dtype before the p.v product,
+    as the kernel casts it."""
+    b, hq, sq, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    mask = attention_mask(sq, k.shape[2], causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len, device=q.device)
+    s = _gqa_scores(q, k, scale, mask)
+    m = s.amax(-1, keepdim=True) if s.shape[-1] else torch.full_like(
+        s[..., :1], NEG_INF)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    out = (o / safe).reshape(b, hq, sq, d).to(q.dtype)
+    lse = (m + torch.log(safe)).reshape(b, hq, sq)
+    return out, lse

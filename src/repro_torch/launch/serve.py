@@ -11,9 +11,11 @@ per wave of ``--gen`` tokens), and are released:
 
 The LM loop (without ``--reservoir``) prefills random prompts token by
 token and decodes greedily (or samples at ``--temperature``) through the
-decode caches, for archs whose blocks are all reservoir layers:
+decode caches (KV caches for attention layers, ring buffers for windowed
+ones; decode attention is a dense product, as in the JAX package), for
+archs whose blocks are all attention or reservoir layers with dense MLPs:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch linear-esn \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 4 --prompt-len 64 --gen 32
 
 It runs in float32, as the training driver does (the JAX loop keeps the
@@ -224,8 +226,8 @@ def serve_lm(args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="recurrentgemma-2b",
-                    help="the LM loop's arch (reservoir-only archs are "
-                         "ported: linear-esn)")
+                    help="the LM loop's arch (ported: "
+                         + ", ".join(lm.ported_archs()) + ")")
     ap.add_argument("--smoke", action="store_true",
                     help="the LM loop on the arch's reduced smoke config")
     ap.add_argument("--batch", type=int, default=4)

@@ -5,11 +5,17 @@
         --vocab 50304 --batch 8 --seq 1024 --steps 10
 
 trains the paper's reservoir LM at full width on the GPU: a Markov-chain
-synthetic corpus, AdamW, float32, checkpoints and preemption handling.
-Every reservoir layer's scan and its gradient run through the hand-written
-CUDA kernels.  ``--device cpu`` runs the same loop on the host with their
-plain PyTorch versions.  Archs with blocks the port has not yet ported
-(attention, MoE, RG-LRU, xLSTM) exit naming ROADMAP A12.
+synthetic corpus, AdamW, float32, checkpoints and preemption handling;
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+        --vocab 49152 --batch 8 --seq 2048 --steps 10
+
+trains the attention LM ``smollm-135m`` the same way.  Every reservoir
+layer's scan and its gradient, and every flash-attention forward, run
+through the hand-written CUDA kernels.  ``--device cpu`` runs the same loop
+on the host with their plain PyTorch versions.  Archs with blocks the port
+has not yet ported (MoE, RG-LRU, xLSTM, encoder-decoder) exit naming
+ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -82,7 +88,7 @@ def main(argv=None) -> dict:
     tc = TrainConfig(steps=args.steps, ckpt_dir=args.ckpt,
                      ckpt_every=args.ckpt_every, accum=args.accum,
                      compress_grads=args.compress_grads, lr=args.lr)
-    trainer = Trainer(cfg, tc, data, device=device)
+    trainer = Trainer(cfg, tc, data, device=device, attn_impl="auto")
     trainer.run()
     timed = trainer.step_seconds[1:] or trainer.step_seconds
     ms = 1e3 * statistics.median(timed) if timed else float("nan")

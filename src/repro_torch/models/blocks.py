@@ -1,13 +1,14 @@
-"""LM building blocks of the port: norms, the SwiGLU/GELU MLP and the paper's
+"""LM building blocks of the port: norms, the SwiGLU/GELU MLP, GQA attention
+(full, sliding-window or local, with RoPE and a KV cache) and the paper's
 LinearReservoir layer as a sequence mixer (the JAX package's
-``models/blocks.py``, reduced to what a reservoir-only LM needs).
+``models/blocks.py``, reduced to what the attention and reservoir LMs need).
 
 Parameters are nested dicts of tensors under the JAX package's key names,
 and every ``init_*`` draws from an explicit CPU ``torch.Generator`` and
 returns the params alone (the JAX ``init_*`` also return sharding specs: the
-port runs on one device, ROADMAP A11).  The attention, MoE, RG-LRU, mLSTM
-and sLSTM blocks are not ported yet: :func:`not_ported` raises for them,
-naming ROADMAP A12.
+port runs on one device, ROADMAP A11).  The MoE, RG-LRU, mLSTM and sLSTM
+blocks are not ported yet: :func:`not_ported` raises for them, naming
+ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -21,15 +22,18 @@ import torch.nn.functional as F
 
 from ..core import spectral
 from ..kernels import ops as kops
+from . import attention as attn_mod
 
 __all__ = ["ShardProfile", "NULL_PROFILE", "constrain", "not_ported",
            "torch_dtype", "init_norm", "apply_norm", "init_mlp", "apply_mlp",
+           "init_attention", "apply_attention", "apply_attention_decode",
            "init_reservoir", "apply_reservoir"]
 
 
 def not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP A12 (the "
-                              f"attention / hybrid LM blocks and kernel B3)")
+                              f"MoE, RG-LRU, xLSTM and encoder-decoder "
+                              f"blocks)")
 
 
 # --------------------------------------------------------------------------- #
@@ -122,6 +126,74 @@ def apply_mlp(p, x, act="silu", gated=True):
     if "bo" in p:
         out = out + p["bo"]
     return out
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention block                                                          #
+# --------------------------------------------------------------------------- #
+def init_attention(gen, cfg, dtype):
+    """3-D weights: ``wq`` (d, Hq, hd), ``wk``/``wv`` (d, Hkv, hd), ``wo``
+    (Hq, hd, d) scaled by 1/sqrt(Hq * hd); zero biases with ``qkv_bias``."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    p = {"wq": _dense_init(gen, (d, hq, hd), dtype),
+         "wk": _dense_init(gen, (d, hkv, hd), dtype),
+         "wv": _dense_init(gen, (d, hkv, hd), dtype),
+         "wo": _dense_init(gen, (hq, hd, d), dtype,
+                           scale=1.0 / math.sqrt(hq * hd))}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq, hd), dtype=dtype)
+        p["bk"] = torch.zeros((hkv, hd), dtype=dtype)
+        p["bv"] = torch.zeros((hkv, hd), dtype=dtype)
+    return p
+
+
+def _qkv(p, x, rope_theta, positions):
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"][None, :, None, :]
+        k = k + p["bk"][None, :, None, :]
+        v = v + p["bv"][None, :, None, :]
+    if rope_theta:
+        q = attn_mod.apply_rope(q, positions, rope_theta)
+        k = attn_mod.apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def apply_attention(p, x, cfg, *, causal=True, window=None, positions=None,
+                    impl="auto"):
+    """Full-sequence path, x (B, S, d).  Returns ``(out, (k, v))`` with the
+    full-length (B, Hkv, S, hd) keys and values (the prefill caches)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _qkv(p, x, cfg.rope_theta, positions)
+    o = attn_mod.attention(q, k, v, causal=causal, window=window, impl=impl)
+    return torch.einsum("bhsk,hkd->bsd", o, p["wo"]), (k, v)
+
+
+def apply_attention_decode(p, x, cfg, cache, *, window=None):
+    """x: (B, 1, d); cache ``{"k", "v"}`` (B, Hkv, S, hd) and ``"len"`` (a
+    0-d int tensor).  Returns ``(out, new_cache)``; the cache is not
+    modified in place.
+
+    When the cache is window-sized (a ring buffer: long-context decode of
+    sliding-window or local attention), writes wrap modulo its length.  RoPE
+    is applied at the absolute position before caching, so ring order does
+    not matter.  As JAX's ``dynamic_update_slice``, a write past the end of
+    a linear cache lands on its last slot."""
+    cur = cache["len"]
+    smax = cache["k"].shape[2]
+    ring = window is not None and smax <= window
+    q, k_new, v_new = _qkv(p, x, cfg.rope_theta, cur.reshape(1))
+    slot = torch.remainder(cur, smax) if ring else cur.clamp(0, smax - 1)
+    slot = slot.reshape(1).long()
+    k_cache = cache["k"].index_copy(2, slot, k_new.to(cache["k"].dtype))
+    v_cache = cache["v"].index_copy(2, slot, v_new.to(cache["v"].dtype))
+    o = attn_mod.decode_attention(q, k_cache, v_cache, cur + 1, window=window,
+                                  ring=ring)
+    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return out, {"k": k_cache, "v": v_cache, "len": cur + 1}
 
 
 # --------------------------------------------------------------------------- #

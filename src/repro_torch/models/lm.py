@@ -1,10 +1,12 @@
-"""Decoder LM assembly of the port, reduced to reservoir layers (the JAX
-package's ``models/lm.py``): the paper's own LM family, ``linear-esn`` — a
-stack of LinearReservoir mixers with SwiGLU MLPs.
+"""Decoder LM assembly of the port (the JAX package's ``models/lm.py``),
+reduced to attention and reservoir layers: the attention LMs (``attn`` —
+full causal GQA, ``swa`` — sliding-window GQA, ``local`` — local attention;
+e.g. ``smollm-135m``) and the paper's own LM family, ``linear-esn`` — a
+stack of LinearReservoir mixers — each with SwiGLU MLPs.
 
 The parameter tree is a nested dict under the JAX key names (``embed``,
-``layers/res/nu``, ``layers/mlp/wi``, ``final_norm``, ``head``); a
-homogeneous stack keeps the leading layer dimension, which
+``layers/attn/wq``, ``layers/res/nu``, ``layers/mlp/wi``, ``final_norm``,
+``head``); a homogeneous stack keeps the leading layer dimension, which
 :func:`_stack_forward` indexes layer by layer (the loop that JAX's
 ``lax.scan`` over layers compiles).  :func:`lm_params_from_numpy` carries a
 JAX ``init_params`` tree over, so both packages compute the same function.
@@ -22,12 +24,15 @@ from ..tree import tree_map
 from . import blocks
 from .blocks import NULL_PROFILE, ShardProfile, apply_norm, constrain, init_norm
 
-__all__ = ["MIXERS", "layer_kinds", "check_ported", "init_layer",
+__all__ = ["MIXERS", "ATTN_KINDS", "layer_kinds", "check_ported",
+           "ported_archs", "init_layer",
            "apply_layer", "init_params", "forward", "loss_fn",
            "make_decode_cache", "decode_step", "lm_params_from_numpy",
            "NULL_PROFILE", "ShardProfile"]
 
 MIXERS = ("attn", "swa", "local", "rglru", "mlstm", "slstm", "reservoir")
+ATTN_KINDS = ("attn", "swa", "local")
+PORTED_KINDS = ATTN_KINDS + ("reservoir",)
 
 
 def layer_kinds(cfg):
@@ -40,9 +45,9 @@ def _is_homogeneous(cfg):
 
 
 def check_ported(cfg) -> None:
-    """Raise unless every block of ``cfg`` is ported (reservoir mixers and
-    dense MLPs, decoder-only)."""
-    other = sorted(set(layer_kinds(cfg)) - {"reservoir"})
+    """Raise unless every block of ``cfg`` is ported (attention and
+    reservoir mixers, dense MLPs, decoder-only)."""
+    other = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
     if other:
         blocks.not_ported(f"{cfg.name}: the {', '.join(other)} mixer(s)")
     if cfg.n_experts:
@@ -51,15 +56,31 @@ def check_ported(cfg) -> None:
         blocks.not_ported(f"{cfg.name}: the encoder-decoder stack")
 
 
+def ported_archs():
+    """Names of the registered configs whose every block is ported."""
+    from ..configs import REGISTRY
+    out = []
+    for name, cfg in REGISTRY.items():
+        try:
+            check_ported(cfg)
+        except NotImplementedError:
+            continue
+        out.append(name)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Per-layer init / apply                                                       #
 # --------------------------------------------------------------------------- #
 def init_layer(gen, cfg, kind, dtype):
     p = {"norm1": init_norm(cfg.d_model, dtype, cfg.norm)}
-    if kind != "reservoir":
+    if kind in ATTN_KINDS:
+        p["attn"] = blocks.init_attention(gen, cfg, dtype)
+    elif kind == "reservoir":
+        p["res"] = blocks.init_reservoir(gen, cfg, dtype,
+                                         n_state=cfg.d_rnn or cfg.d_model)
+    else:
         blocks.not_ported(f"the {kind!r} mixer")
-    p["res"] = blocks.init_reservoir(gen, cfg, dtype,
-                                     n_state=cfg.d_rnn or cfg.d_model)
     if cfg.n_experts > 0:
         blocks.not_ported("the MoE block")
     if cfg.d_ff > 0:
@@ -70,22 +91,37 @@ def init_layer(gen, cfg, kind, dtype):
     return p
 
 
-def apply_layer(p, x, cfg, kind, prof=NULL_PROFILE, *, cache=None):
+def apply_layer(p, x, cfg, kind, prof=NULL_PROFILE, *, mode="train",
+                cache=None, positions=None, attn_impl="auto"):
     """Returns ``(x, new_cache, aux)``; ``aux`` holds the MoE losses, zero
-    for the ported blocks."""
-    if kind != "reservoir":
+    for the ported blocks.  ``mode``: ``"train"`` / ``"prefill"`` run the
+    full sequence (an attention layer's new cache is its full-length
+    ``{"kv": {"k", "v"}}``), ``"decode"`` one token against ``cache``."""
+    if kind not in PORTED_KINDS:
         blocks.not_ported(f"the {kind!r} mixer")
     zero = x.new_zeros((), dtype=torch.float32)
     aux = {"load_balance": zero, "router_z": zero}
     h = apply_norm(p["norm1"], x, cfg.norm)
-    mix, st = blocks.apply_reservoir(p["res"], h, cfg,
-                                     cache=cache and cache.get("res"))
+    window = cfg.window if kind in ("swa", "local") else None
+    if kind in ATTN_KINDS and mode == "decode":
+        mix, kv = blocks.apply_attention_decode(p["attn"], h, cfg,
+                                                cache["kv"], window=window)
+        st = {"kv": kv}
+    elif kind in ATTN_KINDS:
+        mix, (k, v) = blocks.apply_attention(
+            p["attn"], h, cfg, causal=not cfg.bidirectional_attn,
+            window=window, positions=positions, impl=attn_impl)
+        st = {"kv": {"k": k, "v": v}}
+    else:
+        mix, res = blocks.apply_reservoir(p["res"], h, cfg,
+                                          cache=cache and cache.get("res"))
+        st = {"res": res}
     x = x + mix
     if "norm2" in p:
         h2 = apply_norm(p["norm2"], x, cfg.norm)
         x = x + blocks.apply_mlp(p["mlp"], h2, cfg.act,
                                  gated=cfg.act != "gelu")
-    return x, {"res": st}, aux
+    return x, st, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -151,35 +187,43 @@ def _collect(cfg, caches):
     return {f"layer_{i}": c for i, c in enumerate(caches)}
 
 
-def _stack_forward(p, x, cfg, prof=NULL_PROFILE, *, mode, remat=False):
+def _stack_forward(p, x, cfg, prof=NULL_PROFILE, *, mode, positions=None,
+                   attn_impl="auto", remat=False):
     """Full-sequence stack (train / prefill), one layer after another.
-    Caches come back in prefill mode only; ``remat`` recomputes each layer
-    in the backward (``torch.utils.checkpoint``) instead of keeping its
-    activations."""
+    Caches come back in prefill mode only (training keeps no per-layer KV);
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``) instead of keeping its activations."""
     caches, auxes = [], []
     for i, kind in enumerate(layer_kinds(cfg)):
         lp = _layer(p["layers"], cfg, i)
 
         def run(x, lp=lp, kind=kind):
-            return apply_layer(lp, x, cfg, kind, prof)
+            return apply_layer(lp, x, cfg, kind, prof, mode=mode,
+                               positions=positions, attn_impl=attn_impl)
         if remat:
             x, nc, aux = checkpoint(run, x, use_reentrant=False)
         else:
             x, nc, aux = run(x)
         x = constrain(x, None, prof)
-        caches.append(nc)
+        if mode == "prefill":
+            caches.append(nc)
         auxes.append(aux)
     aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
     return x, (_collect(cfg, caches) if mode == "prefill" else None), aux
 
 
 def forward(p, cfg, batch, prof: ShardProfile = NULL_PROFILE, *,
-            mode="train", remat=False):
+            mode="train", attn_impl="auto", remat=False):
     """Full-sequence forward.  ``batch``: ``{"tokens": (B, S)}``.  Returns
-    ``(logits (B, S, V), caches, aux)``."""
+    ``(logits (B, S, V), caches, aux)``.  ``attn_impl``: ``"auto"`` (dense
+    below 1024 keys, else the flash kernel), ``"dense"`` or ``"flash"``."""
+    if "embeds" in batch:
+        blocks.not_ported("embedding inputs (the VLM frontend)")
     x = _embed_tokens(p, cfg, batch["tokens"], prof)
+    positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches, aux = _stack_forward(p, x, cfg, prof, mode=mode,
-                                        remat=remat)
+                                        positions=positions,
+                                        attn_impl=attn_impl, remat=remat)
     x = apply_norm(p["final_norm"], x, cfg.norm)
     head = p["embed"].T if cfg.tie_embeddings else p["head"]
     return x @ head.to(x.dtype), new_caches, aux
@@ -202,24 +246,39 @@ def loss_fn(p, cfg, batch, prof=NULL_PROFILE, **kw):
 # --------------------------------------------------------------------------- #
 # Decode                                                                       #
 # --------------------------------------------------------------------------- #
-def make_decode_cache(p, cfg, batch_size, max_len):
+def make_decode_cache(p, cfg, batch_size, max_len, dtype=None):
     """Empty decode caches on the params' device, shaped as
-    :func:`_stack_forward` returns them: per reservoir layer the carried
-    state ``{"res": {"h_re", "h_im"}}`` (B, N) float32, with a leading layer
-    dimension for a homogeneous stack.  (``max_len`` sizes the attention
-    caches, which are not ported.)"""
+    :func:`_stack_forward` returns them, with a leading layer dimension for
+    a homogeneous stack.  An attention layer gets ``{"kv": {"k", "v",
+    "len"}}``: (B, Hkv, L, hd) in ``dtype`` (default the config's) and an
+    int32 count of the valid entries, where L is ``max_len``, or the window
+    for a ``swa``/``local`` layer (a ring buffer: O(window) memory however
+    long the sequence).  A reservoir layer gets its carried state
+    ``{"res": {"h_re", "h_im"}}`` (B, N) float32."""
     check_ported(cfg)
     dev = p["embed"].device
-    n = cfg.d_rnn or cfg.d_model
-    lead = (cfg.n_layers,) if _is_homogeneous(cfg) else ()
+    dtype = blocks.torch_dtype(dtype or cfg.dtype)
+    homo = _is_homogeneous(cfg)
+    lead = (cfg.n_layers,) if homo else ()
 
-    def one():
+    def one(kind):
+        if kind in ATTN_KINDS:
+            eff_len = max_len
+            if cfg.window is not None and kind in ("swa", "local"):
+                eff_len = min(max_len, cfg.window)
+            shape = lead + (batch_size, cfg.n_kv, eff_len, cfg.head_dim)
+            return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev),
+                           "len": torch.zeros(lead, dtype=torch.int32,
+                                              device=dev)}}
+        n = cfg.d_rnn or cfg.d_model
         return {"res": {k: torch.zeros(lead + (batch_size, n),
                                        dtype=torch.float32, device=dev)
                         for k in ("h_re", "h_im")}}
-    if lead:
-        return one()
-    return {f"layer_{i}": one() for i in range(cfg.n_layers)}
+    kinds = layer_kinds(cfg)
+    if homo:
+        return one(kinds[0])
+    return {f"layer_{i}": one(k) for i, k in enumerate(kinds)}
 
 
 def decode_step(p, cfg, cache, tokens, prof=NULL_PROFILE):
@@ -229,7 +288,8 @@ def decode_step(p, cfg, cache, tokens, prof=NULL_PROFILE):
     caches = []
     for i, kind in enumerate(layer_kinds(cfg)):
         x, nc, _ = apply_layer(_layer(p["layers"], cfg, i), x, cfg, kind,
-                               prof, cache=_layer(cache, cfg, i))
+                               prof, mode="decode",
+                               cache=_layer(cache, cfg, i))
         caches.append(nc)
     x = apply_norm(p["final_norm"], x, cfg.norm)
     head = p["embed"].T if cfg.tie_embeddings else p["head"]

@@ -11,7 +11,9 @@
 The state is the JAX trainer's tree — ``params``, ``opt`` (``m``, ``v``,
 ``step``), ``ef`` and ``step`` — so a checkpoint that either package writes
 restores in the other.  On a CUDA device every reservoir scan and its
-gradient run through the hand-written kernels (``kernels.ops``).
+gradient, and every flash-attention forward, run through the hand-written
+kernels (``kernels.ops``).  Keyword arguments of :class:`Trainer` beyond the
+device (``attn_impl``, ``remat``) go to ``lm.forward``.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ one; this file imports no JAX, so it runs where only PyTorch is installed
 Tolerances: float64 ``1e-9 * max(1, max|ref|)`` (the kernels contract
 multiply-adds into FMAs and sum the readout in a tree); float32 2e-4 (the
 JAX package's kernel tests), scaled by ``max(1, max|ref|)`` for gradients,
-whose ``da`` sums thousands of terms in another order.
+whose ``da`` sums thousands of terms in another order; flash attention in
+bfloat16 5e-2 (the JAX package's bf16 kernel test); the LM on the card
+against the CPU 1e-4 relative (float32, TF32 off).
 """
 import dataclasses
 
@@ -23,6 +25,7 @@ from repro_torch.core.params import ESNConfig
 from repro_torch.data.signals import mso_series
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.serve.engine import ReservoirEngine
 from repro_torch.train.trainer import loss_and_grads
@@ -287,3 +290,125 @@ def test_engine_on_card_matches_cpu_engine(dev):
         _close(ys, ys_c)
         _close(state, state_c)
         _close(y, y_c)
+
+
+# --------------------------------------------------------------------------- #
+# B3: flash attention                                                          #
+# --------------------------------------------------------------------------- #
+# (b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len)
+FLASH_CASES = {
+    "mha-causal": (1, 2, 2, 64, 64, 32, True, None, 0, None),
+    "gqa": (2, 4, 2, 64, 64, 16, True, None, 0, None),
+    "mqa-ragged": (1, 3, 1, 40, 40, 8, True, None, 0, None),
+    "window": (1, 2, 2, 64, 64, 32, True, 16, 0, None),
+    "decode": (1, 2, 1, 1, 96, 16, True, None, 95, None),
+    "cross-ragged": (1, 2, 2, 48, 80, 16, False, None, 0, None),
+    "kv_len": (2, 6, 3, 100, 150, 64, False, None, 0, 77),
+    "hd128-window": (1, 4, 2, 130, 200, 128, True, 40, 70, None),
+    "no-visible-key": (1, 2, 1, 20, 30, 24, True, None, -5, None),
+    # smollm-135m's training chunks at batch 1 (heads and widths published)
+    "smollm-chunk0": (1, 9, 3, 1024, 1024, 64, True, None, 0, None),
+    "smollm-chunk1": (1, 9, 3, 1024, 2048, 64, True, None, 1024, None),
+}
+
+
+def flash_inputs(case, dtype, device, seed=0):
+    b, hq, hkv, sq, skv, d = case[:6]
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=g)
+    k = torch.randn((b, hkv, skv, d), generator=g)
+    # v in the (B, S, H, D) storage an einsum may return: read by strides
+    v = torch.randn((b, skv, hkv, d), generator=g).permute(0, 2, 1, 3)
+    return [t.to(device=device, dtype=dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(dev, name, dtype):
+    case = FLASH_CASES[name]
+    causal, window, q_offset, kv_len = case[6:]
+    q, k, v = flash_inputs(case, dtype, dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    before = ops.flash_attention_fwd.launches
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    assert ops.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_counts_only_kernel_launches(dev):
+    q, k, v = flash_inputs(FLASH_CASES["gqa"], torch.float32, dev)
+    before = ops.flash_attention_fwd.launches
+    ops.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu())      # plain version
+    ops.flash_attention_fwd(q[:, :, :0], k, v)              # empty grid
+    assert ops.flash_attention_fwd.launches == before
+    out = ops.flash_attention(q, k, v, True, None, 0)
+    assert ops.flash_attention_fwd.launches == before + 1
+    _close(out, ref.attention_ref(q, k, v), torch.float32)
+
+
+def test_flash_attention_refuses_what_it_cannot_run(dev):
+    q, k, v = flash_inputs(FLASH_CASES["gqa"], torch.float32, dev)
+    with pytest.raises(ValueError, match="share one device"):
+        ops.flash_attention_fwd(q, k.cpu(), v)
+    meta = torch.zeros((1, 1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device type"):
+        ops.flash_attention_fwd(meta, meta, meta)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention_fwd(q.double(), k.double(), v.double())
+    wide = torch.zeros((1, 1, 4, 160), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="GQA"):
+        ops.flash_attention_fwd(q[:, :3], k, v)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="unit-stride head dimension"):
+        ops.flash_attention_fwd(strided, k, v)
+
+
+def test_jnp_flash_grads_card_match_cpu(dev):
+    """The model's flash attention (kernel forward, chunked backward) on the
+    card against the CPU (plain forward), forward and gradients."""
+    q, k, v = flash_inputs((2, 6, 2, 96, 160, 64), torch.float32, "cpu")
+    cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        before = ops.flash_attention_fwd.launches
+        o = attn_mod.jnp_flash(*leaves, True, None, 64, 32, 150)
+        o.backward(cot.to(device))
+        assert ops.flash_attention_fwd.launches - before == (
+            1 if device.type == "cuda" else 0)
+        out[device.type] = [o] + [t.grad for t in leaves]
+    for g_, w_ in zip(out["cuda"], out["cpu"]):
+        _close_scaled(g_, w_, torch.float32)
+
+
+def test_smollm_train_step_card_matches_cpu(dev):
+    """One loss-and-gradient step of a 2-layer smoke-size smollm-135m at
+    2048 tokens from the same weights: the card (two banded flash launches
+    a layer) against the CPU (plain versions), float32 with TF32 off."""
+    cfg = dataclasses.replace(smoke_config("smollm-135m"), n_layers=2)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(1, 2048)))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        before = ops.flash_attention_fwd.launches
+        p = tree_map(lambda v: v.to(device), params)
+        loss, _, grads = loss_and_grads(cfg, p, {"tokens": toks.to(device)})
+        launched = ops.flash_attention_fwd.launches - before
+        assert launched == (2 * cfg.n_layers if device.type == "cuda" else 0)
+        out[device.type] = (float(loss), flatten(grads))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, w_ in g_cpu.items():
+        d = float((g_gpu[k].cpu() - w_).abs().max())
+        assert d <= 1e-4 * float(w_.abs().max()), k

@@ -189,7 +189,7 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
             tserve.main(["--reservoir", "--device", "cpu", *flag])
     # Without --reservoir the LM loop runs (its default arch,
     # recurrentgemma-2b, has blocks that are not ported yet).
-    for argv in (["--device", "cpu"], ["--arch", "smollm-135m", "--smoke",
+    for argv in (["--device", "cpu"], ["--arch", "xlstm-125m", "--smoke",
                                        "--device", "cpu"]):
         with pytest.raises(SystemExit, match="not ported yet: ROADMAP A12"):
             tserve.main(argv)

@@ -62,7 +62,10 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
              lambda: ReservoirEngine(esn.dpg_params(cfg, device="cpu")),
              lambda: serve.main(["--reservoir", "--n", "16"]),
              lambda: serve.main(["--arch", "linear-esn", "--smoke"]),
+             lambda: serve.main(["--arch", "smollm-135m", "--smoke"]),
              lambda: train.main(["--smoke", "--steps", "1"]),
+             lambda: train.main(["--arch", "smollm-135m", "--smoke",
+                                 "--steps", "1"]),
              lambda: Trainer(lm_cfg, TrainConfig(), MarkovTokens(128, 2, 8)),
              lambda: lm.init_params(torch.Generator(), lm_cfg),
              lambda: lm.lm_params_from_numpy({})]

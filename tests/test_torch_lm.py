@@ -1,13 +1,15 @@
-"""Port parity: the reservoir LM (``models/``) against the JAX package's.
+"""Port parity: the reservoir LM and the attention LM (``models/``) against
+the JAX package's.
 
 The weights are the JAX ``init_params`` output carried over with
 ``lm_params_from_numpy``, so both packages compute the same function; inputs
-come from numpy seeds.  On the CPU the port's scan runs its plain version
-(forward and backward); the JAX side runs as its own tests run it — the
-chunked scan in the LM, and the Pallas kernel in interpret mode where
-``use_pallas=True``.  Everything is float32: logits, losses and layer
-outputs agree to 1e-5 of their largest value, gradients leaf-wise to 1e-4 of
-each leaf's largest value (the two frameworks sum in different orders).
+come from numpy seeds.  On the CPU the port's scan and flash attention run
+their plain versions (forward and backward); the JAX side runs as its own
+tests run it — the chunked scan and ``jnp_flash`` in the LM, and the Pallas
+scan kernel in interpret mode where ``use_pallas=True``.  Everything is
+float32: logits, losses and layer outputs agree to 1e-5 of their largest
+value, gradients leaf-wise to 1e-4 of each leaf's largest value (the two
+frameworks sum in different orders).
 """
 import dataclasses
 
@@ -170,10 +172,173 @@ def test_decode_matches_forward_and_jax(model):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    for name in ("smollm-135m", "recurrentgemma-2b", "xlstm-125m",
+    for name in ("kimi-k2-1t-a32b", "recurrentgemma-2b", "xlstm-125m",
                  "arctic-480b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             tlm.init_params(torch.Generator(), tsmoke_config(name), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tblocks.constrain(torch.zeros(1), None,
                           tblocks.ShardProfile(mesh=object()))
+
+
+# --------------------------------------------------------------------------- #
+# The attention LM: smollm-135m at smoke size                                  #
+# --------------------------------------------------------------------------- #
+ATTN_MODELS = {
+    "smollm-2-layer": ("attn", 2),
+    "smollm-3-layer": ("attn", 3),
+    "swa-window16": ("swa", 2),
+}
+
+
+def _attn_cfg(kind, n_layers):
+    cfg = dataclasses.replace(smoke_config("smollm-135m"), n_layers=n_layers)
+    if kind == "swa":
+        cfg = dataclasses.replace(cfg, block_pattern=("swa",), window=16)
+    return cfg
+
+
+@pytest.fixture(scope="module", params=list(ATTN_MODELS))
+def attn_model(request):
+    """(cfg, JAX params, port params, tokens (B, 40)) of one smoke-size
+    attention LM (d_model 128, 4 query and 2 KV heads of 32)."""
+    cfg = _attn_cfg(*ATTN_MODELS[request.param])
+    seed = list(ATTN_MODELS).index(request.param)
+    jp, _ = jlm.init_params(jax.random.PRNGKey(seed), cfg)
+    tp = tlm.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(B, 40)).astype(np.int32)
+    return cfg, jp, tp, toks
+
+
+def _jax_flat(tree):
+    return {"/".join(str(k.key) for k in path): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_attn_carried_params_keep_keys_shapes_and_values(attn_model):
+    cfg, jp, tp, _ = attn_model
+    want, got = _jax_flat(jp), flatten(tp)
+    assert list(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32 and v.dtype == np.float32
+        np.testing.assert_array_equal(got[k].numpy(), v)
+    assert got["layers/attn/wq"].shape == (cfg.n_layers, cfg.d_model,
+                                           cfg.n_heads, cfg.head_dim)
+    assert got["layers/attn/wo"].shape == (cfg.n_layers, cfg.n_heads,
+                                           cfg.head_dim, cfg.d_model)
+
+
+def test_attn_port_init_has_the_jax_layout(attn_model):
+    cfg, _, tp, _ = attn_model
+    own = tlm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert {k: (v.shape, v.dtype) for k, v in flatten(own).items()} == \
+        {k: (v.shape, v.dtype) for k, v in flatten(tp).items()}
+    # wo is scaled by 1/sqrt(Hq * hd) = 1/sqrt(d_model): std ~ 0.088.
+    assert 0.07 < float(own["layers"]["attn"]["wo"].std()) < 0.11
+
+
+def test_qkv_bias_block_matches_jax():
+    """A block with q/k/v biases (the qwen2 flavour), at nonzero biases."""
+    cfg = dataclasses.replace(smoke_config("smollm-135m"), qkv_bias=True)
+    jp, _ = jblocks.init_attention(jax.random.PRNGKey(3), cfg, jnp.float32,
+                                   jblocks.NULL_PROFILE)
+    rng = np.random.default_rng(3)
+    jp = {k: (jnp.asarray(rng.normal(size=v.shape), jnp.float32)
+              if k.startswith("b") else v) for k, v in jp.items()}
+    tp = tlm.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    x = rng.normal(size=(B, 20, cfg.d_model)).astype(np.float32)
+    want, (wk, wv) = jblocks.apply_attention(jp, jnp.asarray(x), cfg)
+    got, (gk, gv) = tblocks.apply_attention(tp, torch.tensor(x), cfg)
+    for g, w in ((got, want), (gk, wk), (gv, wv)):
+        _assert_rel(g.numpy(), w, 1e-5)
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_attn_forward_loss_and_grads_match_jax(attn_model, impl):
+    cfg, jp, tp, toks = attn_model
+    batch_j, batch_t = {"tokens": jnp.asarray(toks)}, {
+        "tokens": torch.tensor(toks)}
+    want, _, _ = jlm.forward(jp, cfg, batch_j, attn_impl=impl)
+    got, _, _ = tlm.forward(tp, cfg, batch_t, attn_impl=impl)
+    _assert_rel(got.numpy(), want, 1e-5)
+    wl, wgrads = jax.value_and_grad(lambda p: jlm.loss_fn(
+        p, cfg, batch_j, attn_impl=impl)[0])(jp)
+    gl, _, grads = loss_and_grads(cfg, tp, batch_t, attn_impl=impl)
+    assert abs(float(gl) - float(wl)) <= 1e-5 * abs(float(wl))
+    got_g, want_g = flatten(grads), _jax_flat(wgrads)
+    assert set(got_g) == set(want_g)
+    for k, w in want_g.items():
+        d = float(np.abs(got_g[k].numpy() - w).max())
+        assert d <= 1e-4 * float(np.abs(w).max()), (k, d)
+
+
+def test_attn_banded_training_path_matches_jax(monkeypatch):
+    """impl="auto" at 1024 tokens takes the flash route through
+    ``_banded_attention``; with 512-row query chunks that is two launches a
+    layer at offsets 0 and 512, as the published 2048-token context runs
+    two 1024-row chunks."""
+    from repro.models import attention as jattn
+    from repro_torch.kernels import ops as tops
+    from repro_torch.models import attention as tattn
+    monkeypatch.setattr(jattn, "BAND_Q_CHUNK", 512)
+    monkeypatch.setattr(tattn, "BAND_Q_CHUNK", 512)
+    cfg = _attn_cfg("attn", 2)
+    jp, _ = jlm.init_params(jax.random.PRNGKey(5), cfg)
+    tp = tlm.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, size=(1, 1024))
+    batch_j = {"tokens": jnp.asarray(toks, jnp.int32)}
+    calls = []
+    real = tattn.jnp_flash
+    monkeypatch.setattr(tattn, "jnp_flash",
+                        lambda *a: calls.append(a[5]) or real(*a))
+    wl, wgrads = jax.value_and_grad(lambda p: jlm.loss_fn(
+        p, cfg, batch_j)[0])(jp)
+    before = tops.flash_attention_fwd.launches
+    gl, _, grads = loss_and_grads(cfg, tp, {"tokens": torch.tensor(toks)})
+    assert calls == [0, 512] * cfg.n_layers
+    assert tops.flash_attention_fwd.launches == before   # the CPU route
+    assert abs(float(gl) - float(wl)) <= 1e-5 * abs(float(wl))
+    for k, w in _jax_flat(wgrads).items():
+        d = float(np.abs(flatten(grads)[k].numpy() - w).max())
+        assert d <= 1e-4 * float(np.abs(w).max()), (k, d)
+
+
+def test_attn_prefill_caches_match_jax(attn_model):
+    cfg, jp, tp, toks = attn_model
+    _, wc, _ = jlm.forward(jp, cfg, {"tokens": jnp.asarray(toks)},
+                           mode="prefill")
+    _, gc, _ = tlm.forward(tp, cfg, {"tokens": torch.tensor(toks)},
+                           mode="prefill")
+    want, got = _jax_flat(wc), flatten(gc)
+    assert set(got) == set(want) == {"kv/k", "kv/v"}
+    for k, w in want.items():
+        assert tuple(got[k].shape) == w.shape == (
+            cfg.n_layers, B, cfg.n_kv, toks.shape[1], cfg.head_dim)
+        _assert_rel(got[k].detach().numpy(), w, 1e-5)
+
+
+def test_attn_decode_matches_forward_and_jax(attn_model):
+    """Token-by-token decode through the KV caches equals the full forward
+    and the JAX package's decode steps, logits and caches.  For the
+    window-16 variant the cache is a 16-slot ring buffer and 40 tokens wrap
+    it twice."""
+    cfg, jp, tp, toks = attn_model
+    s = toks.shape[1]
+    full, _, _ = tlm.forward(tp, cfg, {"tokens": torch.tensor(toks)})
+    tcache = tlm.make_decode_cache(tp, cfg, B, s + 4)
+    jcache = jlm.make_decode_cache(jp, cfg, B, s + 4)
+    eff = min(s + 4, cfg.window or s + 4)
+    assert tuple(tcache["kv"]["k"].shape) == (cfg.n_layers, B, cfg.n_kv, eff,
+                                              cfg.head_dim)
+    assert tcache["kv"]["len"].dtype == torch.int32
+    jstep = jax.jit(lambda p, c, t: jlm.decode_step(p, cfg, c, t))
+    for t in range(s):
+        got, tcache = tlm.decode_step(tp, cfg, tcache,
+                                      torch.tensor(toks[:, t:t + 1]))
+        want, jcache = jstep(jp, jcache, jnp.asarray(toks[:, t:t + 1]))
+        _assert_rel(got.numpy(), want, 1e-5)
+        _assert_rel(got[:, 0].numpy(), full[:, t].detach().numpy(), 1e-5)
+    assert [int(v) for v in tcache["kv"]["len"]] == [s] * cfg.n_layers
+    for key, w in flatten(jax.tree.map(np.asarray, jcache)).items():
+        _assert_rel(flatten(tcache)[key].numpy(), w, 1e-5)

@@ -150,6 +150,37 @@ def test_trainer_losses_match_jax_trainer():
     np.testing.assert_allclose(tr.losses, jtr.losses, rtol=1e-4)
 
 
+@pytest.mark.parametrize("attn_impl", ["auto", "flash"])
+def test_smollm_trainer_losses_match_jax_trainer(attn_impl):
+    """Three AdamW steps of the attention LM (smollm-135m at smoke size, 2
+    layers) from the same weights and batches; ``auto`` is dense at 32
+    tokens, ``flash`` runs the flash forward and its chunked backward."""
+    cfg = dataclasses.replace(smoke_config("smollm-135m"), vocab=64,
+                              n_layers=2)
+    data = tpipe.MarkovTokens(vocab=cfg.vocab, batch=4, seq_len=32)
+    jdata = jpipe.MarkovTokens(vocab=cfg.vocab, batch=4, seq_len=32)
+    jtr = JTrainer(cfg, JTrainConfig(steps=3, log_every=0, lr=1e-2), jdata,
+                   attn_impl=attn_impl)
+    jstate = jtr.init_state(0)
+    tr = Trainer(cfg, TrainConfig(steps=3, log_every=0, lr=1e-2), data,
+                 device="cpu", attn_impl=attn_impl)
+    tstate = tlm.lm_params_from_numpy(_np_tree(jstate), "cpu")
+    jtr.run(start_state=jstate)
+    tr.run(start_state=tstate)
+    np.testing.assert_allclose(tr.losses, jtr.losses, rtol=1e-4)
+
+
+def test_smollm_launch_train_runs_on_cpu():
+    """``launch.train --arch smollm-135m`` at smoke size on the host, at a
+    2048-token context so training takes the banded flash route."""
+    from repro_torch.launch import train
+    res = train.main(["--arch", "smollm-135m", "--smoke", "--steps", "2",
+                      "--batch", "1", "--seq", "2048", "--vocab", "64",
+                      "--device", "cpu"])
+    assert res["steps_run"] == 2 and res["finite"]
+    assert res["arch"] == "smollm-135m" and res["seq"] == 2048
+
+
 class _NegGrads:
     """An 'optimizer' whose update is the gradient itself, so a step's
     parameter change exposes the gradient it used."""
