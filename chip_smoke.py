@@ -18,7 +18,10 @@ counts set to 0 just before it and read just after:
    its gradient through the kernels, 12 forward and 12 backward launches a
    step; a 2-layer full-width trainer is held against the CPU's;
 3. ``repro_torch.launch.serve --arch linear-esn``: the LM decode loop at
-   full width, its last logits held against a CPU run;
+   full width in the config's bfloat16 (as the JAX loop serves), the
+   card's tokens replayed through the CPU loop and every step's logits
+   held against the CPU's; a 2-layer float32 loop is held against the CPU
+   more tightly;
 4. ``repro_torch.launch.train --arch smollm-135m``: the attention LM at its
    published widths (30 layers, d_model 576, 9 query / 3 KV heads of 64,
    d_ff 1536, vocab 49152), batch 8 x 2048 tokens, 10 AdamW steps, float32 —
@@ -26,8 +29,8 @@ counts set to 0 just before it and read just after:
    chunks a layer, 60 launches a step; a 2-layer full-width trainer is held
    against the CPU's;
 5. ``repro_torch.launch.serve --arch smollm-135m``: its decode loop over KV
-   caches (dense decode attention, as in the JAX package: no kernel),
-   held against a CPU run.
+   caches (dense decode attention, as in the JAX package: no kernel), in
+   bfloat16, held against the CPU as path 3 is.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -38,9 +41,21 @@ Tolerances: float64 ``max|d| <= 1e-9 * max(1, max|ref|)`` — the kernels
 contract multiply-adds into FMAs and sum in another order; float32 2e-4, as
 the JAX package's kernel tests (scaled by ``max(1, max|ref|)`` for the
 backward, whose ``da`` sums 8192 terms); flash attention in bfloat16 5e-2
-(the JAX package's bf16 kernel test) and its ``lse`` 1e-5; the LM on the
-card against the CPU 1e-4 relative (float32 with TF32 off: cuBLAS and the
-CPU sum in different orders).
+(the JAX package's bf16 kernel test) and its ``lse`` 1e-5; the float32 LM
+on the card against the CPU 1e-4 relative (TF32 off: cuBLAS and the CPU sum
+in different orders); the bfloat16 LM serve loops against the CPU 5e-2 of
+the largest |logit| (bfloat16 keeps 8 bits: the two devices round the same
+ops but sum the GEMMs in other orders, so activations part by an ulp here
+and there and the gaps add up over the layers — about 13 ulps of the
+largest logit allowed).
+
+Bounds: the larger of the bytes (each input read once, each output written
+once) over HBM3's 3.35 TB/s and the operations over the rate of the units
+that run them (NVIDIA H100 SXM data sheet, dense): 67 TFLOP/s float32 and
+34 TFLOP/s float64 outside the tensor cores (float64 contractions 67 on
+them); flash attention on the tensor cores, float32 as 3xTF32 (three TF32
+products per float32 product at 495 TFLOP/s) and bfloat16 at 989 TFLOP/s,
+with its float32 CUDA-core bound (``simt_bound_ms``) beside it.
 """
 import json
 import subprocess
@@ -52,12 +67,15 @@ import numpy as np
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; flop/s of
 #: element-wise work outside the tensor cores, and of contractions, which
-#: float64 can run on the tensor cores at twice that rate.
+#: float64 can run on the tensor cores at twice that rate; dense
+#: tensor-core rates of the flash kernel's products (TF32 operands of the
+#: 3xTF32 route for float32 inputs, bfloat16).
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 PEAK_CONTRACT_FLOPS = {"float64": 67e12, "float32": 67e12}
+PEAK_TENSOR_FLOPS = {"tf32": 495e12, "bfloat16": 989e12}
 F64_TOL, F32_TOL = 1e-9, 2e-4
-LM_TOL = 1e-4
+LM_TOL, BF16_LM_TOL = 1e-4, 5e-2
 SERVE_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--sessions",
               "16", "--prompt-len", "1024", "--gen", "128"]
 TRAIN_STEPS = 10
@@ -70,6 +88,9 @@ SMOLLM_TRAIN_ARGS = ["--arch", "smollm-135m", "--vocab", "49152", "--batch",
 SMOLLM_SERVE_ARGS = ["--arch", "smollm-135m", "--batch", "4", "--prompt-len",
                      "64", "--gen", "32"]
 BF16_TOL, LSE_TOL = 5e-2, 1e-5
+#: The port's kernels, by their CUDA function names (profile summaries).
+OWN_KERNELS = ("diag_scan", "diag_scan_bwd", "decode_fused",
+               "flash_attention_fwd")
 
 
 def fail(msg: str) -> None:
@@ -125,12 +146,14 @@ def copy_bandwidth() -> float:
 
 
 def bound(bytes_moved: float, flops: float, dtype: str, copy_bw: float,
-          contract_flops: float = 0.0):
+          contract_flops: float = 0.0, contract_peak: float = None):
     """The larger of the byte time and the operation time; ``flops`` are
-    element-wise, ``contract_flops`` those of contractions."""
+    element-wise, ``contract_flops`` those of contractions (at
+    ``contract_peak``, default the dtype's contraction rate)."""
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = (flops / PEAK_FLOPS[dtype]
-             + contract_flops / PEAK_CONTRACT_FLOPS[dtype]) * 1e3
+    t_ops = ((flops / PEAK_FLOPS[dtype] if flops else 0.0)
+             + contract_flops / (contract_peak or PEAK_CONTRACT_FLOPS[dtype])
+             ) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "copy_bound_ms": bytes_moved / copy_bw * 1e3,
@@ -195,6 +218,8 @@ def check_diag_scan(ops, ref, copy_bw):
         ("fit", (1, 2000, 525), "static", True, False, "float64", True),
         # linear-esn training: B=8, T=1024, d_rnn=1024, complex64 lanes
         ("train", (8, 1024, 1024), "static", True, False, "float32", True),
+        # linear-esn LM decode: batch 4, one token, d_rnn 1024, with h0
+        ("lm-decode", (4, 1, 1024), "static", True, True, "float32", True),
         ("time-a", (3, 77, 130), "time", True, False, "float64", False),
         ("full-a-h0", (2, 50, 20), "full", False, True, "float64", False),
         ("ragged-h0", (5, 333, 257), "static", True, True, "float64", False),
@@ -402,15 +427,16 @@ def check_decode_fused(ops, ref, copy_bw):
 # B3 flash attention                                                           #
 # --------------------------------------------------------------------------- #
 # name, (b, hq, hkv, sq, skv, d), causal, window, q_offset, kv_len, dtype,
-# timed.  The two timed cases are the launches of smollm-135m's training
-# step at batch 8 x 2048: _banded_attention's 1024-row query chunks.
+# timed.  The timed float32 cases are the launches of smollm-135m's
+# training step at batch 8 x 2048: _banded_attention's 1024-row query
+# chunks; chunk 1 is timed in bfloat16 as well (the bf16 MMA route).
 FLASH_CASES = [
     ("chunk0", (8, 9, 3, 1024, 1024, 64), True, None, 0, None, "float32",
      True),
     ("chunk1", (8, 9, 3, 1024, 2048, 64), True, None, 1024, None, "float32",
      True),
     ("chunk1-bf16", (8, 9, 3, 1024, 2048, 64), True, None, 1024, None,
-     "bfloat16", False),
+     "bfloat16", True),
     # the cases of tests/test_kernels.py
     ("mha-causal", (1, 2, 2, 64, 64, 32), True, None, 0, None, "float32",
      False),
@@ -445,6 +471,21 @@ def flash_cost(q, k, mask):
               + 4 * b * hq * sq)
     pairs = int(mask.sum()) * b * hq
     return nbytes, 4 * d * pairs
+
+
+def flash_bound(q, k, mask, dtype, copy_bw):
+    """B3's bound on the route the kernel takes: the products on the tensor
+    cores, float32 as 3xTF32 (three TF32 products of each pair's flops),
+    bfloat16 as one bf16 product; and the float32 CUDA-core bound of the
+    same flops, for comparison with a SIMT kernel."""
+    nbytes, flops = flash_cost(q, k, mask)
+    route, passes = (("3xTF32", 3) if dtype == "float32" else ("bf16", 1))
+    peak = PEAK_TENSOR_FLOPS["tf32" if dtype == "float32" else "bfloat16"]
+    out = bound(nbytes, 0.0, dtype, copy_bw, contract_flops=passes * flops,
+                contract_peak=peak)
+    out.update(mma_route=route, pair_flops=flops,
+               simt_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+    return out
 
 
 def library_attention(q, k, v, mask):
@@ -490,8 +531,9 @@ def check_flash_attention(ops, ref, copy_bw):
             lib = library_attention(q, k, v, mask)
             row["library_ms"] = time_ms(
                 lambda: library_attention(q, k, v, mask), reps=20)
-            row["library_max_abs_err"] = float((lib - want).abs().max())
-            row.update(bound(*flash_cost(q, k, mask), dtype, copy_bw))
+            row["library_max_abs_err"] = float(
+                (lib.float() - want.float()).abs().max())
+            row.update(flash_bound(q, k, mask, dtype, copy_bw))
         rows.append(row)
         print(json.dumps({"flash_attention": row}), flush=True)
     return rows
@@ -562,10 +604,14 @@ def device_summary(prof, wall_ms):
         ms, calls = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (stop - start) / 1e3, calls + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    own = {k: v for k, v in by_name.items()
+           if any(f"::{n}_kernel" in k for n in OWN_KERNELS)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e3 / wall_ms,
             "top": [{"kernel": k[:90], "ms": ms, "calls": c}
-                    for k, (ms, c) in top]}
+                    for k, (ms, c) in top],
+            "port_kernels": [{"kernel": k[:90], "ms": ms, "calls": c}
+                             for k, (ms, c) in sorted(own.items())]}
 
 
 def profiled(fn):
@@ -659,40 +705,85 @@ def lm_trainer_vs_cpu(lm, loss_and_grads, Trainer, TrainConfig,
     return res
 
 
+def step_errors(got, want):
+    """Per decode step (the logits each token was picked from, then the
+    last): max |got - want| / max |want| over the batch and vocabulary."""
+    d = (got.float() - want.float()).abs().amax(dim=(0, 2))
+    return (d / want.float().abs().amax(dim=(0, 2))).tolist()
+
+
 def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS):
-    """The LM serve loop's last logits on the card against a CPU run of the
-    same command (same seed, same weights)."""
-    cpu = serve.main(argv + ["--device", "cpu"])
-    want = cpu["last_logits"]
-    err = float((res["last_logits"] - want).abs().max())
-    rel = err / float(want.abs().max())
-    same_tokens = bool(np.array_equal(res["tokens"], cpu["tokens"]))
-    out = {"max_abs_err": err, "max_rel_err": rel, "tol": LM_TOL,
-           "same_tokens": same_tokens, "cpu_decode_tok_s": cpu["decode_tok_s"]}
-    if rel > LM_TOL or not same_tokens:
-        fail(f"LM serve on the card vs the CPU: {out}")
+    """The bfloat16 serve loop on the card (``res``, the main path's run)
+    against the CPU: the same weights and prompts (``serve.lm_setup``), the
+    card's tokens fed to the CPU loop (teacher forcing, so a near-tie that
+    the two devices break apart cannot part their paths), every step's
+    logits held to ``BF16_LM_TOL`` of the step's largest |logit|; the share
+    of steps whose greedy token the CPU picks too is reported."""
+    args = serve.build_parser().parse_args(argv)
+    cfg, params, prompts = serve.lm_setup(args, "cpu")
+    cpu = serve.generate(params, cfg, prompts, args.gen, seed=args.seed + 1,
+                         forced=res["tokens"])
+    rel = step_errors(res["step_logits"], cpu["step_logits"])
+    same = float(np.mean(res["tokens"] == cpu["tokens"]))
+    out = {"dtype": cfg.dtype, "max_rel_err": max(rel),
+           "mean_rel_err": float(np.mean(rel)), "tol": BF16_LM_TOL,
+           "steps": len(rel), "same_greedy_token_share": same,
+           "cpu_decode_tok_s": args.batch * args.gen / cpu["decode_s"]}
+    if cfg.dtype != "bfloat16" or max(rel) > BF16_LM_TOL \
+            or not np.isfinite(rel).all():
+        fail(f"LM serve on the card vs the CPU replay: {out}")
+    return out
+
+
+def lm_serve_f32_vs_cpu(serve, lm, get_config, argv=LM_SERVE_ARGS):
+    """The same loop through the library (``serve.generate``) on a 2-layer
+    float32 config at full width: free-running on both devices, the same
+    tokens and every step's logits within ``LM_TOL`` relative."""
+    import dataclasses
+    import torch
+    args = serve.build_parser().parse_args(argv)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=2,
+                              dtype="float32")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        params = lm.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                                device)
+        prompts = torch.as_tensor(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, size=(args.batch, args.prompt_len)), device=device)
+        runs[device] = serve.generate(params, cfg, prompts, args.gen,
+                                      seed=args.seed + 1)
+    rel = step_errors(runs["cuda"]["step_logits"], runs["cpu"]["step_logits"])
+    same = bool(np.array_equal(runs["cuda"]["tokens"], runs["cpu"]["tokens"]))
+    out = {"n_layers": 2, "dtype": "float32", "max_rel_err": max(rel),
+           "tol": LM_TOL, "same_tokens": same}
+    if max(rel) > LM_TOL or not same:
+        fail(f"float32 LM loop on the card vs the CPU: {out}")
     return out
 
 
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
-    (q_offset 1024 against 2048 keys), chunk 0 beside it."""
+    (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
+    bfloat16 beside it."""
     by = {r["case"]: r for r in rows}
-    c0, c1 = by["chunk0"], by["chunk1"]
-    lib = ("library_ms", "library_max_abs_err")
+    c0, c1, bf = by["chunk0"], by["chunk1"], by["chunk1-bf16"]
+    more = ("simt_bound_ms", "mma_route", "library_ms",
+            "library_max_abs_err")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:81",
                 **counts, max_abs_err=c1["max_abs_err"], tol=c1["tol"],
                 worst_err_over_tol=max(r["err_over_tol"] for r in rows),
                 worst_lse_rel_err=max(r["lse_max_rel_err"] for r in rows),
-                bf16_max_abs_err=by["chunk1-bf16"]["max_abs_err"],
-                bf16_tol=by["chunk1-bf16"]["tol"],
+                bf16_max_abs_err=bf["max_abs_err"], bf16_tol=bf["tol"],
                 shape=c1["shape"], q_offset=1024, dtype="float32",
-                **{k: c1[k] for k in keys}, **{k: c1[k] for k in lib},
+                **{k: c1[k] for k in keys}, **{k: c1[k] for k in more},
                 chunk0={"shape": c0["shape"], "q_offset": 0,
                         **{k: c0[k] for k in keys},
-                        **{k: c0[k] for k in lib}})
+                        **{k: c0[k] for k in more}},
+                chunk1_bf16={"shape": bf["shape"], "q_offset": 1024,
+                             **{k: bf[k] for k in keys},
+                             **{k: bf[k] for k in more}})
 
 
 def main() -> None:
@@ -758,6 +849,10 @@ def main() -> None:
         for line in build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
+    smem = build.library("flash_attention").flash_attention_smem_bytes
+    print(json.dumps({"flash_attention_dynamic_smem_bytes": {
+        f"{'bf16' if bf16 else 'f32'}_d{d}": smem(bf16, d)
+        for bf16 in (0, 1) for d in (32, 64, 128)}}), flush=True)
     copy_bw = copy_bandwidth()
     print(json.dumps({"copy_bytes_per_s": copy_bw}), flush=True)
 
@@ -811,13 +906,15 @@ def main() -> None:
 
     phase("9 main path 3: repro_torch.launch.serve " + " ".join(LM_SERVE_ARGS))
     res = drive("serve_lm", lambda: serve.main(LM_SERVE_ARGS), ("diag_scan",))
-    print(json.dumps({"serve_lm": {k: v for k, v in res.items()
-                                   if k not in ("tokens", "last_logits")},
+    print(json.dumps({"serve_lm": {k: v for k, v in res.items() if k not in
+                                   ("tokens", "step_logits", "last_logits")},
                       "launches": launches["serve_lm"]}), flush=True)
     if not res["finite"]:
         fail("LM serve: the last logits are not finite")
     print(json.dumps({"serve_lm_vs_cpu": lm_serve_vs_cpu(serve, res)}),
           flush=True)
+    print(json.dumps({"serve_lm_f32_vs_cpu": lm_serve_f32_vs_cpu(
+        serve, lm, get_config)}), flush=True)
 
     phase("10 flash_attention kernel vs plain")
     flash_rows = check_flash_attention(ops, ref, copy_bw)
@@ -857,17 +954,21 @@ def main() -> None:
           "product, as in the JAX package: no TPU kernel on this path)")
     res = drive("serve_smollm", lambda: serve.main(SMOLLM_SERVE_ARGS), ())
     print(json.dumps({"serve_smollm": {k: v for k, v in res.items()
-                                       if k not in ("tokens", "last_logits")},
+                                       if k not in ("tokens", "step_logits",
+                                                    "last_logits")},
                       "launches": launches["serve_smollm"]}), flush=True)
     if not res["finite"]:
         fail("smollm serve: the last logits are not finite")
     print(json.dumps({"serve_smollm_vs_cpu": lm_serve_vs_cpu(
         serve, res, SMOLLM_SERVE_ARGS)}), flush=True)
+    print(json.dumps({"serve_smollm_f32_vs_cpu": lm_serve_f32_vs_cpu(
+        serve, lm, get_config, SMOLLM_SERVE_ARGS)}), flush=True)
 
     phase("14 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
+    fwd_decode = rows["lm-decode"]
     bwd = {r["case"]: r for r in bwd_rows}
     bwd_train = bwd["train"]
     dec = next(r for r in decode_rows if "ms" in r)
@@ -889,7 +990,10 @@ def main() -> None:
              fit_shape={"shape": fit["shape"],
                         **{k: fit[k] for k in keys}},
              train_shape={"shape": fwd_train["shape"], "dtype": "float32",
-                          **{k: fwd_train[k] for k in keys}}),
+                          **{k: fwd_train[k] for k in keys}},
+             lm_decode_shape={"shape": fwd_decode["shape"],
+                              "dtype": "float32",
+                              **{k: fwd_decode[k] for k in keys}}),
         dict(name="diag_scan_bwd", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/ops.py:85",

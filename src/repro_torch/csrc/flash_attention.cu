@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernel: blocked online-softmax attention.
+// Hand-written Hopper (sm_90a) kernel: blocked online-softmax attention on
+// the tensor cores.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (src/repro_torch/kernels/build.py).  The entry point launches
@@ -18,114 +19,618 @@
 //   (p.astype(v.dtype)).  It also writes lse = m + log(l) per query row
 //   (float32; -1e30 for a fully masked row), which the model's backward
 //   (models/attention.py) reads; the TPU kernel held it in scratch only.
+//
 // Bound on this card: operations.  At the training shapes of smollm-135m
 //   (q (8, 9, 1024, 64) against k/v (8, 3, 1024 or 2048, 64), causal) a
-//   launch does 10-29 GFLOP (4 * head_dim per visible query-key pair) on
-//   ~60 MB of q/k/v/o: 0.15-0.43 ms at the 67 TFLOP/s float32 rate outside
-//   the tensor cores, against 0.02 ms for the bytes.
-// Design (simple, SIMT, float32 FMAs; no wgmma or TMA yet):
-//   * one block per (b * Hq + h, 64-row query tile).  The TPU grid's
-//     sequential kv axis with (m, l, acc) in VMEM scratch becomes a loop over
-//     key tiles inside the block; each query row's m, l, q and accumulator
-//     live in registers;
-//   * a row is served by TPR = DP / 32 neighbouring threads (DP the head
-//     dimension rounded up to 32, 64 or 128), each holding 32 of its
-//     dimensions as 8 float4 chunks interleaved with its partners', so the
-//     TPR threads of a row read TPR adjacent 16-byte chunks of shared
-//     memory (no bank conflict) and the rest of the warp reads the same
-//     ones (broadcast); a score's partial dots are summed with __shfl_xor;
-//   * key and value tiles of BK keys (64, or 32 for DP = 128) are staged
-//     through shared memory as float32 (bfloat16 is widened on load):
-//     2 * 64 * 64 * 4 = 32 KB at head_dim 64;
-//   * the online softmax runs 16 keys at a time, so the accumulator is
-//     rescaled once per 16 keys;
-//   * key tiles that the causal, window or kv_len masks leave wholly empty
-//     for every row of the block are never visited (the Pallas kernel visits
-//     and masks them; skipping is exact: a fully masked tile leaves m, l and
-//     acc unchanged).  Causal attention thus does about half the tiles;
-//   * heavy query tiles (late rows of a causal launch) are scheduled first;
-//   * q, k and v are read through their (batch, head, sequence) strides, so
-//     sequence slices and permuted layouts need no copy; the head dimension
-//     must have unit stride.  The ragged edges (Sq and Skv not multiples of
-//     the tiles) are masked in the kernel: no padding.
+//   launch does 10-29 GFLOP of float32 work (4 * head_dim per visible
+//   query-key pair) on ~60 MB of q/k/v/o.  float32 inputs run as 3xTF32
+//   (three TF32 products per float32 product, below): 0.06-0.18 ms at the
+//   495 TFLOP/s TF32 tensor-core rate, against 0.02 ms for the bytes;
+//   bfloat16 inputs run one bf16 product at 989 TFLOP/s.
+//
+// Design:
+//   * Both products as Hopper warpgroup MMAs (wgmma.mma_async: m64nNk8
+//     TF32 for float32 inputs, m64nNk16 bf16 for bfloat16 inputs, float32
+//     accumulators).  One warpgroup (4 warps) owns one head's 64-row query
+//     tile.  S = Q K^T reads Q and K from shared memory through matrix
+//     descriptors; O += P V reads P from the S accumulator registers and
+//     V^T from shared memory.  TF32 wgmma takes K-major operands only, so
+//     every operand tile is stored K-major in the canonical no-swizzle
+//     layout (8-row x 16-byte core matrices, those of one 8-row group side
+//     by side along K: leading byte offset 128, stride byte offset 128 x the
+//     core matrices along K), V transposed; bf16 uses the same layouts.
+//   * float32 accuracy from TF32 units (3xTF32): every operand x is split
+//     into big, x rounded to a TF32 value (explicitly, so that small =
+//     x - big is exact whatever the unit does with the low 13 bits of a
+//     register), and small, and a product is small*big + big*small +
+//     big*big in float32, the two small terms first within each 8-deep
+//     step.  That keeps ~22 bits of each operand against TF32's 11: one
+//     TF32 pass would miss the 2e-4 / 1e-5 (lse) tolerances at head_dim 64
+//     (tests/test_torch_attention.py emulates both).  Q is split once into
+//     shared memory, K and V once per tile (every warpgroup of the block
+//     reuses them), P in registers.  bfloat16 inputs take one bf16 product.
+//   * The S accumulator is not the TF32 A layout: within each 8-column
+//     group a thread holds columns {2t, 2t+1} of the accumulator (PTX ISA,
+//     wgmma / mma fragments; lane = 4g + t) but k = {t, t + 4} of an A
+//     fragment.  The sum over keys does not care about their order, so
+//     P's logical k = t stands for key 2t and k = t + 4 for key 2t + 1, and
+//     V^T lists each 8-key group's keys in that order (0 2 4 6 1 3 5 7):
+//     the accumulator is the P operand as it lies.
+//     For bf16 (k16) the two layouts coincide: P is packed to bf16 pairs
+//     as it lies (p.astype(v.dtype)) and V^T keeps the keys' order.
+//   * K/V staging: a ring of two raw tiles in dynamic shared memory (above
+//     48 KB, cudaFuncSetAttribute), filled by 16-byte cp.async copies: the
+//     copies of tile j + 1 run while tile j is split and multiplied.  A
+//     tensor whose rows are not 16-byte aligned (a sequence slice of an odd
+//     head dimension, an offset view) is staged by scalar loads in the same
+//     kernel.  Keys past kv_len and dimensions past head_dim are zero in
+//     shared memory (zero-filling copies), so tiny and odd head dims (8, 16,
+//     96) run with no padding copy; zeros are exact.
+//   * GQA: one block takes gb query heads of one KV head (gb the largest
+//     divisor of Hq/Hkv up to MaxHeads) for one 64-row query tile, so each
+//     K/V tile is staged and split once for all of them: 3 x 64 rows, 12
+//     warps at smollm-135m.
+//   * Online softmax on the accumulator fragments: a row's scores sit in
+//     the 4 threads of a quad, so row max takes 2 shuffles; the row sum
+//     stays per thread until the end.  Scores are kept in log2 units
+//     (exp2).  Only tiles that cross a mask edge are masked element by
+//     element, and p is re-masked to 0 after the exp there.
+//   * Key tiles that the causal, window or kv_len masks leave wholly empty
+//     for every row of the block are never visited (exact: a fully masked
+//     tile leaves m, l and acc unchanged), and heavy query tiles (late rows
+//     of a causal launch) are scheduled first.
+//   * q, k and v are read through their (batch, head, sequence) strides;
+//     the head dimension must have unit stride.  Rows past Sq (Sq = 1 at
+//     decode) compute on zeros and are never written.
+//   * Occupancy: one block an SM.  At head_dim 64, float32, the two raw
+//     stages (64 KB), the K and V^T operand tiles (64 KB) and three heads'
+//     Q tiles (96 KB) fill 224 KB of shared memory, and ptxas fits the 12
+//     warps in 168 registers with no spill.  Between the block's two
+//     barriers of a tile every warp splits operands, so the tensor cores
+//     idle there; the softmax of a warpgroup waits on its own products.
+//     A producer warp and ping-ponged consumer warpgroups are the next
+//     step (PERF.md).
 // ---------------------------------------------------------------------------
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;  // query rows per block
-constexpr int KC = 16;  // keys per online-softmax step
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int BQ = 64;  // query rows of one head per block (one warpgroup)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// ------------------------------------------------------------ index math --
+// Lane l of a warp is (g, t) = (l / 4, l % 4) in the PTX fragment tables.
+__host__ __device__ constexpr int lane_g(int lane) { return lane >> 2; }
+__host__ __device__ constexpr int lane_t(int lane) { return lane & 3; }
+
+// Accumulator (16 rows of a warp x 8 columns of each 8-column group):
+// register e holds row g + 8 (e / 2), column 2t + e % 2.
+__host__ __device__ constexpr int acc_row(int lane, int e) {
+  return lane_g(lane) + 8 * (e >> 1);
+}
+__host__ __device__ constexpr int acc_col(int lane, int e) {
+  return 2 * lane_t(lane) + (e & 1);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
+// TF32 A fragment (k8): register i holds row g + 8 (i % 2), logical k
+// t + 4 (i / 2).  For P, logical k = t + 4 h is key 2t + h of the 8-key
+// group, which the accumulator register tf32_p_from_acc(i) holds.
+__host__ __device__ constexpr int tf32_p_from_acc(int i) {
+  return 2 * (i & 1) + (i >> 1);
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+// The logical k of a key in V^T (0 2 4 6 1 3 5 7 within each 8-key group).
+__host__ __device__ constexpr int tf32_vt_k(int key) {
+  return (key & ~7) | ((key & 1) << 2) | ((key & 7) >> 1);
+}
+// bf16 A fragment (k16): register i holds the pair row g + 8 (i % 2),
+// k 2t + 8 (i / 2) + {0, 1}: accumulator registers 2 (i % 2) and
+// 2 (i % 2) + 1 of the 8-key group i / 2 of the 16-key step.
+__host__ __device__ constexpr int bf16_p_group(int i) { return i >> 1; }
+__host__ __device__ constexpr int bf16_p_first(int i) { return 2 * (i & 1); }
+
+// Element offset of (r, k) in a K-major operand tile in wgmma's canonical
+// no-swizzle layout: core matrices of 8 rows x EPR elements (16 bytes),
+// the kc = K / EPR of one 8-row group side by side.
+template <int EPR>
+__host__ __device__ constexpr int cm_index(int r, int k, int kc) {
+  return ((r >> 3) * kc + k / EPR) * (8 * EPR) + (r & 7) * EPR + k % EPR;
 }
 
-// p as the p.v product sees it: p.astype(v.dtype) in the TPU kernel.
-template <typename T>
-__device__ __forceinline__ float round_p(float p) {
-  return to_f32(from_f32<T>(p));
-}
-
+// ------------------------------------------------------------- layouts --
+// Query heads per block (a warpgroup each): the largest divisor of the GQA
+// group up to this.
 template <typename T, int DP>
-__global__ void __launch_bounds__(BQ * (DP / 32))
-    flash_attention_fwd_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-        int hq, int hkv, int sq, int skv, int d, long long q_sb,
-        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-        int causal, int has_window, int window, int q_offset, int kv_len,
-        float scale) {
-  constexpr int TPR = DP / 32;            // threads per query row
-  constexpr int NT = BQ * TPR;            // threads per block
-  constexpr int BK = DP <= 64 ? 64 : 32;  // keys per shared-memory tile
-  constexpr int C4 = 8;                   // float4 chunks a thread owns
-  constexpr int ROW4 = DP / 4;            // float4 chunks per staged row
-  __shared__ float4 ks[BK * ROW4];
-  __shared__ float4 vs[BK * ROW4];
+struct MaxHeads {
+  static constexpr int value = DP <= 64 ? 3 : (sizeof(T) == 4 ? 1 : 2);
+};
 
-  const int bh = blockIdx.x;
-  const int b = bh / hq, h = bh - b * hq;
-  const int hk = h / (hq / hkv);
-  // Late query tiles see the most keys under a causal mask: start them first.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR, part = tid - row * TPR;
-  const int qi = q0 + row;
-  const bool live = qi < sq;
-  const int qpos = q_offset + qi;
+// Dynamic shared memory, in elements of T: two raw stages of K and V rows
+// (BK x DP each), the K and V^T operand tiles (big and small for float32),
+// and each head's Q operand tile(s).
+template <typename T, int DP>
+struct Tile {
+  static constexpr int EPR = 16 / sizeof(T);       // elements a 16-byte row
+  static constexpr int PARTS = sizeof(T) == 4 ? 2 : 1;  // big, small
+  static constexpr int BK = DP <= 64 ? 64 : 32;    // keys per tile
+  static constexpr int RAW = BK * DP;              // one raw K or V tile
+  static constexpr int OP = BK * DP;               // one K or V^T part
+  static constexpr int QOP = BQ * DP;              // one head's Q part
+  static constexpr int ELEMS =
+      2 * 2 * RAW + 2 * PARTS * OP + PARTS * MaxHeads<T, DP>::value * QOP;
+};
 
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
+// ------------------------------------------------------------ TF32 split --
+// x = big + small.  big is x rounded to nearest at 11 significant bits
+// (Veltkamp's split: t = x (2^13 + 1), big = t - (t - x)), a TF32 value
+// whose low 13 bits are zero, in three float32 operations; the _rn
+// intrinsics keep the compiler from contracting them into an FMA, which
+// would break the split.  small = x - big is exact in float32 (at most 13
+// significant bits); the tensor core reads its top 11 (truncation: an error
+// of at most 2^-11 |small| <= 2^-22 |x|).  Both are valid for |x| < 4e34.
+// (cvt.rna.tf32.f32 would take the conversion unit, at a fraction of the
+// float32 rate.)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  const float t = __fmul_rn(x, 8193.f);
+  const float b = __fsub_rn(t, __fsub_rn(t, x));
+  big = __float_as_uint(b);
+  small = __float_as_uint(__fsub_rn(x, b));
+}
 
-  float qr[4 * C4], acc[4 * C4];
-  {
-    const T* qp = q + b * q_sb + h * q_sh + (long long)(live ? qi : 0) * q_ss;
+// ---------------------------------------------------------- PTX wrappers --
+// wgmma m64nNk8 TF32 / m64nNk16 bf16, accumulating into d (N / 8 groups of
+// 4 registers): A from shared memory (descriptor da) or registers (a), B
+// from shared memory (descriptor db), both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[4][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[8][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[4][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// Matrix descriptor of a canonical no-swizzle K-major tile at p (16-byte
+// aligned) with kc core matrices per 8-row group: leading byte offset 128
+// (the next core matrix along K), stride byte offset 128 kc (the next
+// 8-row group).  A k-step (two core matrices along K) adds 16.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int kc) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((128 * kc) >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins registers that an in-flight wgmma reads or writes in place, so the
+// compiler neither reads nor reuses them across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
 #pragma unroll
-    for (int c = 0; c < C4; ++c) {
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int dim = 4 * (c * TPR + part) + e;
-        qr[4 * c + e] = (live && dim < d) ? to_f32(qp[dim]) : 0.f;
-        acc[4 * c + e] = 0.f;
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+// Makes this thread's shared-memory writes (stores and completed cp.async
+// copies) visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16-byte global -> shared copy; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// ------------------------------------------------------------- staging --
+// Copy key rows [t0, t0 + BK) of k and v (head dims [0, DP)) into a raw
+// stage (rows of DP elements): 16-byte cp.async where the rows allow it,
+// else scalar loads; keys at or past kv_lim and dims at or past d are
+// zeros.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_tile(T* sk, T* sv, const T* kb,
+                                           const T* vb, long long k_ss,
+                                           long long v_ss, int t0, int kv_lim,
+                                           int d, bool vec_k, bool vec_v,
+                                           int tid, int nthreads) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CHUNKS = Tile<T, DP>::BK * DP / VEC;
+  for (int i = tid; i < 2 * CHUNKS; i += nthreads) {
+    const bool is_v = i >= CHUNKS;
+    const int c = is_v ? i - CHUNKS : i;
+    const int r = c / (DP / VEC), col = (c - r * (DP / VEC)) * VEC;
+    const int key = t0 + r;
+    const T* src = is_v ? vb : kb;
+    const long long ss = is_v ? v_ss : k_ss;
+    T* dst = (is_v ? sv : sk) + r * DP + col;
+    const bool in_rows = key < kv_lim;
+    if (is_v ? vec_v : vec_k) {
+      const bool ok = in_rows && col < d;
+      cp_async16(dst, ok ? src + key * ss + col : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int dim = col + e;
+        dst[e] = (in_rows && dim < d) ? src[key * ss + dim] : T(0.f);
       }
     }
   }
-  float m = NEG_INF, l = 0.f;
+}
+
+// Raw stage -> the K and V^T operand tiles (ko / vo, the small parts one
+// tile further for float32).  float32 is split into TF32 (big, small) and
+// V^T lists each 8-key group's keys in tf32_vt_k order; bf16 is copied.
+template <typename T, int DP>
+__device__ __forceinline__ void operand_tile(const T* sk, const T* sv, T* ko,
+                                             T* vo, int tid, int nthreads) {
+  using TL = Tile<T, DP>;
+  constexpr int BK = TL::BK, EPR = TL::EPR;
+  for (int i = tid; i < BK * DP / EPR; i += nthreads) {  // K: 16-byte rows
+    const int key = i / (DP / EPR), col = (i - key * (DP / EPR)) * EPR;
+    const int w = cm_index<EPR>(key, col, DP / EPR);
+    const uint4 x = *reinterpret_cast<const uint4*>(sk + key * DP + col);
+    if constexpr (sizeof(T) == 4) {
+      uint32_t b[4], s[4];
+      tf32_split(__uint_as_float(x.x), b[0], s[0]);
+      tf32_split(__uint_as_float(x.y), b[1], s[1]);
+      tf32_split(__uint_as_float(x.z), b[2], s[2]);
+      tf32_split(__uint_as_float(x.w), b[3], s[3]);
+      *reinterpret_cast<uint4*>(ko + w) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(ko + TL::OP + w) =
+          make_uint4(s[0], s[1], s[2], s[3]);
+    } else {
+      *reinterpret_cast<uint4*>(ko + w) = x;
+    }
+  }
+  // V^T: (dim, EPR logical keys) -> 16 bytes.  float32: the even or the odd
+  // keys of an 8-key group; bf16: 8 keys in order.
+  for (int i = tid; i < DP * BK / EPR; i += nthreads) {
+    const int jr = i / DP, dim = i - jr * DP;
+    if constexpr (sizeof(T) == 4) {
+      const int key0 = (jr >> 1) * 8 + (jr & 1);
+      uint32_t b[4], s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tf32_split(sv[(key0 + 2 * e) * DP + dim], b[e], s[e]);
+      const int w = cm_index<4>(dim, tf32_vt_k(key0), BK / 4);
+      *reinterpret_cast<uint4*>(vo + w) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(vo + TL::OP + w) =
+          make_uint4(s[0], s[1], s[2], s[3]);
+    } else {
+      const int key0 = jr * 8;
+      const T* col = sv + key0 * DP + dim;
+      *reinterpret_cast<uint4*>(vo + cm_index<8>(dim, key0, BK / 8)) =
+          make_uint4(pack_bf16(col[0], col[DP]),
+                     pack_bf16(col[2 * DP], col[3 * DP]),
+                     pack_bf16(col[4 * DP], col[5 * DP]),
+                     pack_bf16(col[6 * DP], col[7 * DP]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------- kernel --
+template <typename T, int DP>
+__global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
+    flash_attention_fwd_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+        int hq, int hkv, int gb, int sq, int skv, int d, long long q_sb,
+        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+        int causal, int has_window, int window, int q_offset, int kv_len,
+        float scale, int vec_k, int vec_v) {
+  using TL = Tile<T, DP>;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int BK = TL::BK, EPR = TL::EPR;
+  constexpr int NT = BK / 8;       // 8-key column groups of S
+  constexpr int ND = DP / 8;       // 8-dim column groups of O
+  constexpr int KSTEP = 2 * EPR;   // depth of one wgmma: 8 (TF32), 16 (bf16)
+  constexpr int KS = DP / KSTEP;   // k-steps of Q K^T
+  constexpr int KK = BK / KSTEP;   // k-steps of P V
+  extern __shared__ __align__(128) uint32_t smem[];
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int group = hq / hkv, blocks_per_kv = group / gb;
+  const int bx = blockIdx.x;
+  const int b = bx / (hkv * blocks_per_kv);
+  const int rest = bx - b * hkv * blocks_per_kv;
+  const int hk = rest / blocks_per_kv;
+  const int hl = warp >> 2;  // this warpgroup's head within the block
+  const int h = hk * group + (rest - hk * blocks_per_kv) * gb + hl;
+  // Late query tiles see the most keys under a causal mask: start them first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int wrow = 16 * (warp & 3);  // the warp's first row in the tile
+  const float scale2 = scale * LOG2E;
+
+  const T* kb = k + b * k_sb + hk * k_sh;
+  const T* vb = v + b * v_sb + hk * v_sh;
+  const T* qh = q + b * q_sb + h * q_sh;
+
+  // Shared memory (elements of T): two raw K/V stages, the K and V^T
+  // operand tiles, then each head's Q operand tile.
+  T* const raw = reinterpret_cast<T*>(smem);
+  T* const ko = raw + 4 * TL::RAW;
+  T* const vo = ko + TL::PARTS * TL::OP;
+  T* const qo = vo + TL::PARTS * TL::OP + hl * TL::PARTS * TL::QOP;
+
+  // q, split (float32) into this head's Q operand tile(s), once.
+  for (int i = tid & 127; i < BQ * DP / EPR; i += 128) {
+    const int row = i / (DP / EPR), col = (i - row * (DP / EPR)) * EPR;
+    alignas(16) T x[EPR];
+#pragma unroll
+    for (int e = 0; e < EPR; ++e)
+      x[e] = (q0 + row < sq && col + e < d) ? qh[(q0 + row) * q_ss + col + e]
+                                             : T(0.f);
+    const int w = cm_index<EPR>(row, col, DP / EPR);
+    if constexpr (F32) {
+      uint32_t bg[4], sm[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32_split(x[e], bg[e], sm[e]);
+      *reinterpret_cast<uint4*>(qo + w) = make_uint4(bg[0], bg[1], bg[2],
+                                                     bg[3]);
+      *reinterpret_cast<uint4*>(qo + TL::QOP + w) =
+          make_uint4(sm[0], sm[1], sm[2], sm[3]);
+    } else {
+      *reinterpret_cast<uint4*>(qo + w) = *reinterpret_cast<const uint4*>(x);
+    }
+  }
+
+  float oacc[ND][4], sacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+  float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
 
   // The keys any row of this block can see: [k_begin, k_end).
   const int kv_lim = kv_len < skv ? kv_len : skv;
@@ -135,90 +640,163 @@ __global__ void __launch_bounds__(BQ * (DP / 32))
   int k_begin = 0;
   if (has_window && q_offset + q0 - window + 1 > 0)
     k_begin = (q_offset + q0 - window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  for (int t0 = k_begin; t0 < k_end; t0 += BK) {
-    __syncthreads();  // every thread is done with the previous tile
-    float* kf = reinterpret_cast<float*>(ks);
-    float* vf = reinterpret_cast<float*>(vs);
-    for (int i = tid; i < BK * DP; i += NT) {
-      const int r = i / DP, c = i - r * DP;
-      const int key = t0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (key < kv_lim && c < d) {
-        kv = to_f32(kb[key * k_ss + c]);
-        vv = to_f32(vb[key * v_ss + c]);
-      }
-      kf[i] = kv;
-      vf[i] = vv;
+  // Descriptors of the operand tiles (a k-step adds 16).
+  const uint64_t dq = smem_desc(qo, DP / EPR);
+  const uint64_t dk = smem_desc(ko, DP / EPR);
+  const uint64_t dv = smem_desc(vo, BK / EPR);
+  // float32: the small parts, one operand tile further.
+  const uint64_t dq_s = smem_desc(qo + TL::QOP, DP / EPR);
+  const uint64_t dk_s = smem_desc(ko + TL::OP, DP / EPR);
+  const uint64_t dv_s = smem_desc(vo + TL::OP, BK / EPR);
+
+  // Stage s of the raw ring: K at raw + 2 s RAW, V right after it.
+  if (n_tiles > 0) {
+    stage_tile<T, DP>(raw, raw + TL::RAW, kb, vb, k_ss, v_ss, k_begin,
+                      kv_lim, d, vec_k, vec_v, tid, nthreads);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    const int t0 = k_begin + j * BK;
+    cp_async_wait_all();
+    __syncthreads();  // tile j staged; every warpgroup done with tile j - 1
+    if (j + 1 < n_tiles) {
+      T* const next = raw + 2 * TL::RAW * ((j + 1) & 1);
+      stage_tile<T, DP>(next, next + TL::RAW, kb, vb, k_ss, v_ss, t0 + BK,
+                        kv_lim, d, vec_k, vec_v, tid, nthreads);
+      cp_async_commit();
     }
+    const T* const cur = raw + 2 * TL::RAW * (j & 1);
+    operand_tile<T, DP>(cur, cur + TL::RAW, ko, vo, tid, nthreads);
+    fence_proxy_async();  // the operand tiles (and Q) are wgmma's to read
     __syncthreads();
 
-#pragma unroll 1
-    for (int j0 = 0; j0 < BK; j0 += KC) {
-      float s[KC];
-      float m_cur = NEG_INF;
+    // ---- S = Q K^T: this warpgroup's 64 rows against BK keys
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        const float4* kr = ks + (j0 + j) * ROW4;
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < C4; ++c) {
-          const float4 kk = kr[c * TPR + part];
-          dot = fmaf(qr[4 * c + 0], kk.x, dot);
-          dot = fmaf(qr[4 * c + 1], kk.y, dot);
-          dot = fmaf(qr[4 * c + 2], kk.z, dot);
-          dot = fmaf(qr[4 * c + 3], kk.w, dot);
-        }
-#pragma unroll
-        for (int off = TPR / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        const int kpos = t0 + j0 + j;
-        const bool ok = kpos < kv_lim && (!causal || kpos <= qpos) &&
-                        (!has_window || kpos > qpos - window);
-        s[j] = ok ? dot * scale : NEG_INF;
-        m_cur = fmaxf(m_cur, s[j]);
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint64_t s = 16 * ks;
+      if constexpr (F32) {  // small terms first; the first overwrites S
+        wgmma_tf32_ss(sacc, dq_s + s, dk + s, ks > 0);
+        wgmma_tf32_ss(sacc, dq + s, dk_s + s, 1);
+        wgmma_tf32_ss(sacc, dq + s, dk + s, 1);
+      } else {
+        wgmma_bf16_ss(sacc, dq + s, dk + s, ks > 0);
       }
-      const float m_new = fmaxf(m, m_cur);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int i = 0; i < 4 * C4; ++i) acc[i] *= corr;
-#pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        const int kpos = t0 + j0 + j;
-        const bool ok = kpos < kv_lim && (!causal || kpos <= qpos) &&
-                        (!has_window || kpos > qpos - window);
-        // Explicit re-mask: a fully masked row would get exp(0) = 1.
-        const float p = ok ? expf(s[j] - m_new) : 0.f;
-        l += p;
-        const float pv = round_p<T>(p);
-        const float4* vr = vs + (j0 + j) * ROW4;
-#pragma unroll
-        for (int c = 0; c < C4; ++c) {
-          const float4 vv = vr[c * TPR + part];
-          acc[4 * c + 0] = fmaf(pv, vv.x, acc[4 * c + 0]);
-          acc[4 * c + 1] = fmaf(pv, vv.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(pv, vv.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(pv, vv.w, acc[4 * c + 3]);
-        }
-      }
-      m = m_new;
     }
+    wgmma_commit_and_wait();
+    fence_regs(sacc);
+
+    // ---- online softmax on the fragments (log2 units)
+    const bool full =
+        t0 + BK <= kv_lim && (!causal || t0 + BK - 1 <= q_offset + q0) &&
+        (!has_window || t0 > q_offset + q_hi - 1 - window);
+    uint32_t dead = 0;  // bit 4 n + e: that score is masked
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sacc[n][e] *= scale2;
+        if (!full) {
+          const int kpos = t0 + 8 * n + acc_col(lane, e);
+          const int qpos = q_offset + q0 + wrow + acc_row(lane, e);
+          const bool ok = kpos < kv_lim && (!causal || kpos <= qpos) &&
+                          (!has_window || kpos > qpos - window);
+          if (!ok) {
+            sacc[n][e] = NEG_INF;
+            dead |= 1u << (4 * n + e);
+          }
+        }
+      }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(sacc[n][2 * hr], sacc[n][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[hr], mx);
+      corr[hr] = exp2f(m_row[hr] - m_new);
+      m_row[hr] = m_new;
+      l_row[hr] *= corr[hr];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // Explicit re-mask: a fully masked row would get exp2(0) = 1.
+        const float p = (dead >> (4 * n + e)) & 1u
+                            ? 0.f
+                            : exp2f(sacc[n][e] - m_row[e >> 1]);
+        l_row[e >> 1] += p;
+        sacc[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] *= corr[e >> 1];
+
+    // ---- O += P V, P from the S registers
+    uint32_t pa[KK][4], ps[F32 ? KK : 1][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (F32) {
+          tf32_split(sacc[kk][tf32_p_from_acc(i)], pa[kk][i], ps[kk][i]);
+        } else {  // p.astype(v.dtype): p rounded to bfloat16 here
+          const float* c = sacc[2 * kk + bf16_p_group(i)] + bf16_p_first(i);
+          pa[kk][i] = pack_bf16(c[0], c[1]);
+        }
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint64_t s = 16 * kk;
+      if constexpr (F32) {
+        wgmma_tf32_rs(oacc, ps[kk], dv + s, 1);
+        wgmma_tf32_rs(oacc, pa[kk], dv_s + s, 1);
+        wgmma_tf32_rs(oacc, pa[kk], dv + s, 1);
+      } else {
+        wgmma_bf16_rs(oacc, pa[kk], dv + s, 1);
+      }
+    }
+    wgmma_commit_and_wait();
+    fence_regs(oacc);
+    fence_regs(pa);
+    if constexpr (F32) fence_regs(ps);
   }
 
-  if (!live) return;
-  // Rows with no visible key have l == 0 (and acc == 0): zeros, not NaNs.
-  const float safe = l == 0.f ? 1.f : l;
-  T* op = o + ((long long)bh * sq + qi) * d;
+  // ---- epilogue: the row sums across the quad, then o / l and lse
 #pragma unroll
-  for (int c = 0; c < C4; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int dim = 4 * (c * TPR + part) + e;
-      if (dim < d) op[dim] = from_f32<T>(acc[4 * c + e] / safe);
-    }
+  for (int hr = 0; hr < 2; ++hr) {
+    l_row[hr] += __shfl_xor_sync(0xffffffffu, l_row[hr], 1);
+    l_row[hr] += __shfl_xor_sync(0xffffffffu, l_row[hr], 2);
   }
-  if (part == 0) lse[(long long)bh * sq + qi] = m + logf(safe);
+  const long long row_base = ((long long)b * hq + h) * sq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wrow + acc_row(lane, 2 * hr);
+    if (row >= sq) continue;
+    // Rows with no visible key have l == 0 (and acc == 0): zeros, not NaNs.
+    const float l = l_row[hr];
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    T* op = o + (row_base + row) * d;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int dim = 8 * n + acc_col(lane, e);
+        if (dim < d) store(op + dim, oacc[n][2 * hr + e] * inv);
+      }
+    if (lane_t(lane) == 0)
+      lse[row_base + row] =
+          l == 0.f ? NEG_INF : m_row[hr] * LN2 + logf(l);
+  }
 }
 
 template <typename T, int DP>
@@ -228,12 +806,37 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long k_ss, long long v_sb, long long v_sh, long long v_ss,
            int causal, int has_window, int window, int q_offset, int kv_len,
            float scale, cudaStream_t stream) {
-  const dim3 grid(b * hq, (sq + BQ - 1) / BQ);
-  flash_attention_fwd_kernel<T, DP><<<grid, BQ * (DP / 32), 0, stream>>>(
+  using TL = Tile<T, DP>;
+  constexpr size_t SMEM = TL::ELEMS * sizeof(T);
+  auto kernel = flash_attention_fwd_kernel<T, DP>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  // Query heads per block: the largest divisor of the GQA group that fits.
+  const int group = hq / hkv;
+  int gb = MaxHeads<T, DP>::value;
+  while (group % gb) --gb;
+  // 16-byte copies need 16-byte aligned rows, heads and batches.
+  constexpr long long ES = sizeof(T);
+  const auto aligned = [&](const void* p, long long sb, long long sh,
+                           long long ss) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+           (d * ES) % 16 == 0 && (sb * ES) % 16 == 0 &&
+           (sh * ES) % 16 == 0 && (ss * ES) % 16 == 0;
+  };
+  const int vec_k = aligned(k, k_sb, k_sh, k_ss);
+  const int vec_v = aligned(v, v_sb, v_sh, v_ss);
+  const dim3 grid(b * hkv * (group / gb), (sq + BQ - 1) / BQ);
+  kernel<<<grid, 128 * gb, SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      hq, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-      v_ss, causal, has_window, window, q_offset, kv_len, scale);
+      hq, hkv, gb, sq, skv, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      v_ss, causal, has_window, window, q_offset, kv_len, scale, vec_k,
+      vec_v);
   return (int)cudaGetLastError();
 }
 
@@ -264,6 +867,17 @@ extern "C" {
 
 const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+// Dynamic shared memory of one block at head dim d (ptxas reports only the
+// static kind), for the build report.
+int flash_attention_smem_bytes(int bf16, int d) {
+  const int dp = d <= 32 ? 32 : d <= 64 ? 64 : 128;
+#define FA_SMEM(T)                                                   \
+  (int)sizeof(T) * (dp == 32   ? Tile<T, 32>::ELEMS                 \
+                    : dp == 64 ? Tile<T, 64>::ELEMS : Tile<T, 128>::ELEMS)
+  return bf16 ? FA_SMEM(__nv_bfloat16) : FA_SMEM(float);
+#undef FA_SMEM
 }
 
 #define FA_ENTRY(SUFFIX, T)                                                   \

@@ -19,8 +19,8 @@ from . import build
 
 __all__ = ["flash_attention_fwd_cuda", "MAX_HEAD_DIM"]
 
-#: The kernel keeps a query row's slice of q and its accumulator in
-#: registers, 32 dimensions per thread and at most four threads a row.
+#: The kernel is built for head dims padded to 32, 64 or 128: each warp
+#: keeps its 16 rows' output accumulators for the padded width in registers.
 MAX_HEAD_DIM = 128
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

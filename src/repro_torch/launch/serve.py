@@ -18,9 +18,13 @@ archs whose blocks are all attention or reservoir layers with dense MLPs:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 4 --prompt-len 64 --gen 32
 
-It runs in float32, as the training driver does (the JAX loop keeps the
-config's bfloat16), so the card's logits can be held against the CPU's.
-Other archs exit naming ROADMAP A12.
+It computes in the config's dtype (``bfloat16`` for the registered archs)
+as the JAX loop does: parameters, activations and caches follow
+``cfg.dtype``, with the float32 islands of the JAX blocks (norms, RoPE, the
+reservoir recurrence, the attention softmax).  :func:`generate` is the loop
+as a library function; with ``forced`` tokens it replays another run's
+sequence (teacher forcing), which is how a bfloat16 run on the card is held
+against the CPU.  Other archs exit naming ROADMAP A12.
 
 ``--device cpu`` runs either loop on the host with the plain PyTorch
 versions of the kernels.  Reservoir flags of the JAX driver whose planes are
@@ -29,7 +33,6 @@ not ported yet exit with a message naming the ROADMAP item.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -160,13 +163,64 @@ def serve_reservoir(args) -> dict:
 
 
 # ----------------------------------------------------------------------- lm
-def serve_lm(args) -> dict:
-    """The LM loop: token-by-token prefill of ``--batch`` random prompts,
-    then ``--gen`` decoded tokens.  Returns the timings, the generated
-    tokens and the last step's logits."""
-    device = resolve_device(args.device)
+def generate(params, cfg, prompts, gen: int, *, temperature: float = 0.0,
+             seed: int = 0, forced=None) -> dict:
+    """The LM loop on ``params``: token-by-token prefill of ``prompts``
+    (B, P) through the decode caches, then ``gen`` tokens, greedy or sampled
+    at ``temperature`` (drawn on the host from ``seed``, so every device
+    draws the same).  ``forced`` (B, gen): feed these tokens instead of the
+    picked ones (teacher forcing), to replay another run's sequence.
+
+    Returns ``tokens`` (B, gen), the tokens the loop picked; ``step_logits``
+    (B, gen + 1, V) float32 on the host, the logits each token was picked
+    from and, last, those after the last token; ``prefill_s``,
+    ``decode_s``."""
+    device = prompts.device
+    batch, prompt_len = prompts.shape
+    sampler = torch.Generator().manual_seed(seed)
+    if forced is not None:
+        forced = torch.as_tensor(np.asarray(forced), device=device)
+
+    def pick(logits):
+        last = logits[:, -1].float()
+        steps.append(last)
+        if temperature > 0:           # drawn on the host: same on any device
+            probs = torch.softmax(last / temperature, -1).cpu()
+            return torch.multinomial(probs, 1, generator=sampler).to(device)
+        return torch.argmax(last, -1)[:, None]
+
+    steps, out = [], []
+    with torch.no_grad():
+        cache = lm.make_decode_cache(params, cfg, batch, prompt_len + gen)
+        t0 = time.perf_counter()
+        logits = None
+        for t in range(prompt_len):
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           prompts[:, t:t + 1])
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        cur = pick(logits)
+        t0 = time.perf_counter()
+        for i in range(gen):
+            out.append(cur[:, 0].cpu())
+            if forced is not None:
+                cur = forced[:, i:i + 1]
+            logits, cache = lm.decode_step(params, cfg, cache, cur)
+            cur = pick(logits)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
+    toks = torch.stack(out, 1).numpy() if out else np.zeros((batch, 0))
+    return {"tokens": toks, "step_logits": torch.stack(steps, 1).cpu(),
+            "prefill_s": t_prefill, "decode_s": t_decode}
+
+
+def lm_setup(args, device=None):
+    """The LM loop's inputs for ``args`` on ``device`` (default
+    ``args.device``): ``(cfg, params, prompts)``, the weights from
+    ``--seed`` (drawn on the host: the same on every device) and
+    ``--batch`` random prompts of ``--prompt-len`` tokens."""
+    device = resolve_device(args.device if device is None else device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, dtype="float32")
     try:
         lm.check_ported(cfg)
     except NotImplementedError as e:
@@ -176,45 +230,30 @@ def serve_lm(args) -> dict:
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(rng.integers(
         0, cfg.vocab, size=(args.batch, args.prompt_len)), device=device)
-    sampler = torch.Generator().manual_seed(args.seed + 1)
+    return cfg, params, prompts
 
-    def pick(logits):
-        last = logits[:, -1].float()
-        if args.temperature > 0:      # drawn on the host: same on any device
-            probs = torch.softmax(last / args.temperature, -1).cpu()
-            return torch.multinomial(probs, 1, generator=sampler).to(device)
-        return torch.argmax(last, -1)[:, None]
 
-    with torch.no_grad():
-        cache = lm.make_decode_cache(params, cfg, args.batch,
-                                     args.prompt_len + args.gen)
-        t0 = time.perf_counter()
-        logits = None
-        for t in range(args.prompt_len):
-            logits, cache = lm.decode_step(params, cfg, cache,
-                                           prompts[:, t:t + 1])
-        _sync(device)
-        t_prefill = time.perf_counter() - t0
-        cur = pick(logits)
-        out = []
-        t0 = time.perf_counter()
-        for _ in range(args.gen):
-            out.append(cur[:, 0].cpu())
-            logits, cache = lm.decode_step(params, cfg, cache, cur)
-            cur = pick(logits)
-        _sync(device)
-        t_decode = time.perf_counter() - t0
-    toks = torch.stack(out, 1).numpy() if out else np.zeros((args.batch, 0))
-    last = logits[:, -1].float().cpu()
-    res = {"arch": cfg.name, "device": str(device), "batch": args.batch,
-           "prompt_len": args.prompt_len, "gen": args.gen,
-           "prefill_s": t_prefill, "decode_s": t_decode,
+def serve_lm(args) -> dict:
+    """The LM loop: token-by-token prefill of ``--batch`` random prompts,
+    then ``--gen`` decoded tokens, in the config's dtype.  Returns the
+    timings, the generated tokens, every step's logits and the last
+    step's."""
+    cfg, params, prompts = lm_setup(args)
+    device = prompts.device
+    run = generate(params, cfg, prompts, args.gen,
+                   temperature=args.temperature, seed=args.seed + 1)
+    toks, t_prefill, t_decode = run["tokens"], run["prefill_s"], \
+        run["decode_s"]
+    last = run["step_logits"][:, -1]
+    res = {"arch": cfg.name, "dtype": cfg.dtype, "device": str(device),
+           "batch": args.batch, "prompt_len": args.prompt_len,
+           "gen": args.gen, "prefill_s": t_prefill, "decode_s": t_decode,
            "prefill_tok_s": args.batch * args.prompt_len / max(t_prefill,
                                                                1e-9),
            "decode_tok_s": args.batch * args.gen / max(t_decode, 1e-9),
-           "tokens": toks, "last_logits": last,
-           "finite": bool(torch.isfinite(last).all())}
-    print(f"arch={cfg.name} batch={args.batch} on {device}: "
+           "tokens": toks, "step_logits": run["step_logits"],
+           "last_logits": last, "finite": bool(torch.isfinite(last).all())}
+    print(f"arch={cfg.name} ({cfg.dtype}) batch={args.batch} on {device}: "
           f"prefill={args.prompt_len}tok in {t_prefill:.3f}s  "
           f"decode={args.gen}tok in {t_decode:.3f}s "
           f"({res['decode_tok_s']:.1f} tok/s)")

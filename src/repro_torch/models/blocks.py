@@ -100,7 +100,16 @@ def _dense_init(gen, shape, dtype, scale=None):
 # --------------------------------------------------------------------------- #
 # MLP (SwiGLU / GELU)                                                          #
 # --------------------------------------------------------------------------- #
-_ACTS = {"silu": F.silu,
+def _silu(v):
+    """jax.nn.silu: v * logistic(v), the logistic as 1 / (1 + exp(-v)).  In
+    a low-precision dtype every step rounds to it, as the JAX ops do;
+    F.silu would round once, at the end."""
+    if v.dtype in (torch.float32, torch.float64):
+        return F.silu(v)
+    return v * torch.reciprocal(1 + torch.exp(-v))
+
+
+_ACTS = {"silu": _silu,
          # jax.nn.gelu's default is the tanh approximation.
          "gelu": lambda v: F.gelu(v, approximate="tanh")}
 

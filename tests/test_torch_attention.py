@@ -249,3 +249,73 @@ def test_attention_front_door_matches_jax(sq, skv, causal, q_offset, impl,
     kw = dict(causal=causal, q_offset=q_offset, impl=impl, block_k=block_k)
     _grads_match(lambda q, k, v: jattn.attention(q, k, v, **kw),
                  lambda q, k, v: tattn.attention(q, k, v, **kw), q, k, v)
+
+
+# --------------------------------------------------------------------------- #
+# The CUDA kernel's numerics: why float32 inputs take the 3xTF32 split         #
+# --------------------------------------------------------------------------- #
+def _tf32(x):
+    """x rounded to nearest at TF32's 11 significant bits, as the kernel
+    rounds its operands (Veltkamp's split in float32: t = x (2^13 + 1),
+    big = t - (t - x))."""
+    t = x * 8193.0
+    return t - (t - x)
+
+
+def _unit(x):
+    """What the tensor core reads of a float32 register: its top 19 bits
+    (the low 13 mantissa bits dropped)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _product(a, b, passes):
+    """a @ b as the kernel's tensor-core products compute it: one TF32 pass
+    (operands rounded to TF32), or 3xTF32 (big = tf32(x), small = x - big,
+    read by the unit as it reads any register; small*big + big*small +
+    big*big, summed in float32); ``passes=0``: in float64."""
+    if passes == 0:
+        return a.double() @ b.double()
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _unit(a - ab) @ bb + ab @ _unit(b - bb) + ab @ bb
+
+
+def _emulated_attention(q, k, v, q_offset, passes):
+    d = q.shape[-1]
+    s = _product(q, k.transpose(-1, -2), passes) * d ** -0.5
+    mask = tref.attention_mask(q.shape[-2], k.shape[-2], q_offset=q_offset)
+    s = torch.where(mask, s, tref.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    return _product(p, v, passes) / l, (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 30.0], ids=["chunk", "scores-30"])
+def test_one_tf32_pass_misses_the_tolerances_and_3xtf32_keeps_them(q_scale):
+    """At head_dim 64 and the training chunks' shape of mask (causal, the
+    queries 512 positions in), with the chunks' unit-variance inputs (and q
+    scaled 30x, scores of magnitude ~30): one TF32 pass misses the kernel's
+    lse tolerance (1e-5 relative; at ~30 the output's 2e-4 too), while the
+    3xTF32 split the CUDA kernel runs on float32 inputs stays within both,
+    against a float64 reference.  The emulation lives in this test only."""
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(3, 512, 64)) * q_scale,
+                     dtype=torch.float32)
+    k, v = (torch.tensor(rng.normal(size=(3, 1024, 64)), dtype=torch.float32)
+            for _ in range(2))
+    want, want_lse = _emulated_attention(q.double(), k.double(), v.double(),
+                                         512, 0)
+
+    def errors(passes):
+        out, lse = _emulated_attention(q, k, v, 512, passes)
+        return (float((out.double() - want).abs().max()),
+                float(((lse.double() - want_lse).abs()
+                       / want_lse.abs().clamp(min=1.0)).max()))
+    out_1, lse_1 = errors(1)
+    out_3, lse_3 = errors(3)
+    assert lse_1 > 1e-5
+    if q_scale > 1:
+        assert out_1 > 2e-4
+    assert out_3 <= 2e-4 and lse_3 <= 1e-5, (out_3, lse_3)

@@ -343,6 +343,86 @@ def test_flash_attention_kernel_matches_plain(dev, name, dtype):
                                rtol=1e-5, atol=1e-5)
 
 
+# The tensor-core kernel's tiling: 64-row query tiles of gb heads, 64-key
+# (32 at head_dim 128) tiles staged by 16-byte copies or, for rows that are
+# not 16-byte aligned, by scalar loads.  (case, layout, q scale)
+FLASH_TILING_CASES = {
+    "hd96-gqa3-ragged": ((1, 6, 2, 100, 170, 96, True, None, 70, None),
+                         "contiguous", 1.0),
+    "hd128-mha": ((2, 2, 2, 77, 77, 128, True, None, 0, None),
+                  "contiguous", 1.0),
+    "gqa8-ragged": ((1, 8, 1, 65, 129, 64, True, None, 64, None),
+                    "contiguous", 1.0),
+    "kv_len-inside-tile": ((1, 3, 1, 50, 200, 64, False, None, 0, 100),
+                           "contiguous", 1.0),
+    "window-across-tiles": ((1, 4, 2, 150, 150, 64, True, 70, 0, None),
+                            "contiguous", 1.0),
+    "window-offset-hd32": ((1, 3, 3, 70, 260, 32, True, 100, 190, None),
+                           "contiguous", 1.0),
+    "permuted-bshd": ((2, 9, 3, 90, 90, 64, True, None, 0, None),
+                      "permuted", 1.0),
+    "slice-unaligned-rows": ((1, 4, 2, 60, 60, 18, True, None, 0, None),
+                             "slice", 1.0),
+    "offset-storage": ((1, 3, 1, 70, 70, 64, True, None, 0, None),
+                       "offset", 1.0),
+    # q scaled so the scores reach magnitude ~30: the 3xTF32 split has to
+    # keep float32 accuracy where one TF32 pass would not
+    "scores-30": ((2, 9, 3, 128, 256, 64, True, None, 128, None),
+                  "contiguous", 30.0),
+}
+
+
+def tiled_inputs(case, layout, q_scale, dtype, device, seed=0):
+    """q, k, v of ``case`` in a storage layout: contiguous; ``permuted``
+    (each a (B, S, H, D) tensor viewed as (B, H, S, D)); ``slice`` (rows
+    1.. of a longer sequence: with head_dim 18 no row is 16-byte aligned);
+    ``offset`` (storage starting one element in: no row is aligned)."""
+    b, hq, hkv, sq, skv, d = case[:6]
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for i, (h, s) in enumerate(((hq, sq), (hkv, skv), (hkv, skv))):
+        scale = q_scale if i == 0 else 1.0
+        shape = {"permuted": (b, s, h, d), "slice": (b, h, s + 1, d)}.get(
+            layout, (b, h, s, d))
+        t = (torch.randn(shape, generator=g) * scale).to(device=device,
+                                                         dtype=dtype)
+        if layout == "permuted":
+            t = t.permute(0, 2, 1, 3)
+        elif layout == "slice":
+            t = t[:, :, 1:]
+        elif layout == "offset":
+            flat = torch.empty(t.numel() + 1, device=device, dtype=dtype)
+            flat[1:] = t.reshape(-1)
+            t = flat[1:].view(t.shape)
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(FLASH_TILING_CASES))
+def test_flash_attention_tiling_matches_plain(dev, name, dtype):
+    case, layout, q_scale = FLASH_TILING_CASES[name]
+    causal, window, q_offset, kv_len = case[6:]
+    q, k, v = tiled_inputs(case, layout, q_scale, dtype, dev)
+    row_bytes = q.shape[-1] * q.element_size()
+    assert {"contiguous": q.is_contiguous(),
+            "permuted": not q.is_contiguous(),
+            "slice": not q.is_contiguous() and row_bytes % 16 != 0,
+            "offset": q.data_ptr() % 16 != 0}[layout]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    before = ops.flash_attention_fwd.launches
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    assert ops.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_flash_attention_counts_only_kernel_launches(dev):
     q, k, v = flash_inputs(FLASH_CASES["gqa"], torch.float32, dev)
     before = ops.flash_attention_fwd.launches

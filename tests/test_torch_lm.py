@@ -342,3 +342,60 @@ def test_attn_decode_matches_forward_and_jax(attn_model):
     assert [int(v) for v in tcache["kv"]["len"]] == [s] * cfg.n_layers
     for key, w in flatten(jax.tree.map(np.asarray, jcache)).items():
         _assert_rel(flatten(tcache)[key].numpy(), w, 1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# bfloat16 decode: the serve loop's dtype                                      #
+# --------------------------------------------------------------------------- #
+def _bf16_model(arch, seed):
+    cfg = dataclasses.replace(smoke_config(arch), dtype="bfloat16")
+    jp, _ = jlm.init_params(jax.random.PRNGKey(seed), cfg)
+    tp = tlm.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    assert tp["embed"].dtype == torch.bfloat16
+    return cfg, jp, tp
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "linear-esn"])
+def test_bf16_decode_matches_jax(arch):
+    """The LM serve loop runs in the config's bfloat16, as the JAX loop does:
+    ``decode_step`` of both packages from the same bfloat16 weights, over a
+    few tokens.  Logits agree within 2e-2 of the largest |logit|: XLA
+    compiles the JAX step (its ``lax.scan`` over layers) as one program and
+    keeps some intermediates in float32 that each PyTorch op rounds to
+    bfloat16 (8 bits of mantissa), so the two differ by a few bfloat16 ulps
+    of the activations (about 1e-2 of the largest logit at this size).
+    ``test_bf16_layer_rounds_as_the_jax_ops`` pins the port's own rounding
+    points."""
+    cfg, jp, tp = _bf16_model(arch, 11)
+    toks = np.random.default_rng(11).integers(
+        0, cfg.vocab, size=(B, 8)).astype(np.int32)
+    tcache = tlm.make_decode_cache(tp, cfg, B, toks.shape[1])
+    jcache = jlm.make_decode_cache(jp, cfg, B, toks.shape[1])
+    jstep = jax.jit(lambda p, c, t: jlm.decode_step(p, cfg, c, t))
+    for t in range(toks.shape[1]):
+        got, tcache = tlm.decode_step(tp, cfg, tcache,
+                                      torch.tensor(toks[:, t:t + 1]))
+        want, jcache = jstep(jp, jcache, jnp.asarray(toks[:, t:t + 1]))
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        _assert_rel(got.float().numpy(), np.asarray(want, np.float32), 2e-2)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "linear-esn"])
+def test_bf16_layer_rounds_as_the_jax_ops(arch):
+    """Run op by op, one bfloat16 decode layer of the JAX package (norms,
+    mixer, SwiGLU MLP with ``jax.nn.silu``'s rounding of the logistic,
+    residual adds) equals the port's bit for bit."""
+    cfg, jp, tp = _bf16_model(arch, 12)
+    kind = jlm.layer_kinds(cfg)[0]
+    x = np.random.default_rng(12).normal(size=(B, 1, cfg.d_model))
+    jl = jax.tree.map(lambda v: v[0], jp["layers"])
+    tl = tree_map(lambda v: v[0], tp["layers"])
+    jc = jax.tree.map(lambda v: v[0], jlm.make_decode_cache(jp, cfg, B, 4))
+    tc = tree_map(lambda v: v[0], tlm.make_decode_cache(tp, cfg, B, 4))
+    want, _, _ = jlm.apply_layer(jl, jnp.asarray(x, jnp.bfloat16), cfg, kind,
+                                 jblocks.NULL_PROFILE, mode="decode",
+                                 cache=jc)
+    got, _, _ = tlm.apply_layer(tl, torch.tensor(x).bfloat16(), cfg, kind,
+                                mode="decode", cache=tc)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
