@@ -5,9 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel (the diagonal scan, its backward, the fused decode, flash attention)
-against its plain PyTorch version at the main paths' shapes and times both,
-then drives the port's five main paths on the card, each with the launch
-counts set to 0 just before it and read just after:
+against its plain PyTorch version at the main paths' shapes and times both
+— the scan kernels also against their chunked plain versions at the chunk
+count the launcher picks, with the profiler's device time, the host time
+of a call and a sweep of the chunk count — then drives the port's five
+main paths on the card, each with the launch counts set to 0 just before
+it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
    workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
@@ -89,8 +92,24 @@ SMOLLM_SERVE_ARGS = ["--arch", "smollm-135m", "--batch", "4", "--prompt-len",
                      "64", "--gen", "32"]
 BF16_TOL, LSE_TOL = 5e-2, 1e-5
 #: The port's kernels, by their CUDA function names (profile summaries).
-OWN_KERNELS = ("diag_scan", "diag_scan_bwd", "decode_fused",
-               "flash_attention_fwd")
+OWN_KERNELS = ("diag_scan_chunk", "diag_scan", "diag_scan_bwd_chunk",
+               "diag_scan_bwd", "decode_fused", "flash_attention_fwd")
+
+
+def ptxas_spills(log: str) -> dict:
+    """``{function: "S bytes spill stores, L bytes spill loads"}`` for each
+    function of a ``-Xptxas=-v`` log that spills (empty: none does)."""
+    out, func = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            func = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line and func is not None:
+            stores, loads = (int(part.split("bytes spill")[0].split()[-1])
+                             for part in line.split(",")[1:3])
+            if stores or loads:
+                out[func] = f"{stores} bytes spill stores, {loads} loads"
+            func = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -208,10 +227,54 @@ def split_lanes(v):
     return v, None
 
 
-def check_diag_scan(ops, ref, copy_bw):
-    """Each case through both wrappers of the kernel: ``diag_scan`` (real
+def kernel_calls(fn, calls: int = 20):
+    """Device time and CUDA launches per call of ``fn`` in a
+    ``torch.profiler`` window of ``calls`` calls: the sum of the port's own
+    kernels' times (``OWN_KERNELS``) and their count, each over ``calls``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    own = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and any(f"::{n}_kernel" in e.name for n in OWN_KERNELS)]
+    if not own:
+        return {"device_ms": "not measured", "cuda_launches_per_call":
+                "not measured"}
+    us = sum(e.time_range.end - e.time_range.start for e in own)
+    return {"device_ms": us / 1e3 / calls,
+            "cuda_launches_per_call": len(own) / calls}
+
+
+def host_us(fn, calls: int = 200, repeats: int = 10):
+    """Host time of one call of ``fn``: ``perf_counter`` over ``calls``
+    back-to-back calls with no synchronisation inside, ``repeats`` times
+    (synchronised between repeats).  Returns ``(least, median)`` of the
+    repeats: the host is shared, so the least is the call's own cost and
+    the median shows the noise."""
+    import torch
+    fn()
+    per_call = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return min(per_call), float(np.median(per_call))
+
+
+def check_diag_scan(ops, ref, dsk, copy_bw):
+    """Each case through both wrappers of the kernels: ``diag_scan`` (real
     or complex tensors) and ``diag_scan_lanes`` (split lanes, the entry the
-    main path calls, and the one timed)."""
+    main path calls, and the one timed), against the sequential plain
+    version and the chunked one at the chunk count the launcher picks."""
+    import torch
     cases = [
         # name, shape, a, complex, h0, dtype, timed
         ("wave", (8, 1024, 525), "static", True, False, "float64", True),
@@ -229,24 +292,38 @@ def check_diag_scan(ops, ref, copy_bw):
     rows = []
     for name, shape, a_kind, cplx, with_h0, dtype, timed in cases:
         a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype)
+        chunks = dsk.scan_chunks(*shape)
         want = ref.diag_scan_ref(a, x, h0)
         lanes = [*split_lanes(a), *split_lanes(x), *split_lanes(h0)]
         got_re, got_im = ops.diag_scan_lanes(*lanes)
         want_re, want_im = split_lanes(want)
+        chunked = ref.diag_scan_lanes_chunked_ref(*lanes, chunks=chunks)
         errs = [max_err(ops.diag_scan(a, x, h0), want),
-                max_err(got_re, want_re)]
+                max_err(got_re, want_re), max_err(got_re, chunked[0])]
         if cplx:
-            errs.append(max_err(got_im, want_im))
+            errs += [max_err(got_im, want_im), max_err(got_im, chunked[1])]
         row = {"case": name, "shape": list(shape), "dtype": dtype,
-               **worst_of(errs)}
+               "chunks": chunks, **worst_of(errs)}
         for e, t in errs:
             if e > t:
                 fail(f"diag_scan {name}: max|d| {e:.3e} > {t:.3e}")
         if timed:
-            row["ms"] = time_ms(lambda: ops.diag_scan_lanes(*lanes), reps=20)
+            def call():
+                return ops.diag_scan_lanes(*lanes)
+            row["ms"] = time_ms(call, reps=20)
+            row.update(kernel_calls(call))
+            row["host_us"], row["host_us_median"] = host_us(call)
+            # The host's own speed: one PyTorch elementwise op on the lanes.
+            row["host_us_torch_add"] = host_us(
+                lambda: torch.add(lanes[2], lanes[2]))[0]
             row["plain_ms"] = time_ms(lambda: ref.diag_scan_ref(a, x, h0),
                                       reps=2, warmup=1)
             row.update(bound(*scan_cost(a, x, h0), dtype, copy_bw))
+            # Device time (profiler) of the kernels at each chunk count.
+            row["chunk_sweep_device_ms"] = {
+                c: kernel_calls(lambda: dsk.diag_scan_lanes_cuda(
+                    *lanes, chunks=c))["device_ms"]
+                for c in (1, 2, 4, 8, 16, 32, 64, 128)}
         rows.append(row)
         print(json.dumps({"diag_scan": row}), flush=True)
     return rows
@@ -272,8 +349,9 @@ def max_err_scaled(got, want, tol):
     return d, tol * max(1.0, float(want.abs().max()) if want.numel() else 1.0)
 
 
-def check_diag_scan_bwd(ops, ref, copy_bw):
-    """The backward kernel against the plain reverse-time loop, on the same
+def check_diag_scan_bwd(ops, ref, dsk, copy_bw):
+    """The backward kernels against the plain reverse-time loop and the
+    chunked plain version at the launcher's chunk count, on the same
     forward output and incoming gradient."""
     import torch
     cases = [
@@ -286,9 +364,11 @@ def check_diag_scan_bwd(ops, ref, copy_bw):
         ("ragged-h0", (5, 333, 257), "static", True, True, "float64", False),
         ("real", (4, 100, 129), "static", False, False, "float64", False),
     ]
+    outs = ("da_re", "da_im", "dx_re", "dx_im", "dh0_re", "dh0_im")
     rows = []
     for name, shape, a_kind, cplx, with_h0, dtype, timed in cases:
         a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype)
+        chunks = dsk.scan_chunks(*shape)
         (a_re, a_im), (h0_re, h0_im) = split_lanes(a), split_lanes(h0)
         h_re, h_im = ops.diag_scan_lanes(a_re, a_im, *split_lanes(x), h0_re,
                                          h0_im)
@@ -299,32 +379,43 @@ def check_diag_scan_bwd(ops, ref, copy_bw):
                 if cplx else None)
         lanes = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
         got = ops.diag_scan_bwd(*lanes)
-        want = ref.diag_scan_lanes_bwd_ref(*lanes)
         tol = F32_TOL if dtype == "float32" else F64_TOL
         errs = {}
-        for out, gv, wv in zip(("da_re", "da_im", "dx_re", "dx_im", "dh0_re",
-                                "dh0_im"), got, want):
-            if (gv is None) != (wv is None):
-                fail(f"diag_scan_bwd {name}: {out} missing on one side")
-            if wv is None:
-                continue
-            if gv.shape != wv.shape:
-                fail(f"diag_scan_bwd {name}: {out} shape {tuple(gv.shape)} "
-                     f"!= {tuple(wv.shape)}")
-            errs[out] = max_err_scaled(gv, wv, tol)
+        for plain, want in (("", ref.diag_scan_lanes_bwd_ref(*lanes)),
+                            ("chunked ", ref.diag_scan_lanes_bwd_chunked_ref(
+                                *lanes, chunks=chunks))):
+            for out, gv, wv in zip(outs, got, want):
+                if (gv is None) != (wv is None):
+                    fail(f"diag_scan_bwd {name}: {out} missing on one side")
+                if wv is None:
+                    continue
+                if gv.shape != wv.shape:
+                    fail(f"diag_scan_bwd {name}: {out} shape "
+                         f"{tuple(gv.shape)} != {tuple(wv.shape)}")
+                errs[plain + out] = max_err_scaled(gv, wv, tol)
         for out, (e, t) in errs.items():
             if e > t:
                 fail(f"diag_scan_bwd {name} {out}: max|d| {e:.3e} > {t:.3e}")
         row = {"case": name, "shape": list(shape), "dtype": dtype,
-               **worst_of(list(errs.values())),
+               "chunks": chunks, **worst_of(list(errs.values())),
                "per_output": {o: {"max_abs_err": e, "tol": t}
                               for o, (e, t) in errs.items()}}
         if timed:
-            row["ms"] = time_ms(lambda: ops.diag_scan_bwd(*lanes), reps=20)
+            def call():
+                return ops.diag_scan_bwd(*lanes)
+            row["ms"] = time_ms(call, reps=20)
+            row.update(kernel_calls(call))
+            row["host_us"], row["host_us_median"] = host_us(call)
+            row["host_us_torch_add"] = host_us(
+                lambda: torch.add(g_re, g_re))[0]
             row["plain_ms"] = time_ms(
                 lambda: ref.diag_scan_lanes_bwd_ref(*lanes), reps=2,
                 warmup=1)
             row.update(bound(*scan_bwd_cost(lanes, got), dtype, copy_bw))
+            row["chunk_sweep_device_ms"] = {
+                c: kernel_calls(lambda: dsk.diag_scan_lanes_bwd_cuda(
+                    *lanes, chunks=c))["device_ms"]
+                for c in (1, 2, 4, 8, 16, 32, 64, 128)}
         rows.append(row)
         print(json.dumps({"diag_scan_bwd": row}), flush=True)
     return rows
@@ -332,12 +423,12 @@ def check_diag_scan_bwd(ops, ref, copy_bw):
 
 def crossover(dispatch, esn, ESNConfig):
     """Kernel vs the chunked torch scan on a serving wave (8 rows, n=1024)
-    at T_bucket 256 / 512 / 1024 — where KERNEL_MIN_T should sit."""
+    at T_bucket 32 ... 1024 — where KERNEL_MIN_T should sit."""
     import torch
     p = esn.dpg_params(ESNConfig(n=1024, spectral_radius=0.95, leak=0.9),
                        sigma=0.1, device="cuda")
     out = []
-    for t in (256, 512, 1024):
+    for t in (32, 64, 128, 256, 512, 1024):
         d = torch.randn((8, t, 1024), dtype=torch.float64, device="cuda")
         row = {"t_bucket": t}
         for method in ("kernel", "chunked"):
@@ -802,6 +893,7 @@ def main() -> None:
     from repro_torch.data.pipeline import MarkovTokens
     from repro_torch.data.signals import mso_series
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import diag_scan as dsk
     from repro_torch.launch import serve, train
     from repro_torch.models import lm
     from repro_torch.serve.engine import ReservoirEngine
@@ -845,10 +937,14 @@ def main() -> None:
     compiled = build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": compiled}), flush=True)
+    spills = {}
     for stem in ("diag_scan", "flash_attention"):
-        for line in build.build_log(stem).splitlines():
+        log = build.build_log(stem)
+        for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
+        spills.update(ptxas_spills(log))
+    print(json.dumps({"ptxas_functions_with_spills": spills}), flush=True)
     smem = build.library("flash_attention").flash_attention_smem_bytes
     print(json.dumps({"flash_attention_dynamic_smem_bytes": {
         f"{'bf16' if bf16 else 'f32'}_d{d}": smem(bf16, d)
@@ -857,7 +953,7 @@ def main() -> None:
     print(json.dumps({"copy_bytes_per_s": copy_bw}), flush=True)
 
     phase("3 diag_scan kernel vs plain")
-    scan_rows = check_diag_scan(ops, ref, copy_bw)
+    scan_rows = check_diag_scan(ops, ref, dsk, copy_bw)
     print(json.dumps({"crossover": crossover(dispatch, esn, ESNConfig)}),
           flush=True)
 
@@ -877,7 +973,7 @@ def main() -> None:
     print(json.dumps({"profile": profile_serve(serve)}), flush=True)
 
     phase("6 diag_scan_bwd kernel vs plain")
-    bwd_rows = check_diag_scan_bwd(ops, ref, copy_bw)
+    bwd_rows = check_diag_scan_bwd(ops, ref, dsk, copy_bw)
 
     phase("7 main path 2: repro_torch.launch.train " + " ".join(TRAIN_ARGS))
     torch.cuda.reset_peak_memory_stats()
@@ -973,6 +1069,11 @@ def main() -> None:
     bwd_train = bwd["train"]
     dec = next(r for r in decode_rows if "ms" in r)
 
+    # The scan rows also carry the chunk count, the profiler's device time,
+    # the host time and the CUDA launches of one call.
+    scan_keys = keys + ("chunks", "device_ms", "host_us", "host_us_median",
+                        "host_us_torch_add", "cuda_launches_per_call")
+
     def count(name):
         return {"launches": sum(p[name] for p in launches.values()),
                 "launches_by_path": {p: c[name] for p, c in launches.items()}}
@@ -986,14 +1087,14 @@ def main() -> None:
              max_abs_err=wave["max_abs_err"], tol=wave["tol"],
              worst_err_over_tol=max(r["err_over_tol"] for r in scan_rows),
              shape=wave["shape"],
-             **{k: wave[k] for k in keys}, library_ms=None,
+             **{k: wave[k] for k in scan_keys}, library_ms=None,
              fit_shape={"shape": fit["shape"],
-                        **{k: fit[k] for k in keys}},
+                        **{k: fit[k] for k in scan_keys}},
              train_shape={"shape": fwd_train["shape"], "dtype": "float32",
-                          **{k: fwd_train[k] for k in keys}},
+                          **{k: fwd_train[k] for k in scan_keys}},
              lm_decode_shape={"shape": fwd_decode["shape"],
                               "dtype": "float32",
-                              **{k: fwd_decode[k] for k in keys}}),
+                              **{k: fwd_decode[k] for k in scan_keys}}),
         dict(name="diag_scan_bwd", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/ops.py:85",
@@ -1004,9 +1105,9 @@ def main() -> None:
              max_abs_err=bwd_train["max_abs_err"], tol=bwd_train["tol"],
              worst_err_over_tol=max(r["err_over_tol"] for r in bwd_rows),
              shape=bwd_train["shape"], dtype="float32",
-             **{k: bwd_train[k] for k in keys}, library_ms=None,
+             **{k: bwd_train[k] for k in scan_keys}, library_ms=None,
              f64={"shape": bwd["train-f64"]["shape"],
-                  **{k: bwd["train-f64"][k] for k in keys}}),
+                  **{k: bwd["train-f64"][k] for k in scan_keys}}),
         dict(name="decode_fused", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/diag_scan.py:157",

@@ -1,12 +1,15 @@
 """Launchers of the Hopper kernels in ``csrc/diag_scan.cu``.
 
 ``diag_scan_lanes_cuda`` (the scan on split (re, im) lanes),
-``diag_scan_lanes_bwd_cuda`` (its gradient, one reverse-time pass) and
+``diag_scan_lanes_bwd_cuda`` (its gradient, in reverse time) and
 ``decode_fused_cuda`` take CUDA tensors, check every input (device, dtype,
 shape, contiguity, the one-block limits of the decode kernel), allocate the
-outputs with ``torch.empty``, and launch on PyTorch's current stream without
-synchronising.  They raise when the C entry point reports a CUDA error.  They
-are raw launchers: they record nothing for autograd (``kernels.ops`` wraps
+outputs and scratch with ``torch.empty``, and launch on PyTorch's current
+stream without synchronising.  A scan cuts time into the chunks that
+:func:`scan_chunks` picks from the shape and makes two launches (reduce,
+then scan with the composed carry), or one when it picks one chunk.  They
+raise when the C entry point reports a CUDA error.  They are raw
+launchers: they record nothing for autograd (``kernels.ops`` wraps
 the scan and its backward in a ``torch.autograd.Function``) and route
 nothing (``kernels.ops`` sends CPU tensors to the plain versions instead);
 nothing here runs without a GPU.
@@ -14,15 +17,17 @@ nothing here runs without a GPU.
 from __future__ import annotations
 
 import ctypes
+from array import array
 from typing import Optional
 
 import torch
 
 from . import build
-from .ref import live_mask
+from .ref import chunk_layout, live_mask
 
 __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
-           "decode_fused_cuda", "decode_layout",
+           "decode_fused_cuda", "decode_layout", "scan_chunks",
+           "SCAN_TARGET_THREADS", "SCAN_MIN_CHUNK",
            "DECODE_MAX_THREADS", "DECODE_MAX_PER_THREAD",
            "DECODE_MAX_SMEM_BYTES"]
 
@@ -35,23 +40,43 @@ DECODE_MAX_SMEM_BYTES = 48 * 1024
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "diag_scan": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _LL, _VP, _VP,
-                  _INT, _INT, _INT, _INT, _VP],
-    "diag_scan_bwd": [_VP, _VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL,
-                      _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                      _VP],
+    # The scan entry points take one block of int64 fields (``_launch``).
+    "diag_scan": [_VP],
+    "diag_scan_bwd": [_VP],
     "decode_fused": [_VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL,
                      _VP, _LL, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP,
                      _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ENTRIES = {}
+
+#: The scan kernels' chunk-count rule (:func:`scan_chunks`): enough
+#: (b, lane, chunk) threads to fill the card's 132 SMs, and chunks of at
+#: least SCAN_MIN_CHUNK steps.
+SCAN_TARGET_THREADS = 1 << 17
+SCAN_MIN_CHUNK = 16
+
+
+def scan_chunks(b: int, t: int, n: int) -> int:
+    """The number of time chunks C the scan kernels cut a (B, T, N) scan
+    into: 1 (one launch, no prefix) when B x N alone reaches
+    SCAN_TARGET_THREADS or T is too short to cut, else the smallest power
+    of two whose C x B x N threads reach it while T / C stays at least
+    SCAN_MIN_CHUNK.  Chosen from the shape alone."""
+    lanes, c = b * n, 1
+    while c * lanes < SCAN_TARGET_THREADS and t >= 2 * c * SCAN_MIN_CHUNK:
+        c *= 2
+    return c
 
 
 def _entry(name: str, dtype: torch.dtype):
-    lib = build.library("diag_scan")
-    fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    """The C entry point ``<name>_<f32|f64>``, resolved once."""
+    fn = _ENTRIES.get((name, dtype))
+    if fn is None:
+        fn = getattr(build.library("diag_scan"), f"{name}_{_SUFFIX[dtype]}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _ENTRIES[name, dtype] = fn
     return fn
 
 
@@ -64,38 +89,74 @@ def _check(rc: int) -> None:
         raise RuntimeError(f"CUDA kernel launch failed: error {rc} ({msg})")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch(name: str, dtype: torch.dtype, *fields: int) -> None:
+    """Call the scan entry point ``name`` with ``fields`` packed into one
+    block of int64 (pointers and integers, in the order of ``ScanCall`` /
+    ``ScanBwdCall`` in ``csrc/diag_scan.cu``): ctypes then converts one
+    argument instead of every field.  Raises on a CUDA error."""
+    block = array("q", fields)
+    _check(_entry(name, dtype)(block.buffer_info()[0]))
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device`` (a tensor's
+    device, so with its index).  ``torch.cuda.current_stream`` returns the
+    same handle inside a Stream object that costs microseconds of host time
+    to build on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # --------------------------------------------------------------------------- #
 # B1: diag_scan                                                                #
 # --------------------------------------------------------------------------- #
+def _broadcast_strides(name, v, shape):
+    """The strides of ``v`` broadcast to ``shape`` (0 along a broadcast
+    axis), from its own shape and strides."""
+    lead = len(shape) - v.ndim
+    if lead >= 0 and v.shape == shape[lead:]:
+        return (0,) * lead + v.stride()
+    if lead < 0:
+        raise ValueError(f"{name} {tuple(v.shape)} does not broadcast to "
+                         f"{tuple(shape)}")
+    out = [0] * lead
+    for size, stride, want in zip(v.shape, v.stride(), shape[lead:]):
+        if size == want:
+            out.append(stride)
+        elif size == 1:
+            out.append(0)
+        else:
+            raise ValueError(f"{name} {tuple(v.shape)} does not broadcast "
+                             f"to {tuple(shape)}")
+    return tuple(out)
+
+
 def _lane_strides(name, re, im, shape):
     """Strides of ``re`` broadcast to ``shape`` (the kernel reads ``re`` and
     ``im`` through the same ones); the lane axis must have stride 1."""
     if re is None:
         return (0,) * len(shape)
-    try:
-        strides = re.expand(shape).stride()
-        im_strides = strides if im is None else im.expand(shape).stride()
-    except RuntimeError as e:
-        raise ValueError(f"{name} {tuple(re.shape)} does not broadcast to "
-                         f"{tuple(shape)}") from e
+    strides = _broadcast_strides(name, re, shape)
+    im_strides = strides if im is None or (
+        im.shape == re.shape and im.stride() == re.stride()) else \
+        _broadcast_strides(name, im, shape)
     if (shape[-1] > 1 and strides[-1] != 1) or im_strides != strides:
         raise ValueError(f"{name}_re and {name}_im must share one layout "
                          f"with unit lane stride")
     return strides
 
 
-def _scan_operands(x_re, x_im, named):
+_OPERANDS = ("a_re", "a_im", "h0_re", "h0_im", "h_re", "h_im")
+
+
+def _scan_operands(x_re, x_im, *others):
     """Check the operands of one scan (forward or backward) against the
     lanes ``x_re`` / ``x_im`` (B, T, N); returns ``(device, dtype, cplx)``.
-    ``named`` maps each further operand's name to its tensor (or None)."""
+    ``others``: ``a_re, a_im, h0_re, h0_im`` and, for the backward, ``h_re,
+    h_im`` (each a tensor or None)."""
     if x_re.ndim != 3:
         raise ValueError(f"x must be (B, T, N), got {tuple(x_re.shape)}")
     dev, dtype = x_re.device, x_re.dtype
@@ -105,14 +166,14 @@ def _scan_operands(x_re, x_im, named):
         raise TypeError(f"diag_scan kernel takes float32/float64 lanes, "
                         f"got {dtype}")
     cplx = x_im is not None
-    a_im, h0_re, h0_im = named["a_im"], named["h0_re"], named["h0_im"]
+    _, a_im, h0_re, h0_im = others[:4]
     if (a_im is not None) != cplx or (
             h0_re is not None and (h0_im is not None) != cplx) or (
             h0_re is None and h0_im is not None):
         raise ValueError("a_im, x_im and h0_im must be given together (a "
                          "complex scan) or all be None (a real scan)")
-    for name, v in named.items():
-        if v is not None and (v.device != dev or v.dtype != dtype):
+    for name, v in zip(_OPERANDS, others):
+        if v is not None and (v.dtype is not dtype or v.device != dev):
             raise ValueError(f"{name} must be a {dtype} tensor on {dev}, "
                              f"got {v.dtype} on {v.device}")
     if not x_re.is_contiguous() or (cplx and (
@@ -121,45 +182,73 @@ def _scan_operands(x_re, x_im, named):
     return dev, dtype, cplx
 
 
-def diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
-    """h_t = a_t h_{t-1} + x_t on split (re, im) lanes through the kernel.
+def _chunking(b, t, n, chunks):
+    """``(n_chunks, chunk_len)`` for ``chunks`` (None: :func:`scan_chunks`)."""
+    return chunk_layout(t, scan_chunks(b, t, n) if chunks is None
+                        else int(chunks))
+
+
+def _scratch(like, n_chunks, cplx, stat):
+    """The per-chunk carries e and products p (re, im) of a chunked scan of
+    the (B, T, N) lanes ``like``: ``(buffer, (e_re, e_im, p_re, p_im))``,
+    the pointers into one (parts, B, C, N) buffer (0 where not needed: all
+    of them without chunking, p for a static ``a``, the im parts for a real
+    scan)."""
+    if n_chunks <= 1:
+        return None, (0, 0, 0, 0)
+    b, _, n = like.shape
+    re_im = 2 if cplx else 1
+    buf = like.new_empty((re_im * (1 if stat else 2), b, n_chunks, n))
+    base, step = buf.data_ptr(), b * n_chunks * n * buf.element_size()
+    ptrs = [base + i * step for i in range(buf.shape[0])]
+    e, p = ptrs[:re_im], ptrs[re_im:]
+    return buf, (e[0], e[1] if cplx else 0, p[0] if p else 0,
+                 p[1] if p and cplx else 0)
+
+
+def diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None, *,
+                         chunks=None):
+    """h_t = a_t h_{t-1} + x_t on split (re, im) lanes through the kernels.
 
     ``x_*``: contiguous (B, T, N); ``a_*``: anything that broadcasts to
     (B, T, N) lane-wise — (N,), (T, N), (B, T, N) — read through strides,
     never materialized; ``h0_*``: broadcasts to (B, N).  All float32 or all
     float64; ``a_im``, ``x_im`` and ``h0_im`` are all None for a real scan.
+    ``chunks``: the time chunks C of the schedule (None: the shape's rule,
+    :func:`scan_chunks`; the kernels run ``chunk_layout(T, C)``).
     Returns ``(o_re, o_im)`` (``o_im`` None for a real scan).
     """
-    dev, dtype, cplx = _scan_operands(x_re, x_im, dict(
-        a_re=a_re, a_im=a_im, h0_re=h0_re, h0_im=h0_im))
+    dev, dtype, cplx = _scan_operands(x_re, x_im, a_re, a_im, h0_re, h0_im)
     b, t, n = x_re.shape
     a_sb, a_st, _ = _lane_strides("a", a_re, a_im, (b, t, n))
     h0_sb, _ = _lane_strides("h0", h0_re, h0_im, (b, n))
-    o_re = torch.empty((b, t, n), dtype=dtype, device=dev)
-    o_im = torch.empty_like(o_re) if cplx else None
-    rc = _entry("diag_scan", dtype)(
-        _ptr(a_re), _ptr(a_im), a_sb, a_st, _ptr(x_re), _ptr(x_im),
-        _ptr(h0_re), _ptr(h0_im), h0_sb, _ptr(o_re), _ptr(o_im), b, t, n,
-        int(cplx), _stream(dev))
-    _check(rc)
+    n_chunks, chunk_len = _chunking(b, t, n, chunks)
+    # empty_like of the contiguous (B, T, N) lanes: the same tensor as
+    # torch.empty((b, t, n), dtype=, device=) at half its host cost.
+    o_re = torch.empty_like(x_re)
+    o_im = torch.empty_like(x_re) if cplx else None
+    _buf, scratch = _scratch(x_re, n_chunks, cplx, a_st == 0)
+    _launch("diag_scan", dtype,
+            _ptr(a_re), _ptr(a_im), a_sb, a_st, _ptr(x_re), _ptr(x_im),
+            _ptr(h0_re), _ptr(h0_im), h0_sb, _ptr(o_re), _ptr(o_im),
+            *scratch, b, t, n, n_chunks, chunk_len, int(cplx), _stream(dev))
     return o_re, o_im
 
 
 def diag_scan_lanes_bwd_cuda(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
-                             h0_im=None):
+                             h0_im=None, *, chunks=None):
     """The gradient of :func:`diag_scan_lanes_cuda` through the reverse-time
-    kernel: ``a_*`` and ``h0_*`` as given to the forward, ``h_*`` its output,
+    kernels: ``a_*`` and ``h0_*`` as given to the forward, ``h_*`` its output,
     ``g_*`` the gradient of that output (``_im`` operands None for a real
-    scan).  Returns ``(da_re, da_im, dx_re, dx_im, dh0_re, dh0_im)``: ``da``
-    summed to the shape of ``a_re``, ``dx`` (B, T, N), ``dh0`` summed to the
-    shape of ``h0_re`` (None without ``h0``) — PyTorch's convention, which on
-    the lanes is the real gradient.
+    scan); ``chunks`` as for the forward.  Returns ``(da_re, da_im, dx_re,
+    dx_im, dh0_re, dh0_im)``: ``da`` summed to the shape of ``a_re``, ``dx``
+    (B, T, N), ``dh0`` summed to the shape of ``h0_re`` (None without
+    ``h0``) — PyTorch's convention, which on the lanes is the real gradient.
     """
     g_re = g_re.contiguous()
     g_im = None if g_im is None else g_im.contiguous()
-    dev, dtype, cplx = _scan_operands(g_re, g_im, dict(
-        a_re=a_re, a_im=a_im, h0_re=h0_re, h0_im=h0_im, h_re=h_re,
-        h_im=h_im))
+    dev, dtype, cplx = _scan_operands(g_re, g_im, a_re, a_im, h0_re, h0_im,
+                                      h_re, h_im)
     b, t, n = g_re.shape
     if h_re.shape != g_re.shape or not h_re.is_contiguous() or (cplx and (
             h_im is None or h_im.shape != g_re.shape
@@ -168,21 +257,24 @@ def diag_scan_lanes_bwd_cuda(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
                          "(B, T, N) output")
     a_sb, a_st, _ = _lane_strides("a", a_re, a_im, (b, t, n))
     h0_sb, _ = _lane_strides("h0", h0_re, h0_im, (b, n))
-    dx_re = torch.empty((b, t, n), dtype=dtype, device=dev)
-    dx_im = torch.empty_like(dx_re) if cplx else None
-    # da per (b, lane) when a is static in time, else per (b, t, lane).
-    da_shape = (b, 1, n) if a_st == 0 else (b, t, n)
-    new = torch.zeros if t == 0 else torch.empty
-    da_re = new(da_shape, dtype=dtype, device=dev)
-    da_im = new(da_shape, dtype=dtype, device=dev) if cplx else None
-    dh0_re = new((b, n), dtype=dtype, device=dev)
-    dh0_im = new((b, n), dtype=dtype, device=dev) if cplx else None
-    rc = _entry("diag_scan_bwd", dtype)(
-        _ptr(a_re), _ptr(a_im), a_sb, a_st, _ptr(h_re), _ptr(h_im),
-        _ptr(g_re), _ptr(g_im), _ptr(h0_re), _ptr(h0_im), h0_sb,
-        _ptr(dx_re), _ptr(dx_im), _ptr(da_re), _ptr(da_im), _ptr(dh0_re),
-        _ptr(dh0_im), b, t, n, int(cplx), _stream(dev))
-    _check(rc)
+    n_chunks, chunk_len = _chunking(b, t, n, chunks)
+    stat = a_st == 0
+    dx_re = torch.empty_like(g_re)
+    dx_im = torch.empty_like(g_re) if cplx else None
+    # da per (b, chunk, lane) when a is static in time, else per (b, t, lane).
+    da_shape = (b, n_chunks, n) if stat else (b, t, n)
+    new = g_re.new_zeros if t == 0 else g_re.new_empty
+    da_re = new(da_shape)
+    da_im = new(da_shape) if cplx else None
+    dh0_re = new((b, n))
+    dh0_im = new((b, n)) if cplx else None
+    _buf, scratch = _scratch(g_re, n_chunks, cplx, stat)
+    _launch("diag_scan_bwd", dtype,
+            _ptr(a_re), _ptr(a_im), a_sb, a_st, _ptr(h_re), _ptr(h_im),
+            _ptr(g_re), _ptr(g_im), _ptr(h0_re), _ptr(h0_im), h0_sb,
+            _ptr(dx_re), _ptr(dx_im), _ptr(da_re), _ptr(da_im), _ptr(dh0_re),
+            _ptr(dh0_im), *scratch, b, t, n, n_chunks, chunk_len, int(cplx),
+            _stream(dev))
 
     def to(v, like):
         return None if v is None or like is None else v.sum_to_size(

@@ -10,7 +10,9 @@ The scan is differentiable: :func:`diag_scan_lanes` is a
 ``torch.autograd.Function`` whose forward is the ``diag_scan`` kernel and
 whose backward is the ``diag_scan_bwd`` kernel (each with its own counter),
 and :func:`diag_scan` builds the complex entry on top of it, so
-``torch.complex`` and ``.real``/``.imag`` carry the gradient.
+``torch.complex`` and ``.real``/``.imag`` carry the gradient.  Each counter
+counts one per scan call, though a call may make two CUDA launches (the
+chunked schedule of ``csrc/diag_scan.cu``).
 
 Attention has one kernel, ``flash_attention_fwd`` (``kernels.
 flash_attention``), with two entries: :func:`flash_attention_fwd` returns
@@ -82,10 +84,12 @@ def diag_scan(a, x, h0=None):
 
 
 def _scan_forward(a_re, a_im, x_re, x_im, h0_re, h0_im):
-    args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
-    if _route(*args) == "cpu":
-        return ref.diag_scan_lanes_ref(*args)
-    out = diag_scan_lanes_cuda(*args)
+    if not x_re.is_cuda:
+        args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
+        if _route(*args) == "cpu":
+            return ref.diag_scan_lanes_ref(*args)
+    # The launcher checks that every operand lies on x's card.
+    out = diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re, h0_im)
     if x_re.numel():                # an empty scan launches nothing
         diag_scan.launches += 1
     return out
@@ -135,11 +139,17 @@ def diag_scan_lanes(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
     operands all None for a real scan.  Returns ``(h_re, h_im)``.
     Differentiable in every operand: the forward launches the ``diag_scan``
     kernel (``diag_scan.launches``), the backward the ``diag_scan_bwd``
-    kernel (``diag_scan_bwd.launches``)."""
+    kernel (``diag_scan_bwd.launches``).  When grad mode is off or no
+    operand requires grad, the forward runs without the autograd
+    Function (its outputs have no ``grad_fn``)."""
     if x_re.ndim != 3:
         raise ValueError(f"x must be (B, T, N), got {tuple(x_re.shape)}")
-    _route(a_re, a_im, x_re, x_im, h0_re, h0_im)
-    return _DiagScanLanes.apply(a_re, a_im, x_re, x_im, h0_re, h0_im)
+    if torch.is_grad_enabled():
+        args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
+        if any(v is not None and v.requires_grad for v in args):
+            _route(*args)
+            return _DiagScanLanes.apply(*args)
+    return _scan_forward(a_re, a_im, x_re, x_im, h0_re, h0_im)
 
 
 def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,

@@ -5,8 +5,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["diag_scan_ref", "diag_scan_lanes_ref", "diag_scan_lanes_bwd_ref",
-           "decode_fused_ref", "NEG_INF", "attention_mask", "attention_ref",
-           "flash_attention_fwd_ref"]
+           "chunk_layout", "diag_scan_lanes_chunked_ref",
+           "diag_scan_lanes_bwd_chunked_ref", "decode_fused_ref", "NEG_INF",
+           "attention_mask", "attention_ref", "flash_attention_fwd_ref"]
 
 #: The score of a masked query-key pair (as in the JAX package).
 NEG_INF = -1e30
@@ -91,6 +92,155 @@ def diag_scan_lanes_bwd_ref(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
         return None if like is None else v.sum_to_size(like.shape)
     return (to(da_re, a_re), to(da_im, a_im), dx_re,
             dx_im if cplx else None, to(dh0_re, h0_re), to(dh0_im, h0_im))
+
+
+def chunk_layout(t: int, chunks: int):
+    """``(n_chunks, chunk_len)`` of a scan of ``t`` steps cut into at most
+    ``chunks`` chunks: chunk_len = ceil(t / chunks) (at least 1), n_chunks =
+    ceil(t / chunk_len), so only the last chunk may be shorter (and no chunk
+    is empty: ``chunks`` above ``t`` gives ``t`` one-step chunks)."""
+    if chunks < 1:
+        raise ValueError(f"chunks must be >= 1, got {chunks}")
+    chunk_len = max(1, -(-t // chunks))
+    return -(-t // chunk_len), chunk_len
+
+
+def _cplx(re, im):
+    """One operand of the lane scans as one tensor (complex when ``im`` is
+    given)."""
+    if re is None:
+        return None
+    return re if im is None else torch.complex(re, im)
+
+
+def _lanes_of(v, cplx):
+    return (v.real, v.imag) if cplx else (v, None)
+
+
+def _power(a, e: int):
+    """``a ** e`` by repeated squaring, as the kernels form a static
+    coefficient's chunk product."""
+    p = torch.ones_like(a)
+    while e > 0:
+        if e & 1:
+            p = p * a
+        e >>= 1
+        if e > 0:
+            a = a * a
+    return p
+
+
+def _static_in_time(a):
+    return a.ndim < 2 or a.shape[-2] == 1
+
+
+def diag_scan_lanes_chunked_ref(a_re, a_im, x_re, x_im, h0_re=None,
+                                h0_im=None, *, chunks: int):
+    """:func:`diag_scan_lanes_ref` through the scan kernel's decomposition,
+    one step at a time: cut time into chunks (:func:`chunk_layout`); reduce
+    each chunk but the last from a zero carry to its end state ``e`` and its
+    coefficient product ``P`` (``a ** chunk_len`` for an ``a`` static in
+    time); compose the carry into chunk c as ``h = P h + e`` over the
+    chunks before it, starting from ``h0``; rescan each chunk from its
+    carry.  (The kernel composes each chunk's carry in its own thread from
+    ``h0``; the running composition here gives the same values.)"""
+    cplx = x_im is not None
+    a, x = _cplx(a_re, a_im), _cplx(x_re, x_im)
+    h0 = _cplx(h0_re, h0_im)
+    b, t, n = x.shape
+    n_chunks, size = chunk_layout(t, chunks)
+    af = torch.broadcast_to(a, (b, t, n))
+    zero = x.new_zeros((b, n))
+
+    def run(c, h):
+        """Chunk c from the carry ``h``: its states and its product."""
+        hs, p = [], torch.ones_like(zero)
+        for i in range(c * size, min(t, (c + 1) * size)):
+            h = af[:, i] * h + x[:, i]
+            p = p * af[:, i]
+            hs.append(h)
+        return hs, p
+    reduced = []
+    for c in range(n_chunks - 1):
+        hs, p = run(c, zero)
+        if _static_in_time(a):
+            p = _power(af[:, 0], size)
+        reduced.append((hs[-1], p))
+    out = []
+    h = zero if h0 is None else torch.broadcast_to(h0, (b, n)).to(x.dtype)
+    for c in range(n_chunks):
+        out += run(c, h)[0]
+        if c < n_chunks - 1:
+            e, p = reduced[c]
+            h = p * h + e
+    hs = torch.stack(out, 1) if out else x.clone()
+    return _lanes_of(hs, cplx)
+
+
+def diag_scan_lanes_bwd_chunked_ref(a_re, a_im, h_re, h_im, g_re, g_im,
+                                    h0_re=None, h0_im=None, *, chunks: int):
+    """:func:`diag_scan_lanes_bwd_ref` through the backward kernel's
+    decomposition in reverse time.  The carry from step t to step t-1 is
+    k_t = conj(a_t) s_t, so s_{t-1} = g_{t-1} + k_t and dh0 = k_0.  Reduce
+    each chunk but the first, walking back from its last step with k = 0,
+    to the carry it hands on (``e``) and the product of conj(a_t) over it
+    (``P``; ``conj(a) ** chunk_len`` for an ``a`` static in time); compose
+    the carry into chunk c as ``k = P k + e`` over the chunks after it (the
+    last starts from 0, so needs no ``P``); rescan each chunk from its carry
+    for dx and da.  For a static ``a``, da is summed per (b, chunk) first,
+    as the kernel writes it.  Returns what :func:`diag_scan_lanes_bwd_ref`
+    returns."""
+    cplx = g_im is not None
+    a, h, g = _cplx(a_re, a_im), _cplx(h_re, h_im), _cplx(g_re, g_im)
+    h0 = _cplx(h0_re, h0_im)
+    b, t, n = g.shape
+    n_chunks, size = chunk_layout(t, chunks)
+    ac = torch.conj(torch.broadcast_to(a, (b, t, n))).resolve_conj()
+    zero = g.new_zeros((b, n))
+    hp0 = zero if h0 is None else torch.broadcast_to(h0, (b, n)).to(g.dtype)
+    static = _static_in_time(a)
+
+    def run(c, k):
+        """Chunk c backwards from the carry ``k``: {t: s_t}, the carry out
+        and the product."""
+        ss, p = {}, torch.ones_like(zero)
+        for i in reversed(range(c * size, min(t, (c + 1) * size))):
+            ss[i] = g[:, i] + k
+            k = ac[:, i] * ss[i]
+            p = p * ac[:, i]
+        return ss, k, p
+    reduced = {}
+    for c in range(1, n_chunks):
+        _, e, p = run(c, zero)
+        if static:
+            p = _power(ac[:, 0], size)
+        reduced[c] = (e, p)
+    dx, da = torch.empty_like(g), torch.empty_like(g)
+    da_parts = g.new_zeros((b, n_chunks, n))
+    k, dh0 = zero, zero
+    for c in reversed(range(n_chunks)):
+        if c == n_chunks - 2:
+            k = reduced[c + 1][0]
+        elif c < n_chunks - 2:
+            e, p = reduced[c + 1]
+            k = p * k + e
+        ss, k_out, _ = run(c, k)
+        for i, s in ss.items():
+            dx[:, i] = s
+            hp = h[:, i - 1] if i else hp0
+            da[:, i] = s * torch.conj(hp)
+            da_parts[:, c] += da[:, i]
+        if c == 0:
+            dh0 = k_out
+    da = da_parts if static else da
+
+    def to(v, like):
+        return None if like is None else v.sum_to_size(like.shape)
+    da_re, da_im = _lanes_of(da, cplx)
+    dx_re, dx_im = _lanes_of(dx, cplx)
+    dh0_re, dh0_im = _lanes_of(dh0, cplx)
+    return (to(da_re, a_re), to(da_im, a_im), dx_re, dx_im,
+            to(dh0_re, h0_re), to(dh0_im, h0_im))
 
 
 def _mm(v, w):

@@ -24,6 +24,7 @@ from repro_torch.core import esn
 from repro_torch.core.params import ESNConfig
 from repro_torch.data.signals import mso_series
 from repro_torch.configs import smoke_config
+from repro_torch.kernels import diag_scan as dsk
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
@@ -177,6 +178,62 @@ def test_diag_scan_bwd_kernel_matches_plain(dev, name):
             continue
         assert g_.shape == w_.shape, name_
         _close_scaled(g_, w_, dtype)
+
+
+# Ragged shapes for the chunk sweep: T a multiple of no chunk count swept,
+# N of no 128-lane tile.
+CHUNK_CASES = {
+    "static-h0": ((5, 333, 257), "static", True, True, torch.float64),
+    "time-a": ((3, 77, 130), "time", True, False, torch.float64),
+    "full-a-real-h0": ((2, 50, 20), "full", False, True, torch.float64),
+    "f32-static-h0": ((4, 256, 300), "static", True, True, torch.float32),
+    "f32-time-real": ((3, 100, 129), "time", False, False, torch.float32),
+}
+CHUNK_SWEEP = [1, 2, 7, 64, 1000]
+
+
+@pytest.mark.parametrize("chunks", CHUNK_SWEEP)
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_diag_scan_chunks_match_both_plain_versions(dev, name, chunks):
+    """The forward kernels at a forced chunk count against the sequential
+    plain version and the chunked one at the same count."""
+    shape, a_kind, cplx, with_h0, dtype = CHUNK_CASES[name]
+    a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype, dev)
+    lanes = (*_split(a, cplx), *_split(x, cplx), *_split(h0, cplx))
+    got = dsk.diag_scan_lanes_cuda(*lanes, chunks=chunks)
+    torch.cuda.synchronize()
+    for want in (ref.diag_scan_lanes_ref(*lanes),
+                 ref.diag_scan_lanes_chunked_ref(*lanes, chunks=chunks)):
+        for g_, w_ in zip(got, want):
+            assert (g_ is None) == (w_ is None)
+            if w_ is not None:
+                _close(g_, w_, dtype)
+
+
+@pytest.mark.parametrize("chunks", CHUNK_SWEEP)
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_diag_scan_bwd_chunks_match_both_plain_versions(dev, name, chunks):
+    """The backward kernels at a forced chunk count against the sequential
+    reverse-time plain version and the chunked one at the same count."""
+    shape, a_kind, cplx, with_h0, dtype = CHUNK_CASES[name]
+    a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype, dev)
+    (a_re, a_im), (h0_re, h0_im) = _split(a, cplx), _split(h0, cplx)
+    h_re, h_im = dsk.diag_scan_lanes_cuda(a_re, a_im, *_split(x, cplx),
+                                          h0_re, h0_im, chunks=chunks)
+    g = torch.Generator().manual_seed(7)
+    g_re = torch.randn(shape, generator=g, dtype=dtype).to(dev)
+    g_im = torch.randn(shape, generator=g, dtype=dtype).to(dev) if cplx \
+        else None
+    args = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
+    got = dsk.diag_scan_lanes_bwd_cuda(*args, chunks=chunks)
+    torch.cuda.synchronize()
+    for want in (ref.diag_scan_lanes_bwd_ref(*args),
+                 ref.diag_scan_lanes_bwd_chunked_ref(*args, chunks=chunks)):
+        for g_, w_ in zip(got, want):
+            assert (g_ is None) == (w_ is None)
+            if w_ is not None:
+                assert g_.shape == w_.shape
+                _close_scaled(g_, w_, dtype)
 
 
 def test_diag_scan_autograd_runs_both_kernels(dev):
