@@ -8,13 +8,18 @@ kernel (the diagonal scan, its backward, the fused decode, flash attention)
 against its plain PyTorch version at the main paths' shapes and times both
 — the scan kernels also against their chunked plain versions at the chunk
 count the launcher picks, with the profiler's device time, the host time
-of a call and a sweep of the chunk count — then drives the port's five
+of a call and a sweep of the chunk count; the fused decode through both of
+its entries (split lanes, the engine's packed layout), with a sweep of its
+warps a row at five shapes and the engine's call shown to be one launch —
+and fails if a decode instantiation spills; then drives the port's five
 main paths on the card, each with the launch counts set to 0 just before
 it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
    workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
-   closed-loop tokens, float64), held against the port's CPU engine;
+   closed-loop tokens, float64), held against the port's CPU engine; then
+   the same at 16 slots and 32 sessions (the JAX benchmark's mixed-traffic
+   arena), held against the CPU engine too;
 2. ``repro_torch.launch.train``: the paper's reservoir LM ``linear-esn`` at
    its published width (12 layers, d_model 768, d_rnn 1024, d_ff 2048, vocab
    50304), batch 8 x 1024 tokens, 10 AdamW steps, float32 — every scan and
@@ -81,6 +86,8 @@ F64_TOL, F32_TOL = 1e-9, 2e-4
 LM_TOL, BF16_LM_TOL = 1e-4, 5e-2
 SERVE_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--sessions",
               "16", "--prompt-len", "1024", "--gen", "128"]
+SERVE16_ARGS = ["--reservoir", "--n", "1024", "--slots", "16", "--sessions",
+                "32", "--prompt-len", "1024", "--gen", "128"]
 TRAIN_STEPS = 10
 TRAIN_ARGS = ["--arch", "linear-esn", "--vocab", "50304", "--batch", "8",
               "--seq", "1024", "--steps", str(TRAIN_STEPS)]
@@ -442,6 +449,13 @@ def crossover(dispatch, esn, ESNConfig):
 # --------------------------------------------------------------------------- #
 # Phase 4: B2 decode_fused                                                     #
 # --------------------------------------------------------------------------- #
+DECODE_K = 128
+#: (B, NC, D) timed and swept in phase 4: the main path's shape, the 16-slot
+#: arena, the served model at n = 2048 (1043 lanes), 4096 lanes, 8 outputs.
+DECODE_SHAPES = [(8, 525, 1), (16, 525, 1), (8, 1043, 1), (4, 4096, 1),
+                 (4, 525, 8)]
+
+
 def decode_inputs(b, nc, d, batched, seed=1):
     import torch
     g = torch.Generator().manual_seed(seed)
@@ -473,10 +487,59 @@ def decode_cost(args, mask, k):
     return nbytes, flops, contract_flops
 
 
-def check_decode_fused(ops, ref, copy_bw):
+def packed_decode_inputs(b, nc, d, batched, seed=2):
+    """The engine's packed Q operands of the same decode (``lam_q, n_real,
+    w_drive, w_out, states, y_prev``): nc // 7 real slots, the rest pairs,
+    ``w_out`` rows ``[bias | feedback | states]``."""
+    import torch
+    rng = np.random.default_rng(seed)
+    nr = nc // 7
+    npairs = nc - nr
+    n = nr + 2 * npairs
+    lead = (b,) if batched else ()
+    mag = rng.uniform(0.5, 0.95, lead + (npairs,))
+    ph = rng.uniform(0, np.pi, lead + (npairs,))
+    pairs = np.stack([mag * np.cos(ph), mag * np.sin(ph)], -1).reshape(
+        lead + (2 * npairs,))
+    lam = np.concatenate([rng.uniform(-0.95, 0.95, lead + (nr,)), pairs], -1)
+    w_out = 0.1 * rng.normal(size=lead + (n + 1 + d, d))
+    w_out[..., 1 + d:, :] *= 5.0 / n
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.float64, device="cuda")
+    return (t(lam), nr, t(0.3 * rng.normal(size=lead + (d, n))), t(w_out),
+            t(rng.normal(size=(b, n))), t(rng.normal(size=(b, d))))
+
+
+def device_kernels(fn, calls: int = 20):
+    """Every device kernel of one call of ``fn`` (names and count per call,
+    from a ``torch.profiler`` window of ``calls`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"kernels_per_call": len(dev) / calls,
+            "kernel_names": sorted({n[:100] for n in dev})}
+
+
+def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
+    """B2 at the main path's shape (8 rows, 525 lanes, D = 1, K = 128,
+    float64) through both entries — split lanes and the engine's packed
+    layout — against their plain versions; then the times: the main case,
+    a sweep of W (warps a row) at every shape of ``DECODE_SHAPES`` beside
+    the rule's pick, the mean route, and the engine's call
+    (``run_decode_fused``: one launch, its host time beside ``torch.add``).
+    """
     import torch
     rows = []
-    b, nc, d, k = 8, 525, 1, 128
+    b, nc, d, k = 8, 525, 1, DECODE_K
+    main = None
     for batched in (False, True):
         for ensemble in ("off", "mean"):
             for partial in (False, True):
@@ -489,28 +552,96 @@ def check_decode_fused(ops, ref, copy_bw):
                                             ensemble=ensemble)
                 errs = {out: max_err(g, w) for out, g, w in
                         zip(("h_re", "h_im", "y", "ys"), got, want)}
+                packed = packed_decode_inputs(b, nc, d, batched)
+                kw = dict(k=k, use_bias=True, use_feedback=True,
+                          ensemble=ensemble)
+                got = ops.decode_fused_packed(*packed, mask, **kw)
+                want = ref.decode_fused_packed_ref(*packed, mask, **kw)
+                errs.update({out: max_err(g, w) for out, g, w in zip(
+                    ("packed_states", "packed_y", "packed_ys"), got, want)})
+                case = (f"{'3d' if batched else '2d'}-{ensemble}-"
+                        f"{'partial' if partial else 'full'}")
                 for out, (e, t) in errs.items():
                     if e > t:
-                        fail(f"decode_fused {out} (weights "
-                             f"{'3d' if batched else '2d'}, {ensemble}, "
-                             f"partial={partial}): {e:.3e} > {t:.3e}")
-                row = {"case": f"{'3d' if batched else '2d'}-{ensemble}-"
-                               f"{'partial' if partial else 'full'}",
-                       "shape": [b, nc, d, k],
+                        fail(f"decode_fused {out} ({case}): {e:.3e} > "
+                             f"{t:.3e}")
+                row = {"case": case, "shape": [b, nc, d, k],
                        **worst_of(list(errs.values())),
                        "per_output": {o: {"max_abs_err": e, "tol": t}
                                       for o, (e, t) in errs.items()}}
                 if not batched and ensemble == "off" and not partial:
-                    # The main path's case: shared weights, every slot live.
-                    row["ms"] = time_ms(lambda: ops.decode_fused(
-                        *args, mask, k=k), reps=20)
-                    row["plain_ms"] = time_ms(lambda: ref.decode_fused_ref(
-                        *args, mask, k=k), reps=2, warmup=1)
-                    nbytes, flops, cflops = decode_cost(args, mask, k)
-                    row.update(bound(nbytes, flops, "float64", copy_bw,
-                                     contract_flops=cflops))
+                    main = (args, mask)
                 rows.append(row)
                 print(json.dumps({"decode_fused": row}), flush=True)
+    # The main path's case: shared weights, every slot live.
+    args, mask = main
+    row = rows[0]
+
+    def call():
+        return ops.decode_fused(*args, mask, k=k)
+    layout = dsk.decode_layout(b, nc, d, 8)
+    row.update(warps=layout.warps, per=layout.per)
+    row["ms"] = time_ms(call, reps=50)
+    row.update(kernel_calls(call))
+    row["us_per_step"] = row["device_ms"] * 1e3 / k
+    row["plain_ms"] = time_ms(lambda: ref.decode_fused_ref(*args, mask, k=k),
+                              reps=2, warmup=1)
+    nbytes, flops, cflops = decode_cost(args, mask, k)
+    row.update(bound(nbytes, flops, "float64", copy_bw,
+                     contract_flops=cflops))
+    mean = kernel_calls(lambda: ops.decode_fused(*args, mask, k=k,
+                                                 ensemble="mean"))
+    row["mean_route"] = {"warps": dsk.decode_layout(
+        b, nc, d, 8, ensemble="mean").warps, **mean,
+        "us_per_step": mean["device_ms"] * 1e3 / k}
+    # The shapes, each swept over W beside the rule's pick.
+    shapes = []
+    for sb, snc, sd in DECODE_SHAPES:
+        sargs = decode_inputs(sb, snc, sd, False)
+        smask = torch.ones(sb, dtype=torch.bool, device="cuda")
+        pick = dsk.decode_layout(sb, snc, sd, 8)
+        sweep = {}
+        for w in (1, 2, 4, 8, 16, 32):
+            try:
+                dsk.decode_layout(sb, snc, sd, 8, warps=w)
+            except ValueError:
+                sweep[w] = "does not fit"
+                continue
+            sweep[w] = kernel_calls(lambda: dsk.decode_fused_cuda(
+                *sargs, smask, k=k, warps=w))["device_ms"]
+        timed = {w: v for w, v in sweep.items() if isinstance(v, float)}
+        best = min(timed, key=timed.get)
+        srow = {"shape": [sb, snc, sd, k], "rule_warps": pick.warps,
+                "per": pick.per, "device_ms": sweep[pick.warps],
+                "us_per_step": sweep[pick.warps] * 1e3 / k,
+                "fastest_warps": best, "fastest_device_ms": timed[best],
+                "sweep_device_ms": sweep}
+        shapes.append(srow)
+        print(json.dumps({"decode_fused_shape": srow}), flush=True)
+    row["shapes"] = shapes
+    # The engine's call at the serving shape: packed Q, one launch.
+    cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, seed=0)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cuda")
+    n = p.lam_q.shape[-1]
+    g = torch.Generator().manual_seed(3)
+    w_out = (torch.randn((1 + n, 1), generator=g, dtype=torch.float64)
+             / n).to("cuda")
+    states = torch.randn((b, n), generator=g, dtype=torch.float64).to("cuda")
+    y_prev = torch.randn((b, 1), generator=g, dtype=torch.float64).to("cuda")
+
+    def engine_call():
+        return dispatch.run_decode_fused(p.lam_q, p.n_real, p.win_q, w_out,
+                                         states, y_prev, mask, k,
+                                         use_bias=True, use_feedback=False)
+    eng = device_kernels(engine_call)
+    if eng["kernels_per_call"] != 1 or "decode_fused_kernel" not in \
+            eng["kernel_names"][0]:
+        fail(f"run_decode_fused is not one decode_fused launch: {eng}")
+    eng.update(kernel_calls(engine_call))
+    eng["host_us"], eng["host_us_median"] = host_us(engine_call)
+    eng["host_us_torch_add"] = host_us(lambda: torch.add(y_prev, y_prev))[0]
+    row["run_decode_fused"] = eng
+    print(json.dumps({"decode_fused_main": row}), flush=True)
     return rows
 
 
@@ -616,6 +747,8 @@ def check_flash_attention(ops, ref, copy_bw):
         if timed:
             row["ms"] = time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw),
                                 reps=20)
+            row.update(kernel_calls(lambda: ops.flash_attention_fwd(
+                q, k, v, **kw)))
             row["plain_ms"] = time_ms(lambda: ref.flash_attention_fwd_ref(
                 q, k, v, **kw), reps=2, warmup=1)
             mask = ref.attention_mask(shape[3], shape[4], device="cuda", **kw)
@@ -633,10 +766,11 @@ def check_flash_attention(ops, ref, copy_bw):
 # --------------------------------------------------------------------------- #
 # Phase 5: the main path                                                       #
 # --------------------------------------------------------------------------- #
-def engine_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine):
-    """The same 8-session workload through the engine on the card and on
-    the CPU, one params/readout pair for both (a second ridge fit would
-    amplify last-bit state differences through its conditioning)."""
+def engine_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, slots=8):
+    """The same ``slots``-session workload (one wave, 1024-token prompts,
+    128 closed-loop tokens) through an engine of ``slots`` slots on the card
+    and on the CPU, one params/readout pair for both (a second ridge fit
+    would amplify last-bit state differences through its conditioning)."""
     import torch
     cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, input_scaling=0.5,
                     ridge_alpha=1e-8, seed=0)
@@ -644,18 +778,19 @@ def engine_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine):
     p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
     ro = esn.fit(p, sig[:-1, None], sig[1:, None], washout=100)
     rng = np.random.default_rng(0)
-    starts = rng.integers(0, 2000 - 1024, size=8)
+    starts = rng.integers(0, 2000 - 1024, size=slots)
     outs = {}
     for device in ("cuda", "cpu"):
-        eng = ReservoirEngine(p, 8, readout=ro, device=device)
+        eng = ReservoirEngine(p, slots, readout=ro, device=device)
         for sid, lo in enumerate(starts):
             eng.submit(sid, sig[lo:lo + 1024, None])
         eng.flush()
         ys = eng.decode_closed_loop(128)
-        outs[device] = {sid: (ys[sid], *eng.release(sid)) for sid in range(8)}
+        outs[device] = {sid: (ys[sid], *eng.release(sid))
+                        for sid in range(slots)}
     worst = {k: {"max_abs_err": 0.0, "tol": 0.0, "max_rel_err": 0.0,
                  "rel_tol": F64_TOL} for k in ("ys", "state", "y_prev")}
-    for sid in range(8):
+    for sid in range(slots):
         for name, g, w in zip(("ys", "state", "y_prev"), outs["cuda"][sid],
                               outs["cpu"][sid]):
             if not bool(torch.isfinite(g).all()):
@@ -859,10 +994,10 @@ def flash_summary(rows, counts, keys):
     by = {r["case"]: r for r in rows}
     c0, c1, bf = by["chunk0"], by["chunk1"], by["chunk1-bf16"]
     more = ("simt_bound_ms", "mma_route", "library_ms",
-            "library_max_abs_err")
+            "library_max_abs_err", "device_ms", "cuda_launches_per_call")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:81",
+                replaces="src/repro/kernels/flash_attention.py:125",
                 **counts, max_abs_err=c1["max_abs_err"], tol=c1["tol"],
                 worst_err_over_tol=max(r["err_over_tol"] for r in rows),
                 worst_lse_rel_err=max(r["lse_max_rel_err"] for r in rows),
@@ -938,13 +1073,17 @@ def main() -> None:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": compiled}), flush=True)
     spills = {}
-    for stem in ("diag_scan", "flash_attention"):
+    for stem in ("diag_scan", "decode_fused", "flash_attention"):
         log = build.build_log(stem)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
         spills.update(ptxas_spills(log))
     print(json.dumps({"ptxas_functions_with_spills": spills}), flush=True)
+    decode_spills = {f: v for f, v in spills.items()
+                     if "decode_fused_kernel" in f}
+    if decode_spills:
+        fail(f"decode_fused instantiations spill: {decode_spills}")
     smem = build.library("flash_attention").flash_attention_smem_bytes
     print(json.dumps({"flash_attention_dynamic_smem_bytes": {
         f"{'bf16' if bf16 else 'f32'}_d{d}": smem(bf16, d)
@@ -958,7 +1097,8 @@ def main() -> None:
           flush=True)
 
     phase("4 decode_fused kernel vs plain")
-    decode_rows = check_decode_fused(ops, ref, copy_bw)
+    decode_rows = check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig,
+                                     copy_bw)
 
     phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
@@ -971,6 +1111,17 @@ def main() -> None:
     print(json.dumps({"engine_vs_cpu": engine_vs_cpu(
         esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
     print(json.dumps({"profile": profile_serve(serve)}), flush=True)
+    # The 16-slot arena (the JAX benchmark's mixed-traffic arena at n=1024).
+    res = drive("serve_reservoir_16", lambda: serve.main(SERVE16_ARGS),
+                ("diag_scan", "decode_fused"))
+    print(json.dumps({"serve_16": res,
+                      "launches": launches["serve_reservoir_16"]}),
+          flush=True)
+    if not res["finite"] or res["sessions"] != 32:
+        fail(f"16-slot serving loop: finite={res['finite']}, "
+             f"sessions={res['sessions']} (expected 32)")
+    print(json.dumps({"engine_vs_cpu_16": engine_vs_cpu(
+        esn, ESNConfig, mso_series, ReservoirEngine, slots=16)}), flush=True)
 
     phase("6 diag_scan_bwd kernel vs plain")
     bwd_rows = check_diag_scan_bwd(ops, ref, dsk, copy_bw)
@@ -1082,7 +1233,7 @@ def main() -> None:
     kernels = [
         dict(name="diag_scan", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
-             replaces="src/repro/kernels/diag_scan.py:57",
+             replaces="src/repro/kernels/diag_scan.py:91",
              **count("diag_scan"),
              max_abs_err=wave["max_abs_err"], tol=wave["tol"],
              worst_err_over_tol=max(r["err_over_tol"] for r in scan_rows),
@@ -1099,7 +1250,7 @@ def main() -> None:
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/ops.py:85",
              replaces_note="_bwd runs diag_scan_pallas_raw "
-                           "(src/repro/kernels/diag_scan.py:57) on flipped "
+                           "(src/repro/kernels/diag_scan.py:91) on flipped "
                            "arrays, then reduces da and dh0 in XLA",
              **count("diag_scan_bwd"),
              max_abs_err=bwd_train["max_abs_err"], tol=bwd_train["tol"],
@@ -1109,13 +1260,19 @@ def main() -> None:
              f64={"shape": bwd["train-f64"]["shape"],
                   **{k: bwd["train-f64"][k] for k in scan_keys}}),
         dict(name="decode_fused", route="cuda",
-             source="src/repro_torch/csrc/diag_scan.cu",
-             replaces="src/repro/kernels/diag_scan.py:157",
+             source="src/repro_torch/csrc/decode_fused.cu",
+             replaces="src/repro/kernels/diag_scan.py:181",
+             replaces_note="decode_fused_pallas_raw, body _decode_kernel "
+                           "(src/repro/kernels/diag_scan.py:110-154)",
              **count("decode_fused"),
              max_abs_err=dec["max_abs_err"], tol=dec["tol"],
              worst_err_over_tol=max(r["err_over_tol"] for r in decode_rows),
-             shape=dec["shape"],
-             **{k: dec[k] for k in keys}, library_ms=None),
+             shape=dec["shape"], dtype="float64",
+             **{k: dec[k] for k in keys + (
+                 "device_ms", "cuda_launches_per_call", "us_per_step",
+                 "warps", "per", "mean_route", "run_decode_fused",
+                 "shapes")},
+             library_ms=None),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

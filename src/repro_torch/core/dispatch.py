@@ -14,9 +14,10 @@ runs, from the shape of the work and the device it lives on:
   without the chunk bookkeeping.
 
 Closed-loop decode has its own funnel: ``run_decode_fused`` executes K
-feedback steps per call through ``kernels.ops.decode_fused`` — the fused
-CUDA kernel on the GPU, the plain version on the CPU (the wrapper routes by
-device, so there is no decode method to choose here).
+feedback steps per call through ``kernels.ops.decode_fused_packed`` — the
+fused CUDA kernel on the GPU, reading the packed layout in place, the plain
+version on the CPU (the wrapper routes by device, so there is no decode
+method to choose here).
 
 All entry points take Q-basis (Appendix-A realified) operands.
 """
@@ -70,49 +71,29 @@ def resolve_method(t: int, *, device=None, chunk: int = 128) -> str:
     return "associative"
 
 
-def _q_lanes(v, nr: int, axis: int = -1):
-    """Packed Q layout -> contiguous (re, im) lane tensors along ``axis``:
-    real slots first (zero imag), then the (re, im) pairs de-interleaved.
-    Width nc = nr + (N - nr) // 2."""
-    reals = v.narrow(axis, 0, nr)
-    pairs = v.narrow(axis, nr, v.shape[axis] - nr)
-    pre = pairs.unflatten(axis % v.ndim, (-1, 2)).select(axis % v.ndim + 1, 0)
-    pim = pairs.unflatten(axis % v.ndim, (-1, 2)).select(axis % v.ndim + 1, 1)
-    re = torch.cat([reals, pre], axis)
-    im = torch.cat([torch.zeros_like(reals), pim], axis)
-    return re, im
-
-
-def _q_repack(re, im, nr: int):
-    """Inverse of ``_q_lanes`` on the last axis: real lanes back in front,
-    pair lanes re-interleaved to the packed layout."""
-    pre, pim = re[..., nr:], im[..., nr:]
-    pairs = torch.stack([pre, pim], -1).reshape(
-        pre.shape[:-1] + (2 * pre.shape[-1],))
-    return torch.cat([re[..., :nr], pairs], -1)
-
-
 def _kernel_scan_q(lam_q, x_q, n_real: int, h0, *, time_axis: int):
     """Q-basis scan through the kernel wrapper.
 
     Real eigen-slots ride along as zero-imaginary lanes so one launch covers
     the whole state vector: the packed (N,) coefficients, x and h0 go
-    straight to (re, im) lanes of width n_real + n_pairs (``_q_lanes``) and
-    the lane outputs straight back to the packed layout (``_q_repack``).
+    straight to (re, im) lanes of width n_real + n_pairs
+    (``kernels.ref.q_lanes``) and the lane outputs straight back to the
+    packed layout (``q_repack``).
     """
     xt = torch.movedim(x_q, time_axis, -2)          # (..., T, N)
     lead = xt.shape[:-2]
     t, n = xt.shape[-2], xt.shape[-1]
     nr = n_real
     dtype = torch.result_type(lam_q, x_q)
-    a_re, a_im = _q_lanes(lam_q.to(dtype), nr)
-    x_re, x_im = _q_lanes(xt.reshape((-1, t, n)).to(dtype), nr)  # (B, T, nc)
+    q_lanes = kernel_refs.q_lanes
+    a_re, a_im = q_lanes(lam_q.to(dtype), nr)
+    x_re, x_im = q_lanes(xt.reshape((-1, t, n)).to(dtype), nr)  # (B, T, nc)
     h_re = h_im = None
     if h0 is not None:
-        h_re, h_im = _q_lanes(torch.broadcast_to(h0, lead + (n,))
-                              .reshape((-1, n)).to(dtype), nr)
+        h_re, h_im = q_lanes(torch.broadcast_to(h0, lead + (n,))
+                             .reshape((-1, n)).to(dtype), nr)
     o_re, o_im = kernel_ops.diag_scan_lanes(a_re, a_im, x_re, x_im, h_re, h_im)
-    hs = _q_repack(o_re, o_im, nr).to(x_q.dtype)
+    hs = kernel_refs.q_repack(o_re, o_im, nr).to(x_q.dtype)
     return torch.movedim(hs.reshape(lead + (t, n)), -2, time_axis)
 
 
@@ -148,39 +129,10 @@ def run_decode_fused(lam_q, n_real: int, w_drive, w_out, states, y_prev,
     one; ``w_out``: (F, D) / (B, F, D) readout with rows
     ``[bias? | y_prev? | states]``; ``states``/``y_prev``/``mask``: the
     (B, N)/(B, D)/(B,) arena tensors.  Returns ``(states', y_prev', ys)`` in
-    the packed layout, ``ys`` (k, B, D).  ``kernels.ops.decode_fused`` picks
-    the CUDA kernel or the plain version from the tensors' device.
+    the packed layout, ``ys`` (k, B, D).  ``kernels.ops.decode_fused_packed``
+    picks the CUDA kernel (one launch, reading and writing the packed
+    layout in place) or the plain version from the tensors' device.
     """
-    nr = n_real
-    d = y_prev.shape[-1]
-    a_re, a_im = _q_lanes(lam_q, nr)
-    h_re, h_im = _q_lanes(states, nr)
-    wd_re, wd_im = _q_lanes(w_drive, nr)
-
-    idx = 0
-    if use_bias:
-        b_out = w_out[..., 0, :]
-        idx = 1
-    else:
-        b_out = w_out.new_zeros(w_out.shape[:-2] + (d,))
-    if use_feedback:
-        wy = w_out[..., idx:idx + d, :]
-        idx += d
-    else:
-        wy = w_out.new_zeros(w_out.shape[:-2] + (d, d))
-    wh_re, wh_im = _q_lanes(w_out[..., idx:, :], nr, axis=-2)
-
-    mask = torch.as_tensor(mask, device=states.device)
-    y0 = y_prev
-    if ensemble == "mean":
-        # Seed parity with arena.closed_loop: the first fed-back input of
-        # every masked slot is the ensemble mean of the masked seeds.
-        live, m = kernel_refs.live_mask(mask, y0.dtype)
-        denom = torch.clamp(m.sum(), min=1.0)
-        y_mean = (y0 * m).sum(0, keepdim=True) / denom
-        y0 = torch.where(live, torch.broadcast_to(y_mean, y0.shape), y0)
-
-    h_re, h_im, y, ys = kernel_ops.decode_fused(
-        a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy.contiguous(),
-        b_out.contiguous(), wh_re, wh_im, mask, k=k, ensemble=ensemble)
-    return _q_repack(h_re, h_im, nr), y, ys
+    return kernel_ops.decode_fused_packed(
+        lam_q, n_real, w_drive, w_out, states, y_prev, mask, k=k,
+        use_bias=use_bias, use_feedback=use_feedback, ensemble=ensemble)

@@ -76,26 +76,7 @@
 //      down to a's own shape.  Chunk 0 writes dh0 = k_0.
 //   g is read 2 - 1/C times, h once, dx written once: ~1.33x the minimum.
 // ---------------------------------------------------------------------------
-// decode_fused: K closed-loop decode steps in one launch.
-//
-// Replaces: src/repro/kernels/diag_scan.py::decode_fused_pallas_raw (body
-//   _decode_kernel).
-// Bound on this card: latency.  The data (state, weights) is a few hundred
-//   KB and the flops a few million, so bytes and flops both bound it at well
-//   under a microsecond; the K steps are serially dependent and each needs a
-//   reduction over every lane, so block-wide barriers per step set the time.
-// Design: ONE thread block covers the whole slot block, because
-//   ensemble == mean reduces across slots at every step.  Threads are laid
-//   out as B rows of TPR threads (TPR a power of two); thread (b, t) owns
-//   lanes j = t + p*TPR of row b (p < PER <= 8), and keeps their h (re, im)
-//   in registers across all K steps.  The fed-back y (B, D) lives in shared
-//   memory.  The readout reduction over lanes is a fixed-order tree in shared memory, so
-//   results are deterministic run to run.  Weights are read through a batch
-//   stride (0 for shared 2D weights, the slot stride for 3D), which replaces
-//   the per-slot broadcast and the 8/128 padding of the TPU wrapper.
-//   Semantics kept from the TPU kernel: the mask is a 0/1 float with
-//   denom = max(sum m, 1); the readout uses the NEW state and the CARRIED y;
-//   the mean is over live rows, then frozen rows restore their y.
+// The fused closed-loop decode (B2) is in decode_fused.cu.
 // ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
 
@@ -496,176 +477,6 @@ int diag_scan_bwd_launch(const ScanArgs<T>& s, const T* h_re, const T* h_im,
 
 #undef SCAN_DISPATCH
 
-// Each thread keeps PER <= 8 lanes in registers.  With 1024 threads a block
-// may use at most 64 registers a thread; 8 lanes of (re, im) float64 take 32.
-// The coefficients and weights are re-read each step through the L1 cache.
-constexpr int kMaxThreads = 1024;
-
-template <typename T, int PER>
-__global__ void __launch_bounds__(kMaxThreads)
-decode_fused_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im,
-                    long long a_sb, const T* __restrict__ h_re,
-                    const T* __restrict__ h_im, const T* __restrict__ y0,
-                    const T* __restrict__ wd_re, const T* __restrict__ wd_im,
-                    long long wd_sb, const T* __restrict__ wy, long long wy_sb,
-                    const T* __restrict__ b_out, long long bo_sb,
-                    const T* __restrict__ wh_re, const T* __restrict__ wh_im,
-                    long long wh_sb, const T* __restrict__ mask,
-                    T* __restrict__ o_h_re, T* __restrict__ o_h_im,
-                    T* __restrict__ o_y, T* __restrict__ o_ys, int n_b,
-                    int n_c, int n_d, int n_k, int tpr, int mean) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* y_s = reinterpret_cast<T*>(smem_raw);   // (B, D) carried output
-  T* yn_s = y_s + n_b * n_d;                 // (B, D) this step's readout
-  T* m_s = yn_s + n_b * n_d;                 // (B,)   0/1 mask
-  T* red = m_s + n_b;                        // (B * TPR) reduction tree
-
-  const int tid = threadIdx.x;
-  const int b = tid / tpr;
-  const int t = tid % tpr;
-  const int nbd = n_b * n_d;
-
-  for (int i = tid; i < nbd; i += blockDim.x) y_s[i] = y0[i];
-  for (int i = tid; i < n_b; i += blockDim.x) m_s[i] = mask[i];
-  __syncthreads();
-  T msum = T(0);
-  for (int i = 0; i < n_b; ++i) msum += m_s[i];
-  const T denom = msum > T(1) ? msum : T(1);
-  const bool live = m_s[b] > T(0.5);
-
-  T hr[PER], hi[PER];
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int j = t + p * tpr;
-    const bool ok = j < n_c;
-    hr[p] = ok ? h_re[b * n_c + j] : T(0);
-    hi[p] = ok ? h_im[b * n_c + j] : T(0);
-  }
-  const T* arb = a_re + b * a_sb;
-  const T* aib = a_im + b * a_sb;
-  const T* wdr = wd_re + b * wd_sb;
-  const T* wdi = wd_im + b * wd_sb;
-  const T* whr = wh_re + b * wh_sb;
-  const T* whi = wh_im + b * wh_sb;
-  const T* wyb = wy + b * wy_sb;
-  const T* bob = b_out + b * bo_sb;
-  const T* yb = y_s + b * n_d;
-
-  for (int step = 0; step < n_k; ++step) {
-    // Drive from the carried y, then the masked complex update.
-    if (live) {
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const int j = t + p * tpr;
-        if (j < n_c) {
-          T dr = T(0), di = T(0);
-          for (int k = 0; k < n_d; ++k) {
-            dr += yb[k] * wdr[k * n_c + j];
-            di += yb[k] * wdi[k * n_c + j];
-          }
-          const T ar = arb[j], ai = aib[j];
-          const T nr = ar * hr[p] - ai * hi[p] + dr;
-          hi[p] = ar * hi[p] + ai * hr[p] + di;
-          hr[p] = nr;
-        }
-      }
-    }
-    // Readout on the new state: fixed-order tree over the row's TPR threads.
-    for (int e = 0; e < n_d; ++e) {
-      T part = T(0);
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const int j = t + p * tpr;
-        if (j < n_c) part += hr[p] * whr[j * n_d + e] + hi[p] * whi[j * n_d + e];
-      }
-      red[tid] = part;
-      __syncthreads();
-      for (int s = tpr >> 1; s > 0; s >>= 1) {
-        if (t < s) red[tid] += red[tid + s];
-        __syncthreads();
-      }
-      if (t == 0) {
-        T acc = bob[e];
-        for (int k = 0; k < n_d; ++k) acc += yb[k] * wyb[k * n_d + e];
-        yn_s[b * n_d + e] = acc + red[tid];
-      }
-      __syncthreads();
-    }
-    // Optional mean over live rows; frozen rows keep their y.
-    for (int i = tid; i < nbd; i += blockDim.x) {
-      const int bi = i / n_d;
-      const int e = i - bi * n_d;
-      T v = yn_s[i];
-      if (mean) {
-        T s = T(0);
-        for (int r = 0; r < n_b; ++r) s += yn_s[r * n_d + e] * m_s[r];
-        v = s / denom;
-      }
-      const T y_next = m_s[bi] > T(0.5) ? v : y_s[i];
-      y_s[i] = y_next;
-      o_ys[(long long)step * nbd + i] = y_next;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int j = t + p * tpr;
-    if (j < n_c) {
-      o_h_re[b * n_c + j] = hr[p];
-      o_h_im[b * n_c + j] = hi[p];
-    }
-  }
-  for (int i = tid; i < nbd; i += blockDim.x) o_y[i] = y_s[i];
-}
-
-template <typename T, int PER>
-void decode_fused_go(dim3 block, size_t smem, cudaStream_t stream,
-                     const T* a_re, const T* a_im, long long a_sb,
-                     const T* h_re, const T* h_im, const T* y0,
-                     const T* wd_re, const T* wd_im, long long wd_sb,
-                     const T* wy, long long wy_sb, const T* b_out,
-                     long long bo_sb, const T* wh_re, const T* wh_im,
-                     long long wh_sb, const T* mask, T* o_h_re, T* o_h_im,
-                     T* o_y, T* o_ys, int n_b, int n_c, int n_d, int n_k,
-                     int tpr, int mean) {
-  decode_fused_kernel<T, PER><<<1, block, smem, stream>>>(
-      a_re, a_im, a_sb, h_re, h_im, y0, wd_re, wd_im, wd_sb, wy, wy_sb, b_out,
-      bo_sb, wh_re, wh_im, wh_sb, mask, o_h_re, o_h_im, o_y, o_ys, n_b, n_c,
-      n_d, n_k, tpr, mean);
-}
-
-template <typename T>
-int decode_fused_launch(const T* a_re, const T* a_im, long long a_sb,
-                        const T* h_re, const T* h_im, const T* y0,
-                        const T* wd_re, const T* wd_im, long long wd_sb,
-                        const T* wy, long long wy_sb, const T* b_out,
-                        long long bo_sb, const T* wh_re, const T* wh_im,
-                        long long wh_sb, const T* mask, T* o_h_re, T* o_h_im,
-                        T* o_y, T* o_ys, int n_b, int n_c, int n_d, int n_k,
-                        int tpr, int per, int mean, cudaStream_t stream) {
-  dim3 block(n_b * tpr);
-  size_t smem = sizeof(T) * (size_t)(2 * n_b * n_d + n_b + n_b * tpr);
-#define DECODE_GO(P)                                                        \
-  decode_fused_go<T, P>(block, smem, stream, a_re, a_im, a_sb, h_re, h_im, \
-                        y0, wd_re, wd_im, wd_sb, wy, wy_sb, b_out, bo_sb,  \
-                        wh_re, wh_im, wh_sb, mask, o_h_re, o_h_im, o_y,    \
-                        o_ys, n_b, n_c, n_d, n_k, tpr, mean)
-  switch (per) {
-    case 1: DECODE_GO(1); break;
-    case 2: DECODE_GO(2); break;
-    case 3: DECODE_GO(3); break;
-    case 4: DECODE_GO(4); break;
-    case 5: DECODE_GO(5); break;
-    case 6: DECODE_GO(6); break;
-    case 7: DECODE_GO(7); break;
-    case 8: DECODE_GO(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DECODE_GO
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // The scan entry points take one argument: a block of 64-bit integers
@@ -739,37 +550,6 @@ int diag_scan_bwd_f32(const ScanBwdCall* c) {
 }
 int diag_scan_bwd_f64(const ScanBwdCall* c) {
   return diag_scan_bwd_call<double>(c);
-}
-
-int decode_fused_f32(const float* a_re, const float* a_im, long long a_sb,
-                     const float* h_re, const float* h_im, const float* y0,
-                     const float* wd_re, const float* wd_im, long long wd_sb,
-                     const float* wy, long long wy_sb, const float* b_out,
-                     long long bo_sb, const float* wh_re, const float* wh_im,
-                     long long wh_sb, const float* mask, float* o_h_re,
-                     float* o_h_im, float* o_y, float* o_ys, int n_b, int n_c,
-                     int n_d, int n_k, int tpr, int per, int mean,
-                     void* stream) {
-  return decode_fused_launch<float>(
-      a_re, a_im, a_sb, h_re, h_im, y0, wd_re, wd_im, wd_sb, wy, wy_sb, b_out,
-      bo_sb, wh_re, wh_im, wh_sb, mask, o_h_re, o_h_im, o_y, o_ys, n_b, n_c,
-      n_d, n_k, tpr, per, mean, (cudaStream_t)stream);
-}
-
-int decode_fused_f64(const double* a_re, const double* a_im, long long a_sb,
-                     const double* h_re, const double* h_im, const double* y0,
-                     const double* wd_re, const double* wd_im,
-                     long long wd_sb, const double* wy, long long wy_sb,
-                     const double* b_out, long long bo_sb,
-                     const double* wh_re, const double* wh_im,
-                     long long wh_sb, const double* mask, double* o_h_re,
-                     double* o_h_im, double* o_y, double* o_ys, int n_b,
-                     int n_c, int n_d, int n_k, int tpr, int per, int mean,
-                     void* stream) {
-  return decode_fused_launch<double>(
-      a_re, a_im, a_sb, h_re, h_im, y0, wd_re, wd_im, wd_sb, wy, wy_sb, b_out,
-      bo_sb, wh_re, wh_im, wh_sb, mask, o_h_re, o_h_im, o_y, o_ys, n_b, n_c,
-      n_d, n_k, tpr, per, mean, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,9 @@ own shared library with a plain C interface, loaded with :mod:`ctypes`.  The
 libraries land in ``build/repro_torch_kernels/`` at the checkout root, named
 by a hash of every source and flag, so an edited source rebuilds and an
 unchanged one loads at once.  All sources compile in parallel (one ``nvcc``
-each).  Importing this module needs no ``nvcc``.
+each), and each splits its device code over the host's cores
+(``--split-compile=0``: the decode kernel's many instantiations).
+Importing this module needs no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library",
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,17 @@
-"""Launchers of the Hopper kernels in ``csrc/diag_scan.cu``.
+"""Launchers of the Hopper kernels in ``csrc/diag_scan.cu`` and
+``csrc/decode_fused.cu``.
 
 ``diag_scan_lanes_cuda`` (the scan on split (re, im) lanes),
-``diag_scan_lanes_bwd_cuda`` (its gradient, in reverse time) and
-``decode_fused_cuda`` take CUDA tensors, check every input (device, dtype,
-shape, contiguity, the one-block limits of the decode kernel), allocate the
-outputs and scratch with ``torch.empty``, and launch on PyTorch's current
-stream without synchronising.  A scan cuts time into the chunks that
-:func:`scan_chunks` picks from the shape and makes two launches (reduce,
-then scan with the composed carry), or one when it picks one chunk.  They
+``diag_scan_lanes_bwd_cuda`` (its gradient, in reverse time),
+``decode_fused_cuda`` (the fused decode on split lanes) and
+``decode_fused_packed_cuda`` (the same kernel on the engine's packed Q
+layout) take CUDA tensors, check every input (device, dtype, shape,
+contiguity, the decode kernel's limits), allocate the outputs and scratch
+with ``torch.empty``, and launch on PyTorch's current stream without
+synchronising.  A scan cuts time into the chunks that :func:`scan_chunks`
+picks from the shape and makes two launches (reduce, then scan with the
+composed carry), or one when it picks one chunk; a decode makes one, laid
+out by :func:`decode_layout`.  They
 raise when the C entry point reports a CUDA error.  They are raw
 launchers: they record nothing for autograd (``kernels.ops`` wraps
 the scan and its backward in a ``torch.autograd.Function``) and route
@@ -17,8 +21,9 @@ nothing here runs without a GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 from array import array
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,27 +31,35 @@ from . import build
 from .ref import chunk_layout, live_mask
 
 __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
-           "decode_fused_cuda", "decode_layout", "scan_chunks",
+           "decode_fused_cuda", "decode_fused_packed_cuda", "decode_layout",
+           "decode_max_threads", "DecodeLayout", "scan_chunks",
            "SCAN_TARGET_THREADS", "SCAN_MIN_CHUNK",
-           "DECODE_MAX_THREADS", "DECODE_MAX_PER_THREAD",
-           "DECODE_MAX_SMEM_BYTES"]
+           "DECODE_LANES_PER_THREAD", "DECODE_AIM_WARPS", "DECODE_PER",
+           "DECODE_MAX_D", "DECODE_MAX_WARPS", "DECODE_MAX_SMEM_BYTES"]
 
-#: One thread block runs the whole decode; each thread holds at most
-#: DECODE_MAX_PER_THREAD lanes, and the block's shared memory stays in the
-#: 48 KB a launch gets without opting in.
-DECODE_MAX_THREADS = 1024
-DECODE_MAX_PER_THREAD = 8
-DECODE_MAX_SMEM_BYTES = 48 * 1024
+#: B2's layout rule (:func:`decode_layout`): the lanes a thread it aims at
+#: for D = 1 and for D > 1 and the most warps a row it aims at
+#: (``chip_smoke.py`` phase 4's sweep of W), the lanes-a-thread
+#: instantiations of ``csrc/decode_fused.cu`` (a layout rounds up to the
+#: next), the most outputs D, warps a block and dynamic shared memory a
+#: block (227 KB) it takes.
+DECODE_LANES_PER_THREAD = (8, 4)
+DECODE_AIM_WARPS = 8
+DECODE_PER = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16)
+DECODE_MAX_D = 8
+DECODE_MAX_WARPS = 32
+DECODE_MAX_SMEM_BYTES = 232448
 
-_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_VP = ctypes.c_void_p
 _ARGTYPES = {
     # The scan entry points take one block of int64 fields (``_launch``).
     "diag_scan": [_VP],
     "diag_scan_bwd": [_VP],
-    "decode_fused": [_VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL,
-                     _VP, _LL, _VP, _VP, _LL, _VP, _VP, _VP, _VP, _VP,
-                     _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP],
+    "decode_fused": [_VP],
 }
+#: The library (``csrc/<stem>.cu``) of each entry point.
+_LIBRARY = {"diag_scan": "diag_scan", "diag_scan_bwd": "diag_scan",
+            "decode_fused": "decode_fused"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ENTRIES = {}
 
@@ -73,16 +86,17 @@ def _entry(name: str, dtype: torch.dtype):
     """The C entry point ``<name>_<f32|f64>``, resolved once."""
     fn = _ENTRIES.get((name, dtype))
     if fn is None:
-        fn = getattr(build.library("diag_scan"), f"{name}_{_SUFFIX[dtype]}")
+        fn = getattr(build.library(_LIBRARY[name]),
+                     f"{name}_{_SUFFIX[dtype]}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _ENTRIES[name, dtype] = fn
     return fn
 
 
-def _check(rc: int) -> None:
+def _check(rc: int, stem: str = "diag_scan") -> None:
     if rc != 0:
-        lib = build.library("diag_scan")
+        lib = build.library(stem)
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.cuda_error_string(rc).decode()
@@ -284,37 +298,121 @@ def diag_scan_lanes_bwd_cuda(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
 
 
 # --------------------------------------------------------------------------- #
-# B2: decode_fused                                                             #
+# B2: decode_fused (csrc/decode_fused.cu)                                      #
 # --------------------------------------------------------------------------- #
-def decode_layout(b: int, nc: int, d: int, itemsize: int):
-    """``(threads_per_row, lanes_per_thread)`` of the one-block decode, or a
-    ValueError stating the limit the shape exceeds."""
-    if not 1 <= b <= DECODE_MAX_THREADS:
-        raise ValueError(f"decode_fused kernel runs one thread block: "
-                         f"1 <= B <= {DECODE_MAX_THREADS}, got B={b}")
-    tpr = 1
-    while (2 * tpr * b <= DECODE_MAX_THREADS and tpr < nc):
-        tpr *= 2
-    per = -(-nc // tpr)
-    if per > DECODE_MAX_PER_THREAD:
-        raise ValueError(
-            f"decode_fused kernel holds at most {DECODE_MAX_PER_THREAD} lanes "
-            f"per thread in one block of {DECODE_MAX_THREADS} threads: "
-            f"NC={nc} with B={b} needs NC <= {DECODE_MAX_PER_THREAD * tpr}")
-    smem = itemsize * (2 * b * d + b + b * tpr)
+class DecodeLayout(NamedTuple):
+    """How one decode call runs: ``warps`` a slot row, ``per`` lanes a
+    thread (the instantiation, rounded up), ``copies`` of the lane operands
+    in shared memory, ``smem`` its dynamic shared memory in bytes, and
+    ``threads`` a block."""
+    warps: int
+    per: int
+    copies: int
+    smem: int
+    threads: int
+
+
+def decode_max_threads(per: int, d: int, itemsize: int) -> int:
+    """The most threads a block of the ``per``-lane instantiation runs at D
+    outputs — the largest at which ptxas held it without spilling on the
+    card (``chip_smoke.py`` phase 2 fails on a spill).  Repeats
+    ``decode_max_threads`` in ``csrc/decode_fused.cu``, which bounds each
+    instantiation with it."""
+    if itemsize == 8:
+        if d == 1:
+            return 512 if per <= 10 else 256
+        return 512 if per == 1 else 256
+    if d == 1:
+        return 1024 if per <= 3 else 512 if per <= 12 else 256
+    return 512
+
+
+def _decode_fit(warps, nc, d, itemsize, rows, copies):
+    """The layout of ``warps`` warps a row, or None if it does not fit."""
+    need = -(-nc // (32 * warps))
+    per = next((p for p in DECODE_PER if p >= need), None)
+    threads = rows * 32 * warps
+    if per is None or rows * warps > DECODE_MAX_WARPS or \
+            threads > decode_max_threads(per, d, itemsize):
+        return None
+    # Shared lane operands: ``per`` slots a thread (padded ones zero).
+    smem = itemsize * (copies * per * (2 + 4 * d) * 32 * warps
+                       + rows * (d * d + d) + rows + 2 * rows * warps * d)
     if smem > DECODE_MAX_SMEM_BYTES:
+        return None
+    return DecodeLayout(warps, per, copies, smem, threads)
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
+                  ensemble: str = "off", batched: bool = False,
+                  warps: Optional[int] = None) -> DecodeLayout:
+    """The decode kernel's layout for B rows of NC lanes and D outputs, or
+    a ValueError naming the limit the shape exceeds.
+
+    ``ensemble="off"``: one block a row, so the layout depends on NC, D and
+    the dtype, never on B.  The rule aims at DECODE_LANES_PER_THREAD lanes a
+    thread (8 for D = 1, 4 above): W = the smallest power of two with
+    NC <= 32 W x that, at most DECODE_AIM_WARPS (past it more lanes a
+    thread cost less than a wider barrier) — or, where that W does not fit
+    (registers, lanes a thread, shared memory), the nearest one that does.  ``ensemble="mean"``: every row in
+    one block (B x W <= 32 warps), W the nearest fitting one to the same
+    aim; per-slot (``batched``) operands take one shared-memory copy a row.
+    ``warps`` forces W (the sweep in ``chip_smoke.py`` uses it).  Cached:
+    a serving loop asks for the same few shapes every call."""
+    if ensemble not in ("off", "mean"):
+        raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
+    if not 1 <= d <= DECODE_MAX_D:
+        raise ValueError(f"decode_fused kernel takes 1 <= D <= "
+                         f"{DECODE_MAX_D} outputs, got D={d}")
+    if b < 1 or nc < 1:
+        raise ValueError(f"decode_fused kernel needs B >= 1 and NC >= 1, "
+                         f"got B={b}, NC={nc}")
+    mean = ensemble == "mean"
+    rows, copies = (b, b if batched else 1) if mean else (1, 1)
+    lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
+    while aim < DECODE_AIM_WARPS and 32 * aim * lanes < nc:
+        aim *= 2
+    options = [w for w in (1, 2, 4, 8, 16, 32) if warps in (None, w)]
+    fits = [lay for w in options
+            if (lay := _decode_fit(w, nc, d, itemsize, rows, copies))]
+    if fits:
+        # Nearest to the aim in powers of two; the larger on a tie.
+        return min(fits, key=lambda lay: (abs(lay.warps.bit_length()
+                                              - aim.bit_length()),
+                                          -lay.warps))
+    if warps is not None:
+        raise ValueError(f"decode_fused kernel: warps={warps} does not fit "
+                         f"B={b}, NC={nc}, D={d} ({ensemble})")
+    if mean:
         raise ValueError(
-            f"decode_fused kernel keeps y (B, D) twice in shared memory: "
-            f"B={b}, D={d} needs {smem} bytes > {DECODE_MAX_SMEM_BYTES}")
-    return tpr, per
+            f"decode_fused kernel with ensemble='mean' runs every row in "
+            f"one block of at most {DECODE_MAX_WARPS} warps, "
+            f"{max(DECODE_PER)} lanes a thread, the registers of an SM and "
+            f"{DECODE_MAX_SMEM_BYTES} bytes of shared memory: B={b}, "
+            f"NC={nc}, D={d} ({'per-slot' if batched else 'shared'} "
+            f"weights, {8 * itemsize}-bit) does not fit")
+    lo, hi = 1, nc                       # the most lanes that fit
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if any(_decode_fit(w, mid, d, itemsize, 1, 1)
+               for w in (1, 2, 4, 8, 16, 32)):
+            lo = mid
+        else:
+            hi = mid - 1
+    raise ValueError(
+        f"decode_fused kernel holds a row's lanes in one block (at most "
+        f"{max(DECODE_PER)} lanes a thread, the registers of an SM, "
+        f"{DECODE_MAX_SMEM_BYTES} bytes of shared memory): NC={nc} with "
+        f"D={d} ({8 * itemsize}-bit) exceeds it: NC <= {lo} fits")
 
 
 def _batch_stride(name, w, shared_shape, b, dtype, device) -> int:
     """0 for a shared ``shared_shape`` operand, the slot stride for a
     per-slot ``(b,) + shared_shape`` one; checks dtype, device, layout."""
-    if tuple(w.shape) == shared_shape:
+    if w.shape == shared_shape:
         sb = 0
-    elif tuple(w.shape) == (b,) + shared_shape:
+    elif w.shape == (b,) + shared_shape:
         sb = w[0].numel()
     else:
         raise ValueError(f"{name} must be {shared_shape} or "
@@ -332,47 +430,115 @@ def _pair_stride(name, re, im, shared_shape, b, dtype, device) -> int:
     return sb
 
 
+def _decode_operands(y0, ensemble, k):
+    """Device and dtype of a decode call, checked."""
+    if ensemble not in ("off", "mean"):
+        raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
+    dev, dtype = y0.device, y0.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"decode_fused kernel needs CUDA tensors, got {dev}")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"decode_fused kernel takes float32/float64, "
+                        f"got {dtype}")
+    if y0.ndim != 2 or not y0.is_contiguous():
+        raise ValueError(f"y0 must be a contiguous (B, D) tensor, got "
+                         f"{tuple(y0.shape)}")
+    if int(k) < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    return dev, dtype
+
+
+def _mask_bytes(mask, b, dev):
+    """The (B,) mask as contiguous bool bytes (a float mask is live above
+    0.5), which the kernel reads as 0/1."""
+    mask = torch.as_tensor(mask, device=dev)
+    if mask.shape != (b,):
+        raise ValueError(f"mask must be ({b},), got {tuple(mask.shape)}")
+    if mask.dtype != torch.bool:
+        mask = live_mask(mask, torch.float32)[0][:, 0]
+    return mask.contiguous()
+
+
+def _decode_launch(dtype, layout, dev, *fields):
+    """Call ``decode_fused_<f32|f64>`` with ``fields`` (``DecodeCall`` up to
+    ``seed_mean``), the layout and the stream packed into one int64
+    block."""
+    block = array("q", (*fields, layout.copies, layout.smem, _stream(dev)))
+    _check(_entry("decode_fused", dtype)(block.buffer_info()[0]),
+           "decode_fused")
+
+
 def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
-                      wh_re, wh_im, mask, *, k: int, ensemble: str = "off"):
-    """K closed-loop decode steps through the one-block CUDA kernel.
+                      wh_re, wh_im, mask, *, k: int, ensemble: str = "off",
+                      warps: Optional[int] = None):
+    """K closed-loop decode steps through the CUDA kernel, on split lanes.
 
     Same operands and result as ``ref.decode_fused_ref``: ``h_*`` (B, NC),
     ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).
+    ``warps``: force W (default :func:`decode_layout`'s rule).
     Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D)."""
-    if ensemble not in ("off", "mean"):
-        raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
-    if y0.ndim != 2 or h_re.ndim != 2:
-        raise ValueError("h_* must be (B, NC) and y0 (B, D)")
-    dev, dtype = y0.device, y0.dtype
-    if dev.type != "cuda":
-        raise ValueError(f"decode_fused_cuda needs CUDA tensors, got {dev}")
-    if dtype not in _SUFFIX:
-        raise TypeError(f"decode_fused kernel takes float32/float64, got {dtype}")
-    if int(k) < 0:
-        raise ValueError(f"k must be >= 0, got {k}")
-    (b, d), nc = y0.shape, h_re.shape[1]
-    # The state is per slot: the shared form is not accepted.
-    _batch_stride("y0", y0, (b, d), 0, dtype, dev)
+    dev, dtype = _decode_operands(y0, ensemble, k)
+    (b, d), nc = y0.shape, h_re.shape[-1]
     _pair_stride("h", h_re, h_im, (b, nc), 0, dtype, dev)
     a_sb = _pair_stride("a", a_re, a_im, (nc,), b, dtype, dev)
     wd_sb = _pair_stride("wd", wd_re, wd_im, (d, nc), b, dtype, dev)
     wy_sb = _batch_stride("wy", wy, (d, d), b, dtype, dev)
     bo_sb = _batch_stride("b_out", b_out, (d,), b, dtype, dev)
     wh_sb = _pair_stride("wh", wh_re, wh_im, (nc, d), b, dtype, dev)
-    mask = torch.as_tensor(mask, device=dev)
-    if tuple(mask.shape) != (b,):
-        raise ValueError(f"mask must be ({b},), got {tuple(mask.shape)}")
-    m = live_mask(mask, dtype)[1][:, 0].contiguous()
-    tpr, per = decode_layout(b, nc, d, y0.element_size())
-    o_h_re = torch.empty((b, nc), dtype=dtype, device=dev)
-    o_h_im = torch.empty_like(o_h_re)
-    o_y = torch.empty((b, d), dtype=dtype, device=dev)
-    o_ys = torch.empty((int(k), b, d), dtype=dtype, device=dev)
-    rc = _entry("decode_fused", dtype)(
-        _ptr(a_re), _ptr(a_im), a_sb, _ptr(h_re), _ptr(h_im), _ptr(y0),
-        _ptr(wd_re), _ptr(wd_im), wd_sb, _ptr(wy), wy_sb, _ptr(b_out), bo_sb,
-        _ptr(wh_re), _ptr(wh_im), wh_sb, _ptr(m), _ptr(o_h_re), _ptr(o_h_im),
-        _ptr(o_y), _ptr(o_ys), b, nc, d, int(k), tpr, per,
-        int(ensemble == "mean"), _stream(dev))
-    _check(rc)
+    m = _mask_bytes(mask, b, dev)
+    layout = decode_layout(b, nc, d, y0.element_size(), ensemble=ensemble,
+                           batched=bool(a_sb or wd_sb or wh_sb), warps=warps)
+    o_h_re = torch.empty_like(h_re)
+    o_h_im = torch.empty_like(h_re)
+    o_y = torch.empty_like(y0)
+    o_ys = y0.new_empty((int(k), b, d))
+    _decode_launch(dtype, layout, dev,
+                   _ptr(a_re), _ptr(a_im), a_sb, _ptr(h_re), _ptr(h_im), nc,
+                   _ptr(y0), _ptr(wd_re), _ptr(wd_im), wd_sb, nc, _ptr(wy),
+                   wy_sb, _ptr(b_out), bo_sb, _ptr(wh_re), _ptr(wh_im),
+                   wh_sb, _ptr(m), _ptr(o_h_re), _ptr(o_h_im), _ptr(o_y),
+                   _ptr(o_ys), b, nc, 0, 0, d, int(k), layout.warps,
+                   layout.per, int(ensemble == "mean"), 0)
     return o_h_re, o_h_im, o_y, o_ys
+
+
+def decode_fused_packed_cuda(lam_q, n_real: int, w_drive, w_out, states,
+                             y_prev, mask, *, k: int, use_bias: bool,
+                             use_feedback: bool, ensemble: str = "off",
+                             warps: Optional[int] = None):
+    """K closed-loop decode steps through the CUDA kernel, reading and
+    writing the engine's packed Q layout in place: one launch, no lane
+    copies.  Same operands and result as ``ref.decode_fused_packed_ref``
+    (``w_out``'s bias, feedback and state rows read through row offsets;
+    with ``ensemble="mean"`` the kernel seeds every live row with the live
+    rows' mean output).  Returns ``(states', y_prev', ys)``."""
+    dev, dtype = _decode_operands(y_prev, ensemble, k)
+    (b, d), n, nr = y_prev.shape, states.shape[-1], int(n_real)
+    if (n - nr) % 2 or not 0 <= nr <= n:
+        raise ValueError(f"packed Q state of width {n} with {nr} real slots "
+                         f"has no whole number of (re, im) pairs")
+    nc = (n + nr) // 2
+    f = int(use_bias) + (d if use_feedback else 0) + n
+    _batch_stride("states", states, (b, n), 0, dtype, dev)
+    a_sb = _batch_stride("lam_q", lam_q, (n,), b, dtype, dev)
+    wd_sb = _batch_stride("w_drive", w_drive, (d, n), b, dtype, dev)
+    wo_sb = _batch_stride("w_out", w_out, (f, d), b, dtype, dev)
+    m = _mask_bytes(mask, b, dev)
+    layout = decode_layout(b, nc, d, y_prev.element_size(),
+                           ensemble=ensemble,
+                           batched=bool(a_sb or wd_sb or wo_sb), warps=warps)
+    wo, row = _ptr(w_out), w_out.element_size() * d
+    b_out = wo if use_bias else 0
+    wy = wo + int(use_bias) * row if use_feedback else 0
+    wh = wo + (f - n) * row
+    o_states = torch.empty_like(states)
+    o_y = torch.empty_like(y_prev)
+    o_ys = y_prev.new_empty((int(k), b, d))
+    a, h, wd = _ptr(lam_q), _ptr(states), _ptr(w_drive)
+    _decode_launch(dtype, layout, dev,
+                   a, a, a_sb, h, h, n, _ptr(y_prev), wd, wd, wd_sb, n, wy,
+                   wo_sb, b_out, wo_sb, wh, wh, wo_sb, _ptr(m),
+                   _ptr(o_states), _ptr(o_states), _ptr(o_y), _ptr(o_ys), b,
+                   nc, nr, 1, d, int(k), layout.warps, layout.per,
+                   int(ensemble == "mean"), int(ensemble == "mean"))
+    return o_states, o_y, o_ys

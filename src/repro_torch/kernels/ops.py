@@ -14,6 +14,12 @@ and :func:`diag_scan` builds the complex entry on top of it, so
 counts one per scan call, though a call may make two CUDA launches (the
 chunked schedule of ``csrc/diag_scan.cu``).
 
+The fused decode has one kernel with two entries: :func:`decode_fused` on
+split (re, im) lanes (the JAX package's ``ops.decode_fused``) and
+:func:`decode_fused_packed` on the engine's packed Q layout (what
+``core.dispatch.run_decode_fused`` calls); both count in
+``decode_fused.launches``.
+
 Attention has one kernel, ``flash_attention_fwd`` (``kernels.
 flash_attention``), with two entries: :func:`flash_attention_fwd` returns
 ``(out, lse)`` and is what the model's ``jnp_flash`` calls;
@@ -27,11 +33,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import ref
-from .diag_scan import (decode_fused_cuda, diag_scan_lanes_bwd_cuda,
-                        diag_scan_lanes_cuda)
+from .diag_scan import (decode_fused_cuda, decode_fused_packed_cuda,
+                        diag_scan_lanes_bwd_cuda, diag_scan_lanes_cuda)
 from .flash_attention import flash_attention_fwd_cuda
 
 __all__ = ["diag_scan", "diag_scan_lanes", "diag_scan_bwd", "decode_fused",
+           "decode_fused_packed",
            "flash_attention_fwd", "flash_attention"]
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
@@ -166,6 +173,23 @@ def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,
 
 
 decode_fused.launches = 0
+
+
+def decode_fused_packed(lam_q, n_real: int, w_drive, w_out, states, y_prev,
+                        mask, *, k: int, use_bias: bool, use_feedback: bool,
+                        ensemble: str = "off"):
+    """The same kernel on the engine's packed Q layout (operands as in
+    ``ref.decode_fused_packed_ref``): one launch that reads and writes the
+    packed state in place.  Counts in ``decode_fused.launches``.  Returns
+    ``(states', y_prev', ys)``."""
+    args = (lam_q, n_real, w_drive, w_out, states, y_prev, mask)
+    kw = dict(k=k, use_bias=use_bias, use_feedback=use_feedback,
+              ensemble=ensemble)
+    if _route(lam_q, w_drive, w_out, states, y_prev, mask) == "cpu":
+        return ref.decode_fused_packed_ref(*args, **kw)
+    out = decode_fused_packed_cuda(*args, **kw)
+    decode_fused.launches += 1
+    return out
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0,

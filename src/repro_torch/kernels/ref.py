@@ -6,7 +6,8 @@ import torch
 
 __all__ = ["diag_scan_ref", "diag_scan_lanes_ref", "diag_scan_lanes_bwd_ref",
            "chunk_layout", "diag_scan_lanes_chunked_ref",
-           "diag_scan_lanes_bwd_chunked_ref", "decode_fused_ref", "NEG_INF",
+           "diag_scan_lanes_bwd_chunked_ref", "decode_fused_ref", "q_lanes",
+           "q_repack", "decode_fused_packed_ref", "NEG_INF",
            "attention_mask", "attention_ref", "flash_attention_fwd_ref"]
 
 #: The score of a masked query-key pair (as in the JAX package).
@@ -287,6 +288,72 @@ def decode_fused_ref(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     ys = (torch.stack(ys) if ys else
           y0.new_zeros((0,) + tuple(y0.shape)))
     return hr, hi, y, ys
+
+
+def q_lanes(v, nr: int, axis: int = -1):
+    """Packed Q layout -> contiguous (re, im) lane tensors along ``axis``:
+    real slots first (zero imag), then the (re, im) pairs de-interleaved.
+    Width nc = nr + (N - nr) // 2."""
+    reals = v.narrow(axis, 0, nr)
+    pairs = v.narrow(axis, nr, v.shape[axis] - nr)
+    pre = pairs.unflatten(axis % v.ndim, (-1, 2)).select(axis % v.ndim + 1, 0)
+    pim = pairs.unflatten(axis % v.ndim, (-1, 2)).select(axis % v.ndim + 1, 1)
+    re = torch.cat([reals, pre], axis)
+    im = torch.cat([torch.zeros_like(reals), pim], axis)
+    return re, im
+
+
+def q_repack(re, im, nr: int):
+    """Inverse of :func:`q_lanes` on the last axis: real lanes back in
+    front, pair lanes re-interleaved to the packed layout."""
+    pre, pim = re[..., nr:], im[..., nr:]
+    pairs = torch.stack([pre, pim], -1).reshape(
+        pre.shape[:-1] + (2 * pre.shape[-1],))
+    return torch.cat([re[..., :nr], pairs], -1)
+
+
+def decode_fused_packed_ref(lam_q, n_real: int, w_drive, w_out, states,
+                            y_prev, mask, *, k: int, use_bias: bool,
+                            use_feedback: bool, ensemble: str = "off"):
+    """K fused closed-loop decode steps on the engine's packed Q layout:
+    the lanes split out (:func:`q_lanes`), :func:`decode_fused_ref`, the new
+    state packed back (:func:`q_repack`).
+
+    ``lam_q`` (N,) / (B, N); ``w_drive`` (D, N) / (B, D, N); ``w_out``
+    (F, D) / (B, F, D) with rows ``[bias? | y_prev? | states]``;
+    ``states`` (B, N), ``y_prev`` (B, D), ``mask`` (B,).  With
+    ``ensemble="mean"`` every live row starts from the live rows' mean
+    output (seed parity with the engine's step-at-a-time closed loop).
+    Returns ``(states', y_prev', ys)``, ``ys`` (k, B, D).
+    """
+    nr = n_real
+    d = y_prev.shape[-1]
+    a_re, a_im = q_lanes(lam_q, nr)
+    h_re, h_im = q_lanes(states, nr)
+    wd_re, wd_im = q_lanes(w_drive, nr)
+    idx = 0
+    if use_bias:
+        b_out = w_out[..., 0, :]
+        idx = 1
+    else:
+        b_out = w_out.new_zeros(w_out.shape[:-2] + (d,))
+    if use_feedback:
+        wy = w_out[..., idx:idx + d, :]
+        idx += d
+    else:
+        wy = w_out.new_zeros(w_out.shape[:-2] + (d, d))
+    wh_re, wh_im = q_lanes(w_out[..., idx:, :], nr, axis=-2)
+    mask = torch.as_tensor(mask, device=states.device)
+    y0 = y_prev
+    if ensemble == "mean":
+        live, m = live_mask(mask, y0.dtype)
+        denom = torch.clamp(m.sum(), min=1.0)
+        y_mean = (y0 * m).sum(0, keepdim=True) / denom
+        y0 = torch.where(live, torch.broadcast_to(y_mean, y0.shape), y0)
+    h_re, h_im, y, ys = decode_fused_ref(
+        a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re, wh_im,
+        mask, k=k, ensemble=ensemble)
+    return q_repack(h_re, h_im, nr), y, ys
 
 
 def attention_mask(sq, skv, *, causal=True, window=None, q_offset=0,

@@ -295,19 +295,219 @@ def decode_inputs(b, nc, d, batched, device, seed=1):
             r(*lead, nc, d, s=0.5 / nc), r(*lead, nc, d, s=0.5 / nc)]
 
 
+def packed_inputs(b, nr, npairs, d, batched, device, *, bias=True, fb=True,
+                  seed=2):
+    """Packed Q operands of ``ops.decode_fused_packed``: ``(lam_q, n_real,
+    w_drive, w_out, states, y_prev)``, N = nr + 2 npairs."""
+    rng = np.random.default_rng(seed)
+    n = nr + 2 * npairs
+    lead = (b,) if batched else ()
+    mag = rng.uniform(0.5, 0.95, lead + (npairs,))
+    ph = rng.uniform(0, np.pi, lead + (npairs,))
+    pairs = np.stack([mag * np.cos(ph), mag * np.sin(ph)], -1).reshape(
+        lead + (2 * npairs,))
+    lam = np.concatenate([rng.uniform(-0.95, 0.95, lead + (nr,)), pairs], -1)
+    f = n + int(bias) + (d if fb else 0)
+    w_out = rng.normal(size=lead + (f, d)) * 0.1
+    w_out[..., f - n:, :] *= 5.0 / n    # keep the closed loop's gain below 1
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.float64, device=device)
+    return (t(lam), nr, t(0.3 * rng.normal(size=lead + (d, n))), t(w_out),
+            t(rng.normal(size=(b, n))), t(rng.normal(size=(b, d))))
+
+
+# (B, NC, D): the main path's shape, small ones, the 16-slot arena, the
+# served model at n = 2048 (1043 lanes), 4096 lanes and eight outputs.
+DECODE_SHAPES = [(8, 525, 1), (3, 40, 2), (1, 700, 1), (16, 525, 1),
+                 (8, 1043, 1), (4, 4096, 1), (4, 525, 8)]
+
+
+def _decode_or_limit(ensemble, b, nc, d, batched, call):
+    """``call()``, or — where the one-block ``mean`` route cannot hold the
+    shape — the ValueError that names the limit, before any launch."""
+    try:
+        dsk.decode_layout(b, nc, d, 8, ensemble=ensemble, batched=batched)
+    except ValueError:
+        assert ensemble == "mean", "the off route takes every test shape"
+        before = ops.decode_fused.launches
+        with pytest.raises(ValueError, match="ensemble='mean' runs every "
+                                             "row in one block"):
+            call()
+        assert ops.decode_fused.launches == before
+        return None
+    return call()
+
+
 @pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
 @pytest.mark.parametrize("ensemble", ["off", "mean"])
-@pytest.mark.parametrize("b,nc,d", [(8, 525, 1), (3, 40, 2), (1, 700, 1)])
+@pytest.mark.parametrize("b,nc,d", DECODE_SHAPES)
 def test_decode_fused_kernel_matches_plain(dev, batched, ensemble, b, nc, d):
     args = decode_inputs(b, nc, d, batched, dev)
     mask = torch.arange(b, device=dev) != 1           # partial mask
     before = ops.decode_fused.launches
-    got = ops.decode_fused(*args, mask, k=128, ensemble=ensemble)
+    got = _decode_or_limit(ensemble, b, nc, d, batched, lambda: ops.decode_fused(
+        *args, mask, k=128, ensemble=ensemble))
+    if got is None:
+        return
     assert ops.decode_fused.launches == before + 1
     torch.cuda.synchronize()
     want = ref.decode_fused_ref(*args, mask, k=128, ensemble=ensemble)
     for g_, w_ in zip(got, want):
         _close(g_, w_)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("b,nc,d", DECODE_SHAPES)
+def test_decode_fused_packed_kernel_matches_plain(dev, batched, ensemble, b,
+                                                  nc, d):
+    """The packed entry (what the engine calls) against its plain version:
+    the lanes split, ``decode_fused_ref``, the state packed back."""
+    nr = nc // 7                       # some real slots, the rest pairs
+    args = packed_inputs(b, nr, nc - nr, d, batched, dev)
+    mask = torch.arange(b, device=dev) != 1
+    kw = dict(k=128, use_bias=True, use_feedback=True, ensemble=ensemble)
+    before = ops.decode_fused.launches
+    got = _decode_or_limit(ensemble, b, nc, d, batched, lambda: (
+        ops.decode_fused_packed(*args, mask, **kw)))
+    if got is None:
+        return
+    assert ops.decode_fused.launches == before + 1
+    torch.cuda.synchronize()
+    want = ref.decode_fused_packed_ref(*args, mask, **kw)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+
+
+@pytest.mark.parametrize("use_bias,use_feedback",
+                         [(False, False), (True, False), (False, True)])
+def test_decode_fused_packed_readout_rows(dev, use_bias, use_feedback):
+    """``w_out`` without its bias or feedback rows: the row offsets."""
+    args = packed_inputs(5, 9, 60, 2, False, dev, bias=use_bias,
+                         fb=use_feedback)
+    mask = torch.tensor([True, True, False, True, True], device=dev)
+    kw = dict(k=17, use_bias=use_bias, use_feedback=use_feedback)
+    got = ops.decode_fused_packed(*args, mask, **kw)
+    want = ref.decode_fused_packed_ref(*args, mask, **kw)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 16, 32])
+def test_decode_fused_every_fitting_warp_count(dev, warps):
+    """The sweep's forced W (chip_smoke.py phase 4) at the main path's
+    shape: every W that fits matches the plain version; one that does not
+    (W = 1: 17 lanes a thread; W = 32: more threads than the one-lane
+    instantiation's registers allow) is refused before launch."""
+    args = decode_inputs(8, 525, 1, False, dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    try:
+        dsk.decode_layout(8, 525, 1, 8, warps=warps)
+    except ValueError:
+        assert warps in (1, 32)
+        with pytest.raises(ValueError, match=f"warps={warps} does not fit"):
+            dsk.decode_fused_cuda(*args, mask, k=128, warps=warps)
+        return
+    got = dsk.decode_fused_cuda(*args, mask, k=128, warps=warps)
+    want = ref.decode_fused_ref(*args, mask, k=128)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_decode_fused_row_bits_independent_of_arena(dev, dtype):
+    """ensemble="off": a row's bits are the same at B = 1 and B = 16, and
+    whatever the other rows hold; two runs are bit-identical."""
+    args = [v.to(dtype) for v in packed_inputs(16, 75, 450, 1, False, dev)
+            if torch.is_tensor(v)]
+    lam, w_drive, w_out, states, y_prev = args
+    mask = torch.ones(16, dtype=torch.bool, device=dev)
+    kw = dict(k=128, use_bias=True, use_feedback=True)
+    full = ops.decode_fused_packed(lam, 75, w_drive, w_out, states, y_prev,
+                                   mask, **kw)
+    again = ops.decode_fused_packed(lam, 75, w_drive, w_out, states, y_prev,
+                                    mask, **kw)
+    for a_, b_ in zip(full, again):
+        assert torch.equal(a_, b_)
+    one = ops.decode_fused_packed(lam, 75, w_drive, w_out, states[5:6],
+                                  y_prev[5:6], mask[5:6], **kw)
+    other = states.clone()
+    other[:5] = torch.randn_like(other[:5])
+    other[6:] *= -3.0
+    moved = ops.decode_fused_packed(lam, 75, w_drive, w_out, other, y_prev,
+                                    mask, **kw)
+    for got in (one, moved):
+        row = 0 if got is one else 5
+        assert torch.equal(got[0][row], full[0][5])
+        assert torch.equal(got[1][row], full[1][5])
+        assert torch.equal(got[2][:, row], full[2][:, 5])
+
+
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+def test_decode_fused_split_runs_repeat_bitwise(dev, ensemble):
+    args = decode_inputs(8, 525, 1, True, dev)
+    mask = torch.arange(8, device=dev) != 3
+    first = ops.decode_fused(*args, mask, k=128, ensemble=ensemble)
+    second = ops.decode_fused(*args, mask, k=128, ensemble=ensemble)
+    for a_, b_ in zip(first, second):
+        assert torch.equal(a_, b_)
+
+
+def test_run_decode_fused_is_one_launch(dev):
+    """The engine's decode call at the serving shape makes exactly one CUDA
+    kernel launch: no lane copies around the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, seed=0)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device=dev)
+    w_drive = p.win_q + p.wfb_q if cfg.use_feedback else p.win_q
+    n = p.lam_q.shape[-1]
+    w_out = torch.randn((1 + n, 1), dtype=torch.float64, device=dev) / n
+    states = torch.randn((8, n), dtype=torch.float64, device=dev)
+    y_prev = torch.randn((8, 1), dtype=torch.float64, device=dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+
+    def call():
+        return dispatch.run_decode_fused(p.lam_q, p.n_real, w_drive, w_out,
+                                         states, y_prev, mask, 128,
+                                         use_bias=True, use_feedback=False)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_fused_kernel" in kernels[0], kernels
+
+
+def test_serve_16_slots_full_width_matches_cpu(dev):
+    """The 16-slot arena at n = 1024 (the JAX benchmark's mixed-traffic
+    arena) through the kernel, against the CPU engine."""
+    cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, input_scaling=0.5,
+                    ridge_alpha=1e-8, seed=0)
+    sig = mso_series(3, 2001)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
+    ro = esn.fit(p, sig[:-1, None], sig[1:, None], washout=100)
+    starts = np.random.default_rng(0).integers(0, 2000 - 256, size=16)
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        eng = ReservoirEngine(p, 16, readout=ro, device=device)
+        for sid, lo in enumerate(starts):
+            eng.submit(sid, sig[lo:lo + 256, None])
+        eng.flush()
+        before = ops.decode_fused.launches
+        ys = eng.decode_closed_loop(32)
+        launched = ops.decode_fused.launches - before
+        outs[device.type] = ({s: (ys[s].cpu(), *(v.cpu() for v in
+                                                 eng.release(s)))
+                              for s in range(16)}, launched)
+    assert outs["cuda"][1] == 1 and outs["cpu"][1] == 0
+    for sid in range(16):
+        for g_, w_ in zip(outs["cuda"][0][sid], outs["cpu"][0][sid]):
+            assert bool(torch.isfinite(g_).all())
+            _close(g_, w_)
 
 
 def test_kernel_scan_route_matches_chunked(dev):
