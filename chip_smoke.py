@@ -8,12 +8,13 @@ kernel (the diagonal scan, its backward, the fused decode, flash attention)
 against its plain PyTorch version at the main paths' shapes and times both
 — the scan kernels also against their chunked plain versions at the chunk
 count the launcher picks, with the profiler's device time, the host time
-of a call and a sweep of the chunk count; the fused decode through both of
+of a call and a sweep of the chunk count, and at the param-batched wave
+with one row of coefficients a reservoir; the fused decode through both of
 its entries (split lanes, the engine's packed layout), with a sweep of its
-warps a row at five shapes and the engine's call shown to be one launch —
-and fails if a decode instantiation spills; then drives the port's five
-main paths on the card, each with the launch counts set to 0 just before
-it and read just after:
+warps a row at five shapes, its mean route with per-slot operands, and the
+engine's call shown to be one launch — and fails if a decode instantiation
+spills; then drives the port's eight main paths on the card, each with the
+launch counts set to 0 just before it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
    workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
@@ -38,7 +39,22 @@ it and read just after:
    against the CPU's;
 5. ``repro_torch.launch.serve --arch smollm-135m``: its decode loop over KV
    caches (dense decode attention, as in the JAX package: no kernel), in
-   bfloat16, held against the CPU as path 3 is.
+   bfloat16, held against the CPU as path 3 is;
+6. the ``LinearESN`` facade at the serving profile (n=1024, float64):
+   standard fit, EWT into the diagonalized model, DPG fit, predict and
+   ``generate(128)``, held against the port on the CPU;
+7. ``repro_torch.launch.serve --reservoir --ensemble mean`` (then
+   ``weighted`` and ``independent``): 8 independently seeded reservoirs in
+   a param-batched engine — the prefill through B1 with one row of
+   coefficients a reservoir, the mean's closed loop through B2's ensemble
+   route; ``--slots 16`` with ``mean`` must raise B2's limit; both fused
+   ensembles held against the CPU engine;
+8. the decode-SLO interleave (two protected decoders, chunked prompts,
+   8-token decode waves) bit-exact against the decode-blind schedule on
+   the card; main path 1 through the driver under ``--decode-slo 2000
+   --chunk-max 256 --decode-wave-tokens 8 --autotune``; a 64-step
+   ``decode_step`` / ``observe`` loop against the CPU; and one
+   ``profile_dir`` capture whose trace names B2.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -88,6 +104,9 @@ SERVE_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--sessions",
               "16", "--prompt-len", "1024", "--gen", "128"]
 SERVE16_ARGS = ["--reservoir", "--n", "1024", "--slots", "16", "--sessions",
                 "32", "--prompt-len", "1024", "--gen", "128"]
+#: Main path 1 under a decode SLO, planned by an autotuned cost model.
+SLO_ARGS = ["--chunk-max", "256", "--decode-slo", "2000",
+            "--decode-wave-tokens", "8", "--autotune"]
 TRAIN_STEPS = 10
 TRAIN_ARGS = ["--arch", "linear-esn", "--vocab", "50304", "--batch", "8",
               "--seq", "1024", "--steps", str(TRAIN_STEPS)]
@@ -194,7 +213,8 @@ def scan_inputs(shape, a_kind, cplx, with_h0, dtype, seed=0):
     import torch
     g = torch.Generator().manual_seed(seed)
     b, t, n = shape
-    a_shape = {"static": (n,), "time": (t, n), "full": (b, t, n)}[a_kind]
+    a_shape = {"static": (n,), "row": (b, 1, n), "time": (t, n),
+               "full": (b, t, n)}[a_kind]
     a = torch.rand(a_shape, generator=g, dtype=torch.float64) * 0.6 + 0.35
     x = torch.randn((b, t, n), generator=g, dtype=torch.float64)
     h0 = (torch.randn((b, n), generator=g, dtype=torch.float64)
@@ -285,6 +305,9 @@ def check_diag_scan(ops, ref, dsk, copy_bw):
     cases = [
         # name, shape, a, complex, h0, dtype, timed
         ("wave", (8, 1024, 525), "static", True, False, "float64", True),
+        # the param-batched wave: one row of coefficients per reservoir,
+        # static in time ((B, 1, N) lanes read with a time stride of 0)
+        ("wave-row-a", (8, 1024, 525), "row", True, False, "float64", True),
         ("fit", (1, 2000, 525), "static", True, False, "float64", True),
         # linear-esn training: B=8, T=1024, d_rnn=1024, complex64 lanes
         ("train", (8, 1024, 1024), "static", True, False, "float32", True),
@@ -594,6 +617,25 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
     row["mean_route"] = {"warps": dsk.decode_layout(
         b, nc, d, 8, ensemble="mean").warps, **mean,
         "us_per_step": mean["device_ms"] * 1e3 / k}
+    # The mean route with per-slot lambda / wd / w_out (one shared-memory
+    # copy of the lane operands a row): the ensemble engine's call.
+    bargs = decode_inputs(b, nc, d, True)
+
+    def mean_call():
+        return ops.decode_fused(*bargs, mask, k=k, ensemble="mean")
+    per_slot = next(r for r in rows if r["case"] == "3d-mean-full")
+    mrow = {"shape": [b, nc, d, k], "max_abs_err": per_slot["max_abs_err"],
+            "tol": per_slot["tol"], "warps": dsk.decode_layout(
+                b, nc, d, 8, ensemble="mean", batched=True).warps,
+            "ms": time_ms(mean_call, reps=50), **kernel_calls(mean_call),
+            "plain_ms": time_ms(lambda: ref.decode_fused_ref(
+                *bargs, mask, k=k, ensemble="mean"), reps=2, warmup=1)}
+    mrow["us_per_step"] = mrow["device_ms"] * 1e3 / k
+    nbytes, flops, cflops = decode_cost(bargs, mask, k)
+    # plus the step's mean over the live rows: a sum and a scale per output
+    mrow.update(bound(nbytes, flops + k * (b + 1) * d, "float64", copy_bw,
+                      contract_flops=cflops))
+    row["mean_per_slot"] = mrow
     # The shapes, each swept over W beside the rule's pick.
     shapes = []
     for sb, snc, sd in DECODE_SHAPES:
@@ -638,6 +680,15 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
             eng["kernel_names"][0]:
         fail(f"run_decode_fused is not one decode_fused launch: {eng}")
     eng.update(kernel_calls(engine_call))
+    # Its bound: the packed operands read once (lam_q, w_drive, w_out,
+    # states, y_prev, mask), states, y_prev and ys written once; the
+    # arithmetic of the split-lane call at the same (B, NC, D, K).
+    pnc = (n + p.n_real) // 2
+    nbytes = 8 * (n + p.win_q.numel() + w_out.numel() + 2 * states.numel()
+                  + 2 * y_prev.numel() + k * y_prev.numel()) + mask.numel()
+    live = int(mask.sum())
+    eng.update(bound(nbytes, k * live * (8 * pnc + 1), "float64", copy_bw,
+                     contract_flops=k * live * 8 * pnc))
     eng["host_us"], eng["host_us_median"] = host_us(engine_call)
     eng["host_us_torch_add"] = host_us(lambda: torch.add(y_prev, y_prev))[0]
     row["run_decode_fused"] = eng
@@ -766,14 +817,20 @@ def check_flash_attention(ops, ref, copy_bw):
 # --------------------------------------------------------------------------- #
 # Phase 5: the main path                                                       #
 # --------------------------------------------------------------------------- #
+def serving_profile(ESNConfig):
+    """The serving profile of the JAX package's serving benchmark
+    (``benchmarks/serve_engine.py``): n = 1024, float64."""
+    return ESNConfig(n=1024, spectral_radius=0.95, leak=0.9,
+                     input_scaling=0.5, ridge_alpha=1e-8, seed=0)
+
+
 def engine_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, slots=8):
     """The same ``slots``-session workload (one wave, 1024-token prompts,
     128 closed-loop tokens) through an engine of ``slots`` slots on the card
     and on the CPU, one params/readout pair for both (a second ridge fit
     would amplify last-bit state differences through its conditioning)."""
     import torch
-    cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, input_scaling=0.5,
-                    ridge_alpha=1e-8, seed=0)
+    cfg = serving_profile(ESNConfig)
     sig = mso_series(3, 2001)
     p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
     ro = esn.fit(p, sig[:-1, None], sig[1:, None], washout=100)
@@ -985,6 +1042,296 @@ def lm_serve_f32_vs_cpu(serve, lm, get_config, argv=LM_SERVE_ARGS):
     if max(rel) > LM_TOL or not same:
         fail(f"float32 LM loop on the card vs the CPU: {out}")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Phases 14-16: the facade, the param-batched ensembles, observe / interleave  #
+# --------------------------------------------------------------------------- #
+def traj_err(got, want, name):
+    """Fail unless ``got`` is finite and within ``F64_TOL`` of ``want``,
+    max-scaled and element by element against max(|ref|, 1)."""
+    import torch
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: not finite")
+    err, tol = max_err(got, want)
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    if err > tol or rel > F64_TOL:
+        fail(f"{name}: max|d| {err:.3e} (tol {tol:.3e}), elementwise "
+             f"{rel:.3e} (tol {F64_TOL:.0e})")
+    return {"max_abs_err": err, "tol": tol, "max_rel_err": rel}
+
+
+def readout_err(model, w_card, u, name):
+    """A readout ridge-fitted on the card against the CPU model's own: the
+    predictions each gives on the CPU model's features of the rows it was
+    fitted on (``u[100:2000]``, after the washout) agree to 1e-5 of their
+    largest value.  The weights themselves are not compared (reported
+    only): at ridge_alpha 1e-8 the systems are ill-conditioned (cond(G)
+    ~1e20 standard, ~1e105 DPG), and the two devices' solves part along
+    near-null directions that the training rows do not see and the
+    washout and later rows do (ROADMAP C3)."""
+    x = model.features(model.run(u))[100:2000]
+    w_cpu, w_card = model.w_out, w_card.detach().cpu()
+    want, got = x @ w_cpu, x @ w_card
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    if not err <= tol:
+        fail(f"{name}: predictions of the two readouts part by {err:.3e} "
+             f"> {tol:.3e}")
+    return {"max_abs_err": err, "tol": tol,
+            "weights_max_rel_diff": float((w_card - w_cpu).abs().max()
+                                          / w_cpu.abs().max())}
+
+
+def wall_ms(fn, reps: int = 3):
+    """Least host wall time of ``fn`` over ``reps`` calls, each ending in a
+    synchronise (a host-bound loop's time is its wall time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return min(out)
+
+
+def facade_path(esn, ESNConfig, mso_series):
+    """The ``LinearESN`` facade at the serving profile on the card:
+    standard fit, EWT into the diagonalized model, DPG fit (B1 at the fit
+    shape), predictions and ``generate(128)``.  Returns the card's models
+    and outputs."""
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    u, y = sig[:-1, None], sig[1:, None]
+    std = esn.LinearESN.standard(cfg, device="cuda").fit(u[:2000], y[:2000],
+                                                         washout=100)
+    dia = esn.LinearESN.diagonalized(cfg, device="cuda").ewt_from(std)
+    dpg = esn.LinearESN.dpg(cfg, sigma=0.1, device="cuda").fit(
+        u[:2000], y[:2000], washout=100)
+    return {"std": std, "dia": dia, "dpg": dpg,
+            "p_std": std.predict(u), "p_dia": dia.predict(u),
+            "p_dpg": dpg.predict(u),
+            "gen": dpg.generate(128, u[:2000], y[:2000])}
+
+
+def facade_vs_cpu(esn, ESNConfig, mso_series, card):
+    """The facade on the card against the port on the CPU: readouts at
+    1e-5 (of the predictions they give); the EWT equivalence (standard vs diagonalized predictions) on the
+    card at 1e-5; predictions and generate(128) from the card's readout at
+    1e-9 max(|ref|, 1); and the card's times."""
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    u, y = sig[:-1, None], sig[1:, None]
+    std = esn.LinearESN.standard(cfg, device="cpu").fit(u[:2000], y[:2000],
+                                                        washout=100)
+    dia = esn.LinearESN.diagonalized(cfg, device="cpu").ewt_from(std)
+    dpg = esn.LinearESN.dpg(cfg, sigma=0.1, device="cpu").fit(
+        u[:2000], y[:2000], washout=100)
+    out = {"readout_std": readout_err(std, card["std"].w_out, u,
+                                      "standard readout"),
+           "readout_ewt": readout_err(dia, card["dia"].w_out, u,
+                                      "EWT readout"),
+           "readout_dpg": readout_err(dpg, card["dpg"].w_out, u,
+                                      "DPG readout")}
+    p_std = card["p_std"].cpu()
+    ewt = float((card["p_dia"].cpu() - p_std).abs().max())
+    out["ewt_equivalence"] = {"max_abs_err": ewt,
+                              "tol": 1e-5 * float(p_std.abs().max())}
+    if not ewt <= out["ewt_equivalence"]["tol"]:
+        fail(f"EWT on the card: standard vs diagonalized predictions "
+             f"{out['ewt_equivalence']}")
+    dpg.w_out = card["dpg"].w_out.cpu()
+    out["predict"] = traj_err(card["p_dpg"], dpg.predict(u), "DPG predict")
+    out["generate_128"] = traj_err(card["gen"],
+                                   dpg.generate(128, u[:2000], y[:2000]),
+                                   "generate(128)")
+    truth = sig[2001:2129]
+    out["generate_rmse_vs_signal"] = float(np.sqrt(np.mean(
+        (card["gen"][:, 0].cpu().numpy() - truth) ** 2)))
+    m = card["dpg"]
+    out["card_ms"] = {
+        "dpg_fit_2000": wall_ms(lambda: m.fit(u[:2000], y[:2000],
+                                              washout=100)),
+        "predict_2600": wall_ms(lambda: m.predict(u)),
+        "generate_128": wall_ms(lambda: m.generate(128, u[:2000], y[:2000])),
+        "generate_128_warmup_run": wall_ms(lambda: m.run(u[:2000]))}
+    return out
+
+
+ENS_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--prompt-len",
+            "1024", "--gen", "128"]
+
+
+def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble):
+    """A param-batched engine (8 dpg reservoirs at the serving profile,
+    readouts fitted on the card) on the card and the CPU: prefill 8 x 1024
+    (B1 with per-row coefficients), one open-loop step, ``observe``, 128
+    closed-loop tokens (``mean``: B2's ensemble route; ``weighted``: the
+    step-at-a-time path) — held at 1e-9 max(|ref|, 1); with the card's
+    time of the closed loop."""
+    import dataclasses
+    import torch
+    from repro_torch.core.params import Readout, stack_params
+    from repro_torch.kernels import ops
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    u, y = sig[:-1, None], sig[1:, None]
+    ps = [esn.dpg_params(dataclasses.replace(cfg, seed=i), "noisy_golden",
+                         sigma=0.1, device="cuda") for i in range(8)]
+    ro = Readout(torch.stack([esn.fit(p, u[:2000], y[:2000],
+                                      washout=100).w_out for p in ps]))
+    params = stack_params(ps)
+    outs, res = {}, {}
+    for device in ("cuda", "cpu"):
+        eng = ReservoirEngine.from_param_batch(params, ro, ensemble=ensemble,
+                                               device=device)
+        if ensemble == "weighted":
+            eng.set_ensemble_weights(np.linspace(0.5, 2.0, 8))
+        for i in range(8):
+            eng.submit(i, sig[16 * i:16 * i + 1024, None])
+        eng.flush()
+        step = eng.decode_step({i: sig[1100 + i, None] for i in range(8)})
+        eng.observe(3, [0.5])
+        counts = ops.decode_fused.launches
+        ys = eng.decode_closed_loop(128)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            res["decode_fused_launches_in_closed_loop"] = (
+                ops.decode_fused.launches - counts)
+            res["closed_loop_128_ms"] = wall_ms(
+                lambda: eng.decode_closed_loop(128))
+        outs[device] = ([torch.as_tensor(step[i]) for i in range(8)],
+                        [ys[i] for i in range(8)], eng)
+    for name, i in (("step", 0), ("ys", 1)):
+        errs = [traj_err(g, w, f"{ensemble} ensemble {name} {j}")
+                for j, (g, w) in enumerate(zip(outs["cuda"][i],
+                                               outs["cpu"][i]))]
+        res[name] = max(errs, key=lambda e: e["max_rel_err"])
+    return res
+
+
+#: The interleave phase's decode SLO (microseconds of prefill cost, planned
+#: and on the wall, between a protected session's decode waves).
+INTERLEAVE_SLO_US = 1500.0
+
+
+def interleave_path(esn, ESNConfig, mso_series, ReservoirEngine, drive):
+    """Decode-SLO interleave at the serving profile on the card: 8 slots,
+    two protected decoders, four 1024-token prompts in 256-token chunks,
+    8-token decode waves.  Prefill outputs equal the decode-blind engine's
+    and the interleaved tokens equal 1-token closed-loop calls of it, bit
+    for bit (the wave order only differs)."""
+    import torch
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cuda")
+    ro = esn.fit(p, sig[:2000, None], sig[1:2001, None], washout=100)
+
+    def build(slo):
+        kw = {} if slo is None else dict(decode_slo_us=slo,
+                                         decode_wave_tokens=8)
+        e = ReservoirEngine(p, 8, readout=ro, device="cuda", chunk_max=256,
+                            **kw)
+        e.submit("d0", sig[:300, None])
+        e.submit("d1", sig[50:350, None])
+        e.flush()
+        e.decode_closed_loop(1)
+        e.collect_decoded()
+        for i in range(4):
+            e.submit(("f", i), sig[100 * i:100 * i + 1024, None])
+        return e
+    aware, blind = build(INTERLEAVE_SLO_US), build(None)
+    ra = drive("serve_interleave",
+               lambda: aware.flush(decode_interleave=True, want_outputs=True),
+               ("diag_scan", "decode_fused"))
+    rb = blind.flush(want_outputs=True)
+    for sid in rb:
+        if not torch.equal(ra[sid], rb[sid]):
+            fail(f"interleaved prefill of {sid} differs from the blind one")
+    st = aware.stats()
+    if st.decode_interleave_waves < 1:
+        fail("the SLO flush ran no interleaved decode wave")
+    res = aware.collect_decoded()
+    n_tok = int(res["d0"].shape[0])
+    for i in range(n_tok):
+        ys = blind.decode_closed_loop(1, sids=["d0", "d1"])
+        for sid in ("d0", "d1"):
+            if not torch.equal(res[sid][i:i + 1], ys[sid]):
+                fail(f"interleaved token {i} of {sid} differs from the "
+                     f"1-token closed loop")
+    waves_us = [w["us"] for w in res.waves]
+    return {"decode_interleave_waves": st.decode_interleave_waves,
+            "interleaved_tokens": n_tok, "decode_wave_tokens": 8,
+            "prefill_waves": st.waves_total,
+            "decode_gap_p50_us": st.decode_gap_p50_us,
+            "decode_gap_p95_us": st.decode_gap_p95_us,
+            "interleave_wave_us_min": min(waves_us),
+            "interleave_wave_us_median": float(np.median(waves_us)),
+            "slo_us": INTERLEAVE_SLO_US, "bit_exact": True}
+
+
+def observe_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine):
+    """64 open-loop ``decode_step`` tokens with ``observe`` after each on
+    one of two sessions, on the card and the CPU from one params/readout:
+    outputs and states at 1e-9 max(|ref|, 1)."""
+    import torch
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
+    ro = esn.fit(p, sig[:2000, None], sig[1:2001, None], washout=100)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        eng = ReservoirEngine(p, 8, readout=ro, device=device)
+        eng.submit("a", sig[:512, None])
+        eng.submit("b", sig[300:812, None])
+        eng.flush()
+        rows = []
+        for t in range(64):
+            got = eng.decode_step({"a": sig[512 + t, None],
+                                   "b": sig[812 + t, None]})
+            eng.observe("a", sig[513 + t, None])
+            rows.append(torch.as_tensor(np.stack([got["a"], got["b"]])))
+        outs[device] = (torch.stack(rows), eng.states.cpu(),
+                        eng.y_prev.cpu())
+    return {name: traj_err(g, w, f"observe loop {name}") for name, g, w in
+            zip(("outputs", "states", "y_prev"), outs["cuda"], outs["cpu"])}
+
+
+def profile_capture(esn, ESNConfig, mso_series, ReservoirEngine):
+    """One ``profile_dir`` capture around 16 closed-loop decode waves of 8
+    tokens on an 8-slot engine: its Chrome trace must exist and name B2's
+    kernel.  The card's profiler windows drop some kernel records (B3's
+    windows caught 15-18 of 20 launches, PERF.md), so the window holds 16
+    launches and the count captured is reported."""
+    import shutil
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cuda")
+    ro = esn.fit(p, sig[:2000, None], sig[1:2001, None], washout=100)
+    out_dir = Path(__file__).resolve().parent / "build" / "profile_capture"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    eng = ReservoirEngine(p, 8, readout=ro, device="cuda",
+                          profile_dir=str(out_dir))
+    for i in range(8):
+        eng.submit(i, sig[16 * i:16 * i + 1024, None])
+    eng.flush()
+    with eng.tracker.capture("decode"):
+        for _ in range(16):
+            eng.decode_closed_loop(8)
+    traces = sorted(out_dir.glob("decode.*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"profile_dir capture wrote {len(traces)} traces: {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    b2 = [e for e in events if "decode_fused_kernel" in e.get("name", "")]
+    if not b2:
+        fail(f"the capture's trace {traces[0].name} does not name B2 "
+             f"({len(events)} events)")
+    return {"trace": traces[0].name, "events": len(events),
+            "decode_fused_kernel_events": len(b2), "launched": 16}
 
 
 def flash_summary(rows, counts, keys):
@@ -1211,10 +1558,77 @@ def main() -> None:
     print(json.dumps({"serve_smollm_f32_vs_cpu": lm_serve_f32_vs_cpu(
         serve, lm, get_config, SMOLLM_SERVE_ARGS)}), flush=True)
 
-    phase("14 summary")
+    phase("14 main path 6: the LinearESN facade at the serving profile "
+          "(n=1024, float64): standard fit, EWT, DPG fit, predict, "
+          "generate(128)")
+    card = drive("facade", lambda: facade_path(esn, ESNConfig, mso_series),
+                 ("diag_scan",))
+    print(json.dumps({"facade_vs_cpu": facade_vs_cpu(
+        esn, ESNConfig, mso_series, card),
+        "launches": launches["facade"]}), flush=True)
+
+    phase("15 main path 7: repro_torch.launch.serve " + " ".join(ENS_ARGS)
+          + " --ensemble mean | weighted | independent")
+    for ensemble, expect in (("mean", ("diag_scan", "decode_fused")),
+                             ("weighted", ("diag_scan",)),
+                             ("independent", ("diag_scan", "decode_fused"))):
+        path = f"serve_ensemble_{ensemble}"
+        argv = ENS_ARGS + ["--ensemble", ensemble]
+        if ensemble == "independent":
+            argv += ["--sessions", "16"]
+        res = drive(path, lambda: serve.main(argv), expect)
+        keep = {k: v for k, v in res.items() if k != "continuation"}
+        print(json.dumps({path: keep, "launches": launches[path]}),
+              flush=True)
+        if not res["finite"]:
+            fail(f"{path}: outputs are not finite")
+        if ensemble != "independent" and not res["rmse_vs_signal"] < 0.1:
+            fail(f"{path}: continuation rmse {res['rmse_vs_signal']:.3e} "
+                 f"vs the signal")
+    if launches["serve_ensemble_weighted"]["decode_fused"]:
+        fail("the weighted ensemble launched B2; it takes the "
+             "step-at-a-time path, as in the JAX package")
+    try:
+        serve.main(ENS_ARGS[:4] + ["16"] + ENS_ARGS[5:]
+                   + ["--ensemble", "mean"])
+    except ValueError as e:
+        if "ensemble='mean' runs every row in one block" not in str(e):
+            raise
+        print(json.dumps({"serve_ensemble_mean_16_slots":
+                          f"refused: {str(e)[:160]}"}), flush=True)
+    else:
+        fail("--ensemble mean --slots 16 at n=1024 served; B2's one-block "
+             "mean route should refuse it")
+    for ensemble in ("mean", "weighted"):
+        print(json.dumps({f"ensemble_{ensemble}_vs_cpu": ensemble_vs_cpu(
+            esn, ESNConfig, mso_series, ReservoirEngine, ensemble)}),
+            flush=True)
+
+    phase("16 main path 8: decode-SLO interleave (8 slots, 2 protected "
+          "decoders, 4 x 1024-token prompts in 256-token chunks, 8-token "
+          "decode waves), observe, profile capture")
+    print(json.dumps({"interleave": interleave_path(
+        esn, ESNConfig, mso_series, ReservoirEngine, drive),
+        "launches": launches["serve_interleave"]}), flush=True)
+    cost_path = Path(__file__).resolve().parent / "build" / "costs.json"
+    slo_args = SERVE_ARGS + SLO_ARGS + ["--cost-save", str(cost_path)]
+    res = drive("serve_slo", lambda: serve.main(slo_args),
+                ("diag_scan", "decode_fused"))
+    print(json.dumps({"serve_slo": res, "args": SLO_ARGS,
+                      "launches": launches["serve_slo"]}), flush=True)
+    if not res["finite"] or res["sessions"] != 16 or \
+            res["decode_interleave_waves"] < 1:
+        fail(f"SLO serving loop: {res}")
+    print(json.dumps({"observe_vs_cpu": observe_vs_cpu(
+        esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
+    print(json.dumps({"profile_capture": profile_capture(
+        esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
+
+    phase("17 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
+    row_a = rows["wave-row-a"]
     fwd_decode = rows["lm-decode"]
     bwd = {r["case"]: r for r in bwd_rows}
     bwd_train = bwd["train"]
@@ -1245,7 +1659,11 @@ def main() -> None:
                           **{k: fwd_train[k] for k in scan_keys}},
              lm_decode_shape={"shape": fwd_decode["shape"],
                               "dtype": "float32",
-                              **{k: fwd_decode[k] for k in scan_keys}}),
+                              **{k: fwd_decode[k] for k in scan_keys}},
+             per_row_a={"shape": row_a["shape"], "a": "(B, 1, N) static",
+                        "max_abs_err": row_a["max_abs_err"],
+                        "tol": row_a["tol"],
+                        **{k: row_a[k] for k in scan_keys}}),
         dict(name="diag_scan_bwd", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/ops.py:85",
@@ -1270,8 +1688,8 @@ def main() -> None:
              shape=dec["shape"], dtype="float64",
              **{k: dec[k] for k in keys + (
                  "device_ms", "cuda_launches_per_call", "us_per_step",
-                 "warps", "per", "mean_route", "run_decode_fused",
-                 "shapes")},
+                 "warps", "per", "mean_route", "mean_per_slot",
+                 "run_decode_fused", "shapes")},
              library_ms=None),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]

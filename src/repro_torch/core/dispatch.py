@@ -78,7 +78,10 @@ def _kernel_scan_q(lam_q, x_q, n_real: int, h0, *, time_axis: int):
     the whole state vector: the packed (N,) coefficients, x and h0 go
     straight to (re, im) lanes of width n_real + n_pairs
     (``kernels.ref.q_lanes``) and the lane outputs straight back to the
-    packed layout (``q_repack``).
+    packed layout (``q_repack``).  Per-row coefficients (``lam_q`` shaped
+    like ``x_q`` without its time axis: a param-batched wave) go to the
+    kernel as (B, 1, nc) lanes, which it reads with a time stride of 0 —
+    one launch for the wave, nothing broadcast over time in memory.
     """
     xt = torch.movedim(x_q, time_axis, -2)          # (..., T, N)
     lead = xt.shape[:-2]
@@ -87,6 +90,10 @@ def _kernel_scan_q(lam_q, x_q, n_real: int, h0, *, time_axis: int):
     dtype = torch.result_type(lam_q, x_q)
     q_lanes = kernel_refs.q_lanes
     a_re, a_im = q_lanes(lam_q.to(dtype), nr)
+    if lam_q.ndim > 1:
+        rows = (-1, 1, a_re.shape[-1])
+        a_re = torch.broadcast_to(a_re, lead + a_re.shape[-1:]).reshape(rows)
+        a_im = torch.broadcast_to(a_im, lead + a_im.shape[-1:]).reshape(rows)
     x_re, x_im = q_lanes(xt.reshape((-1, t, n)).to(dtype), nr)  # (B, T, nc)
     h_re = h_im = None
     if h0 is not None:
@@ -101,8 +108,9 @@ def run_scan_q(lam_q, x_q, n_real: int, h0=None, *, method: str = "auto",
                chunk: int = 128, time_axis: int = -2):
     """Execute the Q-basis diagonal scan with an auto-selected backend.
 
-    ``x_q``: (..., T, N) with time on ``time_axis``; ``lam_q``: (N,) packed;
-    ``h0``: optional (..., N) initial state.  ``method="auto"`` resolves via
+    ``x_q``: (..., T, N) with time on ``time_axis``; ``lam_q``: (N,)
+    packed, or (..., N) — one row of coefficients per batch row of ``x_q``
+    (a param-batched wave); ``h0``: optional (..., N) initial state.  ``method="auto"`` resolves via
     :func:`resolve_method` on ``x_q``'s device; explicit method strings pass
     straight through.
     """

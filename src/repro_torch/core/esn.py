@@ -8,7 +8,11 @@ The model is a *param struct* (``core.params``) plus *pure functions over it*:
   Weights are generated on the host with numpy from ``cfg.seed`` exactly as
   the JAX package does, then placed on ``device`` (the GPU by default).
 * ``run(params, u)`` collects states; ``fit(params, u, y)`` ridge-trains and
-  returns a :class:`Readout`; ``predict(params, readout, u)`` evaluates it.
+  returns a :class:`Readout`; ``predict(params, readout, u)`` and
+  ``generate(params, readout, n_steps, ...)`` evaluate it.
+* :class:`LinearESN` is a thin stateful facade over (params, readout,
+  basis) for interactive use, as in the JAX package: ``.fit`` stores the
+  readout on the instance.
 
 The diagonal model runs in the real Q basis (Appendix A): states are real
 vectors ``[real slots | (re, im) pairs]``, the recurrence is
@@ -48,6 +52,8 @@ __all__ = [
     "eet_metric",
     "fit",
     "predict",
+    "generate",
+    "LinearESN",
 ]
 
 
@@ -75,16 +81,19 @@ def _tensor(v, device):
     return None if v is None else torch.as_tensor(v, device=device)
 
 
-def standard_params(cfg: ESNConfig, *, device=None) -> StandardParams:
-    """Dense-W params (the paper's baseline), leak folded in (Eq. 4)."""
-    dev = resolve_device(device)
-    w, w_in, w_fb = _gen_weights(cfg)
+def _standard_struct(cfg: ESNConfig, w, w_in, w_fb, device) -> StandardParams:
+    """The one leak-fold (Eq. 4) -> StandardParams construction."""
     lr = cfg.leak
     return StandardParams(
-        w=_tensor(lr * w + (1.0 - lr) * np.eye(cfg.n), dev),
-        w_in=_tensor(lr * w_in, dev),
-        w_fb=None if w_fb is None else _tensor(lr * w_fb, dev),
+        w=_tensor(lr * w + (1.0 - lr) * np.eye(cfg.n), device),
+        w_in=_tensor(lr * w_in, device),
+        w_fb=None if w_fb is None else _tensor(lr * w_fb, device),
         cfg=cfg)
+
+
+def standard_params(cfg: ESNConfig, *, device=None) -> StandardParams:
+    """Dense-W params (the paper's baseline), leak folded in (Eq. 4)."""
+    return _standard_struct(cfg, *_gen_weights(cfg), resolve_device(device))
 
 
 def _diag_from_basis(cfg: ESNConfig, basis: EigenBasis, w_in_raw, w_fb_raw,
@@ -103,17 +112,22 @@ def _diag_from_basis(cfg: ESNConfig, basis: EigenBasis, w_in_raw, w_fb_raw,
         cfg=cfg, n_real=basis.n_real)
 
 
+def _diag_parts(cfg: ESNConfig):
+    """Host-side (basis, w_raw, w_in_raw, w_fb_raw) for the eigendecomposed
+    path — one copy shared by the pure builder and the facade."""
+    w, w_in, w_fb = _gen_weights(cfg)
+    return EigenBasis.from_matrix(w), w, w_in, w_fb
+
+
 def diag_params(cfg: ESNConfig, *, device=None) -> DiagParams:
     """Generate a standard W, then diagonalize (EWT/EET path, paper §4.2-4.3)."""
-    dev = resolve_device(device)
-    w, w_in, w_fb = _gen_weights(cfg)
-    return _diag_from_basis(cfg, EigenBasis.from_matrix(w), w_in, w_fb, dev)
+    basis, _, w_in, w_fb = _diag_parts(cfg)
+    return _diag_from_basis(cfg, basis, w_in, w_fb, resolve_device(device))
 
 
-def dpg_params(cfg: ESNConfig, distribution: str = "noisy_golden",
-               sigma: float = 0.2, *, device=None) -> DiagParams:
-    """Direct Parameter Generation (paper §4.4) — no W is ever built."""
-    dev = resolve_device(device)
+def _dpg_parts(cfg: ESNConfig, distribution: str, sigma: float):
+    """Host-side (basis, w_in_raw, w_fb_raw) for the DPG path — one copy
+    shared by the pure builder and the facade (incl. the seed+1 offset)."""
     spec, p = dpg_gen(cfg.n, cfg.spectral_radius, cfg.seed, distribution,
                       sigma=sigma, connectivity=cfg.connectivity)
     rng = np.random.default_rng(cfg.seed + 1)
@@ -121,8 +135,14 @@ def dpg_params(cfg: ESNConfig, distribution: str = "noisy_golden",
                              cfg.input_connectivity)
     w_fb = (_gen_input_matrix(rng, cfg.d_out, cfg.n, cfg.feedback_scaling, 1.0)
             if cfg.use_feedback else None)
-    return _diag_from_basis(cfg, EigenBasis.from_spectral(spec, p), w_in,
-                            w_fb, dev)
+    return EigenBasis.from_spectral(spec, p), w_in, w_fb
+
+
+def dpg_params(cfg: ESNConfig, distribution: str = "noisy_golden",
+               sigma: float = 0.2, *, device=None) -> DiagParams:
+    """Direct Parameter Generation (paper §4.4) — no W is ever built."""
+    basis, w_in, w_fb = _dpg_parts(cfg, distribution, sigma)
+    return _diag_from_basis(cfg, basis, w_in, w_fb, resolve_device(device))
 
 
 def ewt_readout(basis: EigenBasis, cfg: ESNConfig, trained: Readout) -> Readout:
@@ -158,10 +178,13 @@ def drive(params, u, y_prev=None):
 
 def step_states(params, states, d):
     """One recurrence application in the native basis: O(N) element-wise
-    (diag) or dense O(N^2) (standard)."""
+    (diag) or dense O(N^2) (standard).  A param batch (``lam_q`` (B, N) /
+    ``w`` (B, N, N)) steps row b of ``states`` with reservoir b."""
     if params.mode == "diag":
         return scan_mod.realified_multiply(states, params.lam_q,
                                            params.n_real) + d
+    if params.w.ndim == 3:
+        return (states.unsqueeze(-2) @ params.w).squeeze(-2) + d
     return states @ params.w + d
 
 
@@ -256,3 +279,220 @@ def predict(params, readout: Readout, u, y_teacher=None, method: str = "auto"):
     states = run(params, u, y_teacher=y_teacher, method=method)
     x = features(params, states, y_teacher=y_teacher)
     return x @ readout.w_out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ generate
+def generate(params, readout: Readout, n_steps: int, u_warm, y_warm):
+    """Closed-loop generation: feed the predicted y back as the next input
+    (output-as-input autonomy, D_in == D_out).
+
+    A teacher-forced warm-up scan, then a loop one step at a time (the JAX
+    package's ``lax.scan``).  The loop is seeded with the teacher's last
+    output for feedback models, with the last warm-up prediction otherwise.
+    Returns (n_steps, D_out)."""
+    cfg = params.cfg
+    if cfg.d_in != cfg.d_out:
+        raise ValueError("closed loop requires d_in == d_out")
+    y_warm = _on(params, y_warm)
+    states = run(params, u_warm,
+                 y_teacher=y_warm if cfg.use_feedback else None)
+    h = states[-1]
+    w_out = readout.w_out.to(h.dtype)
+    fb = cfg.use_feedback
+    if fb:
+        y = y_warm[-1].to(h.dtype)
+    else:
+        y = (assemble_features(params, states[-1:], None) @ w_out)[0]
+    ys = []
+    for _ in range(int(n_steps)):
+        h = step_states(params, h, drive(params, y, y if fb else None))
+        y = assemble_features(params, h[None], y[None] if fb else None)[0] \
+            @ w_out
+        ys.append(y)
+    return torch.stack(ys) if ys else h.new_zeros((0, cfg.d_out))
+
+
+# ------------------------------------------------------------------- facade
+class LinearESN:
+    """Thin facade over ``(params, readout, basis)`` for interactive use.
+
+    Builders (``standard`` / ``diagonalized`` / ``dpg``) freeze the model
+    into an immutable param struct on ``device`` (the GPU by default); the
+    instance carries that struct, the trained :class:`Readout`, and the
+    host-side basis and raw matrices for analysis (EWT transplants,
+    Theorem 5).  ``.fit`` stores the readout on the instance, as the JAX
+    package's facade does; the module-level functions are the pure API.
+    """
+
+    def __init__(self, cfg: ESNConfig, mode: str, params=None, readout=None,
+                 basis: Optional[EigenBasis] = None, w_raw=None,
+                 w_in_raw=None, w_fb_raw=None):
+        self.cfg = cfg
+        self.mode = mode
+        self.params = params
+        self.readout: Optional[Readout] = readout
+        self.basis = basis
+        self.w_raw = w_raw
+        self.w_in_raw = w_in_raw
+        self.w_fb_raw = w_fb_raw
+
+    # ------------------------------------------------------------ builders
+    @staticmethod
+    def standard(cfg: ESNConfig, *, device=None) -> "LinearESN":
+        w, w_in, w_fb = _gen_weights(cfg)
+        return LinearESN(cfg, "standard",
+                         params=_standard_struct(cfg, w, w_in, w_fb,
+                                                 resolve_device(device)),
+                         w_raw=w, w_in_raw=w_in, w_fb_raw=w_fb)
+
+    @staticmethod
+    def diagonalized(cfg: ESNConfig, *, device=None) -> "LinearESN":
+        basis, w, w_in, w_fb = _diag_parts(cfg)
+        return LinearESN(cfg, "diag",
+                         params=_diag_from_basis(cfg, basis, w_in, w_fb,
+                                                 resolve_device(device)),
+                         basis=basis, w_raw=w, w_in_raw=w_in, w_fb_raw=w_fb)
+
+    @staticmethod
+    def dpg(cfg: ESNConfig, distribution: str = "noisy_golden",
+            sigma: float = 0.2, *, device=None) -> "LinearESN":
+        basis, w_in, w_fb = _dpg_parts(cfg, distribution, sigma)
+        return LinearESN(cfg, "diag",
+                         params=_diag_from_basis(cfg, basis, w_in, w_fb,
+                                                 resolve_device(device)),
+                         basis=basis, w_in_raw=w_in, w_fb_raw=w_fb)
+
+    # ------------------------------------------- param-struct passthroughs
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    @property
+    def w(self):
+        return self.params.w
+
+    @property
+    def w_in(self):
+        return self.params.w_in
+
+    @property
+    def w_fb(self):
+        return self.params.w_fb
+
+    @property
+    def lam_q(self):
+        return self.params.lam_q
+
+    @property
+    def win_q(self):
+        return self.params.win_q
+
+    @property
+    def wfb_q(self):
+        return self.params.wfb_q
+
+    @property
+    def qtq(self):
+        return self.params.qtq
+
+    @property
+    def n_real(self):
+        return self.params.n_real
+
+    @property
+    def w_out(self):
+        return None if self.readout is None else self.readout.w_out
+
+    @w_out.setter
+    def w_out(self, value):
+        # Assigning w_out wraps it in a fresh immutable Readout on the
+        # model's device.
+        if value is not None and not isinstance(value, torch.Tensor):
+            value = torch.tensor(np.asarray(value))
+        self.readout = (None if value is None else
+                        Readout(value.to(self.device)))
+
+    # ------------------------------------------------------------- methods
+    def ewt_from(self, trained_standard: "LinearESN") -> "LinearESN":
+        """EWT (paper §4.2): transplant a trained standard readout into this
+        diagonal model (must share the same underlying W/W_in)."""
+        if self.mode != "diag" or trained_standard.readout is None:
+            raise ValueError("ewt_from transplants a trained standard "
+                             "readout into a diagonal model")
+        ro = ewt_readout(self.basis, self.cfg, trained_standard.readout)
+        self.readout = Readout(ro.w_out.to(self.device))
+        return self
+
+    def drive(self, u, y_prev=None):
+        return drive(self.params, u, y_prev)
+
+    def step_states(self, states, d):
+        return step_states(self.params, states, d)
+
+    def scan_states(self, d, h0=None, *, method: str = "auto",
+                    chunk: int = 128):
+        return scan_states(self.params, d, h0, method=method, chunk=chunk)
+
+    def run(self, u, y_teacher=None, *, method: str = "auto",
+            chunk: int = 128):
+        return run(self.params, u, y_teacher, method=method, chunk=chunk)
+
+    def assemble_features(self, states, y_prev=None):
+        return assemble_features(self.params, states, y_prev)
+
+    def features(self, states, y_teacher=None):
+        return features(self.params, states, y_teacher)
+
+    def _metric(self):
+        return eet_metric(self.params)
+
+    def fit(self, u, y, washout: int = 0, alpha: Optional[float] = None,
+            method: str = "auto") -> "LinearESN":
+        self.readout = fit(self.params, u, y, washout=washout, alpha=alpha,
+                           method=method)
+        return self
+
+    def _readout(self) -> Readout:
+        if self.readout is None:
+            raise ValueError("fit() first: the model has no readout")
+        return self.readout
+
+    def predict(self, u, y_teacher=None, method: str = "auto"):
+        return predict(self.params, self._readout(), u, y_teacher=y_teacher,
+                       method=method)
+
+    def generate(self, n_steps: int, u_warm, y_warm):
+        """Closed-loop generation through the pure :func:`generate` with the
+        current readout."""
+        return generate(self.params, self._readout(), int(n_steps), u_warm,
+                        y_warm)
+
+    # ----------------------------------------------- Theorem 5 (W_in-free R)
+    def collect_r_states(self, u, *, method: str = "sequential"):
+        """R(t) per §3.3 (diag mode): states independent of W_in.
+        Returns (T, D_in, N) in Q layout."""
+        if self.mode != "diag":
+            raise ValueError("collect_r_states needs a diagonal model")
+        u = _on(self.params, u)
+        nr, n = self.n_real, self.cfg.n
+        # Input term in Q layout: u_d added to every real slot and to the Re
+        # lane of every pair slot (a real scalar added to a complex
+        # coordinate).
+        mask = torch.zeros(n, dtype=u.dtype, device=u.device)
+        mask[:nr] = 1.0
+        mask[nr::2] = 1.0
+        x = u[:, :, None] * mask
+        # x is (T, D_in, N): time is axis 0 here (D_in is a batch axis).
+        return scan_mod.diag_scan_q(self.lam_q, x, nr, method=method,
+                                    time_axis=0)
+
+    def states_from_r(self, r_states, w_in_raw=None):
+        """Theorem 5: r(t) = sum_d row_d(W_in) (.) row_d(R(t)) — W_in applied
+        *after* the recurrence.  ``w_in_raw`` (D_in, N) real, un-leaked."""
+        w_in = self.cfg.leak * np.asarray(
+            self.w_in_raw if w_in_raw is None else w_in_raw)
+        # Each W_in row packs like a coefficient vector: [W_in]_P = W_in P,
+        # whose Q packing is exactly W_in Q.
+        win_q = _on(self.params, w_in @ self.basis.q())       # (D_in, N)
+        return scan_mod.realified_multiply(r_states, win_q,
+                                           self.n_real).sum(1)

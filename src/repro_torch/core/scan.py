@@ -217,13 +217,14 @@ def pack_lambda_q(lam_real, lam_cpx):
 def realified_multiply(h, lam_q, n_real: int):
     """One Q-basis recurrence multiply: real slots scale, pair slots rotate.
 
-    ``h``: (..., N) real; ``lam_q``: (N,) packed (see pack_lambda_q).
+    ``h``: (..., N) real; ``lam_q``: (N,) packed (see pack_lambda_q), or
+    (..., N) per row (a param batch), broadcasting against ``h``.
     Equivalent to the complex element-wise multiply in the P basis.
     """
-    hr = h[..., :n_real] * lam_q[:n_real]
+    hr = h[..., :n_real] * lam_q[..., :n_real]
     pairs = h[..., n_real:].reshape(h.shape[:-1] + (-1, 2))
-    lp = lam_q[n_real:].reshape(-1, 2)
-    ar, ai = lp[:, 0], lp[:, 1]
+    lp = lam_q[..., n_real:].reshape(lam_q.shape[:-1] + (-1, 2))
+    ar, ai = lp[..., 0], lp[..., 1]
     pr, pi = pairs[..., 0], pairs[..., 1]
     out_r = pr * ar - pi * ai
     out_i = pr * ai + pi * ar
@@ -255,7 +256,11 @@ def q_merge(vr, vc, dtype):
 def diag_scan_q(lam_q, x_q, n_real: int, h0=None, *, method: str = "sequential",
                 chunk: int = 128, time_axis: int = -2):
     """Q-basis (all-real) scan.  The parallel methods view pairs as complex
-    (the combine law is complex multiplication); sequential stays realified."""
+    (the combine law is complex multiplication); sequential stays realified.
+
+    ``lam_q``: (N,) packed, or one row of coefficients per batch row — the
+    shape of ``x_q`` without its time axis (a param-batched wave, each row
+    its own reservoir), static in time either way."""
     if method == "sequential":
         xt = _front(x_q, time_axis)
         h = (torch.zeros(xt.shape[1:], dtype=x_q.dtype, device=x_q.device)
@@ -269,6 +274,10 @@ def diag_scan_q(lam_q, x_q, n_real: int, h0=None, *, method: str = "sequential",
         return _back(torch.stack(hs), time_axis)
 
     a_r, a_c = q_split(lam_q, n_real)
+    if lam_q.ndim > 1:
+        # Per-row coefficients: a time axis of 1 broadcasts them over time.
+        ta = time_axis - x_q.ndim if time_axis >= 0 else time_axis
+        a_r, a_c = a_r.unsqueeze(ta), a_c.unsqueeze(ta)
     x_r, x_c = q_split(x_q, n_real)
     h0_r = h0_c = None
     if h0 is not None:

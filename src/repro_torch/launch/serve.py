@@ -9,6 +9,17 @@ per wave of ``--gen`` tokens), and are released:
     PYTHONPATH=src python -m repro_torch.launch.serve --reservoir \\
         --n 1024 --slots 8 --sessions 16 --prompt-len 1024 --gen 128
 
+``--ensemble mean`` serves one stream from ``--slots`` independently seeded
+reservoirs (a param-batched engine: one prefill launch with per-row
+coefficients, one fused decode launch whose kernel averages the members'
+outputs every step) and scores the continuation against the signal;
+``weighted`` votes by validation RMSE, ``independent`` serves the session
+loop on the param batch.  ``--decode-slo US`` (with ``--chunk-max`` and
+``--decode-wave-tokens K``) interleaves SLO-protected decode waves into the
+flushes, planned by the wave cost model (``--autotune``, ``--cost-seed``,
+``--cost-save``); ``--profile-dir`` writes a ``torch.profiler`` trace of
+the timed loop.
+
 The LM loop (without ``--reservoir``) prefills random prompts token by
 token and decodes greedily (or samples at ``--temperature``) through the
 decode caches (KV caches for attention layers, ring buffers for windowed
@@ -33,6 +44,7 @@ not ported yet exit with a message naming the ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -41,28 +53,22 @@ import torch
 from .. import resolve_device
 from ..configs import get_config, smoke_config
 from ..core import esn as esn_fn
-from ..core.params import ESNConfig
+from ..core.params import ESNConfig, Readout, stack_params
 from ..data.signals import mso_series
 from ..models import lm
+from ..serve.cost import WaveCostModel, cost_key
 from ..serve.engine import ReservoirEngine
 
 #: Flags of the JAX driver that later slices port -> the ROADMAP item.
 _NOT_PORTED = {
-    "ensemble": "A5 (param-batched arena and ensemble voting)",
     "learn": "A9 (serve/learn.py learn-while-serving)",
     "refit_every": "A9 (serve/learn.py learn-while-serving)",
     "refit_decay": "A9 (serve/learn.py learn-while-serving)",
     "drift_threshold": "A9 (serve/learn.py learn-while-serving)",
     "mesh": "A11 (sharded arena)",
-    "autotune": "A6 (serve/cost.py cost model)",
-    "cost_seed": "A6 (serve/cost.py cost model)",
-    "cost_save": "A6 (serve/cost.py cost model)",
-    "decode_wave_tokens": "A7 (decode-SLO interleave)",
-    "decode_slo": "A7 (decode-SLO interleave)",
     "park_host_rows": "A8 (serve/store.py paging)",
     "cold_dir": "A8 (serve/store.py paging)",
     "snapshot": "A8 (serve/store.py snapshot/restore)",
-    "profile_dir": "A6 (ProfilerTracker -> torch.profiler)",
 }
 
 
@@ -71,9 +77,33 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _cost_model(args, device: torch.device):
+    """The cost model the flags ask for (None: the engine builds its own
+    when a decode SLO or ``--decode-wave-tokens auto`` needs one), keyed by
+    this device so a stale artifact from another machine or shape
+    shelves instead of fitting."""
+    key = cost_key(device.type, args.n, 1)
+    if args.cost_seed:
+        # A seed alone enables cost-model planning without per-wave timing
+        # syncs; --autotune adds online refinement on top.
+        model = WaveCostModel.from_artifact(args.cost_seed, key=key)
+        print(f"cost model seeded with {model.n_observations} wave timings "
+              f"from {args.cost_seed} ("
+              + ("refining online" if args.autotune else "planning only")
+              + ")")
+        return model
+    if args.autotune:
+        print("autotune: cold cost model — learning from this run's wave "
+              "timings")
+        return WaveCostModel(key=key)
+    return None
+
+
 def build_engine(args):
-    """The served model — a ``DiagParams`` struct from ``dpg_params`` plus a
-    ridge-fitted ``Readout`` — in a ``ReservoirEngine``.  Returns
+    """The served model in a ``ReservoirEngine``: a ``DiagParams`` struct
+    from ``dpg_params`` plus a ridge-fitted ``Readout`` — or, with
+    ``--ensemble``, one independently seeded reservoir per slot, each with
+    its own readout, in a param-batched engine.  Returns
     ``(engine, signal, train_t)``."""
     device = resolve_device(args.device)
     cfg = ESNConfig(n=args.n, spectral_radius=0.95, leak=0.9,
@@ -81,23 +111,93 @@ def build_engine(args):
     train_t = max(2000, args.prompt_len + args.gen + 512)
     sig = mso_series(3, train_t + 1)
     u_train, y_train = sig[:-1, None], sig[1:, None]
-
-    params = esn_fn.dpg_params(cfg, "noisy_golden", sigma=0.1, device=device)
-    readout = esn_fn.fit(params, u_train, y_train, washout=100)
-    engine = ReservoirEngine(params, max_slots=args.slots, readout=readout,
-                             bucket_min=args.bucket,
-                             chunk_max=args.chunk_max,
-                             pipeline_depth=args.pipeline_depth,
-                             tracker=args.tracker, device=device)
+    kw = dict(bucket_min=args.bucket, chunk_max=args.chunk_max,
+              pipeline_depth=args.pipeline_depth, tracker=args.tracker,
+              device=device, autotune=args.autotune,
+              cost_model=_cost_model(args, device),
+              decode_slo_us=args.decode_slo,
+              decode_wave_tokens=args.decode_wave_tokens,
+              profile_dir=args.profile_dir)
+    if args.decode_slo is not None:
+        print(f"decode-aware planning: SLO {args.decode_slo:.0f} us of "
+              f"predicted prefill cost between decode waves "
+              f"({args.decode_wave_tokens} tok per fused decode wave)")
+    if not args.ensemble:
+        params = esn_fn.dpg_params(cfg, "noisy_golden", sigma=0.1,
+                                   device=device)
+        readout = esn_fn.fit(params, u_train, y_train, washout=100)
+        engine = ReservoirEngine(params, max_slots=args.slots,
+                                 readout=readout, **kw)
+        return engine, sig, train_t
+    batch = [esn_fn.dpg_params(dataclasses.replace(cfg, seed=args.seed + i),
+                               "noisy_golden", sigma=0.1, device=device)
+             for i in range(args.slots)]
+    readouts = [esn_fn.fit(p, u_train, y_train, washout=100).w_out
+                for p in batch]
+    engine = ReservoirEngine.from_param_batch(
+        stack_params(batch), Readout(torch.stack(readouts)),
+        ensemble="off" if args.ensemble == "independent" else args.ensemble,
+        **kw)
+    print(f"ensemble mode ({args.ensemble}): {args.slots} independently "
+          f"seeded reservoirs, one param-batched arena")
+    if args.ensemble == "weighted":
+        # Validation-RMSE-weighted voting: score each member on a held-out
+        # teacher-forced window, weight 1 / (rmse^2 + eps).
+        v0 = train_t - 400
+        rmses = [float(torch.sqrt(torch.mean((esn_fn.predict(
+            p, Readout(w), u_train[v0:]).cpu()
+            - torch.as_tensor(y_train[v0:])) ** 2)))
+            for p, w in zip(batch, readouts)]
+        engine.set_ensemble_weights([1.0 / (r * r + 1e-9) for r in rmses])
+        print("  member val-RMSE: " + ", ".join(f"{r:.3e}" for r in rmses))
     return engine, sig, train_t
+
+
+def serve_ensemble(engine, args, sig) -> dict:
+    """One logical stream, B reservoirs voting (``--ensemble mean`` /
+    ``weighted``): every slot prefills the same prompt, then the fused
+    closed-loop continuation is scored against the true signal.  An
+    untimed warm-up pass first; the timed pass counts each member as a
+    served session."""
+    device, p, g = engine.device, args.prompt_len, args.gen
+    for timed in (False, True):
+        engine.reset()
+        t0 = time.perf_counter()
+        for i in range(args.slots):
+            engine.submit(i, sig[:p, None])
+        engine.flush()
+        ys = engine.decode_closed_loop(g)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    fused = ys[0][:, 0].cpu().numpy()
+    # After prefilling sig[:P] the model predicts one step ahead, so the
+    # closed-loop outputs align to sig[P+1 : P+1+G].
+    truth = sig[p + 1:p + 1 + g]
+    rmse = float(np.sqrt(np.mean((fused - truth) ** 2)))
+    res = {"device": str(device), "n": engine.cfg.n, "slots": args.slots,
+           "ensemble": args.ensemble, "sessions": args.slots, "wall_s": wall,
+           "sessions_per_s": args.slots / wall, "gen": g,
+           "continuation": fused, "rmse_vs_signal": rmse,
+           "finite": bool(np.isfinite(fused).all())}
+    print(f"ensemble-{args.ensemble} continuation: {g} tok closed loop, "
+          f"rmse vs signal {rmse:.3e} (B={args.slots} reservoirs fused into "
+          f"one output) in {wall:.3f}s ({res['sessions_per_s']:.2f} "
+          f"sessions/s)")
+    engine.tracker.close()
+    return res
 
 
 def serve_sessions(engine, args, sig, train_t: int) -> dict:
     """Warm up, then serve ``args.sessions`` prompts drawn from ``sig`` in
-    waves: prefill, ``args.gen`` closed-loop tokens, release.  Returns the
-    run's counts and rates."""
+    waves: prefill, ``args.gen`` closed-loop tokens, release.  Under
+    ``--decode-slo`` one session stays resident across flushes (a live
+    stream) while the flushes interleave decode waves for the ready
+    sessions, and a second ready session streams a few teacher-forced tokens
+    (``decode_step`` + ``observe``).  Returns the run's counts and
+    rates."""
     device, cfg = engine.device, engine.cfg
     rng = np.random.default_rng(args.seed)
+    interleave = args.decode_slo is not None
     # Untimed warmup over every wave width the timed loop will hit (full
     # waves of `slots` rows plus the final partial wave) and the decode.
     warm_sizes = {min(args.slots, args.sessions)}
@@ -108,6 +208,9 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
         for i in range(wb):
             engine.submit(("warm", i), sig[:args.prompt_len, None])
         engine.flush()
+        if interleave:
+            engine.decode_closed_loop(engine.decode_wave_tokens)
+            engine.decode_step({("warm", 0): sig[:1]})
         engine.decode_closed_loop(args.gen)
         _sync(device)
         engine.reset()
@@ -116,27 +219,47 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
         lo = int(rng.integers(0, train_t - args.prompt_len - 1))
         engine.submit(sid, sig[lo:lo + args.prompt_len, None])
 
-    done = prefill_tokens = decode_tokens = 0
+    done = prefill_tokens = decode_tokens = interleaved_tokens = 0
     t_prefill = t_decode = 0.0
     finite = True
-    t0 = time.perf_counter()
-    while engine.active_sessions or len(engine.pending):
-        t1 = time.perf_counter()
-        engine.flush()
-        _sync(device)          # don't let prefill drain into the decode timer
-        t_prefill += time.perf_counter() - t1
-        wave = list(engine.ready_sessions)
-        prefill_tokens += args.prompt_len * len(wave)
-        t1 = time.perf_counter()
-        ys = engine.decode_closed_loop(args.gen, sids=wave)
-        _sync(device)
-        t_decode += time.perf_counter() - t1
-        decode_tokens += args.gen * len(wave)
-        for sid in wave:
-            finite = finite and bool(torch.isfinite(ys[sid]).all())
-            engine.release(sid)
-            done += 1
-    wall = time.perf_counter() - t0
+    persistent = 0 if interleave and args.sessions > 1 else None
+    seen: set = set()
+    with engine.tracker.capture("serve"):
+        t0 = time.perf_counter()
+        while engine.active_sessions or len(engine.pending):
+            t1 = time.perf_counter()
+            engine.flush(decode_interleave=interleave)
+            _sync(device)      # don't let prefill drain into the decode timer
+            t_prefill += time.perf_counter() - t1
+            wave = list(engine.ready_sessions)
+            # A resident session re-appears in every wave; count it once.
+            prefill_tokens += args.prompt_len * len(set(wave) - seen)
+            seen.update(wave)
+            t1 = time.perf_counter()
+            if interleave and wave:
+                # Tokens the interleaved decode waves made mid-flush
+                # (their time sits in the flush timer, so they are counted
+                # apart from decode_tokens).
+                for sid, buf in engine.collect_decoded().items():
+                    interleaved_tokens += int(buf.shape[0])
+                    finite = finite and bool(torch.isfinite(buf).all())
+                open_sid = next((s for s in wave if s != persistent), None)
+                if open_sid is not None:
+                    for t in range(args.prompt_len, args.prompt_len + 4):
+                        engine.decode_step({open_sid: sig[t, None]})
+                        engine.observe(open_sid, sig[t + 1, None])
+                        decode_tokens += 1
+            ys = engine.decode_closed_loop(args.gen, sids=wave)
+            _sync(device)
+            t_decode += time.perf_counter() - t1
+            decode_tokens += args.gen * len(wave)
+            for sid in wave:
+                finite = finite and bool(torch.isfinite(ys[sid]).all())
+                if sid == persistent and len(engine.pending):
+                    continue    # resident until the prefill flood drains
+                engine.release(sid)
+                done += 1
+        wall = time.perf_counter() - t0
     res = {"device": str(device), "n": cfg.n, "slots": args.slots,
            "sessions": done, "wall_s": wall, "sessions_per_s": done / wall,
            "prefill_tokens": prefill_tokens, "prefill_s": t_prefill,
@@ -151,14 +274,38 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
           f"({res['prefill_tok_s']:.0f} tok/s, bucketed waves)")
     print(f"  decode  {decode_tokens} tok in {t_decode:.3f}s "
           f"({res['decode_tok_s']:.0f} tok/s, closed loop)")
+    st = engine.stats()
+    if args.autotune:
+        lat = st.wave_us_mean
+        print(f"  autotune: {st.waves_total} waves, mean occupancy "
+              f"{st.occupancy_mean:.2f}, mean wave latency "
+              f"{lat / 1e3 if lat else float('nan'):.3f} ms, "
+              f"{engine.cost_model.n_observations} cost observations")
+    if interleave:
+        res.update(interleaved_tokens=interleaved_tokens,
+                   decode_interleave_waves=st.decode_interleave_waves,
+                   decode_gap_p50_us=st.decode_gap_p50_us,
+                   decode_gap_p95_us=st.decode_gap_p95_us)
+        print(f"  decode-aware: {st.decode_interleave_waves} interleaved "
+              f"decode waves / {st.decode_waves_total} decode launches, "
+              f"{interleaved_tokens} tok made mid-flush; inter-token gap "
+              f"p50 {st.decode_gap_p50_us} us, p95 {st.decode_gap_p95_us} "
+              f"us")
+    if args.cost_save and engine.cost_model is not None:
+        engine.cost_model.to_artifact(args.cost_save)
+        print(f"cost model saved: {engine.cost_model.n_observations} "
+              f"observations -> {args.cost_save} (reload with --cost-seed)")
     engine.tracker.close()
     return res
 
 
 def serve_reservoir(args) -> dict:
     """Streaming session serving through ``serve.engine.ReservoirEngine``:
-    build the model and engine, then serve.  Returns counts and rates."""
+    build the model and engine, then serve (one fused stream under
+    ``--ensemble mean`` / ``weighted``).  Returns counts and rates."""
     engine, sig, train_t = build_engine(args)
+    if args.ensemble in ("mean", "weighted"):
+        return serve_ensemble(engine, args, sig)
     return serve_sessions(engine, args, sig, train_t)
 
 
@@ -262,6 +409,11 @@ def serve_lm(args) -> dict:
     return res
 
 
+def _wave_tokens(v: str):
+    """argparse type of --decode-wave-tokens: an int K, or 'auto'."""
+    return "auto" if v == "auto" else int(v)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="recurrentgemma-2b",
@@ -291,6 +443,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tracker", default=None, metavar="SPEC",
                     help="observability sink: 'null' or 'jsonl:PATH'")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="a torch.profiler window around the timed serving "
+                         "loop, its Chrome trace written under DIR")
+    ap.add_argument("--ensemble", nargs="?", const="independent",
+                    choices=["independent", "mean", "weighted"], default=None,
+                    help="one independently seeded reservoir per slot in a "
+                         "param-batched engine; 'mean' fuses their "
+                         "predictions into one output (closed loop through "
+                         "the fused kernel's mean route), 'weighted' with "
+                         "validation-RMSE weights 1/(rmse^2+eps)")
+    ap.add_argument("--decode-wave-tokens", type=_wave_tokens, default=1,
+                    metavar="K",
+                    help="tokens per interleaved decode wave (one fused "
+                         "launch each), or 'auto' to pick K each flush from "
+                         "the fitted c_dec(B, K) surface, capped by "
+                         "--decode-slo")
+    ap.add_argument("--decode-slo", type=float, default=None, metavar="US",
+                    help="decode-aware planning: bound the predicted prefill "
+                         "cost (microseconds) between a ready session's "
+                         "decode waves; flushes interleave decode waves to "
+                         "hold it (combine with --chunk-max)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time every wave and decode launch into the cost "
+                         "model that plans the waves")
+    ap.add_argument("--cost-seed", default=None, metavar="PATH",
+                    help="seed the cost model from a cost artifact; alone it "
+                         "plans without per-wave timing syncs, with "
+                         "--autotune it warm-starts the refinement")
+    ap.add_argument("--cost-save", default=None, metavar="PATH",
+                    help="write the engine's cost model to PATH at the end "
+                         "(reload with --cost-seed)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")

@@ -22,9 +22,8 @@ Two orthogonal extensions ride on the same queue:
   round-robin): a 500k-token prompt yields the arena between chunks instead
   of monopolizing it.
 * **Cost-model planning** (``cost_model``): with a
-  wave cost model attached (``serve/cost.py`` in the JAX package; not
-  ported yet), :meth:`next_wave` runs a
-  two-wave lookahead — it may *defer* the oldest request's wave by exactly
+  :class:`~repro_torch.serve.cost.WaveCostModel` attached, :meth:`next_wave`
+  runs a two-wave lookahead — it may *defer* the oldest request's wave by exactly
   one wave when committing the free-slot budget to another bucket first
   strictly improves predicted tokens-per-second over the two-wave horizon
   (the fix for fragmenting buckets under-filling waves).  The deferral is

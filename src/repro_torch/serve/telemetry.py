@@ -9,17 +9,18 @@ region).  The engine's serving counters are derived by
 event stream — so a JSONL trace and the ``stats()`` counters can never
 disagree about what happened.
 
-This module imports nothing from the rest of ``serve`` and no torch.
+This module imports nothing from the rest of ``serve``, and torch only
+inside a profiler window.
 
 Trackers:
 
 * :class:`NullTracker`   — the default; every hook is a no-op.
 * :class:`JsonlTracker`  — appends one JSON object per event/stats call.
+* :class:`ProfilerTracker` — ``capture(name)`` opens a ``torch.profiler``
+  window (with CUDA activity for an engine on the card) and writes its
+  Chrome trace under ``profile_dir``.
 * :class:`MultiTracker`  — fan-out to several trackers.
 * :func:`make_tracker`   — CLI spec parser (``"null"``, ``"jsonl:PATH"``).
-
-A profiler capture window (``profile_dir``, the JAX package's
-``ProfilerTracker``) is not ported yet: it will wrap ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ from typing import Dict, Hashable, List, Optional
 
 import numpy as np
 
-__all__ = ["Tracker", "NullTracker", "JsonlTracker", "MultiTracker",
-           "StatsAggregator", "EngineStats", "make_tracker"]
+__all__ = ["Tracker", "NullTracker", "JsonlTracker", "ProfilerTracker",
+           "MultiTracker", "StatsAggregator", "EngineStats", "make_tracker"]
 
 
 class Tracker:
@@ -111,6 +112,44 @@ class JsonlTracker(Tracker):
             self._fh.close()
 
 
+class ProfilerTracker(Tracker):
+    """``capture(name)`` wraps the region in a ``torch.profiler`` window and
+    writes its Chrome trace to ``profile_dir/<name>.<i>.pt.trace.json`` (the
+    ``i``-th window of that name) — so a regression report can carry a
+    device trace, not just a number.  ``cuda``: record the card's kernels
+    too (the engine passes whether it runs on one).  Event/stats hooks are
+    no-ops (pair with a :class:`JsonlTracker` through
+    :class:`MultiTracker`)."""
+
+    def __init__(self, profile_dir: str, *, cuda: bool = False):
+        self.profile_dir = str(profile_dir)
+        self.cuda = bool(cuda)
+        self.traces: List[str] = []
+
+    @contextlib.contextmanager
+    def _window(self, name: str):
+        import os
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile, record_function
+        activities = [ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            with record_function(name):
+                yield
+            if self.cuda:
+                torch.cuda.synchronize()
+        path = os.path.join(self.profile_dir,
+                            f"{name}.{len(self.traces)}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.traces.append(path)
+
+    def capture(self, name: str):
+        return self._window(name)
+
+
 class MultiTracker(Tracker):
     """Fan one event stream out to several trackers (e.g. the engine's
     :class:`StatsAggregator` plus a user JSONL sink)."""
@@ -139,20 +178,24 @@ class MultiTracker(Tracker):
 
 
 def make_tracker(spec: Optional[str] = None,
-                 profile_dir: Optional[str] = None) -> Tracker:
+                 profile_dir: Optional[str] = None, *,
+                 cuda: bool = False) -> Tracker:
     """Build a tracker from a CLI spec: ``None``/``"null"`` -> no-op,
-    ``"jsonl:PATH"`` -> :class:`JsonlTracker`.  ``profile_dir`` (a profiler
-    capture window) is not ported yet and raises."""
+    ``"jsonl:PATH"`` -> :class:`JsonlTracker`.  ``profile_dir`` adds a
+    :class:`ProfilerTracker` capture window on top (MultiTracker); ``cuda``
+    is passed to it."""
+    trackers: List[Tracker] = []
+    if spec and spec != "null":
+        if spec.startswith("jsonl:"):
+            trackers.append(JsonlTracker(spec[len("jsonl:"):]))
+        else:
+            raise ValueError(f"unknown tracker spec {spec!r} — expected "
+                             f"'null' or 'jsonl:PATH'")
     if profile_dir:
-        raise NotImplementedError(
-            "profile_dir: the profiler capture window is not ported yet "
-            "(ROADMAP A6: ProfilerTracker -> torch.profiler)")
-    if not spec or spec == "null":
+        trackers.append(ProfilerTracker(profile_dir, cuda=cuda))
+    if not trackers:
         return NullTracker()
-    if spec.startswith("jsonl:"):
-        return JsonlTracker(spec[len("jsonl:"):])
-    raise ValueError(f"unknown tracker spec {spec!r} — expected 'null' or "
-                     f"'jsonl:PATH'")
+    return trackers[0] if len(trackers) == 1 else MultiTracker(trackers)
 
 
 class StatsAggregator(Tracker):

@@ -550,6 +550,131 @@ def test_engine_on_card_matches_cpu_engine(dev):
 
 
 # --------------------------------------------------------------------------- #
+# Param batches: B1 with one row of coefficients a reservoir, B2's mean route  #
+# --------------------------------------------------------------------------- #
+# (B, T, NC) of a scan whose `a` is static in time with one row per batch
+# row — (B, 1, NC) lanes read with a time stride of 0 — and the chunk counts
+# forced on it (None: the launcher's rule).
+ROW_A_SHAPES = [(8, 1024, 525), (3, 77, 130), (5, 333, 257), (2, 1, 40),
+                (16, 64, 525), (1, 2000, 525)]
+
+
+@pytest.mark.parametrize("chunks", [None, 1, 3, 16])
+@pytest.mark.parametrize("shape", ROW_A_SHAPES)
+def test_diag_scan_per_row_static_a_matches_plain(dev, shape, chunks):
+    b, t, nc = shape
+    g = torch.Generator().manual_seed(b * t + nc)
+    a = torch.polar(torch.rand((b, 1, nc), generator=g,
+                               dtype=torch.float64) * 0.6 + 0.35,
+                    torch.rand((b, 1, nc), generator=g,
+                               dtype=torch.float64) * np.pi)
+    x = torch.complex(torch.randn((b, t, nc), generator=g,
+                                  dtype=torch.float64),
+                      torch.randn((b, t, nc), generator=g,
+                                  dtype=torch.float64))
+    h0 = torch.complex(torch.randn((b, nc), generator=g, dtype=torch.float64),
+                       torch.randn((b, nc), generator=g, dtype=torch.float64))
+    lanes = [v.to(dev).contiguous() for z in (a, x, h0)
+             for v in (z.real, z.imag)]
+    got = dsk.diag_scan_lanes_cuda(*lanes, chunks=chunks)
+    want = ref.diag_scan_ref(a, x, h0)
+    _close(got[0], want.real)
+    _close(got[1], want.imag)
+    # Each row really runs its own coefficients: row b alone, shared `a`.
+    row = ref.diag_scan_ref(a[-1, 0], x[-1:], h0[-1:])
+    _close(got[0][-1:], row.real)
+
+
+@pytest.mark.parametrize("t", [20, 600])
+def test_batched_scan_route_is_one_launch_and_matches_plain(dev, t):
+    """``run_scan_q`` with a (B, N) ``lam_q`` (a param-batched wave): one
+    kernel launch for the wave, equal to the plain scans with per-row
+    coefficients and to each reservoir's own scan."""
+    cfg = ESNConfig(n=96, spectral_radius=0.95, leak=0.9, seed=2)
+    ps = [esn.dpg_params(dataclasses.replace(cfg, seed=s), sigma=0.1,
+                         device=dev) for s in range(3)]
+    nr = {p.n_real for p in ps}
+    if len(nr) != 1:
+        pytest.skip("the seeds gave reservoirs of different layouts")
+    lam = torch.stack([p.lam_q for p in ps])
+    d = torch.randn((3, t, 96), dtype=torch.float64, device=dev)
+    h0 = torch.randn((3, 96), dtype=torch.float64, device=dev)
+    before = ops.diag_scan.launches
+    got = dispatch.run_scan_q(lam, d, nr.pop(), h0, method="kernel")
+    assert ops.diag_scan.launches - before == 1
+    for method in ("sequential", "chunked"):
+        _close(got, dispatch.run_scan_q(lam, d, ps[0].n_real, h0,
+                                        method=method))
+    for i, p in enumerate(ps):
+        _close(got[i], dispatch.run_scan_q(p.lam_q, d[i:i + 1], p.n_real,
+                                           h0[i:i + 1], method="kernel")[0])
+
+
+def _ensemble(slots, n):
+    """``slots`` dpg reservoirs at width ``n``, stacked, with readouts
+    fitted on the CPU (one readout stack for every device)."""
+    from repro_torch.core.params import Readout, stack_params
+    cfg = ESNConfig(n=n, spectral_radius=0.95, leak=0.9, input_scaling=0.5,
+                    ridge_alpha=1e-8, seed=0)
+    sig = mso_series(3, 2001)
+    ps = [esn.dpg_params(dataclasses.replace(cfg, seed=i), "noisy_golden",
+                         sigma=0.1, device="cpu") for i in range(slots)]
+    w = torch.stack([esn.fit(p, sig[:-1, None], sig[1:, None],
+                             washout=100).w_out for p in ps])
+    return stack_params(ps), Readout(w), sig
+
+
+@pytest.mark.parametrize("ensemble", ["off", "mean", "weighted"])
+def test_ensemble_engine_on_card_matches_cpu(dev, ensemble):
+    """The param-batched engine at the serving width (n = 1024, 8
+    reservoirs): prefill through B1 with per-row coefficients, closed loop
+    through B2 (``mean``: its ensemble route; ``weighted``: the
+    step-at-a-time path), open-loop steps and ``observe``, against the CPU
+    engine."""
+    params, ro, sig = _ensemble(8, 1024)
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        eng = ReservoirEngine.from_param_batch(params, ro, ensemble=ensemble,
+                                               device=device)
+        if ensemble == "weighted":
+            eng.set_ensemble_weights(np.linspace(0.5, 2.0, 8))
+        for i in range(8):
+            eng.submit(i, sig[16 * i:16 * i + 512, None])
+        counts = (ops.diag_scan.launches, ops.decode_fused.launches)
+        eng.flush()
+        steps = [eng.decode_step({i: sig[600 + i, None] for i in range(8)})]
+        eng.observe(2, [0.5])
+        ys = eng.decode_closed_loop(64)
+        launched = (ops.diag_scan.launches - counts[0],
+                    ops.decode_fused.launches - counts[1])
+        outs[device.type] = ([torch.as_tensor(steps[0][i]) for i in range(8)]
+                             + [ys[i].cpu() for i in range(8)]
+                             + [eng.states.cpu(), eng.y_prev.cpu()], launched)
+    assert outs["cuda"][1][0] == 1
+    assert outs["cuda"][1][1] == (0 if ensemble == "weighted" else 1)
+    for g_, w_ in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert bool(torch.isfinite(g_).all())
+        _close(g_, w_)
+
+
+def test_mean_ensemble_of_16_slots_at_n1024_raises_the_limit(dev):
+    """B2's mean route holds every row in one block: 16 per-slot rows of
+    525 float64 lanes exceed it, and the engine raises B2's ValueError
+    rather than serve on another path."""
+    params, ro, sig = _ensemble(16, 1024)
+    eng = ReservoirEngine.from_param_batch(params, ro, ensemble="mean",
+                                           device=dev)
+    for i in range(16):
+        eng.submit(i, sig[:256, None])
+    eng.flush()
+    before = ops.decode_fused.launches
+    with pytest.raises(ValueError, match="ensemble='mean' runs every row in "
+                                         "one block"):
+        eng.decode_closed_loop(8)
+    assert ops.decode_fused.launches == before
+
+
+# --------------------------------------------------------------------------- #
 # B3: flash attention                                                          #
 # --------------------------------------------------------------------------- #
 # (b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len)
