@@ -13,7 +13,7 @@ with one row of coefficients a reservoir; the fused decode through both of
 its entries (split lanes, the engine's packed layout), with a sweep of its
 warps a row at five shapes, its mean route with per-slot operands, and the
 engine's call shown to be one launch — and fails if a decode instantiation
-spills; then drives the port's eight main paths on the card, each with the
+spills; then drives the port's nine main paths on the card, each with the
 launch counts set to 0 just before it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
@@ -54,7 +54,19 @@ launch counts set to 0 just before it and read just after:
    the card; main path 1 through the driver under ``--decode-slo 2000
    --chunk-max 256 --decode-wave-tokens 8 --autotune``; a 64-step
    ``decode_step`` / ``observe`` loop against the CPU; and one
-   ``profile_dir`` capture whose trace names B2.
+   ``profile_dir`` capture whose trace names B2;
+9. ``repro_torch.launch.serve --reservoir --park-host-rows 16 --cold-dir
+   --snapshot``: the tiered session store at the serving profile (8 hot
+   slots, 32 sessions, a 16-row host pool and a cold tier), the snapshot
+   restored on the card; the park.restore rotation (every group decode
+   pages a parked group in and the hot one out) against the CPU and bit
+   for bit against the caller-managed release / resubmit workflow, with
+   the pinned copy rates, and its tokens' distance in ULPs from unpaged
+   16- and 32-slot engines (the arena-width effect); the pipeline.overlap churn (32 slots, 64 pool
+   rows) bit-equal between ``pipeline_depth`` 2 and 0, its overlap demotes
+   on the side stream and a profiler window of them; and a snapshot of an
+   engine mid-workload restored on the card bit for bit, and one written
+   on the CPU restored on the card against the CPU.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -71,7 +83,11 @@ in different orders); the bfloat16 LM serve loops against the CPU 5e-2 of
 the largest |logit| (bfloat16 keeps 8 bits: the two devices round the same
 ops but sum the GEMMs in other orders, so activations part by an ulp here
 and there and the gaps add up over the layers — about 13 ulps of the
-largest logit allowed).
+largest logit allowed).  Paging moves rows with no change of dtype: a
+paged engine on the card is held bit for bit against the same workload on
+an unpaged engine of its width, a pipelined one against the synchronous
+one, and a restored one against the engine it was snapshotted from; the
+card against the CPU elementwise at 1e-9 * max(|ref|, 1).
 
 Bounds: the larger of the bytes (each input read once, each output written
 once) over HBM3's 3.35 TB/s and the operations over the rate of the units
@@ -1334,6 +1350,397 @@ def profile_capture(esn, ESNConfig, mso_series, ReservoirEngine):
             "decode_fused_kernel_events": len(b2), "launched": 16}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: main path 9, the tiered session store                             #
+# --------------------------------------------------------------------------- #
+#: Main path 9: the paged reservoir server at the serving profile — 8 hot
+#: slots, 32 sessions, a 16-row host pool and a cold tier (the JAX
+#: benchmark's park.restore geometry, ``benchmarks/serve_engine.py:455-496``).
+PAGED_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--sessions",
+              "32", "--prompt-len", "1024", "--gen", "128",
+              "--park-host-rows", "16"]
+PAGED_DIR = Path(__file__).resolve().parent / "build" / "paged"
+
+
+def fresh_dir(name: str) -> str:
+    """An empty directory under ``build/paged`` (gitignored)."""
+    import shutil
+    d = PAGED_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return str(d)
+
+
+def pinned_rates():
+    """Pinned host <-> device copy rates on one card: CUDA events around 20
+    ``non_blocking`` copies of a page wave's rows (8 x 1025 float64, 65.6
+    KB) and of 64 MiB."""
+    import torch
+    out = {}
+    for name, numel in (("page_wave_8x1025_f64", 8 * 1025),
+                        ("64MiB", 8 << 20)):
+        h = torch.ones(numel, dtype=torch.float64, pin_memory=True)
+        d = torch.empty(numel, dtype=torch.float64, device="cuda")
+        h2d = time_ms(lambda: d.copy_(h, non_blocking=True), reps=20)
+        d2h = time_ms(lambda: h.copy_(d, non_blocking=True), reps=20)
+        out[name] = {"bytes": numel * 8, "h2d_us": h2d * 1e3,
+                     "d2h_us": d2h * 1e3,
+                     "h2d_gb_s": numel * 8 / (h2d * 1e-3) / 1e9,
+                     "d2h_gb_s": numel * 8 / (d2h * 1e-3) / 1e9}
+    return out
+
+
+def torch_add_us():
+    """Host µs of one ``torch.add`` on the card in this call (the yardstick
+    beside every host-side time)."""
+    import torch
+    a = torch.ones(1024, device="cuda")
+    least, median = host_us(lambda: torch.add(a, a))
+    return {"least": least, "median": median}
+
+
+def served_model(esn, ESNConfig, mso_series):
+    """The serving profile's DPG reservoir and its readout, fitted on the
+    CPU (one pair for the card and the CPU engines), and the signal."""
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
+    return p, esn.fit(p, sig[:2000, None], sig[1:2001, None],
+                      washout=100), sig
+
+
+def park_rotation(p, ro, sig, ReservoirEngine, device, drive=None, *,
+                  host_rows=16, cold=True, pipeline_depth=2):
+    """The park.restore rotation: 32 sessions of 1024-token prompts through
+    8 slots, a 16-row pool and a cold tier; then ``decode_closed_loop(32)``
+    round-robin over the 4 groups of 8, 2 laps — every group decode pages
+    a parked group in (here always from the cold tier) and the hot one out.
+    Returns the tokens by session and each lap's numbers."""
+    import torch
+    eng = ReservoirEngine(p, 8, readout=ro, park_host_rows=host_rows,
+                          cold_dir=(fresh_dir(f"rotation_{device}_{host_rows}"
+                                              f"_{pipeline_depth}")
+                                    if cold else None),
+                          pipeline_depth=pipeline_depth, device=device)
+    starts = np.random.default_rng(0).integers(0, 2000 - 1024, size=32)
+    groups = [[("park", g * 8 + i) for i in range(8)] for g in range(4)]
+    toks = {}
+
+    def run():
+        for s, lo in enumerate(starts):
+            eng.submit(("park", s), sig[lo:lo + 1024, None])
+        eng.flush()
+        tiers = eng.store.stats()
+        laps = []
+        for lap in range(2):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            eng._agg.promote_us.clear()
+            st0, t0 = eng.stats(), time.perf_counter()
+            for grp in groups:
+                out = eng.decode_closed_loop(32, sids=grp)
+                for sid in grp:
+                    toks.setdefault(sid, []).append(out[sid])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            promotes = list(eng._agg.promote_us)
+            demotes = st.demote_waves - st0.demote_waves
+            laps.append({
+                "wall_ms": wall * 1e3, "tok_s": 32 * 32 / wall,
+                "promote_waves": st.promote_waves - st0.promote_waves,
+                "demote_waves": demotes,
+                "page_rows": st.page_rows_total - st0.page_rows_total,
+                "promote_us_p95": st.promote_us_p95,
+                "promote_us_median": float(np.median(promotes)),
+                "demote_us_per_wave": (st.page_us_sum - st0.page_us_sum
+                                       - sum(promotes)) / max(demotes, 1)})
+            eng.collect_decoded()
+        return {"tiers_after_admission": tiers, "laps": laps}
+
+    res = run() if drive is None else drive(
+        "park_restore", run, ("diag_scan", "decode_fused"))
+    return {sid: torch.cat(v) for sid, v in toks.items()}, res
+
+
+def manual_rotation(p, ro, sig, ReservoirEngine, slots=8):
+    """The caller-managed workflow of the same rotation on an unpaged
+    engine of ``slots`` slots on the card: release every session after its
+    group's prefill, then per group decode resubmit the held states, decode
+    32 tokens and release again (``tests/test_session_store.py:116-167``).
+    Its waves are the paged engine's (8 rows) at any width."""
+    import torch
+    eng = ReservoirEngine(p, slots, readout=ro, device="cuda")
+    starts = np.random.default_rng(0).integers(0, 2000 - 1024, size=32)
+    groups = [[("park", g * 8 + i) for i in range(8)] for g in range(4)]
+    held, toks = {}, {}
+    for grp in groups:
+        for sid in grp:
+            lo = starts[sid[1]]
+            eng.submit(sid, sig[lo:lo + 1024, None])
+        eng.flush()
+        for sid in grp:
+            held[sid] = tuple(eng.release(sid))
+    for _ in range(2):
+        for grp in groups:
+            for sid in grp:
+                eng.submit(sid, h0=held[sid][0], y0=held[sid][1])
+            eng.flush()
+            out = eng.decode_closed_loop(32, sids=grp)
+            for sid in grp:
+                toks.setdefault(sid, []).append(out[sid])
+                held[sid] = tuple(eng.release(sid))
+    return {sid: torch.cat(v) for sid, v in toks.items()}
+
+
+def resident_rotation(p, ro, sig, ReservoirEngine):
+    """The rotation's decodes on an unpaged 32-slot engine on the card that
+    holds every session resident: one flush admits all 32 prompts (one
+    32-row prefill wave), then the same round-robin group decodes."""
+    import torch
+    eng = ReservoirEngine(p, 32, readout=ro, device="cuda")
+    starts = np.random.default_rng(0).integers(0, 2000 - 1024, size=32)
+    groups = [[("park", g * 8 + i) for i in range(8)] for g in range(4)]
+    for s, lo in enumerate(starts):
+        eng.submit(("park", s), sig[lo:lo + 1024, None])
+    eng.flush()
+    toks = {}
+    for _ in range(2):
+        for grp in groups:
+            out = eng.decode_closed_loop(32, sids=grp)
+            for sid in grp:
+                toks.setdefault(sid, []).append(out[sid])
+    return {sid: torch.cat(v) for sid, v in toks.items()}
+
+
+def ulps(got, want):
+    """How far two float64 token sets lie apart: tokens that differ, the
+    most units in the last place between two of them (on the ordered
+    integer image of the bits), and the elementwise error against the 1e-9
+    tolerance (``traj_err``)."""
+    import torch
+    diff, most, worst = 0, 0, 0.0
+
+    def ordered(t):
+        i = t.detach().cpu().contiguous().view(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFFFFFFFFFF), i)
+
+    for sid in want:
+        d = (ordered(got[sid]) - ordered(want[sid])).abs()
+        diff += int((d > 0).sum())
+        most = max(most, int(d.max()))
+        worst = max(worst, traj_err(got[sid], want[sid],
+                                    f"arena width {sid}")["max_rel_err"])
+    return {"tokens": sum(int(t.numel()) for t in want.values()),
+            "differing": diff, "max_ulps": most, "max_rel_err": worst}
+
+
+def park_restore_path(esn, ESNConfig, mso_series, ReservoirEngine, drive):
+    """The rotation on the card against the port on the CPU (1e-9
+    elementwise) and against the caller-managed workflow on the card (bit
+    for bit), with lap 2's tok/s, promote p95, demote µs a wave and page
+    rows beside the pinned copy rates and ``torch.add``."""
+    import torch
+    p, ro, sig = served_model(esn, ESNConfig, mso_series)
+    card, res = park_rotation(p, ro, sig, ReservoirEngine, "cuda", drive)
+    tiers = res["tiers_after_admission"]
+    if (tiers["host"], tiers["cold"]) != (16, 8):
+        fail(f"park.restore tiers after admission: {tiers}, expected 16 "
+             f"host and 8 cold")
+    cpu, _ = park_rotation(p, ro, sig, ReservoirEngine, "cpu")
+    manual = manual_rotation(p, ro, sig, ReservoirEngine)
+    # Arena width on the card: the paged 8-slot rotation's tokens against
+    # an unpaged 16-slot engine with the same 8-row waves, and against an
+    # unpaged 32-slot engine that never parks (one 32-row wave: B1 cuts it
+    # into fewer time chunks, ``scan_chunks``).  Measured, not assumed.
+    width = {"unpaged_16_slots_8_row_waves": ulps(manual_rotation(
+                 p, ro, sig, ReservoirEngine, slots=16), card),
+             "resident_32_slots_32_row_wave": ulps(resident_rotation(
+                 p, ro, sig, ReservoirEngine), card)}
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for sid in card:
+        e = traj_err(card[sid], cpu[sid], f"rotation {sid} card vs CPU")
+        worst["max_abs_err"] = max(worst["max_abs_err"], e["max_abs_err"])
+        worst["max_rel_err"] = max(worst["max_rel_err"], e["max_rel_err"])
+        if not torch.equal(card[sid], manual[sid]):
+            fail(f"rotation {sid}: paged tokens differ from the "
+                 f"caller-managed release / resubmit workflow")
+    for lap in res["laps"]:
+        if lap["promote_waves"] != 4 or lap["demote_waves"] != 4:
+            fail(f"rotation lap paged {lap['promote_waves']} promote / "
+                 f"{lap['demote_waves']} demote waves, expected 4 / 4")
+    # Where a page wave's time goes: the same rotation with the cold tier's
+    # I/O inline (a synchronous engine: no I/O lane), and with a pool of 32
+    # rows and no cold tier (no file I/O at all); tokens bit-equal.
+    variants = {}
+    for name, kw in (("sync_io", dict(pipeline_depth=0)),
+                     ("host_tier_only", dict(host_rows=32, cold=False))):
+        toks, vres = park_rotation(p, ro, sig, ReservoirEngine, "cuda", **kw)
+        if any(not torch.equal(toks[s], card[s]) for s in card):
+            fail(f"rotation variant {name} differs from the lane's tokens")
+        variants[name] = vres["laps"][1]
+    return {**res, "vs_cpu": worst, "vs_manual_workflow": "bit-equal",
+            "arena_width_vs_paged_8": width,
+            "variants_lap2": variants, "pinned_copy": pinned_rates(),
+            "torch_add_us": torch_add_us()}
+
+
+def churn(eng, prompts, rounds=16, grp=8):
+    """The pipeline.overlap churn (``benchmarks/serve_engine.py:498-556``):
+    each round admits a fresh group of 8 prompts; every 4th round decodes
+    its group for 4 tokens.  Returns the tokens and the states."""
+    eng.reset()
+    toks = {}
+    for r in range(rounds):
+        for i in range(grp):
+            eng.submit((r, i), prompts[(r * grp + i) % len(prompts)])
+        eng.flush()
+        if r % 4 == 3:
+            eng.decode_closed_loop(4, sids=[(r, i) for i in range(grp)])
+            toks.update(eng.collect_decoded().tokens)
+    eng.store.drain_io()
+    states = {(r, i): eng.state_of((r, i)) for r in range(rounds)
+              for i in range(grp)}
+    return toks, states
+
+
+def overlaps(prof):
+    """Device intervals of one profiler window: the fast path's D2H copies
+    into pinned memory, B1's launches, and the copies that ran while a B1
+    launch was on the device."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    d2h = [e.time_range for e in dev
+           if "DtoH" in e.name and "Pinned" in e.name]
+    b1 = [e.time_range for e in dev if "diag_scan" in e.name]
+    hit = [c for c in d2h if any(c.start < s.end and s.start < c.end
+                                 for s in b1)]
+    return {"d2h_copies": len(d2h), "b1_launches": len(b1),
+            "d2h_during_b1": len(hit),
+            "d2h_during_b1_us": sum(c.end - c.start for c in hit),
+            "d2h_names": sorted({e.name for e in dev if "DtoH" in e.name})}
+
+
+def overlap_path(esn, ESNConfig, mso_series, ReservoirEngine, drive):
+    """The churn at the serving profile on the card, 32 slots over a 64-row
+    pool and a cold tier: ``pipeline_depth=2`` with the I/O lane against
+    ``pipeline_depth=0, io_workers=0`` — tokens and states bit-equal, the
+    overlap fast path taken; both walls (3 turns each, after a warm-up of
+    each) and the pipelined engine's ``host_block_us``; one profiler window
+    over a pipelined run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    p, ro, sig = served_model(esn, ESNConfig, mso_series)
+    prompts = [sig[37 * i:37 * i + 1024, None] for i in range(24)]
+    engines = {d: ReservoirEngine(p, 32, readout=ro, park_host_rows=64,
+                                  pipeline_depth=depth, device="cuda",
+                                  cold_dir=fresh_dir(f"overlap_{d}"))
+               for d, depth in ((2, 2), (0, 0), ("2_sync_io", 2))}
+    if engines[0].store.io_workers != 0 or engines[2].store.io_workers < 1:
+        fail("the synchronous engine must get a synchronous store")
+    # A measurement variant: the pipelined engine with the cold tier's I/O
+    # inline, which separates the I/O lane's cost from the window's.
+    engines["2_sync_io"].store.io_workers = 0
+    out = drive("pipeline_overlap", lambda: churn(engines[2], prompts),
+                ("diag_scan", "decode_fused"))
+    churn(engines[0], prompts)
+    churn(engines["2_sync_io"], prompts)
+    walls = {d: [] for d in engines}
+    for _ in range(3):
+        for d in engines:
+            st0 = engines[d].stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = churn(engines[d], prompts)
+            torch.cuda.synchronize()
+            st = engines[d].stats()
+            walls[d].append({
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "host_block_us": st.host_block_us - st0.host_block_us,
+                "overlap_demotes": st.overlap_demotes - st0.overlap_demotes,
+                "demote_waves": st.demote_waves - st0.demote_waves})
+            if d == 0:
+                ref = res
+            elif d == 2:
+                pipe = res
+        (ta, sa), (tb, sb) = pipe, ref
+        if ta.keys() != tb.keys() or any(
+                not torch.equal(ta[s], tb[s]) for s in ta) or any(
+                not np.array_equal(sa[s], sb[s]) for s in sa):
+            fail("pipelined churn differs from the synchronous churn")
+    if min(w["overlap_demotes"] for w in walls[2]) < 1:
+        fail(f"the pipelined churn took no overlap demote: {walls[2]}")
+    if any(w["overlap_demotes"] for w in walls[0]):
+        fail("the synchronous churn took the overlap fast path")
+    for s in out[0]:
+        if not torch.equal(out[0][s], ta[s]):
+            fail(f"the counted pipelined run differs at {s}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        churn(engines[2], prompts)
+        torch.cuda.synchronize()
+    return {"pipelined": walls[2], "synchronous": walls[0],
+            "pipelined_sync_io": walls["2_sync_io"],
+            "bit_exact": True, "profile": overlaps(prof)}
+
+
+def snapshot_path(esn, ESNConfig, mso_series, ReservoirEngine):
+    """Snapshot on the card an engine with hot sessions, parked sessions in
+    both tiers, a queued prompt and uncollected tokens; restore it on the
+    card and resume both bit for bit.  Then a snapshot written on the CPU
+    restored on the card, against the CPU continuation (1e-9
+    elementwise).  The snapshot's and the restore's wall ms."""
+    import torch
+    p, ro, sig = served_model(esn, ESNConfig, mso_series)
+    sids = [f"s{i}" for i in range(10)]
+
+    def build(device):
+        eng = ReservoirEngine(p, 3, readout=ro, park_host_rows=4,
+                              cold_dir=fresh_dir(f"snap_cold_{device}"),
+                              device=device)
+        for i, sid in enumerate(sids):
+            eng.submit(sid, sig[50 * i:50 * i + 256, None])
+        eng.flush()
+        for sid in sids[:4]:
+            eng.decode_closed_loop(2, sids=[sid])
+        eng.submit("queued", sig[900:1156, None])
+        tiers = {eng.store.tier_of(s) for s in eng.store.sids}
+        if tiers != {"host", "cold"} or len(eng.pending) != 1:
+            fail(f"snapshot engine: tiers {tiers}, queued {len(eng.pending)}")
+        return eng
+
+    def resume(eng):
+        buf = eng.collect_decoded().tokens
+        out = [buf[s] for s in sids[:4]]
+        eng.flush()
+        return out + [eng.decode_closed_loop(3, sids=[s])[s]
+                      for s in sids + ["queued"]]
+
+    card = build("cuda")
+    t0 = time.perf_counter()
+    path = card.snapshot(fresh_dir("snap_card") + "/engine")
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restored = ReservoirEngine.restore(path, device="cuda")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for i, (a, b) in enumerate(zip(resume(card), resume(restored))):
+        if not torch.equal(a, b):
+            fail(f"restored card engine differs at output {i}")
+    cpu = build("cpu")
+    from_cpu = ReservoirEngine.restore(
+        cpu.snapshot(fresh_dir("snap_cpu") + "/engine"), device="cuda")
+    errs = [traj_err(b, a, f"CPU snapshot on the card, output {i}")
+            for i, (a, b) in enumerate(zip(resume(cpu), resume(from_cpu)))]
+    return {"snapshot_ms": snap_ms, "restore_ms": restore_ms,
+            "card_restore": "bit-equal",
+            "cpu_snapshot_on_card_max_rel_err": max(
+                e["max_rel_err"] for e in errs),
+            "epoch_after_restore": restored.store.epoch}
+
+
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
     (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
@@ -1624,7 +2031,35 @@ def main() -> None:
     print(json.dumps({"profile_capture": profile_capture(
         esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
 
-    phase("17 summary")
+    phase("17 main path 9: repro_torch.launch.serve " + " ".join(PAGED_ARGS)
+          + " --cold-dir --snapshot; the park.restore rotation, the "
+          "pipeline.overlap churn, snapshot / restore")
+    paged_argv = PAGED_ARGS + ["--cold-dir", fresh_dir("serve_cold"),
+                               "--snapshot", str(PAGED_DIR / "serve_snap")]
+    res = drive("serve_paged", lambda: serve.main(paged_argv),
+                ("diag_scan", "decode_fused"))
+    tiers = res["tiers_after_admission"]
+    if (not res["finite"] or res["sessions"] != 32
+            or (tiers["host"], tiers["cold"]) != (16, 8)
+            or res["demote_waves"] < 3 or res["promote_waves"] < 3):
+        fail(f"paged serving loop: {res}")
+    t0 = time.perf_counter()
+    restored = ReservoirEngine.restore(res["snapshot"], device="cuda")
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if restored.store.epoch != 1 or restored.store.pool.rows != 16:
+        fail(f"the driver's snapshot restored as {restored.store.stats()}")
+    print(json.dumps({"serve_paged": res, "restore_ms": restore_ms,
+                      "launches": launches["serve_paged"]}), flush=True)
+    print(json.dumps({"park_restore": park_restore_path(
+        esn, ESNConfig, mso_series, ReservoirEngine, drive),
+        "launches": launches["park_restore"]}), flush=True)
+    print(json.dumps({"pipeline_overlap": overlap_path(
+        esn, ESNConfig, mso_series, ReservoirEngine, drive),
+        "launches": launches["pipeline_overlap"]}), flush=True)
+    print(json.dumps({"snapshot_restore": snapshot_path(
+        esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
+
+    phase("18 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]

@@ -18,7 +18,16 @@ loop on the param batch.  ``--decode-slo US`` (with ``--chunk-max`` and
 ``--decode-wave-tokens K``) interleaves SLO-protected decode waves into the
 flushes, planned by the wave cost model (``--autotune``, ``--cost-seed``,
 ``--cost-save``); ``--profile-dir`` writes a ``torch.profiler`` trace of
-the timed loop.
+the timed loop.  ``--park-host-rows R`` backs the ``--slots`` hot slots
+with a host pool of R parked-session rows (``--cold-dir DIR`` adds
+the cold tier behind it): a full arena parks its least-recently-used idle
+sessions instead of queueing admissions, and decoding a parked session
+promotes it; ``--snapshot PATH`` serializes the engine at the end
+(``ReservoirEngine.restore(PATH)`` resumes it):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reservoir \\
+        --n 1024 --slots 8 --sessions 32 --prompt-len 1024 --gen 128 \\
+        --park-host-rows 16 --cold-dir /tmp/cold --snapshot /tmp/engine
 
 The LM loop (without ``--reservoir``) prefills random prompts token by
 token and decodes greedily (or samples at ``--temperature``) through the
@@ -39,7 +48,8 @@ against the CPU.  Other archs exit naming ROADMAP A12.
 
 ``--device cpu`` runs either loop on the host with the plain PyTorch
 versions of the kernels.  Reservoir flags of the JAX driver whose planes are
-not ported yet exit with a message naming the ROADMAP item.
+not ported yet (learning, a mesh) exit with a message naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -66,9 +76,6 @@ _NOT_PORTED = {
     "refit_decay": "A9 (serve/learn.py learn-while-serving)",
     "drift_threshold": "A9 (serve/learn.py learn-while-serving)",
     "mesh": "A11 (sharded arena)",
-    "park_host_rows": "A8 (serve/store.py paging)",
-    "cold_dir": "A8 (serve/store.py paging)",
-    "snapshot": "A8 (serve/store.py snapshot/restore)",
 }
 
 
@@ -99,6 +106,16 @@ def _cost_model(args, device: torch.device):
     return None
 
 
+def _checked(make, *args, **kw):
+    """``make(*args, **kw)``, the engine's own option checks (a cold tier
+    needs host rows; a param-batched engine refuses paging) ending the
+    driver with their message."""
+    try:
+        return make(*args, **kw)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}") from None
+
+
 def build_engine(args):
     """The served model in a ``ReservoirEngine``: a ``DiagParams`` struct
     from ``dpg_params`` plus a ridge-fitted ``Readout`` — or, with
@@ -117,7 +134,13 @@ def build_engine(args):
               cost_model=_cost_model(args, device),
               decode_slo_us=args.decode_slo,
               decode_wave_tokens=args.decode_wave_tokens,
+              park_host_rows=args.park_host_rows, cold_dir=args.cold_dir,
               profile_dir=args.profile_dir)
+    if args.park_host_rows is not None:
+        tiers = (f"{args.slots} hot slots -> {args.park_host_rows} host rows"
+                 + (f" -> cold dir {args.cold_dir}" if args.cold_dir else ""))
+        print(f"tiered session store: {tiers} — capacity is sessions, "
+              f"not slots")
     if args.decode_slo is not None:
         print(f"decode-aware planning: SLO {args.decode_slo:.0f} us of "
               f"predicted prefill cost between decode waves "
@@ -126,15 +149,16 @@ def build_engine(args):
         params = esn_fn.dpg_params(cfg, "noisy_golden", sigma=0.1,
                                    device=device)
         readout = esn_fn.fit(params, u_train, y_train, washout=100)
-        engine = ReservoirEngine(params, max_slots=args.slots,
-                                 readout=readout, **kw)
+        engine = _checked(ReservoirEngine, params, max_slots=args.slots,
+                          readout=readout, **kw)
         return engine, sig, train_t
     batch = [esn_fn.dpg_params(dataclasses.replace(cfg, seed=args.seed + i),
                                "noisy_golden", sigma=0.1, device=device)
              for i in range(args.slots)]
     readouts = [esn_fn.fit(p, u_train, y_train, washout=100).w_out
                 for p in batch]
-    engine = ReservoirEngine.from_param_batch(
+    engine = _checked(
+        ReservoirEngine.from_param_batch,
         stack_params(batch), Readout(torch.stack(readouts)),
         ensemble="off" if args.ensemble == "independent" else args.ensemble,
         **kw)
@@ -224,14 +248,22 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
     finite = True
     persistent = 0 if interleave and args.sessions > 1 else None
     seen: set = set()
+    tiers = None
     with engine.tracker.capture("serve"):
         t0 = time.perf_counter()
-        while engine.active_sessions or len(engine.pending):
+        while (engine.active_sessions or len(engine.pending)
+               or engine.parked_sessions):
             t1 = time.perf_counter()
             engine.flush(decode_interleave=interleave)
             _sync(device)      # don't let prefill drain into the decode timer
             t_prefill += time.perf_counter() - t1
+            if tiers is None and engine.store is not None:
+                tiers = engine.store.stats()   # after the first admission
             wave = list(engine.ready_sessions)
+            if not wave and engine.parked_sessions:
+                # A paged engine parked sessions that never decoded: decode
+                # promotes them.
+                wave = engine.parked_sessions[:args.slots]
             # A resident session re-appears in every wave; count it once.
             prefill_tokens += args.prompt_len * len(set(wave) - seen)
             seen.update(wave)
@@ -291,10 +323,31 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
               f"{interleaved_tokens} tok made mid-flush; inter-token gap "
               f"p50 {st.decode_gap_p50_us} us, p95 {st.decode_gap_p95_us} "
               f"us")
+    if engine.store is not None:
+        res.update(tiers_after_admission=tiers,
+                   demote_waves=st.demote_waves,
+                   promote_waves=st.promote_waves,
+                   page_rows=st.page_rows_total,
+                   page_us_sum=st.page_us_sum,
+                   promote_us_p95=st.promote_us_p95,
+                   overlap_demotes=st.overlap_demotes,
+                   sessions_parked=st.sessions_parked, store=st.store)
+        print(f"  paging: {st.demote_waves} demote / {st.promote_waves} "
+              f"promote waves, {st.page_rows_total} rows moved, promote p95 "
+              f"{st.promote_us_p95} us; tiers after admission {tiers}; "
+              f"store now holds {st.sessions_parked} parked sessions "
+              f"({st.store})")
     if args.cost_save and engine.cost_model is not None:
         engine.cost_model.to_artifact(args.cost_save)
         print(f"cost model saved: {engine.cost_model.n_observations} "
               f"observations -> {args.cost_save} (reload with --cost-seed)")
+    if args.snapshot:
+        t1 = time.perf_counter()
+        engine.snapshot(args.snapshot)
+        res.update(snapshot=args.snapshot,
+                   snapshot_ms=(time.perf_counter() - t1) * 1e3)
+        print(f"engine snapshot -> {args.snapshot} (resume with "
+              f"ReservoirEngine.restore({args.snapshot!r}))")
     engine.tracker.close()
     return res
 
@@ -474,6 +527,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cost-save", default=None, metavar="PATH",
                     help="write the engine's cost model to PATH at the end "
                          "(reload with --cost-seed)")
+    ap.add_argument("--park-host-rows", type=int, default=None, metavar="R",
+                    help="tiered session store: back the slot arena with a "
+                         "host pool of R parked-session rows — a full "
+                         "arena demotes its LRU idle sessions in batched "
+                         "page waves instead of queueing admissions, and "
+                         "touching a parked session promotes it back")
+    ap.add_argument("--cold-dir", default=None, metavar="DIR",
+                    help="cold tier behind the host pool: when the pool "
+                         "fills, its LRU sessions spill to per-session .npz "
+                         "records under DIR (needs --park-host-rows)")
+    ap.add_argument("--snapshot", default=None, metavar="PATH",
+                    help="serialize the whole engine at the end (arena, "
+                         "parked-session table, queue, cost model); "
+                         "ReservoirEngine.restore(PATH) resumes it")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")

@@ -49,7 +49,7 @@ Seeding is two-stage, mirroring how the model is used:
   the model tracks the machine it is actually serving on.
 
 Paging adds a third surface: the session store (``serve.store``) demotes /
-promotes session rows between the device arena and a pinned host pool in ONE
+promotes session rows between the device arena and a host pool in ONE
 gather/scatter wave, so its cost is affine in the rows moved,
 
     c_page(B)  ~=  alpha + beta * B          (one fit, group medians)

@@ -8,19 +8,25 @@ launch).  Lifecycle: ``submit`` -> ``flush`` -> ``decode_step`` /
 ``decode_closed_loop`` / ``observe`` / ``queue_inputs`` -> ``release``.
 
 The engine runs on one device, the GPU unless ``device="cpu"`` is passed;
-params and readout are moved there at construction.  Options of the JAX
-engine whose planes are not ported yet (paging, learning, a device mesh)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+params and readout are moved there at construction.  ``park_host_rows`` /
+``cold_dir`` back the slot arena with the tiered session store
+(``serve.store``: a host pool and a cold tier of ``.npz`` records),
+and :meth:`ReservoirEngine.snapshot` / :meth:`ReservoirEngine.restore`
+serialize the whole engine in the JAX package's snapshot layout.  Options
+of the JAX engine whose planes are not ported yet (learning, a device
+mesh) raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
-from typing import Dict, Hashable, Optional
+from typing import Dict, Hashable, List, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core.params import DiagParams, Readout, StandardParams, params_to
+from . import store as store_mod
 from .cost import WaveCostModel, cost_key
 from .exec_plane import DecodeResult, EvictResult, ExecPlane
 from .ingest import AdmissionFull, IngestPlane, SessionStats, SessionTable
@@ -35,8 +41,6 @@ __all__ = ["SessionStats", "DecodeResult", "EvictResult", "EngineStats",
 #: ROADMAP item that brings each.
 _NOT_PORTED = {
     "mesh": "A11 (sharded arena)",
-    "park_host_rows": "A8 (serve/store.py paging)",
-    "cold_dir": "A8 (serve/store.py paging)",
     "learn": "A9 (serve/learn.py learn-while-serving)",
 }
 
@@ -86,9 +90,12 @@ class ReservoirEngine:
     ``"jsonl:PATH"``); ``profile_dir`` adds ``torch.profiler`` capture
     windows (``tracker.capture(name)``).  ``max_queued`` bounds the
     admission queue.  ``pipeline_depth`` waves may stay in flight while the
-    host plans the next; 0 waits after every wave.  ``device``: where the
-    engine runs (``None`` means the GPU).  ``ensemble`` fuses the slots of
-    a param batch (:meth:`from_param_batch`).
+    host plans the next; 0 waits after every wave.  ``park_host_rows``: the
+    rows of the host pool behind the arena (a full arena then admits by
+    parking its least-recently-used idle sessions, and touching a parked
+    session promotes it); ``cold_dir``: the cold tier the pool spills to.
+    ``device``: where the engine runs (``None`` means the GPU).
+    ``ensemble`` fuses the slots of a param batch (:meth:`from_param_batch`).
     """
 
     def __init__(self, model, max_slots: int = 8, *,
@@ -103,8 +110,7 @@ class ReservoirEngine:
                  cold_dir: Optional[str] = None, learn: bool = False,
                  profile_dir: Optional[str] = None,
                  _param_batch: bool = False):
-        requested = {"mesh": mesh, "park_host_rows": park_host_rows,
-                     "cold_dir": cold_dir, "learn": learn}
+        requested = {"mesh": mesh, "learn": learn}
         for name, value in requested.items():
             if value not in (None, False):
                 raise NotImplementedError(
@@ -112,8 +118,13 @@ class ReservoirEngine:
         params, readout = _coerce_model(model, readout)
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
-        self.readout = (None if readout is None else
-                        Readout(readout.w_out.to(self.device)))
+        # The readout in default (row-major) strides: a snapshot stores it
+        # so, and BLAS takes another route (other roundings) for a (F, 1)
+        # readout strided as a column, as a ridge solve returns it — a
+        # restored engine resumes bit for bit only on the same layout.
+        self.readout = (None if readout is None else Readout(
+            readout.w_out.to(self.device).clone(
+                memory_format=torch.contiguous_format)))
         self.cfg = self.params.cfg
         self._batched = bool(_param_batch)
         self.max_slots = int(max_slots)
@@ -159,14 +170,38 @@ class ReservoirEngine:
         decode_slo_us = (None if decode_slo_us is None
                          else float(decode_slo_us))
         self._autotune = bool(autotune)
-        # Decode-aware planning needs a cost surface; engine-built models
-        # are keyed by (device type, n, d_out), so persisted observations
-        # never price another machine or model size.
+        self._dtype = self.params.dtype
+        # Paged session store: the arena becomes a cache of hot sessions
+        # over a host pool and an optional cold tier.
+        if cold_dir is not None and park_host_rows is None:
+            raise ValueError(
+                "cold_dir needs park_host_rows — the cold tier is the "
+                "spill target of the host pool, not a direct demote target")
+        if park_host_rows is not None and self._batched:
+            raise ValueError(
+                "param-batched engine: slot i IS reservoir i, so a parked "
+                "session cannot be promoted into whichever slot is free — "
+                "paging is unsupported (park/re-admit via release + "
+                "submit(sid, h0=..., slot=...) instead)")
+        self._park_host_rows = (None if park_host_rows is None
+                                else int(park_host_rows))
+        self._cold_dir = cold_dir
+        store = None
+        if self._park_host_rows is not None:
+            # A synchronous engine gets a synchronous store (no I/O lane),
+            # so the reference really is serialized end to end.
+            store = store_mod.SessionStore(
+                self.cfg.n, self.cfg.d_out,
+                torch.empty((), dtype=self._dtype).numpy().dtype,
+                host_rows=self._park_host_rows, cold_dir=cold_dir,
+                io_workers=2 if int(pipeline_depth) > 0 else 0)
+        # Decode-aware planning and page-wave pricing need a cost surface;
+        # engine-built models are keyed by (device type, n, d_out), so
+        # persisted observations never price another machine or model size.
         if cost_model is None and (autotune or decode_slo_us is not None
-                                   or decode_k_auto):
+                                   or decode_k_auto or store is not None):
             cost_model = WaveCostModel(key=cost_key(
                 self.device.type, self.cfg.n, self.cfg.d_out))
-        self._dtype = self.params.dtype
         # Observability: the aggregator is always first in the fan-out, so
         # stats() counters and a user trace derive from the SAME events.
         self._agg = StatsAggregator()
@@ -191,7 +226,7 @@ class ReservoirEngine:
             max_slots=self.max_slots, pipeline_depth=int(pipeline_depth),
             decode_slo_us=decode_slo_us,
             decode_wave_tokens=int(decode_wave_tokens),
-            decode_k_auto=decode_k_auto, cost_model=cost_model,
+            decode_k_auto=decode_k_auto, store=store, cost_model=cost_model,
             autotune=self._autotune, tracker=self.tracker,
             table=self._table, scheduler=sched)
         self._ingest = IngestPlane(
@@ -199,6 +234,8 @@ class ReservoirEngine:
             max_slots=self.max_slots, table=self._table, scheduler=sched,
             default_decode_slo_us=decode_slo_us, max_queued=max_queued)
         self._ingest.place = self._exec.place
+        self._ingest.in_store = lambda sid: (self._exec.store is not None
+                                             and sid in self._exec.store)
         self._exec.input_depth = self._ingest.input_depth
         self._exec.pop_inputs = self._ingest.pop_inputs
         # Queued open-loop inputs leave with their session.
@@ -267,6 +304,18 @@ class ReservoirEngine:
     @property
     def pipeline_depth(self) -> int:
         return self._exec.pipeline_depth
+
+    @property
+    def store(self):
+        """The tiered session store (None on an unpaged engine)."""
+        return self._exec.store
+
+    @property
+    def parked_sessions(self) -> List[Hashable]:
+        """Sessions parked in the store's tiers (host pool or cold records):
+        decodable through transparent promotion, absent from
+        :attr:`active_sessions` / :attr:`ready_sessions` (the hot set)."""
+        return [] if self.store is None else self.store.sids
 
     @property
     def cost_model(self):
@@ -375,7 +424,8 @@ class ReservoirEngine:
         return self._exec.collect_decoded(sid)
 
     def state_of(self, sid: Hashable):
-        """A ready session's current state as a host array."""
+        """A ready or parked session's current state as a host array (a
+        parked one is read in place, never promoted)."""
         return self._exec.state_of(sid)
 
     def release(self, sid: Hashable, *, drop: bool = False) -> EvictResult:
@@ -384,21 +434,45 @@ class ReservoirEngine:
         carries uncollected tokens).  ``drop=True`` discards the state."""
         return self._exec.release(sid, drop=drop)
 
+    def evict(self, sid: Hashable) -> EvictResult:
+        """Deprecated alias of :meth:`release`, as in the JAX package."""
+        return self.release(sid)
+
     def reset(self) -> None:
-        """Drop all sessions (active + queued) and zero the arena.  The
-        cumulative :meth:`stats` counters and the cost model are kept."""
+        """Drop all sessions (active, queued and parked) and zero the arena.
+        The cumulative :meth:`stats` counters (not the promote-latency
+        window) and the cost model are kept."""
         self._exec.reset()
         self._ingest.clear()
+        self._agg.promote_us.clear()
         old = self.scheduler
         self.scheduler = WaveScheduler(bucket_min=old.bucket_min,
                                        max_wave=old.max_wave,
                                        chunk_max=old.chunk_max,
                                        cost_model=old.cost_model)
 
+    # ----------------------------------------------------- snapshot/restore
+    def snapshot(self, path: str) -> str:
+        """Serialize the whole engine to the directory ``path`` (atomic:
+        tmp-rename after a ``_COMPLETE`` marker), in the JAX package's
+        layout.  See ``serve.store.snapshot_engine``."""
+        return store_mod.snapshot_engine(self, path)
+
+    @classmethod
+    def restore(cls, path: str, *, device=None,
+                mesh=None) -> "ReservoirEngine":
+        """Rebuild an engine on ``device`` (``None``: the GPU) from a
+        snapshot written by either package and resume it bit-exactly.
+        Stats counters start fresh.  See ``serve.store.restore_engine``."""
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh= is not ported yet: ROADMAP {_NOT_PORTED['mesh']}")
+        return store_mod.restore_engine(cls, path, device=device)
+
     # ---------------------------------------------------------------- stats
     def stats(self) -> EngineStats:
         """Engine-lifetime serving counters as a frozen :class:`EngineStats`
-        (fields of planes not ported yet read zero / None)."""
+        (fields of the learn plane, not ported yet, read zero)."""
         d = self._agg.snapshot()
         if self.cost_model is not None:
             wave_costs = self.cost_model.records()
@@ -410,7 +484,8 @@ class ReservoirEngine:
             sessions_active=len(self.sessions),
             sessions_ready=len(self.ready_sessions),
             sessions_queued=len(self.scheduler),
-            sessions_parked=0, store=None,
+            sessions_parked=0 if self.store is None else len(self.store),
+            store=None if self.store is None else self.store.stats(),
             chunks_in_flight=sum(st.prefill_pending
                                  for st in self.sessions.values()),
             pipeline_depth=self.pipeline_depth,

@@ -1,9 +1,11 @@
 """Exec (data) plane — wave dispatch against the slot arena, the bounded
-in-flight window, and SLO-interleaved decode (free-running and
-teacher-driven), single-step and closed-loop decode, teacher forcing.
+in-flight window with slot-granular taint tracking, tiered paging waves,
+and SLO-interleaved decode (free-running and teacher-driven), single-step
+and closed-loop decode, teacher forcing.
 
 Everything that touches the device lives here: the prefill / decode /
-place / release calls into ``serve.arena``, the decode output buffers, and
+place / release calls into ``serve.arena``, the page waves between the
+arena and the session store's host pool, the decode output buffers, and
 the flush drain loop that turns the scheduler's planned waves into
 launches.  PyTorch runs these eagerly; a wave's launches are queued on the
 device's current stream and the host goes on planning.  The in-flight
@@ -12,16 +14,29 @@ host waits on the oldest event once more than ``pipeline_depth`` waves are
 outstanding (``pipeline_depth=0`` waits after every wave — the synchronous
 reference) or, under a decode SLO, once the waves' summed predicted cost
 passes it.  On the CPU every launch has finished when it returns, so the
-waits are no-ops.  Every wall time this plane measures (autotune's wave
-and decode timings, an interleaved decode wave's latency) ends in a wait
-for the launch's event, never around an unsynchronised launch.
+waits are no-ops.  Every wall time this plane measures ends in a wait for
+the launch's event, never around an unsynchronised launch.
+
+**Paging** (engine built with ``park_host_rows``): a demote gathers the
+victim slots' rows on the device, copies them ``non_blocking`` into a
+pinned staging buffer and waits for that copy's event before the store
+reads it; a promote stages the fetched rows in the same pinned buffer,
+copies them to the device ``non_blocking``, scatters them with one
+``place_many`` and waits (a promote is on a decode's critical path).  The
+arena has value semantics (``serve.arena``): no launch writes a tensor that
+an older arena value holds, so — as on the JAX package's donation-free
+backends — a pipelined demote may gather rows that no in-flight wave
+writes from the **gather base**, the arena as of the oldest in-flight
+wave's inputs.  That gather runs on a side stream which waits only for the
+event of the work that produced the base, so the page-out overlaps the
+in-flight scans instead of queueing behind them on the current stream.
+Mutations outside the tracked wave path taint the slots they touch
+(``_pipeline_taint``) or drop the base (``_pipeline_invalidate``).
 
 Control-plane state (session table, admission queue, open-loop input
 queues) reaches this plane through the facade-wired ``table``,
 ``scheduler`` and callbacks; learn-plane effects are callbacks with no-op
-defaults.  Paging (ROADMAP A8) and learning (A9) are not ported: the
-in-flight window has no gather base to keep valid, so the JAX plane's
-taint bookkeeping for the overlap-demote path comes with A8.
+defaults (learning is ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -115,6 +130,11 @@ def _wait(marker) -> None:
         marker.synchronize()
 
 
+def _pinned(shape, dtype) -> torch.Tensor:
+    """A page-locked host tensor (raises if the allocation fails)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
 class ExecPlane:
     """Owns the arena and every device launch.  ``table`` (the ingest
     plane's session table) and ``scheduler`` are facade-wired references;
@@ -123,8 +143,8 @@ class ExecPlane:
     def __init__(self, params, readout, cfg, dtype, *, batched: bool,
                  ensemble: str, max_slots: int, pipeline_depth: int,
                  decode_slo_us: Optional[float], decode_wave_tokens: int,
-                 decode_k_auto: bool, cost_model, autotune: bool, tracker,
-                 table, scheduler):
+                 decode_k_auto: bool, store, cost_model, autotune: bool,
+                 tracker, table, scheduler):
         self.params = params
         self.readout = readout
         self.cfg = cfg
@@ -138,6 +158,7 @@ class ExecPlane:
         self.decode_slo_us = decode_slo_us
         self.decode_wave_tokens = int(decode_wave_tokens)
         self._decode_k_auto = bool(decode_k_auto)
+        self.store = store
         self.cost_model = cost_model
         self._autotune = bool(autotune)
         self.tracker = tracker
@@ -149,8 +170,26 @@ class ExecPlane:
         self._decode_buf: Dict[Hashable, List] = {}
         self._decode_meta: List[dict] = []
         # The launched-but-unwaited waves, oldest first: each wave's event
-        # and the cost model's predicted cost of it (the SLO window bound).
+        # (``marker``), the cost model's predicted cost of it (the SLO window
+        # bound), the slots it writes, and the arena value right after it.
+        # ``_arena_base`` is the arena as of the oldest in-flight wave's
+        # inputs and ``_base_event`` marks the work that produced it; a
+        # demote may gather rows no in-flight wave writes from it
+        # (``_demote_wave``).  ``_base_valid`` drops when an untracked path
+        # mutates unknown rows; ``_base_dirty`` holds the known ones.
         self._inflight: collections.deque = collections.deque()
+        self._arena_base = None
+        self._base_event = None
+        self._base_valid = False
+        self._base_dirty: set = set()
+        # Paging on the card: pinned staging rows for page waves (one set:
+        # every page wave waits for its own copies before it returns) and
+        # the side stream of the overlap demote.
+        self._stage = self._side = None
+        if store is not None and self.device.type == "cuda":
+            self._stage = (_pinned((self.max_slots, cfg.n), dtype),
+                           _pinned((self.max_slots, cfg.d_out), dtype))
+            self._side = torch.cuda.Stream(self.device)
         # ---- facade-wired cross-plane callbacks (learn / ingest) ---------
         self.note_admission = lambda sid, tenant: None
         self.on_prompt_done = lambda sid, y_last: None
@@ -175,40 +214,254 @@ class ExecPlane:
         return dict(batched=self._batched, ensemble=self.ensemble)
 
     # ---------------------------------------------------- pipelined executor
-    def _inflight_admit(self, pred_us: float = 1.0) -> None:
+    def _base_mark(self):
+        """Before a launch the window may admit: the event of everything
+        queued so far when the window is empty and paging may gather from
+        the arena value the launch reads (the next gather base)."""
+        if self.store is None or self.pipeline_depth == 0 or self._inflight:
+            return None
+        return _record_event(self.device)
+
+    def _inflight_admit(self, pred_us: float, slots, arena_before,
+                        base_event) -> None:
         """Admit the wave just launched into the in-flight window, then
         retire from the front until the window is legal again: at most
         ``pipeline_depth`` waves deep and — under a decode SLO — the summed
         *predicted* cost of the waves in flight under it (every queued wave
-        is latency someone's next token waits behind)."""
-        self._inflight.append((_record_event(self.device), float(pred_us)))
+        is latency someone's next token waits behind).  ``slots``: the
+        slots the wave writes; ``arena_before`` / ``base_event``: the arena
+        it read and the event of the work that produced it."""
+        if not self._inflight:
+            # The window was empty: the value the wave read is the gather
+            # base, captured past every earlier untracked mutation.
+            self._arena_base = arena_before
+            self._base_event = base_event
+            self._base_valid = True
+            self._base_dirty = set()
+        self._inflight.append({"marker": _record_event(self.device),
+                               "pred_us": float(pred_us),
+                               "slots": frozenset(slots),
+                               "arena_after": self.arena})
         while len(self._inflight) > self.pipeline_depth or (
                 self.decode_slo_us is not None and len(self._inflight) > 1
-                and sum(p for _, p in self._inflight) > self.decode_slo_us):
+                and sum(e["pred_us"] for e in self._inflight)
+                > self.decode_slo_us):
             self._inflight_retire()
         self.tracker.log_wave({"kind": "pipeline",
                                "inflight": len(self._inflight)})
 
     def _inflight_retire(self) -> None:
-        """Wait for the oldest in-flight wave; the wait is the host's
-        pipeline-idle time."""
-        marker, _ = self._inflight.popleft()
+        """Wait for the oldest in-flight wave (the wait is the host's
+        pipeline-idle time) and advance the gather base past it."""
+        e = self._inflight.popleft()
         t0 = time.perf_counter()
-        _wait(marker)
+        _wait(e["marker"])
         self.tracker.log_wave({"kind": "host_block",
                                "us": (time.perf_counter() - t0) * 1e6})
+        if self._base_valid:
+            self._arena_base, self._base_event = e["arena_after"], e["marker"]
+        if not self._inflight:
+            self._arena_base = self._base_event = None
 
     def _drain_inflight(self) -> None:
         while self._inflight:
             self._inflight_retire()
 
+    def _window_settled(self) -> None:
+        """The host just waited for work downstream of every in-flight wave
+        (a timed launch, a promote's scatter): forget the window without
+        further waits."""
+        self._inflight.clear()
+        self._pipeline_invalidate()
+
+    def _pipeline_invalidate(self) -> None:
+        """An arena mutation outside the tracked wave path whose rows are
+        unknown: the gather base vouches for no row until the window turns
+        over."""
+        self._arena_base = self._base_event = None
+        self._base_valid = False
+        self._base_dirty = set()
+
+    def _pipeline_taint(self, slots) -> None:
+        """A mutation of known slots outside the tracked wave path (a
+        release, a single placement, teacher forcing): only those slots
+        fall back to ordered gathers."""
+        if self._base_valid:
+            self._base_dirty.update(slots)
+
+    def _inflight_dirty_slots(self) -> set:
+        dirty: set = set()
+        for e in self._inflight:
+            dirty |= e["slots"]
+        return dirty
+
     def _sync_us(self, t0: float) -> float:
         """Wait for everything queued so far (the launch just made and every
-        wave before it on the stream), retire the whole in-flight window it
+        wave before it on the stream), settle the whole in-flight window it
         covered, and return the microseconds since ``t0``."""
         _wait(_record_event(self.device))
-        self._inflight.clear()
+        self._window_settled()
         return (time.perf_counter() - t0) * 1e6
+
+    # ---------------------------------------------------------------- paging
+    def _index(self, slots) -> torch.Tensor:
+        """``slots`` as an index tensor on the device.  On the card it goes
+        through page-locked memory ``non_blocking`` on the current stream: a
+        pageable copy would wait for every launch queued before it (the
+        caching host allocator keeps the pinned source until the copy has
+        run)."""
+        idx = torch.tensor(list(slots), dtype=torch.int64)
+        if self.device.type != "cuda":
+            return idx
+        return idx.pin_memory().to(self.device, non_blocking=True)
+
+    def _rows_to_host(self, arena, slots, after=None):
+        """``slots``'s (states, y_prev) rows of ``arena`` as host arrays.
+        On the card: one ``index_select`` per tensor, copied ``non_blocking``
+        into the pinned staging rows, and a wait for that copy's event
+        before the rows are read.  ``after``: run on the side stream, which
+        waits only for this event (the work that produced ``arena``)."""
+        if self.device.type != "cuda":
+            s, y = arena_mod.gather_rows(arena, self._index(slots))
+            return s.numpy(), y.numpy()
+        k = len(slots)
+        stream = (torch.cuda.current_stream(self.device) if after is None
+                  else self._side)
+        with torch.cuda.stream(stream):
+            if after is not None:
+                stream.wait_event(after)
+            s, y = arena_mod.gather_rows(arena, self._index(slots))
+            self._stage[0][:k].copy_(s, non_blocking=True)
+            self._stage[1][:k].copy_(y, non_blocking=True)
+            done = _record_event(self.device)
+        _wait(done)
+        return self._stage[0][:k].numpy(), self._stage[1][:k].numpy()
+
+    def _rows_to_arena(self, slots, states, ys) -> None:
+        """Scatter host rows into ``slots`` (one ``place_many``) and wait
+        until they are resident.  On the card the rows go through the
+        pinned staging buffer, copied ``non_blocking``."""
+        if self.device.type != "cuda":
+            h0s, y0s = torch.from_numpy(states), torch.from_numpy(ys)
+        else:
+            k = len(slots)
+            self._stage[0][:k].numpy()[:] = states
+            self._stage[1][:k].numpy()[:] = ys
+            h0s = self._stage[0][:k].to(self.device, non_blocking=True)
+            y0s = self._stage[1][:k].to(self.device, non_blocking=True)
+        self.arena = arena_mod.place_many(self.arena, self._index(slots),
+                                          h0s, y0s)
+        _wait(_record_event(self.device))
+
+    def _capacity(self, protect=frozenset()) -> int:
+        """Admission capacity: free slots, plus — on a paged engine — every
+        demotable hot session (capacity is sessions, not slots)."""
+        cap = self.table.free_slots
+        if self.store is not None:
+            cap += len(self.table.demotable(protect))
+        return cap
+
+    def _note_page(self, rows: int, us: float, *, promote: bool) -> None:
+        """Page-wave accounting: the telemetry event, the cost model's page
+        surface (autotune only: in pipelined serving a blocking transfer
+        also drains queued waves, which would poison the fit), and the
+        decode deadlines (a page wave spends latency the budget sees)."""
+        self.tracker.log_wave({"kind": "page", "promote": promote,
+                               "rows": rows, "us": us})
+        if self._autotune and self.cost_model is not None:
+            self.cost_model.observe_page(rows, us)
+        self.scheduler.charge_decode_cost(us)
+
+    def _demote_wave(self, sids: List[Hashable]) -> None:
+        """Park ``sids``: their slot rows to the host in one gather per
+        tensor, the slots freed in one scatter, and the rows (plus each
+        session's accounting struct) handed to the store.  A pipelined
+        engine gathers from the gather base when no in-flight wave and no
+        untracked mutation touched the victim slots — those rows are the
+        same in both values (waves write only their own slots) — on the
+        side stream, so the copy overlaps the in-flight scans (the overlap
+        fast path, counted by ``overlap_demote`` events); otherwise the
+        gather is ordered behind everything queued."""
+        if not sids:
+            return
+        slots = [self.table.sessions[s].slot for s in sids]
+        fast = (self._inflight and self._base_valid
+                and self._arena_base is not None
+                and not (set(slots) & (self._inflight_dirty_slots()
+                                       | self._base_dirty)))
+        if fast:
+            self.tracker.log_wave({"kind": "overlap_demote",
+                                   "rows": len(sids)})
+        t0 = time.perf_counter()
+        states, ys = (self._rows_to_host(self._arena_base, slots,
+                                         after=self._base_event) if fast
+                      else self._rows_to_host(self.arena, slots))
+        us = (time.perf_counter() - t0) * 1e6
+        stats = []
+        for sid in sids:
+            st = self.table.sessions.pop(sid)
+            self.table.slots[st.slot] = None
+            st.slot = -1
+            stats.append(st)
+        self.arena = arena_mod.release_many(self.arena, self._index(slots))
+        self.store.park_many(sids, states, ys, stats)
+        self._note_page(len(sids), us, promote=False)
+
+    def _promote_wave(self, sids: List[Hashable]) -> None:
+        """Un-park ``sids`` into free slots: one store fetch (host rows or
+        cold records), one ``place_many``, and a wait until the states are
+        resident — a promote is on someone's decode critical path, so its
+        measured latency (``promote_us_p95``) must be real.  The wait covers
+        every in-flight wave, so the window settles."""
+        if not sids:
+            return
+        t0 = time.perf_counter()
+        states, ys, stats = self.store.fetch_many(sids)
+        slots = []
+        for sid, st in zip(sids, stats):
+            slot = self.table.slots.index(None)
+            self.table.slots[slot] = sid
+            st.slot = slot
+            self.table.sessions[sid] = st
+            slots.append(slot)
+        self._rows_to_arena(slots, states, ys)
+        self._window_settled()
+        self._note_page(len(sids), (time.perf_counter() - t0) * 1e6,
+                        promote=True)
+
+    def _ensure_hot(self, sids, protect=frozenset()) -> None:
+        """Promote any parked sessions in ``sids`` — called at the top of
+        every decode and observe path, so touching a parked session just
+        works: the LRU idle hot sessions page out to make room."""
+        if self.store is None:
+            return
+        parked = [s for s in sids if s in self.store]
+        if not parked:
+            return
+        # The cold reads start on the store's I/O lane now, overlapping the
+        # demote below; the promote's fetch consumes their futures.
+        self.store.prefetch_many(parked)
+        need = len(parked) - self.table.free_slots
+        if need > 0:
+            victims = self.table.demotable(set(sids) | set(protect))[:need]
+            if len(victims) < need:
+                raise RuntimeError(
+                    f"cannot promote {len(parked)} parked session(s): "
+                    f"{self.table.free_slots} free slot(s), "
+                    f"{len(victims)} demotable — decode at most "
+                    f"max_slots={self.max_slots} sessions per wave")
+            self._demote_wave(victims)
+        self._promote_wave(parked)
+
+    def _make_room(self, wave: List[WaveItem], protect=frozenset()) -> None:
+        """Demote enough LRU idle sessions that the wave's fresh rows find
+        free slots (the scheduler's capacity counted them, so the victims
+        exist)."""
+        if self.store is None:
+            return
+        need = sum(it.first for it in wave) - self.table.free_slots
+        if need > 0:
+            self._demote_wave(self.table.demotable(protect)[:need])
 
     # ------------------------------------------------------------------ flush
     def flush(self, *, method: str = "auto", chunk: int = 128,
@@ -227,15 +480,23 @@ class ExecPlane:
         else:
             decode_sids = self._protected(decode_sids)
         results: Dict[Hashable, object] = {}
+        protect = frozenset(decode_sids)
         waves_run = 0
         just_decoded = False
         while max_waves is None or waves_run < max_waves:
-            capacity = self.table.free_slots
+            # Paged engine: capacity counts demotable hot sessions too (a
+            # full arena admits by parking its LRU idle sessions); the true
+            # free-slot count lets the budget fit price the demote page
+            # wave the overflow forces.
+            capacity = self._capacity(protect)
+            free = (self.table.free_slots if self.store is not None
+                    else None)
             if not self.scheduler.has_runnable(capacity):
                 break
             budget = (self._decode_budget(decode_sids)
                       if decode_sids else None)
-            wave = self.scheduler.next_wave(capacity, budget_us=budget)
+            wave = self.scheduler.next_wave(capacity, budget_us=budget,
+                                            free_slots=free)
             if not wave:
                 if not just_decoded:
                     # Runnable prefill exists but is over the decode budget:
@@ -249,17 +510,30 @@ class ExecPlane:
                 # slow-but-SLO-compliant part-wave beats blowing the budget.
                 wave = self.scheduler.next_wave(
                     capacity, budget_us=self._decode_budget(decode_sids),
-                    shrink_floor=0.0)
+                    shrink_floor=0.0, free_slots=free)
                 if not wave:
                     # Not even one row fits the SLO: run unbudgeted rather
                     # than spin decode-only forever.
-                    wave = self.scheduler.next_wave(capacity)
+                    wave = self.scheduler.next_wave(capacity,
+                                                    free_slots=free)
                     if not wave:
                         break
             just_decoded = False
             waves_run += 1
+            self._make_room(wave, protect)
             self._run_wave(wave, capacity, results, method=method,
                            chunk=chunk, want_outputs=want_outputs)
+            if (self.pipeline_depth > 0 and not self._autotune
+                    and self.store is not None):
+                # Plan one wave ahead against the slot table (already
+                # updated at launch) and page its victims out now: the
+                # demote gathers untouched rows from the gather base, so it
+                # overlaps the scan just launched.  The next iteration pops
+                # exactly this wave (peek is exact) and finds its slots
+                # free.
+                planned = self.scheduler.peek_wave(self._capacity(protect))
+                if planned:
+                    self._make_room(planned, protect)
         return results
 
     def _protected(self, decode_sids) -> List[Hashable]:
@@ -283,11 +557,15 @@ class ExecPlane:
             raise ValueError(
                 "interleaved decode waves free-run (closed loop): the engine "
                 "needs a trained readout and d_in == d_out")
+        if decode_sids is not None:
+            decode_sids = list(dict.fromkeys(decode_sids))
+            # A parked decoder is still a valid protected decoder: promote
+            # it now so the ready check sees it.
+            self._ensure_hot(decode_sids)
         ready = self.table.ready
         if decode_sids is None:
             decode_sids = list(ready)
         else:
-            decode_sids = list(dict.fromkeys(decode_sids))
             missing = [s for s in decode_sids if s not in set(ready)]
             if missing:
                 raise KeyError(f"decode_sids must be ready sessions; not "
@@ -337,15 +615,18 @@ class ExecPlane:
             self._driven_wave(driven)
 
     def _dispatch_decode(self, launch, sids, *, tokens: int, block: bool,
-                         interleave: bool = False, kind: str = "closed_loop"):
+                         interleave: bool = False, kind: str = "closed_loop",
+                         slots=None):
         """Every decode launch goes through here.  ``launch`` makes the call
         and stores the new arena.  Timed when ``block`` (an interleaved wave:
         its tokens must exist before the deadline resets) or under autotune:
         the clock stops after a wait for the launch's event, which also
         retires the queued prefill waves it depends on; autotune records the
         whole K-token wave as ONE point on c_dec(B, K).  Otherwise the
-        launch joins the in-flight window at its predicted cost."""
+        launch joins the in-flight window at its predicted cost as a writer
+        of ``slots`` (its decode mask)."""
         timed = (block or self._autotune) and sids and tokens
+        arena_before, base_event = self.arena, self._base_mark()
         t0 = time.perf_counter() if timed else None
         out = launch()
         us = None
@@ -353,11 +634,13 @@ class ExecPlane:
             us = self._sync_us(t0)
             if self._autotune:
                 self.cost_model.observe_decode(len(sids), us, k=tokens)
-        elif self.pipeline_depth > 0:
+        elif self.pipeline_depth > 0 and slots is not None:
             pred = (self.cost_model.predict_decode_us(len(sids), tokens)
                     if self.cost_model is not None and sids and tokens
                     else 1.0)
-            self._inflight_admit(pred)
+            self._inflight_admit(pred, slots, arena_before, base_event)
+        else:
+            self._pipeline_invalidate()
         if sids and tokens:
             self._note_decode(sids, us=us, tokens=tokens,
                               interleave=interleave, kind=kind)
@@ -448,6 +731,8 @@ class ExecPlane:
     def _run_wave(self, wave: List[WaveItem], capacity: int,
                   results: Dict[Hashable, object], *, method: str,
                   chunk: int, want_outputs: bool) -> None:
+        arena_before, base_event = self.arena, self._base_mark()
+        touched: set = set()
         fresh = [it for it in wave if it.first]
         if fresh:
             h0s = np.zeros((len(fresh), self.cfg.n), self._np_dtype)
@@ -465,6 +750,7 @@ class ExecPlane:
                     y0s[i] = it.req.y0
                 slots.append(slot)
                 self.note_admission(it.sid, it.req.tenant)
+            touched.update(slots)
             self.arena = arena_mod.place_many(
                 self.arena, self._tensor(slots), self._tensor(h0s),
                 self._tensor(y0s))
@@ -472,7 +758,7 @@ class ExecPlane:
         if not prompts:
             self._record_wave(0, len(wave), len(fresh), capacity, 0, None)
             if fresh and self.pipeline_depth > 0 and not self._autotune:
-                self._inflight_admit()
+                self._inflight_admit(1.0, touched, arena_before, base_event)
             return                  # admission-only wave (bucket 0)
         # Max over the rows: a padded-up remainder chunk rides a wave whose
         # bucket is set by its longest row; its own padded tail is inert.
@@ -490,6 +776,7 @@ class ExecPlane:
             if yt_pad is not None:
                 yt_pad[i, :it.length] = it.req.y_teacher[it.start:it.stop]
         slot_list = [self.table.sessions[it.sid].slot for it in prompts]
+        touched.update(slot_list)
         wave_method = method
         if wave_method == "auto" and self.params.mode == "diag":
             wave_method = dispatch.resolve_method(t_bucket, device=self.device,
@@ -521,7 +808,8 @@ class ExecPlane:
                                    "us": (time.perf_counter() - tb0) * 1e6})
         else:
             self._inflight_admit(self.cost_model.predict_us(bw, t_bucket)
-                                 if self.cost_model is not None else 1.0)
+                                 if self.cost_model is not None else 1.0,
+                                 touched, arena_before, base_event)
         self._record_wave(t_bucket, len(wave), len(fresh), capacity,
                           int(lengths.sum()), us)
         # Charge the decode deadlines with what this wave cost (measured
@@ -565,6 +853,7 @@ class ExecPlane:
         h0 = np.zeros(self.cfg.n, self._np_dtype) if h0 is None else h0
         y0 = np.zeros(self.cfg.d_out, self._np_dtype) if y0 is None else y0
         self.arena = arena_mod.place(self.arena, slot, h0, y0)
+        self._pipeline_taint([slot])
         self.table.slots[slot] = sid
         self.table.sessions[sid] = SessionStats(slot=slot)
         return slot
@@ -572,6 +861,14 @@ class ExecPlane:
     def release(self, sid: Hashable, *, drop: bool = False):
         """The one session-release body (see the facade docstring)."""
         self.scheduler.untrack_decode(sid)
+        if self.store is not None and sid in self.store:
+            decoded = self.collect_decoded(sid)
+            self.tracker.log_wave({"kind": "release", "sid": sid})
+            self.pop_learn(sid)
+            states, ys, _ = self.store.fetch_many([sid])
+            if drop:
+                return EvictResult(None, None, decoded)
+            return EvictResult(states[0], ys[0], decoded)
         if sid not in self.table.sessions:
             try:
                 req = self.scheduler.cancel(sid)
@@ -599,6 +896,9 @@ class ExecPlane:
             y = self.arena.y_prev[st.slot]
         self.table.slots[st.slot] = None
         self.arena = arena_mod.release(self.arena, st.slot)
+        # The freed slot may be re-placed outside the wave bookkeeping: the
+        # base can no longer vouch for it, but every other row is untouched.
+        self._pipeline_taint([st.slot])
         for req in self.scheduler:
             if req.u is None:
                 self.scheduler.cancel(req.sid)
@@ -608,8 +908,11 @@ class ExecPlane:
 
     def reset(self) -> None:
         self._drain_inflight()
+        self._pipeline_invalidate()
         self.arena = self._fresh_arena()
         self.table.clear()
+        if self.store is not None:
+            self.store.clear()
         self._chunk_outs.clear()
         self._decode_buf.clear()
         self._decode_meta.clear()
@@ -633,6 +936,9 @@ class ExecPlane:
         return st
 
     def state_of(self, sid: Hashable) -> np.ndarray:
+        if self.store is not None and sid in self.store:
+            # A read-only peek: inspecting a parked session never promotes.
+            return self.store.peek(sid)[0]
         return self.arena.states[self._active(sid).slot].cpu().numpy()
 
     # ---------------------------------------------------------------- decode
@@ -644,8 +950,9 @@ class ExecPlane:
     def decode_step(self, inputs: Dict[Hashable, "np.ndarray"]):
         """One batched open-loop token for the sessions in ``inputs``
         (sid -> (d_in,) input).  Returns sid -> (d_out,) host output."""
-        # Resolve every sid and validate every vector before mutating
-        # anything.
+        # Decoding a parked session promotes it; then resolve every sid and
+        # validate every vector before mutating anything.
+        self._ensure_hot(list(inputs))
         stats = {sid: self._active(sid) for sid in inputs}
         vecs = {sid: np.asarray(vec, self._np_dtype).reshape(self.cfg.d_in)
                 for sid, vec in inputs.items()}
@@ -662,7 +969,7 @@ class ExecPlane:
             return y
 
         y = self._dispatch_decode(launch, list(vecs), tokens=1, block=False,
-                                  kind="step")
+                                  kind="step", slots=slots)
         if self.readout is None:
             return {}
         y = y.cpu().numpy()
@@ -677,17 +984,20 @@ class ExecPlane:
         its next decode step drives from the truth.  Under
         ``ensemble="mean"`` every ready session's feedback row takes it (the
         fused prediction fed every stepped slot)."""
+        self._ensure_hot([sid])        # a parked sid promotes
         st = self._active(sid)
         st.last_use = self.table.tick()
         y = self._tensor(np.asarray(y_true, self._np_dtype)).reshape(
             self.cfg.d_out)
         if self.ensemble == "mean":
-            slots = self._tensor([self.table.sessions[s].slot
-                                  for s in self.table.ready])
+            ready = [self.table.sessions[s].slot for s in self.table.ready]
+            self._pipeline_taint(ready)
+            slots = self._tensor(ready)
             self.arena = dataclasses.replace(
                 self.arena, y_prev=self.arena.y_prev.index_put(
                     (slots,), y.expand(len(slots), -1)))
             return
+        self._pipeline_taint([st.slot])
         self.arena = arena_mod.force_output(self.arena, st.slot, y)
 
     def decode_closed_loop(self, n_steps: int, sids=None):
@@ -700,6 +1010,7 @@ class ExecPlane:
             raise ValueError("closed loop requires d_in == d_out")
         targets = list(dict.fromkeys(
             self.table.ready if sids is None else sids))
+        self._ensure_hot(targets)      # parked targets promote
         stats = {sid: self._active(sid) for sid in targets}  # validate first
         slots = self._take(targets, n_steps)
 
@@ -710,7 +1021,7 @@ class ExecPlane:
             return ys
 
         ys = self._dispatch_decode(launch, targets, tokens=n_steps,
-                                   block=False)
+                                   block=False, slots=slots)
         self.note_freerun(targets, n_steps)
         out = {sid: ys[:, stats[sid].slot] for sid in targets}
         for sid, arr in out.items():

@@ -874,3 +874,137 @@ def test_smollm_train_step_card_matches_cpu(dev):
     for k, w_ in g_cpu.items():
         d = float((g_gpu[k].cpu() - w_).abs().max())
         assert d <= 1e-4 * float(w_.abs().max()), k
+
+
+# ------------------------------------------------------------------ paging
+def _paged_model(n=64, seed=3):
+    cfg = ESNConfig(n=n, spectral_radius=0.9, leak=0.8, input_scaling=0.5,
+                    ridge_alpha=1e-8, seed=seed)
+    sig = mso_series(3, 1401)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
+    return p, esn.fit(p, sig[:-1, None], sig[1:, None], washout=50), sig
+
+
+def test_paging_stages_through_one_pinned_buffer(dev):
+    """On a card engine the page waves' one page-locked buffer is the exec
+    plane's staging rows (``max_slots`` of them); the store's pool stays
+    pageable numpy.  A demote and a promote through the staging rows move
+    a session's state bit for bit."""
+    p, ro, sig = _paged_model()
+    eng = ReservoirEngine(p, 2, readout=ro, park_host_rows=3, device=dev)
+    assert all(t.is_pinned() and t.shape[0] == 2 for t in eng._exec._stage)
+    assert type(eng.store.pool.states) is np.ndarray
+    for i in range(2):
+        eng.submit(f"s{i}", sig[40 * i:40 * i + 64, None])
+    eng.flush()
+    before = {s: eng.state_of(s) for s in ("s0", "s1")}
+    eng.submit("s2", sig[100:164, None])
+    eng.flush()
+    (sid,) = eng.parked_sessions
+    assert np.array_equal(eng.state_of(sid), before[sid])
+    eng._exec._ensure_hot([sid])               # the decode path's promote
+    assert sid not in eng.parked_sessions
+    assert np.array_equal(eng.state_of(sid), before[sid])
+    assert eng.stats().promote_waves == 1
+
+
+def test_paged_engine_on_card_bit_equal_to_unpaged(dev):
+    """A 4-slot paged engine serving 16 sessions through a 6-row pool and a
+    cold dir: its decoded tokens equal the caller-managed release /
+    resubmit workflow on an unpaged 4-slot engine on the card, bit for
+    bit, and its parked states the ones that workflow releases."""
+    import tempfile
+    p, ro, sig = _paged_model()
+    prompts = {f"s{i}": sig[40 + 9 * i:40 + 9 * i + 64, None]
+               for i in range(16)}
+    groups = [list(prompts)[i:i + 4] for i in range(0, 16, 4)]
+    eng = ReservoirEngine(p, 4, readout=ro, park_host_rows=6, device=dev,
+                          cold_dir=tempfile.mkdtemp(prefix="card_paged_"))
+    ref = ReservoirEngine(p, 4, readout=ro, device=dev)
+    for sid, u in prompts.items():
+        eng.submit(sid, u)
+    eng.flush()
+    assert {eng.store.tier_of(s) for s in eng.store.sids} == {"host", "cold"}
+    parked = {}
+    for grp in groups:
+        for sid in grp:
+            ref.submit(sid, prompts[sid])
+        ref.flush()
+        for sid in grp:
+            parked[sid] = tuple(ref.release(sid))
+    for sid in eng.parked_sessions:
+        assert np.array_equal(eng.state_of(sid), parked[sid][0].cpu().numpy())
+    for _ in range(2):
+        for grp in groups:
+            got = eng.decode_closed_loop(8, sids=grp)
+            for sid in grp:
+                ref.submit(sid, h0=parked[sid][0], y0=parked[sid][1])
+            ref.flush()
+            want = ref.decode_closed_loop(8, sids=grp)
+            for sid in grp:
+                assert torch.equal(got[sid], want[sid])
+                parked[sid] = tuple(ref.release(sid))
+    st = eng.stats()
+    assert st.promote_waves > 0 and st.demote_waves > 0
+
+
+def test_overlap_demote_fast_path_on_card_bit_equal_to_sync(dev):
+    """The overlap churn on the card (32 slots, 64 pool rows, a cold dir,
+    16 rounds of 8 fresh prompts): the pipelined engine takes the side-
+    stream fast path and its tokens and states equal the synchronous
+    engine's, bit for bit."""
+    import tempfile
+    p, ro, sig = _paged_model()
+    prompts = [sig[20 * i:20 * i + 64, None] for i in range(24)]
+    outs = {}
+    for depth in (2, 0):
+        eng = ReservoirEngine(p, 32, readout=ro, park_host_rows=64,
+                              pipeline_depth=depth, device=dev,
+                              cold_dir=tempfile.mkdtemp(prefix="card_ov_"))
+        toks = {}
+        for r in range(16):
+            for i in range(8):
+                eng.submit((r, i), prompts[(r * 8 + i) % 24])
+            eng.flush()
+            if r % 4 == 3:
+                eng.decode_closed_loop(4, sids=[(r, i) for i in range(8)])
+                toks.update(eng.collect_decoded().tokens)
+        states = {(r, i): eng.state_of((r, i)) for r in range(16)
+                  for i in range(8)}
+        outs[depth] = (toks, states, eng.stats())
+    (ta, sa, st), (tb, sb, _) = outs[2], outs[0]
+    assert st.overlap_demotes > 0
+    assert ta.keys() == tb.keys()
+    for sid in ta:
+        assert torch.equal(ta[sid], tb[sid])
+    for sid in sa:
+        assert np.array_equal(sa[sid], sb[sid])
+
+
+def test_cpu_snapshot_restores_on_card(dev):
+    """An engine snapshotted on the CPU mid-workload (hot and parked
+    sessions in both tiers, a queued prompt, uncollected tokens) restores
+    on the card and continues to match the CPU continuation."""
+    import tempfile
+    p, ro, sig = _paged_model()
+    cpu = ReservoirEngine(p, 3, readout=ro, park_host_rows=4, device="cpu",
+                          cold_dir=tempfile.mkdtemp(prefix="card_snap_"))
+    sids = [f"s{i}" for i in range(10)]
+    for i, sid in enumerate(sids):
+        cpu.submit(sid, sig[50 + 9 * i:66 + 9 * i, None])
+    cpu.flush()
+    for sid in sids[:4]:
+        cpu.decode_closed_loop(2, sids=[sid])
+    cpu.submit("queued", sig[300:316, None])
+    path = cpu.snapshot(tempfile.mkdtemp(prefix="card_snap_") + "/engine")
+    card = ReservoirEngine.restore(path, device=dev)
+    assert card.states.device.type == "cuda"
+    assert set(card.parked_sessions) == set(cpu.parked_sessions)
+    a, b = cpu.collect_decoded(), card.collect_decoded()
+    for sid in a.tokens:
+        _close(b.tokens[sid], a.tokens[sid])
+    for e in (cpu, card):
+        e.flush()
+    for sid in sids + ["queued"]:
+        _close(card.decode_closed_loop(3, sids=[sid])[sid],
+               cpu.decode_closed_loop(3, sids=[sid])[sid])

@@ -163,8 +163,7 @@ def test_engine_stats_and_collect():
 
 #: Still unported -> the ROADMAP item its error names; every other option
 #: of the list below is ported and builds an engine.
-_UNPORTED = {"mesh": "A11", "park_host_rows": "A8", "cold_dir": "A8",
-             "learn": "A9"}
+_UNPORTED = {"mesh": "A11", "learn": "A9"}
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(autotune=True),
@@ -177,7 +176,8 @@ _UNPORTED = {"mesh": "A11", "park_host_rows": "A8", "cold_dir": "A8",
 def test_unported_options_name_their_roadmap_item(kw):
     """Options of later slices raise naming their ROADMAP item; the ported
     ones build (``ensemble`` on a non-batched engine is refused as the JAX
-    engine refuses it)."""
+    engine refuses it, and so is ``cold_dir`` without ``park_host_rows``;
+    ``park_host_rows`` builds a store and a cost model)."""
     _, _, tp, tr = _models("dpg")
     (name, value), = kw.items()
     if name in _UNPORTED:
@@ -187,9 +187,16 @@ def test_unported_options_name_their_roadmap_item(kw):
     elif name == "ensemble":
         with pytest.raises(ValueError, match="param-batched"):
             ReservoirEngine(tp, 2, readout=tr, device="cpu", **kw)
+    elif name == "cold_dir":
+        with pytest.raises(ValueError, match="cold_dir needs park_host_rows"):
+            ReservoirEngine(tp, 2, readout=tr, device="cpu", **kw)
     else:
         eng = ReservoirEngine(tp, 2, readout=tr, device="cpu", **kw)
         assert eng.cost_model is not None or name == "profile_dir"
+        assert (eng.store is not None) == (name == "park_host_rows")
+        if eng.store is not None:
+            assert eng.store.pool.rows == 4
+            assert eng.cost_model.key == ("cpu", 48, 1)
 
 
 def test_from_param_batch_not_ported():
@@ -210,7 +217,7 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
                        "--device", "cpu"])
     assert res["sessions"] == 3 and res["finite"]
     assert res["prefill_tokens"] == 120 and res["decode_tokens"] == 12
-    for flag in (["--park-host-rows", "4"], ["--learn"]):
+    for flag in (["--refit-every", "4"], ["--learn"]):
         with pytest.raises(SystemExit, match="not ported yet: ROADMAP A"):
             tserve.main(["--reservoir", "--device", "cpu", *flag])
     # Without --reservoir the LM loop runs (its default arch,
@@ -219,3 +226,31 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
                                        "--device", "cpu"]):
         with pytest.raises(SystemExit, match="not ported yet: ROADMAP A12"):
             tserve.main(argv)
+
+
+def test_paged_serve_driver_on_cpu_restores_its_snapshot(tmp_path):
+    """The driver with the tiered store: 7 sessions through 2 hot slots, 2
+    host rows and a cold dir, the engine snapshotted at the end; the
+    snapshot restores and serves on."""
+    snap = str(tmp_path / "engine")
+    res = tserve.main(["--reservoir", "--n", "32", "--slots", "2",
+                       "--sessions", "7", "--prompt-len", "40", "--gen", "4",
+                       "--park-host-rows", "2",
+                       "--cold-dir", str(tmp_path / "cold"),
+                       "--snapshot", snap, "--device", "cpu"])
+    assert res["sessions"] == 7 and res["finite"]
+    assert res["tiers_after_admission"]["host"] == 2
+    assert res["tiers_after_admission"]["cold"] == 3
+    assert res["demote_waves"] == res["promote_waves"] == 3
+    assert res["page_rows"] == 10 and res["snapshot"] == snap
+    eng = ReservoirEngine.restore(snap, device="cpu")
+    assert eng.store.epoch == 1 and eng.store.pool.rows == 2
+    eng.submit("late", SIG[:40, None])
+    eng.flush()
+    assert np.isfinite(_np(eng.decode_closed_loop(4)["late"])).all()
+    with pytest.raises(SystemExit, match="cold_dir needs park_host_rows"):
+        tserve.main(["--reservoir", "--device", "cpu", "--cold-dir", "x"])
+    with pytest.raises(SystemExit, match="param-batched engine"):
+        tserve.main(["--reservoir", "--device", "cpu", "--n", "32",
+                     "--slots", "2", "--ensemble", "mean",
+                     "--park-host-rows", "2"])
