@@ -13,7 +13,7 @@ with one row of coefficients a reservoir; the fused decode through both of
 its entries (split lanes, the engine's packed layout), with a sweep of its
 warps a row at five shapes, its mean route with per-slot operands, and the
 engine's call shown to be one launch — and fails if a decode instantiation
-spills; then drives the port's nine main paths on the card, each with the
+spills; then drives the port's ten main paths on the card, each with the
 launch counts set to 0 just before it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
@@ -66,7 +66,21 @@ launch counts set to 0 just before it and read just after:
    rows) bit-equal between ``pipeline_depth`` 2 and 0, its overlap demotes
    on the side stream and a profiler window of them; and a snapshot of an
    engine mid-workload restored on the card bit for bit, and one written
-   on the CPU restored on the card against the CPU.
+   on the CPU restored on the card against the CPU;
+10. learn-while-serving: ``repro_torch.launch.serve --reservoir --learn
+   --refit-every 64`` at the serving profile (a 1024-token prompt, 2048
+   teacher tokens, 32 refit waves; its stream RMSE must not rise, its
+   served errors and last readout's predictions held against the CPU's to
+   1e-7 of max|y|), again with ``--drift-threshold`` so DPG members grow
+   and vote, and the teacher loop's µs a token with learning on and off;
+   tenant readout pools through B2 (8 sessions in tenants A and B, A
+   refit, one closed-loop launch with the per-slot pool: B bit for bit
+   against a twin that never refit A, the whole loop against a CPU engine
+   serving the card's pool readouts); the facade-parity replay on the card
+   (``tests/torch_facade_parity_workload.py``, 31 arrays to 1e-5: North
+   star criterion 3); and a learn snapshot (dirty sessions, an active
+   pool) restored on the card bit for bit, one written on the CPU against
+   the CPU.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -628,11 +642,15 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
     nbytes, flops, cflops = decode_cost(args, mask, k)
     row.update(bound(nbytes, flops, "float64", copy_bw,
                      contract_flops=cflops))
-    mean = kernel_calls(lambda: ops.decode_fused(*args, mask, k=k,
-                                                 ensemble="mean"))
+    def shared_mean():
+        return ops.decode_fused(*args, mask, k=k, ensemble="mean")
+    mean = kernel_calls(shared_mean)
     row["mean_route"] = {"warps": dsk.decode_layout(
         b, nc, d, 8, ensemble="mean").warps, **mean,
-        "us_per_step": mean["device_ms"] * 1e3 / k}
+        "us_per_step": mean["device_ms"] * 1e3 / k,
+        "ms": time_ms(shared_mean, reps=50),
+        "plain_ms": time_ms(lambda: ref.decode_fused_ref(
+            *args, mask, k=k, ensemble="mean"), reps=2, warmup=1)}
     # The mean route with per-slot lambda / wd / w_out (one shared-memory
     # copy of the lane operands a row): the ensemble engine's call.
     bargs = decode_inputs(b, nc, d, True)
@@ -707,7 +725,48 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
                      contract_flops=k * live * 8 * pnc))
     eng["host_us"], eng["host_us_median"] = host_us(engine_call)
     eng["host_us_torch_add"] = host_us(lambda: torch.add(y_prev, y_prev))[0]
+    eng["ms"] = time_ms(engine_call, reps=50)
+    eng["plain_ms"] = time_ms(lambda: ref.decode_fused_packed_ref(
+        p.lam_q, p.n_real, p.win_q, w_out, states, y_prev, mask, k=k,
+        use_bias=True, use_feedback=False), reps=2, warmup=1)
     row["run_decode_fused"] = eng
+    # The tenant pool's operand mix (slice 9): shared lam_q and w_drive, a
+    # per-slot (8, 1025, 1) w_out.  Against the plain version, each row bit
+    # for bit against a launch serving that row's readout to every row.
+    pool = torch.stack([w_out * (1.0 + 0.1 * r) for r in range(b)])
+
+    def pool_call():
+        return dispatch.run_decode_fused(p.lam_q, p.n_real, p.win_q, pool,
+                                         states, y_prev, mask, k,
+                                         use_bias=True, use_feedback=False)
+    got = pool_call()
+    want = ref.decode_fused_packed_ref(p.lam_q, p.n_real, p.win_q, pool,
+                                       states, y_prev, mask, k=k,
+                                       use_bias=True, use_feedback=False)
+    perrs = [max_err(g_, w_) for g_, w_ in zip(got, want)]
+    for e, t in perrs:
+        if e > t:
+            fail(f"decode_fused with a per-slot w_out: {e:.3e} > {t:.3e}")
+    for r in range(b):
+        one = dispatch.run_decode_fused(p.lam_q, p.n_real, p.win_q,
+                                        pool[r].contiguous(), states, y_prev,
+                                        mask, k, use_bias=True,
+                                        use_feedback=False)
+        if any(not torch.equal(o[..., r, :] if o.ndim == 3 else o[r],
+                               g_[..., r, :] if g_.ndim == 3 else g_[r])
+               for o, g_ in zip(one, got)):
+            fail(f"decode_fused row {r} with the per-slot pool differs from "
+                 f"its shared-readout launch")
+    prow = {"shape": [b, pnc, d, k], "w_out": [b, 1 + n, d],
+            **worst_of(perrs), "rows_vs_shared_launch": "bit-equal",
+            "ms": time_ms(pool_call, reps=50), **kernel_calls(pool_call),
+            "plain_ms": time_ms(lambda: ref.decode_fused_packed_ref(
+                p.lam_q, p.n_real, p.win_q, pool, states, y_prev, mask, k=k,
+                use_bias=True, use_feedback=False), reps=2, warmup=1)}
+    prow.update(bound(nbytes + 8 * (b - 1) * w_out.numel(),
+                      k * live * (8 * pnc + 1), "float64", copy_bw,
+                      contract_flops=k * live * 8 * pnc))
+    row["tenant_pool"] = prow
     print(json.dumps({"decode_fused_main": row}), flush=True)
     return rows
 
@@ -1741,6 +1800,293 @@ def snapshot_path(esn, ESNConfig, mso_series, ReservoirEngine):
             "epoch_after_restore": restored.store.epoch}
 
 
+LEARN_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--prompt-len",
+              "1024", "--gen", "1537", "--learn", "--refit-every", "64"]
+#: ``--gen 1537`` sizes the driver's signal (prompt + gen + 512 steps) so
+#: 2048 teacher tokens (the demo's min(16 gen, what the signal holds)) fit
+#: after the 1024-token prompt: 32 refit waves of 64 tokens.
+LEARN_TOKENS = 2048
+#: A drift threshold below any stream RMSE here: every refit grows a member
+#: until the cap (``growth_max_members=3``).
+GROWTH_ARGS = LEARN_ARGS + ["--drift-threshold", "1e-12"]
+#: Readout predictions on the card against the CPU's, of max |y| (cond(G)
+#: ~1e20 at n = 1024: fitted weights part by percents, predictions do not).
+PRED_TOL = 1e-7
+
+
+def pred_err(got, want, scale, name):
+    """Fail unless ``got`` (predictions) is within ``PRED_TOL * scale`` of
+    ``want``; returns the error over the scale."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.isfinite(got).all():
+        fail(f"{name}: not finite")
+    err = float(np.abs(got - want).max()) / scale
+    if err > PRED_TOL:
+        fail(f"{name}: max|d| / max|y| = {err:.3e} > {PRED_TOL:.0e}")
+    return err
+
+
+def learn_driver_path(serve, esn, ESNConfig, drive):
+    """Path 10a: the ``--learn`` driver on the card and on the CPU (the same
+    argv), then with DPG growth on the card.  The served errors of every
+    token (each refit wave's readout serves the next 64) and the last
+    readout's predictions on the teacher rows, card against CPU."""
+    import torch
+    card = drive("serve_learn", lambda: serve.main(LEARN_ARGS),
+                 ("diag_scan",))
+    cpu = serve.main(LEARN_ARGS + ["--device", "cpu"])
+    for res in (card, cpu):
+        if (not res["finite"] or res["teacher_tokens"] != LEARN_TOKENS
+                or res["refit_waves"] != 32 or res["refit_rows"] != 32):
+            fail(f"learn driver: {dict((k, res[k]) for k in keys_of(res, LEARN_KEEP))}")
+        if not res["rmse_second_half"] <= res["rmse_first_half"]:
+            fail(f"learn driver: stream RMSE rose from "
+                 f"{res['rmse_first_half']:.3e} to "
+                 f"{res['rmse_second_half']:.3e}")
+    cfg = serving_profile(ESNConfig)
+    from repro_torch.data.signals import mso_series
+    p_len = 1024
+    sig = mso_series(3, p_len + 1537 + 512 + 1)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
+    x = esn.features(p, esn.run(p, sig[:p_len + LEARN_TOKENS, None]))
+    x = x[p_len:]
+    y_max = float(np.abs(sig).max())
+    # Each refit wave's readout against the CPU's, by its predictions on
+    # the teacher rows it was fit on.  Out of sample the two part: the
+    # early waves fit 64k rows of 1025 features (cond(G) past 1e20), and
+    # the served errors of each device's own base fit part too (recorded).
+    every = int(LEARN_ARGS[LEARN_ARGS.index("--refit-every") + 1])
+    waves = [pred_err(x[:every * (i + 1)] @ wc.cpu(), x[:every * (i + 1)]
+                      @ wp, y_max, f"learn driver refit wave {i}")
+             for i, (wc, wp) in enumerate(zip(card["refit_readouts"],
+                                              cpu["refit_readouts"]))]
+    half = LEARN_TOKENS // 2
+    errs = {"refit_predictions_worst_wave": max(waves),
+            "refit_predictions_last_wave": waves[-1],
+            "served_errors_first_half": float(np.abs(
+                card["errors"][:half] - cpu["errors"][:half]).max()) / y_max,
+            "served_errors_second_half": float(np.abs(
+                card["errors"][half:] - cpu["errors"][half:]).max()) / y_max}
+    growth = drive("serve_learn_growth", lambda: serve.main(GROWTH_ARGS),
+                   ("diag_scan",))
+    if not (1 <= growth["growth_events"] <= 3) or not growth["finite"]:
+        fail(f"learn driver with --drift-threshold: growth "
+             f"{growth['growth_events']}, finite {growth['finite']}")
+    keep = LEARN_KEEP
+    torch.cuda.synchronize()
+    return {"card": {k: card[k] for k in keys_of(card, keep)},
+            "cpu": {k: cpu[k] for k in keys_of(cpu, keep)},
+            "refit_us_per_wave": card["refit_ms"] * 1e3 / card["refit_waves"],
+            "card_vs_cpu_over_max_y": errs,
+            "growth": {k: growth[k] for k in keys_of(growth, keep)},
+            "growth_extra_us_per_token": growth["us_per_token"]
+            - card["us_per_token"]}
+
+
+LEARN_KEEP = ("teacher_tokens", "rmse_first_half", "rmse_second_half",
+              "refit_waves", "refit_rows", "refit_ms", "drift_rmse",
+              "growth_events", "wall_s", "us_per_token", "finite")
+
+
+def keys_of(res, keep):
+    return [k for k in keep if k in res]
+
+
+def teacher_loop_us(p, ro, sig, ReservoirEngine, learn, tokens=512):
+    """µs of host wall a teacher token (``decode_step`` + ``observe``, no
+    refit) for one session on an 8-slot card engine, learning on or off,
+    after 64 warm-up tokens."""
+    import torch
+    eng = ReservoirEngine(p, 8, readout=ro, learn=learn, device="cuda")
+    eng.submit("s", sig[:1024, None])
+    eng.flush()
+    t0 = None
+    for t in range(1024, 1024 + 64 + tokens):
+        if t == 1024 + 64:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        eng.decode_step({"s": sig[t, None]})
+        eng.observe("s", sig[t + 1, None])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / tokens * 1e6
+
+
+def fold_us(eng, rows=64, reps=20):
+    """µs of one refit fold of ``rows`` buffered teacher rows on the card
+    (one upload, the λ-weighted batched Gram), median of ``reps``."""
+    import torch
+    from repro_torch.serve.learn import _GramAcc
+    ln, n = eng._learn_plane, eng.cfg.n
+    rng = np.random.default_rng(0)
+    h = list(rng.normal(size=(rows, n)))
+    y = list(rng.normal(size=(rows, 1)))
+    times = []
+    for _ in range(reps + 1):
+        acc = _GramAcc(buf_h=list(h), buf_fb=[None] * rows, buf_y=list(y))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ln._fold_acc(acc, eng.params)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(times[1:]))
+
+
+def tenant_engine(p, ro, sig, ReservoirEngine, device, refit_a):
+    """8 slots, 8 sessions of 1024-token prompts (one prefill wave), tenants
+    A (sessions 0-3) and B (4-7); 256 teacher tokens each; with
+    ``refit_a`` a refit of A's sessions.  Returns the engine."""
+    eng = ReservoirEngine(p, 8, readout=ro, learn=True, device=device)
+    starts = [37 * i for i in range(8)]
+    for i, lo in enumerate(starts):
+        eng.submit(i, sig[lo:lo + 1024, None], tenant="A" if i < 4 else "B")
+    eng.flush()
+    for t in range(1024, 1024 + 256):
+        eng.decode_step({i: sig[lo + t, None]
+                         for i, lo in enumerate(starts)})
+        for i, lo in enumerate(starts):
+            eng.observe(i, sig[lo + t + 1, None])
+    if refit_a:
+        for i in range(4):
+            if set(eng.refit(i)) != {i}:
+                fail(f"refit({i}) re-solved other sessions")
+    return eng
+
+
+def tenant_pool_path(esn, ESNConfig, mso_series, ReservoirEngine, drive,
+                     launches):
+    """Path 10b: tenant pools through B2 at the serving profile.  B's 128
+    closed-loop tokens and next ``decode_step`` bit for bit against a twin
+    that never refit A; the card's closed loop against a CPU engine given
+    the card's states and pool readouts (1e-9 elementwise); launches B1 1
+    (the prefill wave) and B2 1 (the closed loop).  Then refit µs of one
+    8-row wave and the fold's µs."""
+    import torch
+    p, ro, sig = served_model(esn, ESNConfig, mso_series)
+    twin = tenant_engine(p, ro, sig, ReservoirEngine, "cuda", False)
+    twin_loop = twin.decode_closed_loop(128)
+    twin_step = twin.decode_step({i: sig[2000, None] for i in range(8)})
+
+    def run():
+        eng = tenant_engine(p, ro, sig, ReservoirEngine, "cuda", True)
+        seed = {i: (eng.state_of(i), eng.y_prev[eng.sessions[i].slot].cpu(),
+                    eng.sessions[i].slot) for i in range(8)}
+        return eng, seed, eng.decode_closed_loop(128)
+    eng, seed, loop = drive("tenant_pools", run,
+                            ("diag_scan", "decode_fused"))
+    got = launches["tenant_pools"]
+    if (got["diag_scan"], got["decode_fused"]) != (1, 1):
+        fail(f"tenant pools launched B1 {got['diag_scan']} / B2 "
+             f"{got['decode_fused']} times, expected 1 / 1")
+    if eng._exec._slot_w is None or eng._exec._slot_w.shape != (8, 1025, 1):
+        fail("the tenant pool is not the (8, 1025, 1) per-slot readout")
+    step = eng.decode_step({i: sig[2000, None] for i in range(8)})
+    for i in range(4, 8):
+        if not torch.equal(loop[i], twin_loop[i]) or not np.array_equal(
+                step[i], twin_step[i]):
+            fail(f"tenant B session {i} moved when tenant A was refit")
+    cpu = ReservoirEngine(p, 8, readout=ro, device="cpu")
+    for i, (h, y0, slot) in seed.items():
+        cpu.submit(i, h0=h, y0=y0, slot=slot, tenant="A" if i < 4 else "B")
+    cpu.set_readout("A", eng.readout_for(0).cpu())
+    want = cpu.decode_closed_loop(128)
+    worst = max(traj_err(loop[i], want[i], f"tenant pool loop {i}")
+                ["max_rel_err"] for i in range(8))
+    st0 = twin.stats()
+    twin.refit()                       # all 8 dirty: one 8-row wave
+    st = twin.stats()
+    if st.refit_rows_total - st0.refit_rows_total != 8:
+        fail("the 8-session refit was not one 8-row wave")
+    return {"b_vs_twin": "bit-equal (128 closed-loop tokens, 1 step)",
+            "loop_vs_cpu_max_rel_err": worst,
+            "refit_us_1_row_waves": (eng.stats().refit_us_sum / 4),
+            "refit_us_8_rows": st.refit_us_sum - st0.refit_us_sum,
+            "fold_us_64_rows": fold_us(twin)}
+
+
+def facade_replay_path(drive):
+    """Path 10c: the facade-parity workload through the card engine, all
+    31 reference arrays to 1e-5 with equal NaN patterns."""
+    tests = Path(__file__).resolve().parent / "tests"
+    sys.path.insert(0, str(tests))
+    import torch_facade_parity_workload as workload
+    ref_arrays = np.load(workload.REF_PATH)
+    t0 = time.perf_counter()
+    got = drive("facade_replay", lambda: workload.run_workload("cuda"),
+                ("diag_scan", "decode_fused"))
+    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        worst = workload.compare(got, ref_arrays, atol=1e-5)
+    except AssertionError as e:
+        fail(f"facade replay on the card: {e}")
+    return {"arrays": len(ref_arrays.files), "max_abs_err": worst,
+            "tol": 1e-5, "wall_ms": wall}
+
+
+def learn_snapshot_path(esn, ESNConfig, mso_series, ReservoirEngine):
+    """Path 10d: a card engine mid-stream (3 learning sessions, tenant A
+    refit so the pool is live, B dirty) snapshotted and restored on the
+    card; both continue 64 teacher tokens and a refit, bit for bit.  Then
+    the same written on the CPU and restored on the card: the teacher
+    tokens' outputs against the CPU (1e-9 elementwise), the refit readouts
+    by their predictions on the buffered rows (``PRED_TOL`` of max|y|)."""
+    import torch
+    p, ro, sig = served_model(esn, ESNConfig, mso_series)
+    sids = ("a0", "a1", "b0")
+
+    def build(device):
+        eng = ReservoirEngine(p, 3, readout=ro, learn=True, device=device)
+        for i, sid in enumerate(sids):
+            eng.submit(sid, sig[50 * i:50 * i + 256, None],
+                       tenant=sid[0].upper())
+        eng.flush()
+        for t in range(256, 320):
+            eng.decode_step({s: sig[50 * i + t, None]
+                             for i, s in enumerate(sids)})
+            for i, s in enumerate(sids):
+                eng.observe(s, sig[50 * i + t + 1, None])
+        eng.refit("a0")
+        return eng
+
+    def resume(eng):
+        outs = []
+        for t in range(320, 384):
+            got = eng.decode_step({s: sig[50 * i + t, None]
+                                   for i, s in enumerate(sids)})
+            outs.append(torch.as_tensor(np.stack([got[s] for s in sids])))
+            for i, s in enumerate(sids):
+                eng.observe(s, sig[50 * i + t + 1, None])
+        ln = eng._learn_plane
+        rows = {s: np.stack(ln.state[s].acc.buf_h) for s in sids}
+        w = eng.refit()
+        return torch.stack(outs), {s: w[s].cpu() for s in w}, rows
+
+    card = build("cuda")
+    if card._exec._slot_w is None or not card.stats().sessions_dirty:
+        fail("learn snapshot: the pool is not live or no session is dirty")
+    t0 = time.perf_counter()
+    path = card.snapshot(fresh_dir("learn_snap_card") + "/engine")
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    restored = ReservoirEngine.restore(path, device="cuda")
+    (oa, wa, _), (ob, wb, _) = resume(card), resume(restored)
+    if not torch.equal(oa, ob) or wa.keys() != wb.keys() or any(
+            not torch.equal(wa[s], wb[s]) for s in wa):
+        fail("restored learn engine differs from the engine written from")
+    cpu = build("cpu")
+    from_cpu = ReservoirEngine.restore(
+        cpu.snapshot(fresh_dir("learn_snap_cpu") + "/engine"), device="cuda")
+    (oc, wc, rows), (od, wd, _) = resume(cpu), resume(from_cpu)
+    err = traj_err(od, oc, "CPU learn snapshot on the card")
+    y_max = float(np.abs(sig).max())
+    pred = 0.0
+    for s in wc:
+        x = np.concatenate([np.ones((len(rows[s]), 1)), rows[s]], 1)
+        pred = max(pred, pred_err(x @ wd[s].numpy(), x @ wc[s].numpy(),
+                                  y_max, f"learn snapshot refit {s}"))
+    return {"snapshot_ms": snap_ms, "card_restore": "bit-equal",
+            "cpu_snapshot_on_card_max_rel_err": err["max_rel_err"],
+            "cpu_snapshot_refit_predictions_over_max_y": pred}
+
+
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
     (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
@@ -2059,7 +2405,31 @@ def main() -> None:
     print(json.dumps({"snapshot_restore": snapshot_path(
         esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
 
-    phase("18 summary")
+    phase("18 main path 10: repro_torch.launch.serve " + " ".join(LEARN_ARGS)
+          + " (and --drift-threshold); tenant pools through B2; the facade "
+          "replay; a learn snapshot")
+    print(json.dumps({"learn_driver": learn_driver_path(
+        serve, esn, ESNConfig, drive),
+        "launches": {k: launches[k] for k in ("serve_learn",
+                                              "serve_learn_growth")}}),
+        flush=True)
+    p, ro, sig = served_model(esn, ESNConfig, mso_series)
+    turns = [(learn, teacher_loop_us(p, ro, sig, ReservoirEngine, learn))
+             for learn in (True, False, False, True)]
+    print(json.dumps({"teacher_loop_us_per_token": {
+        "learn_on": [us for learn, us in turns if learn],
+        "learn_off": [us for learn, us in turns if not learn],
+        "turns": "on, off, off, on", "torch_add_us": torch_add_us()}}),
+        flush=True)
+    print(json.dumps({"tenant_pools": tenant_pool_path(
+        esn, ESNConfig, mso_series, ReservoirEngine, drive, launches),
+        "launches": launches["tenant_pools"]}), flush=True)
+    print(json.dumps({"facade_replay": facade_replay_path(drive),
+                      "launches": launches["facade_replay"]}), flush=True)
+    print(json.dumps({"learn_snapshot": learn_snapshot_path(
+        esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
+
+    phase("19 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
@@ -2124,7 +2494,7 @@ def main() -> None:
              **{k: dec[k] for k in keys + (
                  "device_ms", "cuda_launches_per_call", "us_per_step",
                  "warps", "per", "mean_route", "mean_per_slot",
-                 "run_decode_fused", "shapes")},
+                 "run_decode_fused", "tenant_pool", "shapes")},
              library_ms=None),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]

@@ -26,15 +26,19 @@ def gram(x, y):
 
 def gram_streaming(x, y, chunk: int = 4096):
     """(G, C) accumulated over time chunks of ``chunk`` rows, so the peak
-    memory is O(chunk * N') — the shape a sharded data pipeline feeds."""
-    t, n, d = x.shape[0], x.shape[1], y.shape[1]
+    memory is O(chunk * N') — the shape a sharded data pipeline feeds.
+    x: (..., T, N'), y: (..., T, D_out); leading axes are a batch of
+    independent streams (one batched product each chunk)."""
+    t, n, d = x.shape[-2], x.shape[-1], y.shape[-1]
+    lead = tuple(x.shape[:-2])
     dtype = torch.promote_types(x.dtype, y.dtype)
-    g = x.new_zeros((n, n), dtype=dtype)
-    c = x.new_zeros((n, d), dtype=dtype)
+    g = x.new_zeros(lead + (n, n), dtype=dtype)
+    c = x.new_zeros(lead + (n, d), dtype=dtype)
     for lo in range(0, t, chunk):
-        xi, yi = x[lo:lo + chunk], y[lo:lo + chunk]
-        g = g + xi.T @ xi
-        c = c + xi.T @ yi
+        xi, yi = x[..., lo:lo + chunk, :], y[..., lo:lo + chunk, :]
+        xt = xi.transpose(-1, -2)
+        g = g + xt @ xi
+        c = c + xt @ yi
     return g, c
 
 

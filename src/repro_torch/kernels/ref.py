@@ -245,11 +245,14 @@ def diag_scan_lanes_bwd_chunked_ref(a_re, a_im, h_re, h_im, g_re, g_im,
 
 
 def _mm(v, w):
-    """Row-batch times (possibly slot-batched) weight: (B, F) @ (F, G) for
-    shared weights, per-row contraction for a (B, F, G) stacked batch."""
+    """Row-batch times weight, row by row: row b of ``v`` (B, F) with the
+    shared (F, G) weight or with slot b's of a (B, F, G) stack — the same
+    products summed over F in one order either way, so a row's result does
+    not depend on whether its weight is shared or stacked (the serving
+    arena's readout contraction, ``serve.arena.apply_readout``)."""
     if w.ndim == 2:
-        return v @ w
-    return torch.einsum("bf,bfg->bg", v, w)
+        w = w.expand((v.shape[0],) + tuple(w.shape))
+    return (v.unsqueeze(-1) * w).contiguous().sum(-2)
 
 
 def live_mask(mask, dtype):

@@ -29,6 +29,17 @@ promotes it; ``--snapshot PATH`` serializes the engine at the end
         --n 1024 --slots 8 --sessions 32 --prompt-len 1024 --gen 128 \\
         --park-host-rows 16 --cold-dir /tmp/cold --snapshot /tmp/engine
 
+``--learn`` serves one live session (tenant ``live``) that learns while it
+serves: ``--gen`` x 16 teacher tokens (at most the signal's training span)
+of ``decode_step`` + ``observe``, each accumulating the session's
+eigenbasis ``(G, C)``, with a ``flush(refit=True)`` refit wave every
+``--refit-every`` tokens (``--refit-decay`` fades old rows,
+``--drift-threshold`` grows DPG members on drift):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reservoir \\
+        --n 1024 --slots 8 --prompt-len 1024 --gen 128 --learn \\
+        --refit-every 64
+
 The LM loop (without ``--reservoir``) prefills random prompts token by
 token and decodes greedily (or samples at ``--temperature``) through the
 decode caches (KV caches for attention layers, ring buffers for windowed
@@ -47,8 +58,8 @@ sequence (teacher forcing), which is how a bfloat16 run on the card is held
 against the CPU.  Other archs exit naming ROADMAP A12.
 
 ``--device cpu`` runs either loop on the host with the plain PyTorch
-versions of the kernels.  Reservoir flags of the JAX driver whose planes are
-not ported yet (learning, a mesh) exit with a message naming the ROADMAP
+versions of the kernels.  The reservoir flag of the JAX driver whose plane
+is not ported yet (``--mesh``) exits with a message naming the ROADMAP
 item.
 """
 from __future__ import annotations
@@ -71,10 +82,6 @@ from ..serve.engine import ReservoirEngine
 
 #: Flags of the JAX driver that later slices port -> the ROADMAP item.
 _NOT_PORTED = {
-    "learn": "A9 (serve/learn.py learn-while-serving)",
-    "refit_every": "A9 (serve/learn.py learn-while-serving)",
-    "refit_decay": "A9 (serve/learn.py learn-while-serving)",
-    "drift_threshold": "A9 (serve/learn.py learn-while-serving)",
     "mesh": "A11 (sharded arena)",
 }
 
@@ -145,6 +152,13 @@ def build_engine(args):
         print(f"decode-aware planning: SLO {args.decode_slo:.0f} us of "
               f"predicted prefill cost between decode waves "
               f"({args.decode_wave_tokens} tok per fused decode wave)")
+    if args.learn and args.ensemble:
+        raise SystemExit("--learn needs the non-ensemble engine (streaming "
+                         "refit owns the readout pool; DPG growth builds "
+                         "per-session ensembles on drift instead)")
+    if args.learn:
+        kw.update(learn=True, refit_decay=args.refit_decay,
+                  drift_threshold=args.drift_threshold)
     if not args.ensemble:
         params = esn_fn.dpg_params(cfg, "noisy_golden", sigma=0.1,
                                    device=device)
@@ -352,13 +366,67 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
     return res
 
 
+def serve_learn(engine, args, sig, train_t: int) -> dict:
+    """Learn-while-serving: one live session (tenant ``live``) prefills
+    ``--prompt-len`` tokens, then streams teacher tokens open-loop — each
+    ``decode_step`` + ``observe`` accumulates its streaming ``(G, C)`` —
+    with a ``flush(refit=True)`` refit wave every ``--refit-every`` tokens.
+    Returns the stream RMSE of both halves, the refit and growth counters,
+    the drift RMSE, the per-token errors and the live readout after each
+    refit wave."""
+    p_len = args.prompt_len
+    tokens = min(args.gen * 16, train_t - p_len - 1)
+    engine.submit("live", sig[:p_len, None], tenant="live")
+    engine.flush()
+    errs, readouts = [], []
+    _sync(engine.device)
+    t0 = time.perf_counter()
+    for t in range(p_len, p_len + tokens):
+        out = engine.decode_step({"live": sig[t, None]})
+        errs.append(float(out["live"][0]) - float(sig[t + 1]))
+        engine.observe("live", sig[t + 1, None])
+        if (t - p_len + 1) % args.refit_every == 0:
+            engine.flush(refit=True)
+            readouts.append(engine.readout_for("live"))
+    _sync(engine.device)
+    wall = time.perf_counter() - t0
+    half = len(errs) // 2
+    rm = lambda e: float(np.sqrt(np.mean(np.square(e))))  # noqa: E731
+    st = engine.stats()
+    res = {"device": str(engine.device), "n": engine.cfg.n,
+           "teacher_tokens": tokens, "refit_every": args.refit_every,
+           "rmse_first_half": rm(errs[:half]),
+           "rmse_second_half": rm(errs[half:]),
+           "refit_waves": st.refit_waves_total,
+           "refit_rows": st.refit_rows_total,
+           "refit_ms": st.refit_us_sum / 1e3,
+           "drift_rmse": engine.drift_rmse("live"),
+           "growth_events": st.growth_events, "wall_s": wall,
+           "us_per_token": wall / max(tokens, 1) * 1e6,
+           "errors": np.asarray(errs), "refit_readouts": readouts,
+           "finite": bool(np.isfinite(errs).all())}
+    print(f"learn-while-serving: {tokens} teacher tok, refit every "
+          f"{args.refit_every} — stream RMSE first half "
+          f"{res['rmse_first_half']:.3e} -> second half "
+          f"{res['rmse_second_half']:.3e}")
+    print(f"  {st.refit_waves_total} refit waves / {st.refit_rows_total} "
+          f"rows in {res['refit_ms']:.1f} ms total; drift RMSE "
+          f"{res['drift_rmse']}; {st.growth_events} DPG growth events; "
+          f"{res['us_per_token']:.1f} us a teacher token")
+    engine.tracker.close()
+    return res
+
+
 def serve_reservoir(args) -> dict:
     """Streaming session serving through ``serve.engine.ReservoirEngine``:
     build the model and engine, then serve (one fused stream under
-    ``--ensemble mean`` / ``weighted``).  Returns counts and rates."""
+    ``--ensemble mean`` / ``weighted``, one learning session under
+    ``--learn``).  Returns counts and rates."""
     engine, sig, train_t = build_engine(args)
     if args.ensemble in ("mean", "weighted"):
         return serve_ensemble(engine, args, sig)
+    if args.learn:
+        return serve_learn(engine, args, sig, train_t)
     return serve_sessions(engine, args, sig, train_t)
 
 
@@ -541,6 +609,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serialize the whole engine at the end (arena, "
                          "parked-session table, queue, cost model); "
                          "ReservoirEngine.restore(PATH) resumes it")
+    ap.add_argument("--learn", action="store_true",
+                    help="learn-while-serving: a live session accumulates "
+                         "streaming eigenbasis (G, C) readout stats from the "
+                         "observe() teacher path; flush(refit=True) "
+                         "re-solves its tenant readout in batched waves")
+    ap.add_argument("--refit-every", type=int, default=64, metavar="T",
+                    help="with --learn: teacher tokens between "
+                         "flush(refit=True) refit waves")
+    ap.add_argument("--refit-decay", type=float, default=1.0,
+                    metavar="LAMBDA",
+                    help="with --learn: per-token decay of the streaming "
+                         "(G, C) window (1.0 = grow forever; <1 lets old "
+                         "regimes fade so refits track drift)")
+    ap.add_argument("--drift-threshold", type=float, default=None,
+                    metavar="RMSE",
+                    help="with --learn: when the held-out streaming RMSE "
+                         "(prequential EWMA) drifts past this, grow a fresh "
+                         "DPG reservoir member into the session's ensemble "
+                         "(validation-RMSE-weighted voting)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")

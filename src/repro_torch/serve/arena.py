@@ -137,12 +137,20 @@ def arena_step(params, states, u, y_prev, *, batched: bool = False):
         params, states, esn_fn.drive(params, u, y_prev if fb else None))
 
 
-def apply_readout(w_out, x, *, batched: bool = False):
-    """Features (B, F) through the readout.  Per-slot readouts are inferred
-    from shape: a (B, F, D) ``w_out`` pairs row b of ``x`` with readout b."""
-    if batched or w_out.ndim == 3:
-        return torch.einsum("bf,bfd->bd", x, w_out)
-    return x @ w_out
+def apply_readout(w_out, x):
+    """Features (B, ..., F) through the readout, row by row: row b of ``x``
+    with readout b of a (B, F, D) pool (a param batch, or the per-tenant
+    pool over one reservoir), or with the one (F, D) readout, expanded to
+    every row without a copy.  Either way the same products are summed
+    over F in one order, so a row's output depends on its own features and
+    readout alone — never on whether a pool is active or what the other
+    rows serve (a refit of one tenant moves no bit of another's)."""
+    w = w_out if w_out.ndim == 3 else w_out.expand(
+        (x.shape[0],) + tuple(w_out.shape))
+    w = w.reshape(w.shape[:1] + (1,) * (x.ndim - 2) + w.shape[1:])
+    # The products land in one layout whatever the readout's strides, so
+    # the sum runs in one order.
+    return (x.unsqueeze(-1) * w).contiguous().sum(-2)
 
 
 def _ensemble_reduce(y, mask, weights=None):
@@ -159,12 +167,11 @@ def _ensemble_reduce(y, mask, weights=None):
     return torch.broadcast_to(y_mean, y.shape)
 
 
-def _readout_step(params, w_out, states, y_feat, mask, w_ens, *, batched,
-                  ensemble):
+def _readout_step(params, w_out, states, y_feat, mask, w_ens, *, ensemble):
     """The readout of one step (and its ensemble reduce): ``y_feat`` is the
     feedback column the features carry."""
     x = esn_fn.assemble_features(params, states, y_feat)
-    y = apply_readout(w_out, x, batched=batched)
+    y = apply_readout(w_out, x)
     if ensemble in ("mean", "weighted"):
         y = _ensemble_reduce(y, mask, w_ens if ensemble == "weighted"
                              else None)
@@ -180,7 +187,7 @@ def decode_step(params, w_out, arena: SlotArena, u, mask, ens_weights=None,
     if w_out is None:
         return dataclasses.replace(arena, states=states), arena.y_prev
     y = _readout_step(params, w_out, states, arena.y_prev, mask, ens_weights,
-                      batched=batched, ensemble=ensemble)
+                      ensemble=ensemble)
     y_out = torch.where(mask[:, None], y, arena.y_prev)
     return dataclasses.replace(arena, states=states, y_prev=y_out), y_out
 
@@ -222,7 +229,7 @@ def closed_loop(params, w_out, arena: SlotArena, mask, n_steps: int,
         new = arena_step(params, states, y, y, batched=batched)
         states = torch.where(mask[:, None], new, states)
         y_new = _readout_step(params, w_out, states, y, mask, w_ens,
-                              batched=batched, ensemble=ensemble)
+                              ensemble=ensemble)
         y = torch.where(mask[:, None], y_new, y)
         ys.append(y)
     ys = torch.stack(ys) if ys else y.new_zeros((0,) + tuple(y.shape))
@@ -296,8 +303,8 @@ def prefill_wave(params, w_out, arena: SlotArena, slots, u, lengths,
     y0 = arena.y_prev[slots]
     if batched:
         params = _rows(params, slots)
-        w_out = None if w_out is None else w_out[slots]
-    pooled = w_out is not None and w_out.ndim == 3
+    if w_out is not None and w_out.ndim == 3:
+        w_out = w_out[slots]        # each row's readout out of the pool
     rows = torch.arange(u.shape[0], device=u.device)
     last_t = lengths - 1
     y_shift = None
@@ -316,9 +323,8 @@ def prefill_wave(params, w_out, arena: SlotArena, slots, u, lengths,
         out = torch.where(valid, states, 0.0) if want_outputs else None
         y_next = y_next if cfg.use_feedback else y0
     elif want_outputs:
-        x = esn_fn.assemble_features(params, states, y_shift)
-        y = x @ w_out if not pooled else torch.einsum("btf,bfd->btd", x,
-                                                      w_out)
+        y = apply_readout(w_out,
+                          esn_fn.assemble_features(params, states, y_shift))
         out = torch.where(valid, y, 0.0)
         if not cfg.use_feedback:
             y_next = y[rows, last_t]

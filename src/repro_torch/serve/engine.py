@@ -1,21 +1,24 @@
 """ReservoirEngine — the thin facade over the serving planes.
 
-Three planes with one-way imports, and this module the only one that sees
+Four planes with one-way imports, and this module the only one that sees
 all of them: ``serve.telemetry`` (observability: ``Tracker`` seam +
 ``StatsAggregator``), ``serve.ingest`` (control: session table, admission,
 backpressure), ``serve.exec_plane`` (data: the slot arena and every device
-launch).  Lifecycle: ``submit`` -> ``flush`` -> ``decode_step`` /
-``decode_closed_loop`` / ``observe`` / ``queue_inputs`` -> ``release``.
+launch), ``serve.learn`` (streaming refit, drift, DPG growth).  Cross-plane
+effects travel through callbacks this facade wires at construction.
+Lifecycle: ``submit`` -> ``flush`` -> ``decode_step`` /
+``decode_closed_loop`` / ``observe`` / ``queue_inputs`` -> ``release``;
+with ``learn=True`` every ``observe`` also accumulates the session's
+readout statistics and ``refit`` / ``flush(refit=True)`` re-solve them.
 
 The engine runs on one device, the GPU unless ``device="cpu"`` is passed;
 params and readout are moved there at construction.  ``park_host_rows`` /
 ``cold_dir`` back the slot arena with the tiered session store
 (``serve.store``: a host pool and a cold tier of ``.npz`` records),
 and :meth:`ReservoirEngine.snapshot` / :meth:`ReservoirEngine.restore`
-serialize the whole engine in the JAX package's snapshot layout.  Options
-of the JAX engine whose planes are not ported yet (learning, a device
-mesh) raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+serialize the whole engine in the JAX package's snapshot layout.  The one
+option of the JAX engine whose plane is not ported yet (a device mesh)
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from . import store as store_mod
 from .cost import WaveCostModel, cost_key
 from .exec_plane import DecodeResult, EvictResult, ExecPlane
 from .ingest import AdmissionFull, IngestPlane, SessionStats, SessionTable
+from .learn import LearnPlane
 from .scheduler import WaveScheduler
 from .telemetry import (EngineStats, MultiTracker, ProfilerTracker,
                         StatsAggregator, Tracker, make_tracker)
@@ -41,7 +45,6 @@ __all__ = ["SessionStats", "DecodeResult", "EvictResult", "EngineStats",
 #: ROADMAP item that brings each.
 _NOT_PORTED = {
     "mesh": "A11 (sharded arena)",
-    "learn": "A9 (serve/learn.py learn-while-serving)",
 }
 
 
@@ -96,6 +99,14 @@ class ReservoirEngine:
     session promotes it); ``cold_dir``: the cold tier the pool spills to.
     ``device``: where the engine runs (``None`` means the GPU).
     ``ensemble`` fuses the slots of a param batch (:meth:`from_param_batch`).
+    ``learn=True``: learn while serving — ``observe`` accumulates each
+    session's eigenbasis ``(G, C)`` (λ = ``refit_decay`` a token, the first
+    ``refit_washout`` pairs dropped), :meth:`refit` solves them with
+    ``refit_alpha`` (default ``cfg.ridge_alpha``) into the session's tenant
+    pool entry (``submit(tenant=)``), and a session whose held-out RMSE
+    (EWMA ``drift_beta``) passes ``drift_threshold`` grows up to
+    ``growth_max_members`` DPG members (``growth_sigma``, washout
+    ``growth_washout``) that vote weighted by their RMSE.
     """
 
     def __init__(self, model, max_slots: int = 8, *,
@@ -108,13 +119,16 @@ class ReservoirEngine:
                  decode_slo_us: Optional[float] = None,
                  park_host_rows: Optional[int] = None,
                  cold_dir: Optional[str] = None, learn: bool = False,
+                 refit_alpha: Optional[float] = None,
+                 refit_decay: float = 1.0, refit_washout: int = 0,
+                 drift_threshold: Optional[float] = None,
+                 drift_beta: float = 0.9, growth_max_members: int = 3,
+                 growth_sigma: float = 0.1, growth_washout: int = 64,
                  profile_dir: Optional[str] = None,
                  _param_batch: bool = False):
-        requested = {"mesh": mesh, "learn": learn}
-        for name, value in requested.items():
-            if value not in (None, False):
-                raise NotImplementedError(
-                    f"{name}= is not ported yet: ROADMAP {_NOT_PORTED[name]}")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh= is not ported yet: ROADMAP {_NOT_PORTED['mesh']}")
         params, readout = _coerce_model(model, readout)
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
@@ -148,6 +162,9 @@ class ReservoirEngine:
                 f"of a param-batched engine — use from_param_batch with a "
                 f"readout")
         self.ensemble = ensemble
+        self._learn_knobs(learn, refit_alpha, refit_decay, refit_washout,
+                          drift_threshold, drift_beta, growth_max_members,
+                          growth_sigma, growth_washout)
         if int(pipeline_depth) < 0:
             raise ValueError(f"pipeline_depth must be >= 0, "
                              f"got {pipeline_depth}")
@@ -199,7 +216,8 @@ class ReservoirEngine:
         # engine-built models are keyed by (device type, n, d_out), so
         # persisted observations never price another machine or model size.
         if cost_model is None and (autotune or decode_slo_us is not None
-                                   or decode_k_auto or store is not None):
+                                   or decode_k_auto or self._learn
+                                   or store is not None):
             cost_model = WaveCostModel(key=cost_key(
                 self.device.type, self.cfg.n, self.cfg.d_out))
         # Observability: the aggregator is always first in the fan-out, so
@@ -233,13 +251,97 @@ class ReservoirEngine:
             self.cfg, self._exec._np_dtype, batched=self._batched,
             max_slots=self.max_slots, table=self._table, scheduler=sched,
             default_decode_slo_us=decode_slo_us, max_queued=max_queued)
-        self._ingest.place = self._exec.place
-        self._ingest.in_store = lambda sid: (self._exec.store is not None
-                                             and sid in self._exec.store)
-        self._exec.input_depth = self._ingest.input_depth
-        self._exec.pop_inputs = self._ingest.pop_inputs
-        # Queued open-loop inputs leave with their session.
-        self._exec.pop_learn = self._ingest.drop_inputs
+        self._learn_plane = LearnPlane(
+            self.params, self.cfg, self._dtype, batched=self._batched,
+            enabled=self._learn, tracker=self.tracker,
+            refit_alpha=self._refit_alpha, refit_decay=self._refit_decay,
+            refit_washout=self._refit_washout,
+            drift_threshold=self._drift_threshold,
+            drift_beta=self._drift_beta, growth_max=self._growth_max,
+            growth_sigma=self._growth_sigma,
+            growth_washout=self._growth_washout,
+            cost_model=cost_model, autotune=self._autotune)
+        self._wire_planes()
+
+    def _learn_knobs(self, learn, refit_alpha, refit_decay, refit_washout,
+                     drift_threshold, drift_beta, growth_max_members,
+                     growth_sigma, growth_washout) -> None:
+        """Check and keep the learn-while-serving options, with the JAX
+        engine's checks."""
+        self._learn = bool(learn)
+        if self._learn and self.readout is None:
+            raise ValueError(
+                "learn=True needs a base readout — streaming refit solves "
+                "per-session readouts into a pool seeded from it")
+        if self._learn and self.ensemble != "off":
+            raise ValueError(
+                "learn=True is per-session teacher attribution; a fused "
+                "ensemble engine serves ONE logical stream — refit the "
+                "members offline and set_ensemble_weights() instead")
+        if not 0.0 < float(refit_decay) <= 1.0:
+            raise ValueError(f"refit_decay must be in (0, 1], "
+                             f"got {refit_decay}")
+        if int(refit_washout) < 0:
+            raise ValueError(f"refit_washout must be >= 0, "
+                             f"got {refit_washout}")
+        if drift_threshold is not None and drift_threshold <= 0:
+            raise ValueError(f"drift_threshold must be positive (got "
+                             f"{drift_threshold}); use None to disable "
+                             f"DPG ensemble growth")
+        if not 0.0 <= float(drift_beta) < 1.0:
+            raise ValueError(f"drift_beta must be in [0, 1), "
+                             f"got {drift_beta}")
+        self._refit_alpha = float(self.cfg.ridge_alpha if refit_alpha is None
+                                  else refit_alpha)
+        self._refit_decay = float(refit_decay)
+        self._refit_washout = int(refit_washout)
+        self._drift_threshold = (None if drift_threshold is None
+                                 else float(drift_threshold))
+        self._drift_beta = float(drift_beta)
+        self._growth_max = int(growth_max_members)
+        self._growth_sigma = float(growth_sigma)
+        self._growth_washout = int(growth_washout)
+
+    def _wire_planes(self) -> None:
+        """Cross-plane runtime effects travel through these callbacks so
+        imports stay one-way; the closures read live facade state."""
+        ex, ig, ln = self._exec, self._ingest, self._learn_plane
+        # exec -> learn (teacher pairing, voting, refit) and -> ingest
+        # (open-loop input queues).
+        ex.note_admission = ln.note_admission
+        ex.on_prompt_done = ln.on_prompt_done
+        ex.note_freerun = ln.note_freerun
+        ex.note_steps = ln.note_steps
+        ex.cache_post_step = ln.cache_post_step
+        ex.vote = ln.vote
+        ex.on_observe = ln.on_observe
+        ex.pool_entry = ln.pool_entry
+        ex.learn_active = lambda: self._learn
+        ex.dirty_sids = ln.dirty_sids
+        ex.refit_wave = ln.refit_wave
+        ex.input_depth = ig.input_depth
+        ex.pop_inputs = ig.pop_inputs
+
+        def forget(sid):
+            # One release hook: the learn state leaves with the session and
+            # its still-queued open-loop inputs are dropped.
+            ln.pop(sid)
+            ig.drop_inputs(sid)
+        ex.pop_learn = forget
+        # ingest -> exec (a pinned placement) and -> learn (learn state).
+        ig.place = ex.place
+        ig.note_admission = ln.note_admission
+        ig.in_store = lambda sid: ex.store is not None and sid in ex.store
+        # learn -> exec (refit results into the device pool) and -> the
+        # session table / scheduler (slot resolve, wave-cost charge).
+        ln.session_slot = lambda sid: self._table.sessions[sid].slot
+        ln.activate_pool = ex.activate_pool
+        ln.sync_readouts = ex.sync_slot_readouts
+        ln.hot_serving = lambda keys: [
+            (sid, st.slot) for sid, st in self._table.sessions.items()
+            if ln.readout_key(sid) in keys]
+        # Through the property: reset() swaps the scheduler instance.
+        ln.charge = lambda us: self.scheduler.charge_decode_cost(us)
 
     @classmethod
     def from_param_batch(cls, params, readout=None, *, ensemble: str = "off",
@@ -324,6 +426,7 @@ class ReservoirEngine:
     @cost_model.setter
     def cost_model(self, model) -> None:
         self._exec.cost_model = model
+        self._learn_plane.cost_model = model
         self.scheduler.cost_model = model
 
     @property
@@ -367,21 +470,26 @@ class ReservoirEngine:
     # ------------------------------------------------------------- lifecycle
     def submit(self, sid: Hashable, u=None, y_teacher=None, *, h0=None,
                y0=None, slot: Optional[int] = None,
+               tenant: Optional[Hashable] = None,
                decode_slo_us: Optional[float] = None) -> Optional[int]:
         """Queue ``sid`` for wave-batched admission (:meth:`flush` drains
         the queue).  ``u``: (T, d_in) prompt; ``h0``/``y0``: a parked state
         to resume from (numpy or tensor, e.g. a released one); ``slot=``
-        pins an admission-only placement; ``decode_slo_us=`` overrides the
-        engine-wide decode deadline for this session.  At ``max_queued``
-        capacity raises :class:`AdmissionFull`."""
+        pins an admission-only placement; ``tenant=`` keys the readout pool
+        (sessions of one tenant serve, and refit, one readout);
+        ``decode_slo_us=`` overrides the engine-wide decode deadline for
+        this session.  At ``max_queued`` capacity raises
+        :class:`AdmissionFull`."""
         return self._ingest.submit(sid, u, y_teacher, h0=h0, y0=y0,
-                                   slot=slot, decode_slo_us=decode_slo_us)
+                                   slot=slot, tenant=tenant,
+                                   decode_slo_us=decode_slo_us)
 
     def flush(self, *, method: str = "auto", chunk: int = 128,
               want_outputs: bool = False,
               max_waves: Optional[int] = None,
               decode_interleave: bool = False,
-              decode_sids=None) -> Dict[Hashable, object]:
+              decode_sids=None, refit: bool = False
+              ) -> Dict[Hashable, object]:
         """Drain the admission queue, one batched prefill per same-bucket
         wave; returns sid -> per-step outputs for prompts *completed* this
         flush (None unless ``want_outputs``).  ``decode_interleave=True``
@@ -391,12 +499,16 @@ class ReservoirEngine:
         deadlines decode first, and due sessions with rows buffered via
         :meth:`queue_inputs` advance teacher-driven instead of free-running.
         Planning only reorders waves, so every output is bit-exact against
-        the decode-blind schedule."""
+        the decode-blind schedule.  ``refit=True`` (needs ``learn=True``)
+        batch-refits the dirty sessions after the drain."""
+        if refit and not self._learn:
+            raise ValueError("flush(refit=True) needs learn=True on the "
+                             "engine — nothing accumulates (G, C) otherwise")
         return self._exec.flush(method=method, chunk=chunk,
                                 want_outputs=want_outputs,
                                 max_waves=max_waves,
                                 decode_interleave=decode_interleave,
-                                decode_sids=decode_sids)
+                                decode_sids=decode_sids, refit=refit)
 
     def queue_inputs(self, sid: Hashable, u) -> int:
         """Buffer open-loop input rows ((d_in,) or (K, d_in)) for ``sid``;
@@ -438,11 +550,79 @@ class ReservoirEngine:
         """Deprecated alias of :meth:`release`, as in the JAX package."""
         return self.release(sid)
 
+    # ------------------------------------------------- learn-while-serving
+    @property
+    def _learn_state(self):
+        return self._learn_plane.state
+
+    @property
+    def _readouts(self):
+        return self._learn_plane.readouts
+
+    def refit(self, sid: Optional[Hashable] = None, *,
+              alpha: Optional[float] = None) -> Dict[Hashable, torch.Tensor]:
+        """Solve fresh readouts from the streaming ``(G, C)`` — one batched
+        solve over every dirty session (or just ``sid``).  Each lands in the
+        session's tenant pool entry (hot slots re-scatter at once) and is
+        returned per sid; it matches an offline ``core.esn.fit`` of the
+        concatenated teacher stream ("the prompt is the washout")."""
+        if not self._learn:
+            raise ValueError("refit needs learn=True on the engine — "
+                             "nothing accumulates (G, C) otherwise")
+        if sid is None:
+            sids = self._learn_plane.dirty_sids()
+        else:
+            if sid not in self._learn_plane.state:
+                raise KeyError(f"session {sid!r} has no learn state (was it "
+                               f"admitted with learn=True on the engine?)")
+            sids = [sid]
+        return self._learn_plane.refit_wave(sids, alpha=alpha)
+
+    def _sync_key(self, key) -> None:
+        """Re-scatter every hot session serving ``key`` (a tenant's hot
+        sessions switch together)."""
+        self._exec.sync_slot_readouts(
+            [(sid, st.slot) for sid, st in self.sessions.items()
+             if self._learn_plane.readout_key(sid) == key])
+
+    def set_readout(self, key: Hashable, w_out) -> None:
+        """Install or replace the pool readout of ``key`` (a tenant, or a
+        sid for a private readout): hot sessions serving it switch on their
+        next wave, later admissions gather it at placement.  Takes a
+        ``Readout`` or a bare (F, D_out) array or tensor."""
+        w = getattr(w_out, "w_out", w_out)
+        w = (w if isinstance(w, torch.Tensor) else torch.tensor(
+            np.asarray(w))).to(device=self.device, dtype=self._dtype)
+        want = (self.cfg.n_features, self.cfg.d_out)
+        if tuple(w.shape) != want:
+            raise ValueError(f"pool readout for {key!r} must be {want}, "
+                             f"got {tuple(w.shape)}")
+        self._exec.activate_pool()
+        self._readouts[key] = w
+        self._sync_key(key)
+
+    def readout_for(self, sid):
+        """The (F, D_out) readout serving ``sid`` now: its tenant's (or
+        its own) pool entry when one exists, else the base."""
+        w = self._learn_plane.pool_entry(sid)
+        if w is not None:
+            return w
+        if not self._batched:
+            return self.w_out
+        return self._exec._base_readout(self.sessions[sid].slot)
+
+    def drift_rmse(self, sid: Hashable) -> Optional[float]:
+        """The session's held-out streaming RMSE (sqrt of the prequential
+        squared-error EWMA); None before its first post-washout pair."""
+        return self._learn_plane.drift_rmse(sid)
+
     def reset(self) -> None:
-        """Drop all sessions (active, queued and parked) and zero the arena.
-        The cumulative :meth:`stats` counters (not the promote-latency
-        window) and the cost model are kept."""
+        """Drop all sessions (active, queued and parked), their learn state
+        and the readout pools, and zero the arena.  The cumulative
+        :meth:`stats` counters (not the promote-latency window) and the
+        cost model are kept."""
         self._exec.reset()
+        self._learn_plane.clear()
         self._ingest.clear()
         self._agg.promote_us.clear()
         old = self.scheduler
@@ -471,8 +651,8 @@ class ReservoirEngine:
 
     # ---------------------------------------------------------------- stats
     def stats(self) -> EngineStats:
-        """Engine-lifetime serving counters as a frozen :class:`EngineStats`
-        (fields of the learn plane, not ported yet, read zero)."""
+        """Engine-lifetime serving counters as a frozen
+        :class:`EngineStats`."""
         d = self._agg.snapshot()
         if self.cost_model is not None:
             wave_costs = self.cost_model.records()
@@ -490,7 +670,9 @@ class ReservoirEngine:
                                  for st in self.sessions.values()),
             pipeline_depth=self.pipeline_depth,
             pipeline_inflight=len(self._exec._inflight),
-            sessions_dirty=0, wave_costs=wave_costs)
+            sessions_dirty=sum(ls.dirty
+                               for ls in self._learn_plane.state.values()),
+            wave_costs=wave_costs)
         return EngineStats(**d)
 
     def clear_decode_gaps(self) -> None:

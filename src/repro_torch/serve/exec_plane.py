@@ -33,10 +33,16 @@ in-flight scans instead of queueing behind them on the current stream.
 Mutations outside the tracked wave path taint the slots they touch
 (``_pipeline_taint``) or drop the base (``_pipeline_invalidate``).
 
+**Per-tenant readouts**: the waves serve the engine-wide readout until a
+refit or ``set_readout`` activates the per-slot pool ((max_slots, F, D),
+one row per slot, re-scattered at every placement and promotion).  The
+pool has value semantics like the arena: a refit builds a new pool tensor,
+so a wave in flight keeps the one it was launched with.
+
 Control-plane state (session table, admission queue, open-loop input
 queues) reaches this plane through the facade-wired ``table``,
-``scheduler`` and callbacks; learn-plane effects are callbacks with no-op
-defaults (learning is ROADMAP A9).
+``scheduler`` and callbacks; so do the learn plane's effects (teacher
+pairing, the post-step snapshot, voting, refit waves).
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ import torch
 
 from ..core import dispatch
 from . import arena as arena_mod
-from .ingest import SessionStats
+from .ingest import SessionStats, host_array
 from .scheduler import WaveItem, bucket_length
 
 __all__ = ["ExecPlane", "DecodeResult", "EvictResult"]
@@ -165,6 +171,7 @@ class ExecPlane:
         self.table = table
         self.scheduler = scheduler
         self._ens_weights = None
+        self._slot_w = None
         self.arena = self._fresh_arena()
         self._chunk_outs: Dict[Hashable, List] = {}
         self._decode_buf: Dict[Hashable, List] = {}
@@ -195,9 +202,16 @@ class ExecPlane:
         self.on_prompt_done = lambda sid, y_last: None
         self.note_freerun = lambda sids, n: None
         self.note_steps = lambda sids: None
+        self.cache_post_step = lambda arena: None
+        self.vote = lambda sid, u_vec, y: y
+        self.on_observe = lambda sid, slot, y, arena: None
+        self.pool_entry = lambda sid: None
+        self.learn_active = lambda: False
         self.pop_learn = lambda sid: None
         self.input_depth = lambda sid: 0
         self.pop_inputs = lambda sid, k: []
+        self.dirty_sids = lambda: []
+        self.refit_wave = lambda sids: {}
 
     def _fresh_arena(self) -> arena_mod.SlotArena:
         return arena_mod.make_arena(self.cfg.n, self.cfg.d_out,
@@ -425,6 +439,9 @@ class ExecPlane:
             self.table.sessions[sid] = st
             slots.append(slot)
         self._rows_to_arena(slots, states, ys)
+        # Promoted sessions re-enter on fresh slots: their tenant's pool
+        # readout serves them from the next wave.
+        self.sync_slot_readouts(list(zip(sids, slots)))
         self._window_settled()
         self._note_page(len(sids), (time.perf_counter() - t0) * 1e6,
                         promote=True)
@@ -463,18 +480,64 @@ class ExecPlane:
         if need > 0:
             self._demote_wave(self.table.demotable(protect)[:need])
 
+    # -------------------------------------------- per-tenant readouts (device)
+    def _wave_w(self):
+        """The readout the waves serve: the (max_slots, F, D_out) per-slot
+        pool once any tenant readout has diverged from the base, else the
+        engine-wide ``w_out`` (no pool cost until then)."""
+        return self.w_out if self._slot_w is None else self._slot_w
+
+    def activate_pool(self) -> None:
+        """Materialize the per-slot readout pool, seeded with the base
+        readout in every slot (a param-batched engine's stacked readout
+        already is the pool)."""
+        if self._slot_w is not None:
+            return
+        if self.readout is None:
+            raise ValueError("per-tenant readout pools need a base readout")
+        w = self.w_out
+        if not self._batched:
+            w = w.expand((self.max_slots,) + tuple(w.shape))
+        self._slot_w = w.contiguous()
+
+    def _base_readout(self, slot: int):
+        return (None if self.readout is None
+                else self.w_out[slot] if self._batched else self.w_out)
+
+    def _pool_readout(self, sid, slot: int):
+        w = self.pool_entry(sid)
+        return self._base_readout(slot) if w is None else w
+
+    def sync_slot_readouts(self, pairs) -> None:
+        """Scatter each (sid, slot) pair's effective readout into the pool —
+        called at every placement and promotion.  A new pool tensor
+        (``index_copy``, not in place), so waves in flight keep theirs.
+        No-op while the pool is dormant."""
+        if self._slot_w is None:
+            return
+        pairs = list(pairs)
+        if not pairs:
+            return
+        ws = torch.stack([self._pool_readout(sid, slot).to(self._slot_w)
+                          for sid, slot in pairs])
+        self._slot_w = self._slot_w.index_copy(
+            0, self._index(slot for _, slot in pairs), ws)
+
     # ------------------------------------------------------------------ flush
     def flush(self, *, method: str = "auto", chunk: int = 128,
               want_outputs: bool = False,
               max_waves: Optional[int] = None,
               decode_interleave: bool = False,
-              decode_sids=None) -> Dict[Hashable, object]:
+              decode_sids=None, refit: bool = False
+              ) -> Dict[Hashable, object]:
         """The drain loop behind ``ReservoirEngine.flush``: pop same-bucket
         waves from the scheduler and run each as one batched prefill; with
         ``decode_interleave`` run the protected decoders' decode waves
         whenever the next prefill wave would overrun their SLO budget.
         Planning only reorders waves, so every output is bit-exact against
-        the decode-blind schedule."""
+        the decode-blind schedule.  ``refit``: then one refit wave over the
+        learn plane's dirty sessions — after the due decode wave when its
+        predicted cost would overrun the decode budget."""
         if not decode_interleave:
             decode_sids = []
         else:
@@ -534,6 +597,16 @@ class ExecPlane:
                 planned = self.scheduler.peek_wave(self._capacity(protect))
                 if planned:
                     self._make_room(planned, protect)
+        if refit:
+            dirty = self.dirty_sids()
+            if dirty and decode_sids and self.cost_model is not None:
+                b = self._decode_budget(decode_sids)
+                if (b is not None and
+                        self.cost_model.predict_refit_us(len(dirty)) > b):
+                    # The refit wave would blow the decode budget: decode
+                    # first (fresh budget), then solve.
+                    self._decode_due(decode_sids)
+            self.refit_wave(dirty)
         return results
 
     def _protected(self, decode_sids) -> List[Hashable]:
@@ -656,7 +729,7 @@ class ExecPlane:
 
         def launch():
             self.arena, ys = arena_mod.closed_loop_fused(
-                self.params, self.w_out, self.arena, self._mask(slots), k,
+                self.params, self._wave_w(), self.arena, self._mask(slots), k,
                 self._ens_weights, **self._kw())
             return ys
 
@@ -683,7 +756,7 @@ class ExecPlane:
 
         def launch():
             self.arena, ys = arena_mod.driven_loop(
-                self.params, self.w_out, self.arena, self._mask(slots),
+                self.params, self._wave_w(), self.arena, self._mask(slots),
                 self._tensor(u_seq), self._ens_weights, **self._kw())
             return ys
 
@@ -754,6 +827,10 @@ class ExecPlane:
             self.arena = arena_mod.place_many(
                 self.arena, self._tensor(slots), self._tensor(h0s),
                 self._tensor(y0s))
+            # Freshly placed slots serve their tenant's pool readout from
+            # their first wave, not the engine-wide base.
+            self.sync_slot_readouts(
+                [(it.sid, s) for it, s in zip(fresh, slots)])
         prompts = [it for it in wave if it.req.u is not None]
         if not prompts:
             self._record_wave(0, len(wave), len(fresh), capacity, 0, None)
@@ -788,7 +865,7 @@ class ExecPlane:
             self._drain_inflight()
             t0 = time.perf_counter()
         self.arena, out = arena_mod.prefill_wave(
-            self.params, self.w_out, self.arena, self._tensor(slot_list),
+            self.params, self._wave_w(), self.arena, self._tensor(slot_list),
             self._tensor(u_pad), self._tensor(lengths),
             None if yt_pad is None else self._tensor(yt_pad),
             batched=self._batched, method=wave_method, chunk=chunk,
@@ -856,6 +933,7 @@ class ExecPlane:
         self._pipeline_taint([slot])
         self.table.slots[slot] = sid
         self.table.sessions[sid] = SessionStats(slot=slot)
+        self.sync_slot_readouts([(sid, slot)])
         return slot
 
     def release(self, sid: Hashable, *, drop: bool = False):
@@ -914,6 +992,7 @@ class ExecPlane:
         if self.store is not None:
             self.store.clear()
         self._chunk_outs.clear()
+        self._slot_w = None
         self._decode_buf.clear()
         self._decode_meta.clear()
         self.tracker.log_wave({"kind": "reset"})
@@ -964,16 +1043,24 @@ class ExecPlane:
 
         def launch():
             self.arena, y = arena_mod.decode_step(
-                self.params, self.w_out, self.arena, self._tensor(u),
+                self.params, self._wave_w(), self.arena, self._tensor(u),
                 self._mask(slots), self._ens_weights, **self._kw())
             return y
 
         y = self._dispatch_decode(launch, list(vecs), tokens=1, block=False,
                                   kind="step", slots=slots)
+        if self.learn_active():
+            # The learn plane copies the post-step arena to the host in one
+            # piece for the observe() accumulation that typically follows.
+            self.cache_post_step(self.arena)
         if self.readout is None:
             return {}
         y = y.cpu().numpy()
         out = {sid: y[stats[sid].slot] for sid in inputs}
+        for sid in out:
+            # A session that grew DPG members returns the weighted vote over
+            # primary + members (the members advance in the learn plane).
+            out[sid] = self.vote(sid, vecs[sid], out[sid])
         for sid, row in out.items():
             self._decode_buf.setdefault(sid, []).append(
                 self._tensor(row)[None])
@@ -987,8 +1074,11 @@ class ExecPlane:
         self._ensure_hot([sid])        # a parked sid promotes
         st = self._active(sid)
         st.last_use = self.table.tick()
-        y = self._tensor(np.asarray(y_true, self._np_dtype)).reshape(
-            self.cfg.d_out)
+        y_host = host_array(y_true, self._np_dtype).reshape(self.cfg.d_out)
+        # The learn plane reads the PRE-observe rows (or its post-step
+        # snapshot), so it runs before the arena rewrite below.
+        self.on_observe(sid, st.slot, y_host, self.arena)
+        y = self._tensor(y_host)
         if self.ensemble == "mean":
             ready = [self.table.sessions[s].slot for s in self.table.ready]
             self._pipeline_taint(ready)
@@ -1016,7 +1106,7 @@ class ExecPlane:
 
         def launch():
             self.arena, ys = arena_mod.closed_loop_fused(
-                self.params, self.w_out, self.arena, self._mask(slots),
+                self.params, self._wave_w(), self.arena, self._mask(slots),
                 int(n_steps), self._ens_weights, **self._kw())
             return ys
 

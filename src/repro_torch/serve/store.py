@@ -379,12 +379,18 @@ _PARAM_NAMES = {"DiagParams": ("lam_q", "win_q", "wfb_q", "qtq"),
                 "StandardParams": ("w", "w_in", "w_fb")}
 _PARAM_KIND = {"DiagParams": "diag", "StandardParams": "standard"}
 
-#: The learn-plane fields of the JAX manifest, at the JAX engine's defaults
-#: (the port has no learn plane yet: ROADMAP A9).
-_LEARN_DEFAULTS = {"learn": False, "refit_decay": 1.0, "refit_washout": 0,
-                   "drift_threshold": None, "drift_beta": 0.9,
-                   "growth_max_members": 3, "growth_sigma": 0.1,
-                   "growth_washout": 64}
+#: The learn-plane knobs of the manifest: its key -> the engine attribute
+#: (and the constructor argument of the same key) -> the JAX engine's
+#: default, read when a snapshot predates the field.
+_LEARN_KNOBS = {
+    "learn": ("_learn", False), "refit_alpha": ("_refit_alpha", None),
+    "refit_decay": ("_refit_decay", 1.0),
+    "refit_washout": ("_refit_washout", 0),
+    "drift_threshold": ("_drift_threshold", None),
+    "drift_beta": ("_drift_beta", 0.9),
+    "growth_max_members": ("_growth_max", 3),
+    "growth_sigma": ("_growth_sigma", 0.1),
+    "growth_washout": ("_growth_washout", 64)}
 
 
 def _host(v) -> np.ndarray:
@@ -417,9 +423,14 @@ def snapshot_engine(engine, path: str) -> str:
     by path.  The in-flight window is drained and the store's I/O lane
     settled first, so every tensor leaves through ``.cpu().numpy()`` and
     every referenced record is on disk.  The write is atomic: ``<path>.tmp``
-    is renamed over ``path`` after the ``_COMPLETE`` marker lands.  The
-    learn fields are written empty (no learn plane yet).  Returns
-    ``path``."""
+    is renamed over ``path`` after the ``_COMPLETE`` marker lands.
+
+    Learn state: the per-tenant readout pools and every session's folded
+    ``(G, C)`` with its pairing counters, drift and last teacher row — the
+    buffered rows are folded first, as in the JAX package, so the engine
+    written from goes on from the same folded state.  Grown DPG members are
+    not written (as in the JAX package): they are a drift response, and a
+    restored engine grows them again on drift.  Returns ``path``."""
     ex = engine._exec
     ex._drain_inflight()
     manifest: dict = {"version": SNAPSHOT_VERSION}
@@ -458,12 +469,29 @@ def snapshot_engine(engine, path: str) -> str:
         "param_batch": engine._batched,
         "park_host_rows": engine._park_host_rows,
         "cold_dir": engine._cold_dir,
-        "refit_alpha": float(engine.cfg.ridge_alpha),
-        **_LEARN_DEFAULTS,
+        **{k: getattr(engine, attr) for k, (attr, _) in _LEARN_KNOBS.items()},
     }
     manifest["use_clock"] = engine._table.use_clock
+    ln = engine._learn_plane
     manifest["readout_pools"] = []
+    for i, (key, w) in enumerate(ln.readouts.items()):
+        manifest["readout_pools"].append({"key": key})
+        arrays[f"pool{i}/w"] = _host(w)
     manifest["learn_state"] = []
+    for i, (sid, ls) in enumerate(ln.state.items()):
+        ln._fold_acc(ls.acc, ln._session_params(sid)
+                     if sid in engine.sessions else engine.params)
+        manifest["learn_state"].append({
+            "sid": sid, "tenant": ls.tenant, "pairs": ls.acc.pairs,
+            "skip_left": ls.acc.skip_left, "drift": ls.acc.drift,
+            "steps_since_fb": ls.steps_since_fb, "dirty": ls.dirty,
+            "gram": ls.acc.gram is not None,
+            "last_fb": ls.last_fb is not None})
+        if ls.acc.gram is not None:
+            arrays[f"learn{i}/gram"] = _host(ls.acc.gram)
+            arrays[f"learn{i}/cg"] = _host(ls.acc.cg)
+        if ls.last_fb is not None:
+            arrays[f"learn{i}/last_fb"] = _host(ls.last_fb)
 
     arrays["arena/states"] = _host(engine.arena.states)
     arrays["arena/y_prev"] = _host(engine.arena.y_prev)
@@ -552,9 +580,9 @@ def restore_engine(cls, path: str, *, device=None):
     sessions (chunk cursors and the committed deferral included), decode
     buffers, and a cost model re-seeded from ``cost.json``.  The store's
     epoch is bumped so new cold records never collide with the ones the
-    snapshot references.  A snapshot carrying learn state or readout pools
-    raises ``NotImplementedError``: the learn plane is not ported (ROADMAP
-    A9), and dropping them would change what the engine serves."""
+    snapshot references.  Learn state is restored first, then the readout
+    pools (a hot session's pool key resolves through its restored tenant),
+    which are re-scattered into the hot slots."""
     from ..core.params import params_from_numpy, readout_from_numpy
     from . import arena as arena_mod
     from .cost import WaveCostModel
@@ -570,12 +598,6 @@ def restore_engine(cls, path: str, *, device=None):
         raise ValueError(f"snapshot version {m.get('version')!r} != "
                          f"{SNAPSHOT_VERSION} (incompatible layout)")
     ek = m["engine"]
-    if ek.get("learn") or m.get("learn_state") or m.get("readout_pools"):
-        raise NotImplementedError(
-            "snapshot carries learn-while-serving state (learn=True, "
-            "streaming Gram stats or tenant readout pools): the learn plane "
-            "is not ported yet: ROADMAP A9 (serve/learn.py "
-            "learn-while-serving)")
 
     with np.load(os.path.join(path, "arrays.npz")) as npz:
         data = {k: npz[k] for k in npz.files}
@@ -602,7 +624,9 @@ def restore_engine(cls, path: str, *, device=None):
               decode_wave_tokens=ek["decode_wave_tokens"],
               park_host_rows=ek["park_host_rows"], cold_dir=ek["cold_dir"],
               pipeline_depth=ek.get("pipeline_depth", 2), device=device,
-              _param_batch=ek["param_batch"])
+              _param_batch=ek["param_batch"],
+              **{k: ek.get(k, default)
+                 for k, (_, default) in _LEARN_KNOBS.items()})
     eng.scheduler.max_wave = ek["max_wave"]
     eng._table.use_clock = int(m["use_clock"])
     dev = eng.device
@@ -618,6 +642,28 @@ def restore_engine(cls, path: str, *, device=None):
         sid = _sid_from_json(rec["sid"])
         eng.sessions[sid] = _stats_from_rec(rec)
         eng._table.slots[rec["slot"]] = sid
+
+    from .learn import _GramAcc, _LearnState
+    ln = eng._learn_plane
+    for i, rec in enumerate(m.get("learn_state", [])):
+        acc = _GramAcc(pairs=rec["pairs"], skip_left=rec["skip_left"],
+                       drift=rec["drift"])
+        if rec["gram"]:
+            acc.gram = tensor(data[f"learn{i}/gram"])
+            acc.cg = tensor(data[f"learn{i}/cg"])
+        ls = _LearnState(tenant=_sid_from_json(rec["tenant"]),
+                         steps_since_fb=rec["steps_since_fb"],
+                         dirty=rec["dirty"], acc=acc)
+        if rec["last_fb"]:
+            ls.last_fb = data[f"learn{i}/last_fb"]
+        ln.state[_sid_from_json(rec["sid"])] = ls
+    if m.get("readout_pools"):
+        for i, rec in enumerate(m["readout_pools"]):
+            ln.readouts[_sid_from_json(rec["key"])] = tensor(
+                data[f"pool{i}/w"])
+        eng._exec.activate_pool()
+        eng._exec.sync_slot_readouts([(sid, st.slot)
+                                      for sid, st in eng.sessions.items()])
 
     if eng.store is not None and "store" in m:
         st = m["store"]

@@ -1008,3 +1008,86 @@ def test_cpu_snapshot_restores_on_card(dev):
     for sid in sids + ["queued"]:
         _close(card.decode_closed_loop(3, sids=[sid])[sid],
                cpu.decode_closed_loop(3, sids=[sid])[sid])
+
+
+# --------------------------------------------------- learn-while-serving
+def test_decode_fused_packed_shared_recurrence_per_slot_readout(dev):
+    """The tenant pool's operand mix: shared ``lam_q`` and ``w_drive``, a
+    per-slot (8, 1025, 1) ``w_out``, at the serving shape (525 lanes, K
+    128, float64).  Against the plain version, and each row bit-equal to a
+    launch that serves that row's readout to every row (a 2D ``w_out``)."""
+    lam, nr, w_drive, _, states, y_prev = packed_inputs(8, 25, 500, 1, False,
+                                                        dev)
+    pool = torch.stack([packed_inputs(8, 25, 500, 1, False, dev,
+                                      seed=10 + r)[3] for r in range(8)])
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    kw = dict(k=128, use_bias=True, use_feedback=True)
+    before = ops.decode_fused.launches
+    got = ops.decode_fused_packed(lam, nr, w_drive, pool, states, y_prev,
+                                  mask, **kw)
+    assert ops.decode_fused.launches == before + 1
+    want = ref.decode_fused_packed_ref(lam, nr, w_drive, pool, states,
+                                       y_prev, mask, **kw)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    for r in range(8):
+        one = ops.decode_fused_packed(lam, nr, w_drive, pool[r].contiguous(),
+                                      states, y_prev, mask, **kw)
+        assert torch.equal(one[0][r], got[0][r])
+        assert torch.equal(one[1][r], got[1][r])
+        assert torch.equal(one[2][:, r], got[2][:, r])
+
+
+def _learn_twin(p, ro, sig, dev, refit_a):
+    eng = ReservoirEngine(p, 4, readout=ro, learn=True, device=dev)
+    for sid, tenant in (("a", "A"), ("b", "B"), ("c", "A")):
+        eng.submit(sid, sig[:64, None], tenant=tenant)
+    eng.flush()
+    for t in range(64, 192):
+        eng.decode_step({s: sig[t, None] for s in "abc"})
+        for s in "abc":
+            eng.observe(s, sig[t + 1, None])
+    if refit_a:
+        assert set(eng.refit("a")) == {"a"}
+    return eng
+
+
+def test_tenant_refit_isolation_bit_exact_on_card(dev):
+    """A's refit on the card: B's next ``decode_step`` and its closed loop
+    (one B2 launch with the per-slot pool) equal a twin that never refit,
+    bit for bit; the card's closed loop matches a CPU engine serving the
+    card's pool readouts (``set_readout``) to 1e-9."""
+    p, ro, sig = _paged_model()
+    eng = _learn_twin(p, ro, sig, dev, True)
+    twin = _learn_twin(p, ro, sig, dev, False)
+    assert eng._exec._slot_w is not None and twin._exec._slot_w is None
+    for e in (eng, twin):
+        e.collect_decoded()
+    steps = [e.decode_step({"b": sig[192, None]})["b"] for e in (eng, twin)]
+    assert np.array_equal(steps[0], steps[1])
+    before = ops.decode_fused.launches
+    loops = [e.decode_closed_loop(32) for e in (eng, twin)]
+    assert ops.decode_fused.launches == before + 2
+    assert torch.equal(loops[0]["b"], loops[1]["b"])
+    cpu = ReservoirEngine(p, 4, readout=ro, device="cpu")
+    for sid, tenant in (("a", "A"), ("b", "B"), ("c", "A")):
+        cpu.submit(sid, h0=eng.state_of(sid),
+                   y0=eng.arena.y_prev[eng.sessions[sid].slot].cpu(),
+                   tenant=tenant, slot=eng.sessions[sid].slot)
+    cpu.set_readout("A", eng.readout_for("a").cpu())
+    card = eng.decode_closed_loop(16)
+    want = cpu.decode_closed_loop(16)
+    for sid in "abc":
+        _close(card[sid], want[sid])
+
+
+def test_facade_replay_on_card(dev):
+    """North star criterion 3 on the card: the facade-parity workload
+    through the card engine reproduces the 31 reference arrays to 1e-5."""
+    from torch_facade_parity_workload import REF_PATH, compare, run_workload
+    ref_arrays = np.load(REF_PATH)
+    before = (ops.diag_scan.launches, ops.decode_fused.launches)
+    got = run_workload(dev)
+    assert ops.diag_scan.launches > before[0]
+    assert ops.decode_fused.launches > before[1]
+    assert compare(got, ref_arrays, atol=1e-5) <= 1e-5

@@ -163,7 +163,7 @@ def test_engine_stats_and_collect():
 
 #: Still unported -> the ROADMAP item its error names; every other option
 #: of the list below is ported and builds an engine.
-_UNPORTED = {"mesh": "A11", "learn": "A9"}
+_UNPORTED = {"mesh": "A11"}
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(autotune=True),
@@ -177,7 +177,9 @@ def test_unported_options_name_their_roadmap_item(kw):
     """Options of later slices raise naming their ROADMAP item; the ported
     ones build (``ensemble`` on a non-batched engine is refused as the JAX
     engine refuses it, and so is ``cold_dir`` without ``park_host_rows``;
-    ``park_host_rows`` builds a store and a cost model)."""
+    ``park_host_rows`` builds a store and a cost model; ``learn`` builds an
+    engine with an enabled learn plane and a cost model that prices its
+    refit waves)."""
     _, _, tp, tr = _models("dpg")
     (name, value), = kw.items()
     if name in _UNPORTED:
@@ -194,6 +196,7 @@ def test_unported_options_name_their_roadmap_item(kw):
         eng = ReservoirEngine(tp, 2, readout=tr, device="cpu", **kw)
         assert eng.cost_model is not None or name == "profile_dir"
         assert (eng.store is not None) == (name == "park_host_rows")
+        assert eng._learn_plane.enabled == (name == "learn")
         if eng.store is not None:
             assert eng.store.pool.rows == 4
             assert eng.cost_model.key == ("cpu", 48, 1)
@@ -217,9 +220,14 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
                        "--device", "cpu"])
     assert res["sessions"] == 3 and res["finite"]
     assert res["prefill_tokens"] == 120 and res["decode_tokens"] == 12
-    for flag in (["--refit-every", "4"], ["--learn"]):
-        with pytest.raises(SystemExit, match="not ported yet: ROADMAP A"):
-            tserve.main(["--reservoir", "--device", "cpu", *flag])
+    with pytest.raises(SystemExit, match="not ported yet: ROADMAP A11"):
+        tserve.main(["--reservoir", "--device", "cpu", "--mesh", "1x1"])
+    res = tserve.main(["--reservoir", "--n", "32", "--slots", "2",
+                       "--prompt-len", "40", "--gen", "4", "--learn",
+                       "--refit-every", "8", "--device", "cpu"])
+    assert res["teacher_tokens"] == 64 and res["finite"]
+    assert res["refit_waves"] == res["refit_rows"] == 8
+    assert res["rmse_second_half"] <= res["rmse_first_half"]
     # Without --reservoir the LM loop runs (its default arch,
     # recurrentgemma-2b, has blocks that are not ported yet).
     for argv in (["--device", "cpu"], ["--arch", "xlstm-125m", "--smoke",

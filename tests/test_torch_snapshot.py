@@ -7,8 +7,9 @@ both tiers, a queued prompt, uncollected decode tokens) bit-equal to the
 engine that was not snapshotted.  A snapshot written by the JAX engine
 restores in the port and continues to match the JAX engine, and one written
 by the port restores in the JAX engine, at ``test_torch_engine.py``'s
-tolerance (1e-9).  The learn plane is not ported (ROADMAP A9): a snapshot
-carrying learn state is refused, never silently dropped.
+tolerance (1e-9).  Snapshots carry the learn plane's state (tenant pools,
+folded Gram statistics, pairing counters) both ways between the packages;
+``tests/test_torch_learn.py`` holds their continuations.
 """
 import json
 import os
@@ -145,6 +146,12 @@ def test_restore_refuses_bad_snapshots():
 
 
 def test_jax_snapshot_with_learn_state_is_refused_naming_a9():
+    """Since the learn plane is ported (A9) a JAX snapshot with learn state
+    is no longer refused: it restores into the port with its tenant, its
+    folded (G, C) and its pairing state, and resumes as the JAX engine does
+    (1e-9; the refit solves of equal statistics to 1e-5 of the largest
+    |w|: 16 rows of 25 features at alpha 1e-8 leave the system
+    ill-conditioned, and the two Cholesky implementations round apart)."""
     jp, jr, _, _ = _models()
     je = JaxEngine(jp, max_slots=2, readout=jr, learn=True)
     je.submit("live", SIG[:64, None], tenant="t")
@@ -155,13 +162,27 @@ def test_jax_snapshot_with_learn_state_is_refused_naming_a9():
     path = je.snapshot(_snap_dir())
     with open(os.path.join(path, "manifest.json")) as f:
         assert json.load(f)["learn_state"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ReservoirEngine.restore(path, device="cpu")
+    res = ReservoirEngine.restore(path, device="cpu")
+    ls, jls = res._learn_state["live"], je._learn_state["live"]
+    assert (ls.tenant, ls.acc.pairs, ls.dirty) == ("t", 8, True)
+    np.testing.assert_allclose(_np(ls.acc.gram), np.asarray(jls.acc.gram),
+                               **TOL)
+    for t in range(72, 80):
+        outs = [e.decode_step({"live": SIG[t, None]})["live"]
+                for e in (res, je)]
+        np.testing.assert_allclose(_np(outs[0]), np.asarray(outs[1]), **TOL)
+        for e in (res, je):
+            e.observe("live", SIG[t + 1, None])
+    w, wj = _np(res.refit()["live"]), np.asarray(je.refit()["live"])
+    np.testing.assert_allclose(w, wj, rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(wj).max()))
 
 
 def test_port_snapshot_holds_no_learn_state_and_cpu_tensors_restore():
-    """The port writes ``learn: false`` and empty learn fields; restored
-    tensors land on the requested device with the snapshot's values."""
+    """An engine without learning writes ``learn: false`` and empty learn
+    fields; a learn engine writes its knobs, pools and per-session state in
+    the JAX layout.  Restored tensors land on the requested device with
+    the snapshot's values."""
     _, _, tp, tr = _models()
     eng = ReservoirEngine(tp, 2, readout=tr, device="cpu")
     eng.submit("a", SIG[:40, None])
@@ -175,6 +196,28 @@ def test_port_snapshot_holds_no_learn_state_and_cpu_tensors_restore():
     assert res.states.device == torch.device("cpu")
     assert torch.equal(res.states, eng.states)
     assert torch.equal(res.readout.w_out, eng.readout.w_out)
+    learner = ReservoirEngine(tp, 2, readout=tr, learn=True, refit_washout=2,
+                              drift_threshold=0.5, device="cpu")
+    learner.submit("a", SIG[:40, None], tenant="T")
+    learner.flush()
+    for t in range(40, 60):
+        learner.decode_step({"a": SIG[t, None]})
+        learner.observe("a", SIG[t + 1, None])
+    learner.refit("a")
+    path = learner.snapshot(_snap_dir())
+    with open(os.path.join(path, "manifest.json")) as f:
+        m = json.load(f)
+    ek = m["engine"]
+    assert (ek["learn"], ek["refit_washout"], ek["drift_threshold"]) == \
+        (True, 2, 0.5)
+    assert m["readout_pools"] == [{"key": "T"}]
+    (rec,) = m["learn_state"]
+    assert (rec["sid"], rec["tenant"], rec["pairs"], rec["gram"]) == \
+        ("a", "T", 18, True)
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        assert {"pool0/w", "learn0/gram", "learn0/cg"} <= set(z.files)
+    res = ReservoirEngine.restore(path, device="cpu")
+    assert torch.equal(res.readout_for("a"), learner.readout_for("a"))
 
 
 def test_restore_defaults_to_the_gpu(monkeypatch):
