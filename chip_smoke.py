@@ -13,8 +13,11 @@ with one row of coefficients a reservoir; the fused decode through both of
 its entries (split lanes, the engine's packed layout), with a sweep of its
 warps a row at five shapes, its mean route with per-slot operands, and the
 engine's call shown to be one launch — and fails if a decode instantiation
-spills; then drives the port's ten main paths on the card, each with the
-launch counts set to 0 just before it and read just after:
+spills; the scan and its backward also with real per-timestep gates
+(B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
+head_dim 256 (recurrentgemma's local layer, both band chunks); then drives
+the port's fourteen main paths on the card, each with the launch counts set
+to 0 just before it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
    workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
@@ -80,7 +83,30 @@ launch counts set to 0 just before it and read just after:
    (``tests/torch_facade_parity_workload.py``, 31 arrays to 1e-5: North
    star criterion 3); and a learn snapshot (dirty sessions, an active
    pool) restored on the card bit for bit, one written on the CPU against
-   the CPU.
+   the CPU;
+11. ``repro_torch.launch.serve`` with no ``--arch``: its default,
+   ``recurrentgemma-2b``, at published widths and depth (26 layers of
+   (rglru, rglru, local), d_model 2560, 10 query / 1 KV head of 256, d_ff
+   7680, vocab 256000; 3.55 G parameters) in bfloat16 with the float32
+   activations its embed scale gives, as in JAX; no kernel runs (an RG-LRU
+   decode step is one sequential update, decode attention a dense product)
+   and the path fails if one does; a 3-layer full-width model (one period
+   of the pattern) on the card, its tokens replayed on the CPU and every
+   step's logits held against the CPU's;
+12. ``repro_torch.launch.train --arch recurrentgemma-2b --layers 9``: its
+   published widths and vocab at 9 layers (three periods: the float32
+   params, gradients and AdamW moments of 26 layers would take ~57 GB
+   alone), batch 2 x 2048, 5 steps — every RG-LRU scan and its gradient
+   through B1 with per-timestep gates, every local layer's two 1024-row
+   query chunks through B3 at head_dim 256; a 3-layer full-width trainer
+   held against the CPU's;
+13. ``repro_torch.launch.train --arch xlstm-125m``: the full config (12
+   layers of mLSTM / sLSTM, d_model 768, vocab 50304), batch 8 x 2048, 10
+   steps — each sLSTM layer's c and n scans and their gradients through
+   B1; a 2-layer full-width trainer held against the CPU's;
+14. ``repro_torch.launch.serve --arch xlstm-125m``: its bfloat16 decode
+   loop at full width (the sLSTM steps through B1), held against the CPU
+   replay as paths 3 and 5 are.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -111,6 +137,7 @@ them); flash attention on the tensor cores, float32 as 3xTF32 (three TF32
 products per float32 product at 495 TFLOP/s) and bfloat16 at 989 TFLOP/s,
 with its float32 CUDA-core bound (``simt_bound_ms``) beside it.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -146,10 +173,22 @@ SMOLLM_TRAIN_ARGS = ["--arch", "smollm-135m", "--vocab", "49152", "--batch",
                      "8", "--seq", "2048", "--steps", str(TRAIN_STEPS)]
 SMOLLM_SERVE_ARGS = ["--arch", "smollm-135m", "--batch", "4", "--prompt-len",
                      "64", "--gen", "32"]
+#: Main paths 11-14: the recurrent LM families (recurrentgemma-2b is the
+#: serve driver's default arch).
+RG_SERVE_ARGS = ["--batch", "4", "--prompt-len", "64", "--gen", "64"]
+RG_TRAIN_STEPS = 5
+RG_TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--layers", "9", "--vocab",
+                 "256000", "--batch", "2", "--seq", "2048", "--steps",
+                 str(RG_TRAIN_STEPS)]
+XL_TRAIN_ARGS = ["--arch", "xlstm-125m", "--vocab", "50304", "--batch", "8",
+                 "--seq", "2048", "--steps", str(TRAIN_STEPS)]
+XL_SERVE_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--prompt-len",
+                 "64", "--gen", "64"]
 BF16_TOL, LSE_TOL = 5e-2, 1e-5
 #: The port's kernels, by their CUDA function names (profile summaries).
 OWN_KERNELS = ("diag_scan_chunk", "diag_scan", "diag_scan_bwd_chunk",
-               "diag_scan_bwd", "decode_fused", "flash_attention_fwd")
+               "diag_scan_bwd", "decode_fused", "flash_attention_fwd",
+               "flash_attention_fwd_simt")
 
 
 def ptxas_spills(log: str) -> dict:
@@ -343,6 +382,16 @@ def check_diag_scan(ops, ref, dsk, copy_bw):
         ("train", (8, 1024, 1024), "static", True, False, "float32", True),
         # linear-esn LM decode: batch 4, one token, d_rnn 1024, with h0
         ("lm-decode", (4, 1, 1024), "static", True, True, "float32", True),
+        # real per-timestep gates (B, T, N): the RG-LRU training shape of
+        # recurrentgemma-2b (batch 2 x 2048, d_rnn 2560) and the sLSTM one
+        # of xlstm-125m (batch 8 x 2048, d_model 768)
+        ("rglru-gates", (2, 2048, 2560), "full", False, False, "float32",
+         True),
+        ("slstm-gates", (8, 2048, 768), "full", False, False, "float32",
+         True),
+        # xlstm-125m's serve loop: each sLSTM layer scans c and n one token
+        # at a time, gates (4, 1, 768) with the carried state as h0
+        ("slstm-decode", (4, 1, 768), "full", False, True, "float32", True),
         ("time-a", (3, 77, 130), "time", True, False, "float64", False),
         ("full-a-h0", (2, 50, 20), "full", False, True, "float64", False),
         ("ragged-h0", (5, 333, 257), "static", True, True, "float64", False),
@@ -363,7 +412,7 @@ def check_diag_scan(ops, ref, dsk, copy_bw):
         if cplx:
             errs += [max_err(got_im, want_im), max_err(got_im, chunked[1])]
         row = {"case": name, "shape": list(shape), "dtype": dtype,
-               "chunks": chunks, **worst_of(errs)}
+               "h0": with_h0, "chunks": chunks, **worst_of(errs)}
         for e, t in errs:
             if e > t:
                 fail(f"diag_scan {name}: max|d| {e:.3e} > {t:.3e}")
@@ -418,6 +467,10 @@ def check_diag_scan_bwd(ops, ref, dsk, copy_bw):
         # name, shape, a, complex, h0, dtype, timed
         ("train", (8, 1024, 1024), "static", True, False, "float32", True),
         ("train-f64", (8, 1024, 1024), "static", True, False, "float64",
+         True),
+        ("rglru-gates", (2, 2048, 2560), "full", False, False, "float32",
+         True),
+        ("slstm-gates", (8, 2048, 768), "full", False, False, "float32",
          True),
         ("time-a", (3, 77, 130), "time", True, False, "float64", False),
         ("full-a-h0", (2, 50, 20), "full", False, True, "float64", False),
@@ -785,6 +838,14 @@ FLASH_CASES = [
      True),
     ("chunk1-bf16", (8, 9, 3, 1024, 2048, 64), True, None, 1024, None,
      "bfloat16", True),
+    # recurrentgemma-2b's local layer in training at batch 2 x 2048: GQA
+    # 10:1, head_dim 256 (the CUDA-core route), window 2048, both chunks
+    ("local-chunk0", (2, 10, 1, 1024, 1024, 256), True, 2048, 0, None,
+     "float32", True),
+    ("local-chunk1", (2, 10, 1, 1024, 2048, 256), True, 2048, 1024, None,
+     "float32", True),
+    ("local-bf16", (1, 10, 1, 100, 300, 256), True, 150, 200, None,
+     "bfloat16", False),
     # the cases of tests/test_kernels.py
     ("mha-causal", (1, 2, 2, 64, 64, 32), True, None, 0, None, "float32",
      False),
@@ -996,11 +1057,21 @@ def profile_serve(serve):
     return profiled(lambda: serve.serve_sessions(engine, args, sig, train_t))
 
 
+def release_cache():
+    """Hand the allocator's cached blocks back to the card.  A training run
+    of recurrentgemma-2b (~59 GB at its peak) does not fit beside the
+    blocks that the paths before it left cached."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profile_train_step(train, Trainer, TrainConfig, MarkovTokens,
                        argv=TRAIN_ARGS):
     """Device time by kernel over one full-width training step (the main
     path's configuration), after one untimed step."""
     import torch
+    release_cache()
     args = train.build_parser().parse_args(argv)
     cfg = train.arch_config(args)
     data = MarkovTokens(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq)
@@ -1030,13 +1101,14 @@ def leafwise(got, want):
 
 def lm_trainer_vs_cpu(lm, loss_and_grads, Trainer, TrainConfig,
                       MarkovTokens, get_config, tree, arch="linear-esn",
-                      batch=2, seq=256):
-    """A 2-layer ``arch`` at full width (vocab 512), ``batch`` x ``seq``
-    tokens: the first step's gradients and three AdamW steps' losses on the
-    card against the CPU, from the same weights (``lm_params_from_numpy``)."""
+                      batch=2, seq=256, n_layers=2):
+    """An ``n_layers`` ``arch`` at full width (vocab 512), ``batch`` x
+    ``seq`` tokens: the first step's gradients and three AdamW steps' losses
+    on the card against the CPU, from the same weights
+    (``lm_params_from_numpy``)."""
     import dataclasses
     import torch
-    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               vocab=512, dtype="float32")
     weights = tree.tree_map(lambda v: v.numpy(), lm.init_params(
         torch.Generator().manual_seed(0), cfg, "cpu"))
@@ -1054,7 +1126,8 @@ def lm_trainer_vs_cpu(lm, loss_and_grads, Trainer, TrainConfig,
     (g_gpu, l_gpu), (g_cpu, l_cpu) = out["cuda"], out["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     grad_rel, grad_key = leafwise(g_gpu, g_cpu)
-    res = {"losses_cuda": l_gpu, "losses_cpu": l_cpu,
+    res = {"n_layers": n_layers, "batch": data.batch, "seq": seq,
+           "losses_cuda": l_gpu, "losses_cpu": l_cpu,
            "max_rel_loss_err": loss_rel, "worst_leaf_grad_err": grad_rel,
            "worst_leaf": grad_key, "tol": LM_TOL}
     if not (np.isfinite(l_gpu).all() and loss_rel <= LM_TOL
@@ -1070,26 +1143,47 @@ def step_errors(got, want):
     return (d / want.float().abs().amax(dim=(0, 2))).tolist()
 
 
-def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS):
+def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS, n_layers=None):
     """The bfloat16 serve loop on the card (``res``, the main path's run)
     against the CPU: the same weights and prompts (``serve.lm_setup``), the
     card's tokens fed to the CPU loop (teacher forcing, so a near-tie that
     the two devices break apart cannot part their paths), every step's
     logits held to ``BF16_LM_TOL`` of the step's largest |logit|; the share
-    of steps whose greedy token the CPU picks too is reported."""
+    of steps whose greedy token the CPU picks too is reported.  With
+    ``n_layers`` (an arch whose full depth is too slow to replay on the
+    host) ``res`` is None: the model is cut to that depth at full width,
+    from the same seeds, and its card run is made here."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import lm
     args = serve.build_parser().parse_args(argv)
-    cfg, params, prompts = serve.lm_setup(args, "cpu")
+    if n_layers is None:
+        cfg, params, prompts = serve.lm_setup(args, "cpu")
+    else:
+        cfg = dataclasses.replace(serve.get_config(args.arch),
+                                  n_layers=n_layers)
+        params = lm.init_params(torch.Generator().manual_seed(args.seed), cfg,
+                                "cpu")
+        prompts = torch.as_tensor(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, size=(args.batch, args.prompt_len)))
+        res = serve.generate(tree.tree_map(lambda v: v.to("cuda"), params),
+                             cfg, prompts.to("cuda"), args.gen,
+                             seed=args.seed + 1)
     cpu = serve.generate(params, cfg, prompts, args.gen, seed=args.seed + 1,
                          forced=res["tokens"])
     rel = step_errors(res["step_logits"], cpu["step_logits"])
-    same = float(np.mean(res["tokens"] == cpu["tokens"]))
-    out = {"dtype": cfg.dtype, "max_rel_err": max(rel),
-           "mean_rel_err": float(np.mean(rel)), "tol": BF16_LM_TOL,
-           "steps": len(rel), "same_greedy_token_share": same,
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "prompt_len": args.prompt_len, "gen": args.gen,
+           "max_rel_err": max(rel), "mean_rel_err": float(np.mean(rel)),
+           "tol": BF16_LM_TOL, "steps": len(rel),
+           "same_greedy_token_share": float(np.mean(
+               res["tokens"] == cpu["tokens"])),
+           "card_decode_tok_s": args.batch * args.gen / res["decode_s"],
            "cpu_decode_tok_s": args.batch * args.gen / cpu["decode_s"]}
     if cfg.dtype != "bfloat16" or max(rel) > BF16_LM_TOL \
             or not np.isfinite(rel).all():
-        fail(f"LM serve on the card vs the CPU replay: {out}")
+        fail(f"{cfg.name} serve on the card vs the CPU replay: {out}")
     return out
 
 
@@ -1116,6 +1210,29 @@ def lm_serve_f32_vs_cpu(serve, lm, get_config, argv=LM_SERVE_ARGS):
            "tol": LM_TOL, "same_tokens": same}
     if max(rel) > LM_TOL or not same:
         fail(f"float32 LM loop on the card vs the CPU: {out}")
+    return out
+
+
+def train_path(drive, launches, train, path, argv, steps, expect):
+    """One training main path through ``train.main(argv)`` with its peak
+    memory; fails unless every step ran and stayed finite and each kernel
+    of ``expect`` launched the count given (per step x steps)."""
+    import torch
+    release_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = drive(path, lambda: train.main(argv), tuple(expect))
+    out = {k: res[k] for k in ("arch", "params", "batch", "seq", "steps_run",
+                               "losses", "ms_per_step", "tokens_per_s",
+                               "finite")}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({path: out, "launches": launches[path]}), flush=True)
+    if not res["finite"] or res["steps_run"] != steps:
+        fail(f"{path}: finite={res['finite']}, steps={res['steps_run']}")
+    for name, per_step in expect.items():
+        got = launches[path][name]
+        if got != per_step * steps:
+            fail(f"{path} launched {name} {got} times, expected "
+                 f"{per_step} a step x {steps}")
     return out
 
 
@@ -2087,6 +2204,25 @@ def learn_snapshot_path(esn, ESNConfig, mso_series, ReservoirEngine):
             "cpu_snapshot_refit_predictions_over_max_y": pred}
 
 
+#: The scan's per-timestep-gate shapes, each with the main path that gives
+#: the kernel that shape.
+GATE_PATHS = {"rglru-gates": "train_recurrentgemma",
+              "slstm-gates": "train_xlstm", "slstm-decode": "serve_xlstm"}
+
+
+def gate_rows(rows, keys, kernel, launches):
+    """The per-timestep-gate shapes of ``rows`` (main paths 12-14) for the
+    ``kernels`` line: a (B, T, N) real float32, each with ``kernel``'s
+    launches on its main path."""
+    return {case.replace("-", "_"): {
+        "shape": rows[case]["shape"], "a": "(B, T, N) per-timestep, real",
+        "h0": rows[case].get("h0", False), "dtype": "float32",
+        "max_abs_err": rows[case]["max_abs_err"], "tol": rows[case]["tol"],
+        "main_path": path, "launches": launches[path][kernel],
+        **{k: rows[case][k] for k in keys}}
+        for case, path in GATE_PATHS.items() if case in rows}
+
+
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
     (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
@@ -2109,7 +2245,16 @@ def flash_summary(rows, counts, keys):
                         **{k: c0[k] for k in more}},
                 chunk1_bf16={"shape": bf["shape"], "q_offset": 1024,
                              **{k: bf[k] for k in keys},
-                             **{k: bf[k] for k in more}})
+                             **{k: bf[k] for k in more}},
+                **{f"local_d256_{c}": {
+                    "shape": by[f"local-{c}"]["shape"], "window": 2048,
+                    "q_offset": by[f"local-{c}"]["q_offset"],
+                    "route": "CUDA cores (head_dim > 128)",
+                    "max_abs_err": by[f"local-{c}"]["max_abs_err"],
+                    "lse_max_rel_err": by[f"local-{c}"]["lse_max_rel_err"],
+                    **{k: by[f"local-{c}"][k] for k in keys},
+                    **{k: by[f"local-{c}"][k] for k in more}}
+                   for c in ("chunk0", "chunk1")})
 
 
 def main() -> None:
@@ -2187,7 +2332,7 @@ def main() -> None:
     smem = build.library("flash_attention").flash_attention_smem_bytes
     print(json.dumps({"flash_attention_dynamic_smem_bytes": {
         f"{'bf16' if bf16 else 'f32'}_d{d}": smem(bf16, d)
-        for bf16 in (0, 1) for d in (32, 64, 128)}}), flush=True)
+        for bf16 in (0, 1) for d in (32, 64, 128, 256)}}), flush=True)
     copy_bw = copy_bandwidth()
     print(json.dumps({"copy_bytes_per_s": copy_bw}), flush=True)
 
@@ -2429,7 +2574,73 @@ def main() -> None:
     print(json.dumps({"learn_snapshot": learn_snapshot_path(
         esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
 
-    phase("19 summary")
+    phase("19 main path 11: repro_torch.launch.serve "
+          + " ".join(RG_SERVE_ARGS) + " (default arch recurrentgemma-2b, full width and depth, "
+          "bfloat16; decode runs no kernel, as in the JAX package)")
+    res = drive("serve_recurrentgemma", lambda: serve.main(RG_SERVE_ARGS), ())
+    keep = {k: v for k, v in res.items()
+            if k not in ("tokens", "step_logits", "last_logits")}
+    print(json.dumps({"serve_recurrentgemma": keep,
+                      "launches": launches["serve_recurrentgemma"]}),
+          flush=True)
+    if res["arch"] != "recurrentgemma-2b" or not res["finite"]:
+        fail(f"recurrentgemma serve: {keep}")
+    if any(launches["serve_recurrentgemma"].values()):
+        fail(f"recurrentgemma decode launched a kernel: "
+             f"{launches['serve_recurrentgemma']}")
+    print(json.dumps({"serve_recurrentgemma_vs_cpu": lm_serve_vs_cpu(
+        serve, None, RG_SERVE_ARGS + ["--prompt-len", "16", "--gen", "16"],
+        n_layers=3)}), flush=True)
+
+    phase("20 main path 12: repro_torch.launch.train "
+          + " ".join(RG_TRAIN_ARGS))
+    rg_cut = get_config("recurrentgemma-2b")
+    rg_kinds = [rg_cut.block_pattern[i % 3] for i in range(9)]
+    train_path(drive, launches, train, "train_recurrentgemma", RG_TRAIN_ARGS,
+               RG_TRAIN_STEPS,
+               {"diag_scan": rg_kinds.count("rglru"),
+                "diag_scan_bwd": rg_kinds.count("rglru"),
+                # two 1024-row query chunks a local layer
+                "flash_attention_fwd": 2 * rg_kinds.count("local")})
+    print(json.dumps({"profile_train_recurrentgemma_step": profile_train_step(
+        train, Trainer, TrainConfig, MarkovTokens, RG_TRAIN_ARGS)}),
+        flush=True)
+    print(json.dumps({"recurrentgemma_trainer_vs_cpu": lm_trainer_vs_cpu(
+        lm, loss_and_grads, Trainer, TrainConfig, MarkovTokens, get_config,
+        tree, arch="recurrentgemma-2b", batch=1, seq=1024, n_layers=3)}),
+        flush=True)
+
+    phase("21 main path 13: repro_torch.launch.train "
+          + " ".join(XL_TRAIN_ARGS))
+    xl = get_config("xlstm-125m")
+    n_slstm = [xl.block_pattern[i % 2] for i in range(xl.n_layers)].count(
+        "slstm")
+    # each sLSTM layer scans c and n
+    train_path(drive, launches, train, "train_xlstm", XL_TRAIN_ARGS,
+               TRAIN_STEPS, {"diag_scan": 2 * n_slstm,
+                             "diag_scan_bwd": 2 * n_slstm})
+    print(json.dumps({"profile_train_xlstm_step": profile_train_step(
+        train, Trainer, TrainConfig, MarkovTokens, XL_TRAIN_ARGS)}),
+        flush=True)
+    print(json.dumps({"xlstm_trainer_vs_cpu": lm_trainer_vs_cpu(
+        lm, loss_and_grads, Trainer, TrainConfig, MarkovTokens, get_config,
+        tree, arch="xlstm-125m", batch=2, seq=256, n_layers=2)}),
+        flush=True)
+
+    phase("22 main path 14: repro_torch.launch.serve "
+          + " ".join(XL_SERVE_ARGS))
+    res = drive("serve_xlstm", lambda: serve.main(XL_SERVE_ARGS),
+                ("diag_scan",))
+    print(json.dumps({"serve_xlstm": {k: v for k, v in res.items()
+                                      if k not in ("tokens", "step_logits",
+                                                   "last_logits")},
+                      "launches": launches["serve_xlstm"]}), flush=True)
+    if not res["finite"]:
+        fail("xlstm serve: the last logits are not finite")
+    print(json.dumps({"serve_xlstm_vs_cpu": lm_serve_vs_cpu(
+        serve, res, XL_SERVE_ARGS)}), flush=True)
+
+    phase("23 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
@@ -2468,7 +2679,8 @@ def main() -> None:
              per_row_a={"shape": row_a["shape"], "a": "(B, 1, N) static",
                         "max_abs_err": row_a["max_abs_err"],
                         "tol": row_a["tol"],
-                        **{k: row_a[k] for k in scan_keys}}),
+                        **{k: row_a[k] for k in scan_keys}},
+             **gate_rows(rows, scan_keys, "diag_scan", launches)),
         dict(name="diag_scan_bwd", route="cuda",
              source="src/repro_torch/csrc/diag_scan.cu",
              replaces="src/repro/kernels/ops.py:85",
@@ -2481,7 +2693,8 @@ def main() -> None:
              shape=bwd_train["shape"], dtype="float32",
              **{k: bwd_train[k] for k in scan_keys}, library_ms=None,
              f64={"shape": bwd["train-f64"]["shape"],
-                  **{k: bwd["train-f64"][k] for k in scan_keys}}),
+                  **{k: bwd["train-f64"][k] for k in scan_keys}},
+             **gate_rows(bwd, scan_keys, "diag_scan_bwd", launches)),
         dict(name="decode_fused", route="cuda",
              source="src/repro_torch/csrc/decode_fused.cu",
              replaces="src/repro/kernels/diag_scan.py:181",

@@ -799,6 +799,314 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
   }
 }
 
+// ------------------------------------------------------------ SIMT route --
+// Head dims 129..256 (recurrentgemma's local attention: 10 query heads on 1
+// KV head of 256).  The tensor-core layout above does not fit there: at
+// DP = 256 its raw K/V stages, split operand tiles and one head's split Q
+// tile come to 393 KB of shared memory against 227 KB a block, and a 64 x
+// 256 float32 output tile is 128 accumulator registers a thread of one
+// warpgroup.  This route is a plain CUDA-core kernel, right first: one
+// block of 256 threads takes 64 query rows of one head, keeps their Q tile
+// (64 x 256, float32) in shared memory, and walks 32-key tiles of K and V
+// (staged whole, float32) in three phases between barriers:
+//   S   each thread computes a 2 x 4 block of the 64 x 32 scores (rows
+//       2 (t / 8) + {0, 1}, keys t % 8 + {0, 8, 16, 24}) over the 256 dims
+//       from float4 reads of the padded tiles (row stride 260 floats: the
+//       rows a warp reads fall in distinct banks);
+//   P   four threads a row mask their 8 scores each, take the row max with
+//       two shuffles, rescale the running sum and write p = exp2(s - m)
+//       (bfloat16 inputs: rounded to bfloat16, as p.astype(v.dtype)) and
+//       the row's correction factor;
+//   PV  each thread owns a 4-row x 16-dim block of the 64 x 256 output
+//       (dims 4 (t % 16) + {0, 64, 128, 192} + {0..3}: 64 accumulators),
+//       rescales it by the correction and adds its rows' p times V.
+// Everything is float32 FMAs (67 TFLOP/s on the card's CUDA cores against
+// the 3xTF32 tensor-core route's 165), so this route is bound by its
+// operations at a third of the tensor-core route's rate; a wgmma layout
+// that splits the head dim is the next step (PERF.md).  Masks, lse, the
+// empty-row zeros and the key-tile skipping are the tensor-core route's.
+namespace simt {
+constexpr int DP = 256;      // head dims (padded)
+constexpr int BQ = 64;       // query rows a block
+constexpr int BK = 32;       // keys a tile
+constexpr int NT = 256;      // threads a block
+constexpr int LD = DP + 4;   // row stride of the Q, K and V tiles (floats)
+constexpr int LP = BK + 1;   // row stride of the score tile
+constexpr int SMEM_FLOATS = BQ * LD + 2 * BK * LD + BQ * LP + 3 * BQ;
+}  // namespace simt
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// p as the p.v product sees it: p.astype(v.dtype).
+__device__ __forceinline__ float round_p(float p, float) { return p; }
+__device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
+// Elements [col, col + 4) of row `row` of an operand with row stride ss, as
+// floats: zeros at row >= rows and past d.  vec: 4-element rows are aligned
+// (16 bytes for float32, 8 for bfloat16).
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* base, long long ss, int row,
+                                        int rows, int col, int d, bool vec) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row >= rows || col >= d) return r;
+  const T* p = base + row * ss + col;
+  if (vec && col + 4 <= d) {
+    if constexpr (sizeof(T) == 4) {
+      return *reinterpret_cast<const float4*>(p);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      const float2 lo =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      return make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
+  r.x = to_float(p[0]);
+  if (col + 1 < d) r.y = to_float(p[1]);
+  if (col + 2 < d) r.z = to_float(p[2]);
+  if (col + 3 < d) r.w = to_float(p[3]);
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(simt::NT, 1)
+    flash_attention_fwd_simt_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+        int hq, int hkv, int sq, int skv, int d, long long q_sb,
+        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+        int causal, int has_window, int window, int q_offset, int kv_len,
+        float scale, int vec_q, int vec_k, int vec_v) {
+  using simt::BK;
+  using simt::BQ;
+  using simt::DP;
+  using simt::LD;
+  using simt::LP;
+  using simt::NT;
+  extern __shared__ __align__(16) float fsm[];
+  float* const qs = fsm;                 // [BQ][LD]
+  float* const ks = qs + BQ * LD;        // [BK][LD]
+  float* const vs = ks + BK * LD;        // [BK][LD]
+  float* const ps = vs + BK * LD;        // [BQ][LP]
+  float* const corr_s = ps + BQ * LP;    // [BQ]
+  float* const l_s = corr_s + BQ;        // [BQ]
+  float* const m_s = l_s + BQ;           // [BQ]
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
+  const int hk = h / (hq / hkv);
+  // Late query tiles see the most keys under a causal mask: start them first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const T* const qh = q + b * q_sb + h * q_sh;
+  const T* const kb = k + b * k_sb + hk * k_sh;
+  const T* const vb = v + b * v_sb + hk * v_sh;
+  const float scale2 = scale * LOG2E;
+
+  for (int i = tid; i < BQ * DP / 4; i += NT) {
+    const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
+    *reinterpret_cast<float4*>(qs + r * LD + c) =
+        load4(qh, q_ss, q0 + r, sq, c, d, vec_q);
+  }
+
+  // The keys any row of this block can see: [k_begin, k_end).
+  const int kv_lim = kv_len < skv ? kv_len : skv;
+  const int q_hi = q0 + BQ < sq ? q0 + BQ : sq;
+  int k_end = kv_lim;
+  if (causal && q_offset + q_hi < k_end) k_end = q_offset + q_hi;
+  int k_begin = 0;
+  if (has_window && q_offset + q0 - window + 1 > 0)
+    k_begin = (q_offset + q0 - window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  const int s_r = 2 * (tid >> 3), s_c = tid & 7;        // S block
+  const int x_r = tid >> 2, x_part = tid & 3;           // softmax row
+  const int o_r = 4 * (tid >> 4), o_c = 4 * (tid & 15); // output block
+  const int qpos = q_offset + q0 + x_r;
+  float m_row = NEG_INF, l_row = 0.f;
+  float acc[4][16];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[rr][e] = 0.f;
+
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    const int t0 = k_begin + j * BK;
+    __syncthreads();  // the last tile's products are done (and Q is staged)
+    for (int i = tid; i < BK * DP / 4; i += NT) {
+      const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
+      *reinterpret_cast<float4*>(ks + r * LD + c) =
+          load4(kb, k_ss, t0 + r, kv_lim, c, d, vec_k);
+      *reinterpret_cast<float4*>(vs + r * LD + c) =
+          load4(vb, v_ss, t0 + r, kv_lim, c, d, vec_v);
+    }
+    __syncthreads();
+
+    // ---- S = Q K^T (log2 units)
+    float sacc[2][4];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sacc[rr][jj] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < DP; c += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(qs + s_r * LD + c);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(qs + (s_r + 1) * LD + c);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(ks + (s_c + 8 * jj) * LD + c);
+        sacc[0][jj] = fmaf(qa.x, kv.x, sacc[0][jj]);
+        sacc[0][jj] = fmaf(qa.y, kv.y, sacc[0][jj]);
+        sacc[0][jj] = fmaf(qa.z, kv.z, sacc[0][jj]);
+        sacc[0][jj] = fmaf(qa.w, kv.w, sacc[0][jj]);
+        sacc[1][jj] = fmaf(qb.x, kv.x, sacc[1][jj]);
+        sacc[1][jj] = fmaf(qb.y, kv.y, sacc[1][jj]);
+        sacc[1][jj] = fmaf(qb.z, kv.z, sacc[1][jj]);
+        sacc[1][jj] = fmaf(qb.w, kv.w, sacc[1][jj]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        ps[(s_r + rr) * LP + s_c + 8 * jj] = sacc[rr][jj] * scale2;
+    __syncthreads();
+
+    // ---- online softmax: row x_r, keys 8 x_part .. 8 x_part + 7
+    {
+      float sv[8];
+      uint32_t live = 0;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int key = 8 * x_part + e, kpos = t0 + key;
+        const bool ok = kpos < kv_lim && (!causal || kpos <= qpos) &&
+                        (!has_window || kpos > qpos - window);
+        sv[e] = ok ? ps[x_r * LP + key] : NEG_INF;
+        live |= (ok ? 1u : 0u) << e;
+        mx = fmaxf(mx, sv[e]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row, mx);
+      const float corr = exp2f(m_row - m_new);
+      m_row = m_new;
+      l_row *= corr;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // Explicit re-mask: a fully masked row would get exp2(0) = 1.
+        const float p = (live >> e) & 1u ? exp2f(sv[e] - m_new) : 0.f;
+        l_row += p;
+        ps[x_r * LP + 8 * x_part + e] = round_p(p, T(0.f));
+      }
+      if (x_part == 0) corr_s[x_r] = corr;
+    }
+    __syncthreads();
+
+    // ---- O = corr O + P V
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const float corr = corr_s[o_r + rr];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[rr][e] *= corr;
+    }
+#pragma unroll 2
+    for (int key = 0; key < BK; ++key) {
+      float pr[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) pr[rr] = ps[(o_r + rr) * LP + key];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vs + key * LD + o_c + 64 * jj);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          acc[rr][4 * jj + 0] = fmaf(pr[rr], vv.x, acc[rr][4 * jj + 0]);
+          acc[rr][4 * jj + 1] = fmaf(pr[rr], vv.y, acc[rr][4 * jj + 1]);
+          acc[rr][4 * jj + 2] = fmaf(pr[rr], vv.z, acc[rr][4 * jj + 2]);
+          acc[rr][4 * jj + 3] = fmaf(pr[rr], vv.w, acc[rr][4 * jj + 3]);
+        }
+      }
+    }
+  }
+
+  // ---- epilogue: the row sums across the four threads of a row, then
+  // o / l and lse
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 1);
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 2);
+  if (x_part == 0) {
+    l_s[x_r] = l_row;
+    m_s[x_r] = m_row;
+  }
+  __syncthreads();
+  const long long row_base = ((long long)b * hq + h) * sq;
+  if (x_part == 0 && q0 + x_r < sq)
+    lse[row_base + q0 + x_r] =
+        l_row == 0.f ? NEG_INF : m_s[x_r] * LN2 + logf(l_row);
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int row = q0 + o_r + rr;
+    if (row >= sq) continue;
+    // Rows with no visible key have l == 0 (and acc == 0): zeros, not NaNs.
+    const float l = l_s[o_r + rr];
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    T* const op = o + (row_base + row) * d;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int dim = o_c + 64 * jj + e;
+        if (dim < d) store(op + dim, acc[rr][4 * jj + e] * inv);
+      }
+  }
+}
+
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                void* lse, int b, int hq, int hkv, int sq, int skv, int d,
+                long long q_sb, long long q_sh, long long q_ss,
+                long long k_sb, long long k_sh, long long k_ss,
+                long long v_sb, long long v_sh, long long v_ss, int causal,
+                int has_window, int window, int q_offset, int kv_len,
+                float scale, cudaStream_t stream) {
+  constexpr size_t SMEM = simt::SMEM_FLOATS * sizeof(float);
+  auto kernel = flash_attention_fwd_simt_kernel<T>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  // Four-element loads need rows, heads and batches aligned to 4 elements.
+  constexpr long long A = 4 * sizeof(T);
+  const auto aligned = [&](const void* p, long long sb, long long sh,
+                           long long ss) {
+    return reinterpret_cast<uintptr_t>(p) % A == 0 &&
+           (sb * (long long)sizeof(T)) % A == 0 &&
+           (sh * (long long)sizeof(T)) % A == 0 &&
+           (ss * (long long)sizeof(T)) % A == 0;
+  };
+  const dim3 grid(b * hq, (sq + simt::BQ - 1) / simt::BQ);
+  kernel<<<grid, simt::NT, SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      hq, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      v_ss, causal, has_window, window, q_offset, kv_len, scale,
+      aligned(q, q_sb, q_sh, q_ss), aligned(k, k_sb, k_sh, k_ss),
+      aligned(v, v_sb, v_sh, v_ss));
+  return (int)cudaGetLastError();
+}
+// ------------------------------------------------------- end SIMT route --
+
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int hq, int hkv, int sq, int skv, int d, long long q_sb,
@@ -848,9 +1156,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int causal, int has_window, int window, int q_offset, int kv_len,
              float scale, void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;  // nothing to launch
-  if (hkv <= 0 || hq % hkv != 0 || d <= 0 || d > 128)
+  if (hkv <= 0 || hq % hkv != 0 || d <= 0 || d > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 128)
+    return launch_simt<T>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, q_sb,
+                          q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                          causal, has_window, window, q_offset, kv_len, scale,
+                          s);
 #define FA_LAUNCH(DP)                                                       \
   return launch<T, DP>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, q_sb, q_sh, \
                        q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, causal,    \
@@ -872,6 +1185,7 @@ const char* cuda_error_string(int err) {
 // Dynamic shared memory of one block at head dim d (ptxas reports only the
 // static kind), for the build report.
 int flash_attention_smem_bytes(int bf16, int d) {
+  if (d > 128) return simt::SMEM_FLOATS * (int)sizeof(float);
   const int dp = d <= 32 ? 32 : d <= 64 ? 64 : 128;
 #define FA_SMEM(T)                                                   \
   (int)sizeof(T) * (dp == 32   ? Tile<T, 32>::ELEMS                 \

@@ -19,9 +19,11 @@ from . import build
 
 __all__ = ["flash_attention_fwd_cuda", "MAX_HEAD_DIM"]
 
-#: The kernel is built for head dims padded to 32, 64 or 128: each warp
-#: keeps its 16 rows' output accumulators for the padded width in registers.
-MAX_HEAD_DIM = 128
+#: The tensor-core route is built for head dims padded to 32, 64 or 128
+#: (each warp keeps its 16 rows' output accumulators for the padded width in
+#: registers); head dims 129..256 take the CUDA-core route of the same
+#: source (``csrc/flash_attention.cu``, "SIMT route").
+MAX_HEAD_DIM = 256
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = ([_VP] * 5 + [_INT] * 6 + [_LL] * 9 + [_INT] * 5

@@ -43,16 +43,22 @@ eigenbasis ``(G, C)``, with a ``flush(refit=True)`` refit wave every
 The LM loop (without ``--reservoir``) prefills random prompts token by
 token and decodes greedily (or samples at ``--temperature``) through the
 decode caches (KV caches for attention layers, ring buffers for windowed
-ones; decode attention is a dense product, as in the JAX package), for
-archs whose blocks are all attention or reservoir layers with dense MLPs:
+ones, carried states for recurrent ones; decode attention is a dense
+product and an RG-LRU step one sequential update, as in the JAX package),
+for archs whose blocks are attention, recurrent or reservoir layers with
+dense MLPs or none — its default arch, ``recurrentgemma-2b``, among them:
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --batch 4 --prompt-len 64 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 4 --prompt-len 64 --gen 32
 
 It computes in the config's dtype (``bfloat16`` for the registered archs)
-as the JAX loop does: parameters, activations and caches follow
-``cfg.dtype``, with the float32 islands of the JAX blocks (norms, RoPE, the
-reservoir recurrence, the attention softmax).  :func:`generate` is the loop
+as the JAX loop does: parameters and caches follow ``cfg.dtype``, with the
+float32 islands of the JAX blocks (norms, RoPE, the recurrences, the
+attention softmax); a config with ``embed_scale`` (recurrentgemma) scales
+its embeddings by a float32 scalar, so its activations are float32 against
+the bfloat16 weights, as in JAX.  :func:`generate` is the loop
 as a library function; with ``forced`` tokens it replays another run's
 sequence (teacher forcing), which is how a bfloat16 run on the card is held
 against the CPU.  Other archs exit naming ROADMAP A12.

@@ -7,15 +7,24 @@
 trains the paper's reservoir LM at full width on the GPU: a Markov-chain
 synthetic corpus, AdamW, float32, checkpoints and preemption handling;
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --vocab 49152 --batch 8 --seq 2048 --steps 10
 
-trains the attention LM ``smollm-135m`` the same way.  Every reservoir
-layer's scan and its gradient, and every flash-attention forward, run
-through the hand-written CUDA kernels.  ``--device cpu`` runs the same loop
-on the host with their plain PyTorch versions.  Archs with blocks the port
-has not yet ported (MoE, RG-LRU, xLSTM, encoder-decoder) exit naming
-ROADMAP A12.
+trains the attention LM ``smollm-135m`` the same way, and
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --vocab 50304 --batch 8 --seq 2048 --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-2b --layers 9 --vocab 256000 --batch 2 \\
+        --seq 2048 --steps 5
+
+the recurrent LMs (recurrentgemma at 9 of its 26 layers: float32 params,
+gradients and AdamW moments of all 26 would take ~57 GB alone).  Every
+reservoir, RG-LRU and sLSTM scan and its gradient, and every
+flash-attention forward, run through the hand-written CUDA kernels.
+``--device cpu`` runs the same loop on the host with their plain PyTorch
+versions.  Archs with blocks the port has not yet ported (MoE,
+encoder-decoder) exit naming ROADMAP A12.
 """
 from __future__ import annotations
 

@@ -1,14 +1,20 @@
 """LM building blocks of the port: norms, the SwiGLU/GELU MLP, GQA attention
-(full, sliding-window or local, with RoPE and a KV cache) and the paper's
-LinearReservoir layer as a sequence mixer (the JAX package's
-``models/blocks.py``, reduced to what the attention and reservoir LMs need).
+(full, sliding-window or local, with RoPE and a KV cache), the recurrent
+mixers — recurrentgemma's RG-LRU block, xLSTM's mLSTM and sLSTM — and the
+paper's LinearReservoir layer as a sequence mixer (the JAX package's
+``models/blocks.py`` without the MoE block).
 
 Parameters are nested dicts of tensors under the JAX package's key names,
 and every ``init_*`` draws from an explicit CPU ``torch.Generator`` and
 returns the params alone (the JAX ``init_*`` also return sharding specs: the
-port runs on one device, ROADMAP A11).  The MoE, RG-LRU, mLSTM and sLSTM
-blocks are not ported yet: :func:`not_ported` raises for them, naming
-ROADMAP A12.
+port runs on one device, ROADMAP A11).  The MoE block is not ported yet:
+:func:`not_ported` raises for it, naming ROADMAP A12.
+
+Products promote as ``jnp``'s do (:func:`mm`, :func:`einsum`): float32
+activations against a bfloat16 weight (recurrentgemma's embed scale makes
+them float32) multiply in float32.  The RG-LRU and sLSTM recurrences run
+through ``kernels.ops.diag_scan``: the hand-written scan kernel and its
+backward on a CUDA tensor, their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -27,13 +33,14 @@ from . import attention as attn_mod
 __all__ = ["ShardProfile", "NULL_PROFILE", "constrain", "not_ported",
            "torch_dtype", "init_norm", "apply_norm", "init_mlp", "apply_mlp",
            "init_attention", "apply_attention", "apply_attention_decode",
-           "init_reservoir", "apply_reservoir"]
+           "init_reservoir", "apply_reservoir", "mm", "einsum",
+           "init_rglru_block", "apply_rglru_block", "init_mlstm",
+           "apply_mlstm", "init_slstm", "apply_slstm"]
 
 
 def not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP A12 (the "
-                              f"MoE, RG-LRU, xLSTM and encoder-decoder "
-                              f"blocks)")
+                              f"MoE and encoder-decoder blocks)")
 
 
 # --------------------------------------------------------------------------- #
@@ -60,6 +67,26 @@ def constrain(x, spec, prof: ShardProfile):
         raise NotImplementedError("sharded layouts are not ported yet: "
                                   "ROADMAP A11")
     return x
+
+
+def _promoted(*ts):
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in ts]
+
+
+def mm(x, w):
+    """``x @ w`` in the promoted dtype of the two, as ``jnp``'s ``@``: a
+    bfloat16 weight against float32 activations multiplies in float32
+    (torch refuses mixed dtypes).  Equal dtypes are left as they are."""
+    x, w = _promoted(x, w)
+    return x @ w
+
+
+def einsum(eq, *operands):
+    """``torch.einsum`` with ``jnp.einsum``'s promotion (see :func:`mm`)."""
+    return torch.einsum(eq, *_promoted(*operands))
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -126,12 +153,12 @@ def init_mlp(gen, d, f, dtype, gated=True, bias=False):
 
 
 def apply_mlp(p, x, act="silu", gated=True):
-    h = x @ p["wi"]
+    h = mm(x, p["wi"])
     if "bi" in p:
         h = h + p["bi"]
     a = _ACTS[act]
-    h = a(x @ p["wg"]) * h if gated else a(h)
-    out = h @ p["wo"]
+    h = a(mm(x, p["wg"])) * h if gated else a(h)
+    out = mm(h, p["wo"])
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -157,9 +184,9 @@ def init_attention(gen, cfg, dtype):
 
 
 def _qkv(p, x, rope_theta, positions):
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
+    q = einsum("bsd,dhk->bhsk", x, p["wq"])
+    k = einsum("bsd,dhk->bhsk", x, p["wk"])
+    v = einsum("bsd,dhk->bhsk", x, p["wv"])
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
@@ -178,7 +205,7 @@ def apply_attention(p, x, cfg, *, causal=True, window=None, positions=None,
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(p, x, cfg.rope_theta, positions)
     o = attn_mod.attention(q, k, v, causal=causal, window=window, impl=impl)
-    return torch.einsum("bhsk,hkd->bsd", o, p["wo"]), (k, v)
+    return einsum("bhsk,hkd->bsd", o, p["wo"]), (k, v)
 
 
 def apply_attention_decode(p, x, cfg, cache, *, window=None):
@@ -201,8 +228,205 @@ def apply_attention_decode(p, x, cfg, cache, *, window=None):
     v_cache = cache["v"].index_copy(2, slot, v_new.to(cache["v"].dtype))
     o = attn_mod.decode_attention(q, k_cache, v_cache, cur + 1, window=window,
                                   ring=ring)
-    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    out = einsum("bhsk,hkd->bsd", o, p["wo"])
     return out, {"k": k_cache, "v": v_cache, "len": cur + 1}
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU recurrent block (recurrentgemma) — the paper's scan, gated            #
+# --------------------------------------------------------------------------- #
+#: RG-LRU's gate constant c: a = exp(-c r softplus(lam_p)).
+RGLRU_C = 8.0
+
+
+def init_rglru_block(gen, cfg, dtype):
+    """The JAX ``init_rglru_block``'s keys, shapes and dtypes.  ``lam_p``
+    is drawn as JAX draws it (``np.random.default_rng(0)``), so it is
+    bit-equal: recurrence magnitudes on (0.9, 0.999) at r = 1."""
+    d, dr = cfg.d_model, cfg.d_rnn
+    u = np.random.default_rng(0).uniform(0.9, 0.999, size=dr)
+    lam_p = np.log(np.expm1(-np.log(u) / RGLRU_C))
+    return {
+        "w_x": _dense_init(gen, (d, dr), dtype),
+        "w_gate": _dense_init(gen, (d, dr), dtype),
+        "conv": (torch.randn((cfg.conv_width, dr), generator=gen)
+                 * 0.1).to(dtype),
+        "w_a": _dense_init(gen, (dr, dr), dtype),
+        "b_a": torch.zeros((dr,), dtype=dtype),
+        "w_i": _dense_init(gen, (dr, dr), dtype),
+        "b_i": torch.zeros((dr,), dtype=dtype),
+        "lam_p": torch.tensor(lam_p, dtype=torch.float32),
+        "w_out": _dense_init(gen, (dr, d), dtype),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv over time.  x: (B, S, C); w: (W, C); ``state``:
+    the (B, W-1, C) trailing context of decode.  Returns ``(y,
+    new_state)``.  As ``jnp.concatenate``, a bfloat16 state joined to
+    float32 ``x`` promotes: the state is float32 from then on."""
+    width = w.shape[0]
+    pad = x.new_zeros((x.shape[0], width - 1) + tuple(x.shape[2:])) \
+        if state is None else state
+    pad, x = _promoted(pad, x)
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width))
+    return y, (xp[:, -(width - 1):] if width > 1 else None)
+
+
+def _rglru_core(p, xr, h0=None, *, step=False):
+    """xr: (B, S, dr) after the conv.  Returns ``(states (B, S, dr) in xr's
+    dtype, last state (B, dr) float32)``.  The gates are float32; the scan
+    is ``kernels.ops.diag_scan`` with per-timestep ``a`` (B, S, dr), whose
+    gradient reaches the gates; ``step`` (one decode token against ``h0``)
+    takes the single update instead, as the JAX decode fast path does."""
+    r = torch.sigmoid(mm(xr, p["w_a"]) + p["b_a"]).float()
+    i = torch.sigmoid(mm(xr, p["w_i"]) + p["b_i"]).float()
+    log_a = -RGLRU_C * r * F.softplus(p["lam_p"])       # (B, S, dr), <= 0
+    a = torch.exp(log_a)
+    gated_x = (i * xr.float()) * torch.sqrt(
+        torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    if step:
+        h = a * h0[:, None] + gated_x
+    else:
+        h = kops.diag_scan(a, gated_x, h0)
+    return h.to(xr.dtype), h[:, -1]
+
+
+def apply_rglru_block(p, x, cfg, *, cache=None):
+    """Griffin-style recurrent block: x (B, S, d) -> ``(out, {"conv": (B,
+    W-1, dr), "h": (B, dr) float32})``; ``cache`` carries both in (decode:
+    one token, one sequential step, no kernel)."""
+    xr = mm(x, p["w_x"])
+    gate = _ACTS["gelu"](mm(x, p["w_gate"]))
+    xc, new_conv = _causal_conv(xr, p["conv"],
+                                None if cache is None else cache["conv"])
+    h0 = None if cache is None else cache["h"]
+    hs, last = _rglru_core(p, xc, h0,
+                           step=cache is not None and x.shape[1] == 1)
+    out = mm(hs * gate, p["w_out"])
+    return out, {"conv": new_conv, "h": last.float()}
+
+
+# --------------------------------------------------------------------------- #
+# mLSTM (matrix memory, chunkwise) and sLSTM (scalar memory, stabilized)       #
+# --------------------------------------------------------------------------- #
+def init_mlstm(gen, cfg, dtype):
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    return {"wq": _dense_init(gen, (d, h, hd), dtype),
+            "wk": _dense_init(gen, (d, h, hd), dtype),
+            "wv": _dense_init(gen, (d, h, hd), dtype),
+            "wi": _dense_init(gen, (d, h), dtype),
+            "wf": _dense_init(gen, (d, h), dtype),
+            "bf": torch.full((h,), 3.0, dtype=dtype),  # open forget gates
+            "wo": _dense_init(gen, (h, hd, d), dtype)}
+
+
+def apply_mlstm(p, x, cfg, *, cache=None, chunk=64):
+    """Chunkwise mLSTM: C_t = f_t C + i_t k v^T; h = C^T q / max(|n.q|, 1),
+    with the JAX package's sigmoid input gate.  Plain PyTorch (the JAX
+    package has no kernel for it): one step of the chunk loop per ``chunk``
+    tokens, one chunk when ``S % chunk != 0`` (decode: S = 1).  ``cache``:
+    ``{"C": (B, H, hd, hd), "n": (B, H, hd)}`` float32."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    hd = d // h
+    q = einsum("bsd,dhk->bhsk", x, p["wq"]).float() * hd ** -0.5
+    k = einsum("bsd,dhk->bhsk", x, p["wk"]).float()
+    v = einsum("bsd,dhk->bhsk", x, p["wv"]).float()
+    ig = torch.sigmoid(einsum("bsd,dh->bhs", x, p["wi"])).float()
+    fg = torch.sigmoid(einsum("bsd,dh->bhs", x, p["wf"])
+                       + p["bf"][None, :, None].float())
+    C = x.new_zeros((b, h, hd, hd), dtype=torch.float32) if cache is None \
+        else cache["C"]
+    n = x.new_zeros((b, h, hd), dtype=torch.float32) if cache is None \
+        else cache["n"]
+    if s % chunk != 0:
+        chunk = s
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    outs = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        qk, kk, vk, ik, fk = q[:, :, sl], k[:, :, sl], v[:, :, sl], \
+            ig[:, :, sl], fg[:, :, sl]
+        cum = torch.cumsum(torch.log(torch.clamp(fk, min=1e-9)), -1)
+        total = cum[..., -1:]
+        # intra-chunk decay D[t, s] = exp(cum_t - cum_s) i_s, s <= t
+        dec = cum[..., :, None] - cum[..., None, :]
+        amat = torch.where(tri, torch.exp(dec) * ik[..., None, :], 0.0)
+        scores = torch.einsum("bhtd,bhsd->bhts", qk, kk) * amat
+        inter_q = torch.exp(cum)                            # P_t
+        num = torch.einsum("bhts,bhsd->bhtd", scores, vk) + \
+            inter_q[..., None] * torch.einsum("bhtd,bhde->bhte", qk, C)
+        den = scores.sum(-1) + inter_q * torch.einsum("bhtd,bhd->bht", qk, n)
+        outs.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
+        # state update: C' = F C + sum_s (F / P_s) i_s k_s v_s^T
+        wts = torch.exp(total - cum) * ik
+        C = torch.exp(total)[..., None] * C + torch.einsum(
+            "bhs,bhsd,bhse->bhde", wts, kk, vk)
+        n = torch.exp(total) * n + torch.einsum("bhs,bhsd->bhd", wts, kk)
+    hs = torch.cat(outs, dim=2)
+    out = einsum("bhsk,hkd->bsd", hs.to(x.dtype), p["wo"])
+    return out, {"C": C, "n": n}
+
+
+def init_slstm(gen, cfg, dtype):
+    d = cfg.d_model
+    return {"wz": _dense_init(gen, (d, d), dtype),
+            "wi": _dense_init(gen, (d, d), dtype),
+            "wf": _dense_init(gen, (d, d), dtype),
+            "bf": torch.full((d,), 3.0, dtype=dtype),
+            "wog": _dense_init(gen, (d, d), dtype),
+            "wo": _dense_init(gen, (d, d), dtype)}
+
+
+def _maxplus_scan(f, i):
+    """m_t = max(f_t + m_{t-1}, i_t) along dim 1 (m_{-1} = -inf), as the
+    JAX package's ``lax.associative_scan`` of the pairs (f, i) under
+    (f1, i1) . (f2, i2) = (f1 + f2, max(i1 + f2, i2)): a log-depth
+    (Hillis-Steele) doubling scan under the same combine.  Its f-sums
+    group terms in another tree than XLA's, so m parts from JAX's by
+    rounding (a few float32 ulps); the outputs hardly feel it, because m
+    only rescales c and n alike.  One step returns i itself, as JAX."""
+    t, off = f.shape[1], 1
+    while off < t:
+        i = torch.cat([i[:, :off], torch.maximum(i[:, :-off] + f[:, off:],
+                                                 i[:, off:])], dim=1)
+        if 2 * off < t:
+            f = torch.cat([f[:, :off], f[:, :-off] + f[:, off:]], dim=1)
+        off *= 2
+    return i
+
+
+def apply_slstm(p, x, cfg, *, cache=None):
+    """Parallel sLSTM (input-conditioned gates, exponential input gate
+    with the max-plus stabiliser; the JAX package drops the hidden-to-gate
+    recurrence).  ``cache``: ``{"c", "n", "m"}`` (B, d) float32; a fresh
+    decode cache starts ``m`` at -1e30.  The ``c`` and ``n`` recurrences
+    share ``f'`` and run as two ``kernels.ops.diag_scan`` calls."""
+    zf = torch.tanh(mm(x, p["wz"])).float()
+    itil = mm(x, p["wi"]).float()
+    ftil = F.logsigmoid((mm(x, p["wf"]) + p["bf"]).float())
+    og = torch.sigmoid(mm(x, p["wog"]).float())
+    m_prev0 = None if cache is None else cache["m"]
+    it = itil
+    if m_prev0 is not None:   # fold the carry into step 0
+        it = torch.cat([torch.maximum(ftil[:, :1] + m_prev0[:, None],
+                                      itil[:, :1]), itil[:, 1:]], dim=1)
+    m = _maxplus_scan(ftil, it)                           # (B, S, d)
+    m0 = torch.zeros_like(m[:, 0]) if m_prev0 is None else m_prev0
+    m_prev = torch.cat([m0[:, None], m[:, :-1]], dim=1)
+    fprime = torch.exp(ftil + m_prev - m)
+    iprime = torch.exp(itil - m)
+    c0 = None if cache is None else cache["c"]
+    n0 = None if cache is None else cache["n"]
+    c = kops.diag_scan(fprime, iprime * zf, c0)
+    n = kops.diag_scan(fprime, iprime, n0)
+    hval = og * c / torch.clamp(n.abs(), min=1.0)
+    out = mm(hval.to(x.dtype), p["wo"])
+    return out, {"c": c[:, -1], "n": n[:, -1], "m": m[:, -1]}
 
 
 # --------------------------------------------------------------------------- #

@@ -1,16 +1,23 @@
-"""Decoder LM assembly of the port (the JAX package's ``models/lm.py``),
-reduced to attention and reservoir layers: the attention LMs (``attn`` —
-full causal GQA, ``swa`` — sliding-window GQA, ``local`` — local attention;
-e.g. ``smollm-135m``) and the paper's own LM family, ``linear-esn`` — a
-stack of LinearReservoir mixers — each with SwiGLU MLPs.
+"""Decoder LM assembly of the port (the JAX package's ``models/lm.py``)
+for the attention, recurrent and reservoir layers: the attention LMs
+(``attn`` — full causal GQA, ``swa`` — sliding-window GQA, ``local`` —
+local attention; e.g. ``smollm-135m``), the recurrent LMs (``rglru`` —
+recurrentgemma's Griffin block, ``mlstm`` / ``slstm`` — xLSTM's blocks;
+``recurrentgemma-2b``, ``xlstm-125m``) and the paper's own LM family,
+``linear-esn`` — a stack of LinearReservoir mixers — with SwiGLU / GELU
+MLPs, or none where ``d_ff == 0``.
 
 The parameter tree is a nested dict under the JAX key names (``embed``,
-``layers/attn/wq``, ``layers/res/nu``, ``layers/mlp/wi``, ``final_norm``,
-``head``); a homogeneous stack keeps the leading layer dimension, which
+``layers/attn/wq``, ``layers/rglru/w_a``, ``layers/mix/wz``,
+``layers/res/nu``, ``layers/mlp/wi``, ``final_norm``, ``head``); a
+homogeneous stack keeps the leading layer dimension, which
 :func:`_stack_forward` indexes layer by layer (the loop that JAX's
 ``lax.scan`` over layers compiles).  :func:`lm_params_from_numpy` carries a
-JAX ``init_params`` tree over, so both packages compute the same function.
-Configs with other mixers, MoE or an encoder raise ``NotImplementedError``
+JAX ``init_params`` tree over, so both packages compute the same function,
+in the same dtypes: with ``embed_scale`` the embeddings are scaled by a
+float32 scalar, as JAX's ``np.float32`` scale does, so a bfloat16 model runs
+float32 activations against its bfloat16 weights from there on.  Configs
+with MoE, an encoder or embedding inputs raise ``NotImplementedError``
 naming ROADMAP A12.
 """
 from __future__ import annotations
@@ -32,7 +39,7 @@ __all__ = ["MIXERS", "ATTN_KINDS", "layer_kinds", "check_ported",
 
 MIXERS = ("attn", "swa", "local", "rglru", "mlstm", "slstm", "reservoir")
 ATTN_KINDS = ("attn", "swa", "local")
-PORTED_KINDS = ATTN_KINDS + ("reservoir",)
+PORTED_KINDS = ATTN_KINDS + ("rglru", "mlstm", "slstm", "reservoir")
 
 
 def layer_kinds(cfg):
@@ -45,8 +52,8 @@ def _is_homogeneous(cfg):
 
 
 def check_ported(cfg) -> None:
-    """Raise unless every block of ``cfg`` is ported (attention and
-    reservoir mixers, dense MLPs, decoder-only)."""
+    """Raise unless every block of ``cfg`` is ported (attention, recurrent
+    and reservoir mixers, dense MLPs, decoder-only)."""
     other = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
     if other:
         blocks.not_ported(f"{cfg.name}: the {', '.join(other)} mixer(s)")
@@ -76,6 +83,12 @@ def init_layer(gen, cfg, kind, dtype):
     p = {"norm1": init_norm(cfg.d_model, dtype, cfg.norm)}
     if kind in ATTN_KINDS:
         p["attn"] = blocks.init_attention(gen, cfg, dtype)
+    elif kind == "rglru":
+        p["rglru"] = blocks.init_rglru_block(gen, cfg, dtype)
+    elif kind == "mlstm":
+        p["mix"] = blocks.init_mlstm(gen, cfg, dtype)
+    elif kind == "slstm":
+        p["mix"] = blocks.init_slstm(gen, cfg, dtype)
     elif kind == "reservoir":
         p["res"] = blocks.init_reservoir(gen, cfg, dtype,
                                          n_state=cfg.d_rnn or cfg.d_model)
@@ -96,7 +109,8 @@ def apply_layer(p, x, cfg, kind, prof=NULL_PROFILE, *, mode="train",
     """Returns ``(x, new_cache, aux)``; ``aux`` holds the MoE losses, zero
     for the ported blocks.  ``mode``: ``"train"`` / ``"prefill"`` run the
     full sequence (an attention layer's new cache is its full-length
-    ``{"kv": {"k", "v"}}``), ``"decode"`` one token against ``cache``."""
+    ``{"kv": {"k", "v"}}``, a recurrent layer's its last state under the
+    kind's key), ``"decode"`` one token against ``cache``."""
     if kind not in PORTED_KINDS:
         blocks.not_ported(f"the {kind!r} mixer")
     zero = x.new_zeros((), dtype=torch.float32)
@@ -112,6 +126,14 @@ def apply_layer(p, x, cfg, kind, prof=NULL_PROFILE, *, mode="train",
             p["attn"], h, cfg, causal=not cfg.bidirectional_attn,
             window=window, positions=positions, impl=attn_impl)
         st = {"kv": {"k": k, "v": v}}
+    elif kind == "rglru":
+        mix, rec = blocks.apply_rglru_block(
+            p["rglru"], h, cfg, cache=cache and cache.get("rglru"))
+        st = {"rglru": rec}
+    elif kind in ("mlstm", "slstm"):
+        apply = blocks.apply_mlstm if kind == "mlstm" else blocks.apply_slstm
+        mix, rec = apply(p["mix"], h, cfg, cache=cache and cache.get(kind))
+        st = {kind: rec}
     else:
         mix, res = blocks.apply_reservoir(p["res"], h, cfg,
                                           cache=cache and cache.get("res"))
@@ -168,9 +190,14 @@ def lm_params_from_numpy(tree, device=None):
 # Forward passes                                                               #
 # --------------------------------------------------------------------------- #
 def _embed_tokens(p, cfg, tokens, prof):
+    """The embeddings of ``tokens``; with ``embed_scale`` times
+    sqrt(d_model) as a float32 scalar.  JAX scales by a numpy float32,
+    which is not weakly typed: bfloat16 embeddings become float32 there,
+    and so here."""
     x = constrain(p["embed"][tokens.long()], None, prof)
     if cfg.embed_scale:
-        x = x * float(np.sqrt(cfg.d_model).astype(np.float32))
+        x = x.to(torch.promote_types(x.dtype, torch.float32)) * float(
+            np.sqrt(cfg.d_model).astype(np.float32))
     return x
 
 
@@ -253,13 +280,20 @@ def make_decode_cache(p, cfg, batch_size, max_len, dtype=None):
     "len"}}``: (B, Hkv, L, hd) in ``dtype`` (default the config's) and an
     int32 count of the valid entries, where L is ``max_len``, or the window
     for a ``swa``/``local`` layer (a ring buffer: O(window) memory however
-    long the sequence).  A reservoir layer gets its carried state
-    ``{"res": {"h_re", "h_im"}}`` (B, N) float32."""
+    long the sequence).  A recurrent layer gets its carried state, as the
+    JAX package's: ``{"rglru": {"conv": (B, W-1, d_rnn) in dtype, "h":
+    (B, d_rnn) float32}}``, ``{"mlstm": {"C": (B, H, hd, hd), "n": (B, H,
+    hd)}}``, ``{"slstm": {"c", "n", "m"}}`` (B, d) with ``m`` at -1e30, and
+    a reservoir layer ``{"res": {"h_re", "h_im"}}`` (B, N), all float32."""
     check_ported(cfg)
     dev = p["embed"].device
     dtype = blocks.torch_dtype(dtype or cfg.dtype)
     homo = _is_homogeneous(cfg)
     lead = (cfg.n_layers,) if homo else ()
+
+    def state(*shape, dtype=torch.float32, fill=0.0):
+        return torch.full(lead + (batch_size,) + shape, fill, dtype=dtype,
+                          device=dev)
 
     def one(kind):
         if kind in ATTN_KINDS:
@@ -271,10 +305,19 @@ def make_decode_cache(p, cfg, batch_size, max_len, dtype=None):
                            "v": torch.zeros(shape, dtype=dtype, device=dev),
                            "len": torch.zeros(lead, dtype=torch.int32,
                                               device=dev)}}
+        if kind == "rglru":
+            return {"rglru": {"conv": state(cfg.conv_width - 1, cfg.d_rnn,
+                                            dtype=dtype),
+                              "h": state(cfg.d_rnn)}}
+        if kind == "mlstm":
+            hd = cfg.d_model // cfg.n_heads
+            return {"mlstm": {"C": state(cfg.n_heads, hd, hd),
+                              "n": state(cfg.n_heads, hd)}}
+        if kind == "slstm":
+            return {"slstm": {"c": state(cfg.d_model), "n": state(cfg.d_model),
+                              "m": state(cfg.d_model, fill=-1e30)}}
         n = cfg.d_rnn or cfg.d_model
-        return {"res": {k: torch.zeros(lead + (batch_size, n),
-                                       dtype=torch.float32, device=dev)
-                        for k in ("h_re", "h_im")}}
+        return {"res": {k: state(n) for k in ("h_re", "h_im")}}
     kinds = layer_kinds(cfg)
     if homo:
         return one(kinds[0])

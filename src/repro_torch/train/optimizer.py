@@ -28,10 +28,18 @@ def global_norm(tree):
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm):
+def _clip_scale(grads, max_norm):
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def _clip_leaf(g, scale):
+    return (g.float() * scale).to(g.dtype)
+
+
+def clip_by_global_norm(grads, max_norm):
+    scale, norm = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: _clip_leaf(g, scale), grads), norm
 
 
 # --------------------------------------------------------------------------- #
@@ -73,26 +81,34 @@ class AdamW:
                 "step": step}
 
     def update(self, grads, state, params):
-        if self.clip_norm:
-            grads, _ = clip_by_global_norm(grads, self.clip_norm)
+        """One leaf at a time: a gradient is clipped, folded into its
+        moments and turned into its update before the next leaf, so no
+        clipped copy of the gradient tree is held (each float32 tree of
+        recurrentgemma-2b at 9 layers is 8.3 GB).  The arithmetic is
+        ``clip_by_global_norm``'s, then the moments', unchanged."""
+        scale = _clip_scale(grads, self.clip_norm)[0] if self.clip_norm \
+            else None
         step = state["step"] + 1
         lr = _lr(self.lr, step)
         b1, b2 = self.b1, self.b2
-        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["m"],
-                     grads)
-        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                     state["v"], grads)
         t = step.float()
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)
 
-        def upd(m, v, p):
+        def one(g, m, v, p):
+            if scale is not None:
+                g = _clip_leaf(g, scale)
+            m = b1 * m + (1 - b1) * g.float()
+            v = b2 * v + (1 - b2) * torch.square(g.float())
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             u = u + self.weight_decay * p.float()
-            return (-lr * u).to(p.dtype)
+            return m, v, (-lr * u).to(p.dtype)
 
-        updates = tree_map(upd, m, v, params)
-        return updates, {"m": m, "v": v, "step": step}
+        out = tree_map(one, grads, state["m"], state["v"], params)
+
+        def part(i):
+            return tree_map(lambda mvu: mvu[i], out)
+        return part(2), {"m": part(0), "v": part(1), "step": step}
 
 
 # --------------------------------------------------------------------------- #

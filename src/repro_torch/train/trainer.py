@@ -86,6 +86,7 @@ def make_step_fn(cfg_arch, train_cfg: TrainConfig, opt, **fwd_kw):
             grads, ef_state = compression.compress_decompress_ef(
                 grads, ef_state)
         updates, opt_state = opt.update(grads, opt_state, params)
+        del grads               # freed before the new params are built
         params = opt_mod.apply_updates(params, updates)
         return params, opt_state, ef_state, loss, metrics
 

@@ -825,7 +825,7 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
         ops.flash_attention_fwd(meta, meta, meta)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.flash_attention_fwd(q.double(), k.double(), v.double())
-    wide = torch.zeros((1, 1, 4, 160), device=dev)
+    wide = torch.zeros((1, 1, 4, 288), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="GQA"):
@@ -1091,3 +1091,129 @@ def test_facade_replay_on_card(dev):
     assert ops.diag_scan.launches > before[0]
     assert ops.decode_fused.launches > before[1]
     assert compare(got, ref_arrays, atol=1e-5) <= 1e-5
+
+
+# ---------------------------------------------------- recurrent LM families
+# B1 with real per-timestep gates a (B, T, N), float32, as the RG-LRU and
+# sLSTM recurrences give it: a small case, the RG-LRU training shape and
+# xlstm-125m's sLSTM decode step (one token, the carried state as h0).
+GATE_SHAPES = {"small": (3, 77, 130), "rglru": (2, 2048, 2560),
+               "slstm-decode": (4, 1, 768)}
+
+
+def gate_inputs(shape, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(shape, generator=g) * 0.6 + 0.39
+    x = torch.randn(shape, generator=g)
+    h0 = torch.randn(shape[::2], generator=g)
+    return [t.to(device) for t in (a, x, h0)]
+
+
+@pytest.mark.parametrize("name", list(GATE_SHAPES))
+def test_diag_scan_per_timestep_gates_match_plain(dev, name):
+    """Forward and backward of the real scan with a (B, T, N) and h0 on the
+    card against the plain versions: outputs 2e-4, gradients (``da`` sums
+    over the batch and time) 2e-4 x max(1, max|ref|)."""
+    a, x, h0 = gate_inputs(GATE_SHAPES[name], dev)
+    before = (ops.diag_scan.launches, ops.diag_scan_bwd.launches)
+    h, _ = ops.diag_scan_lanes(a, None, x, None, h0, None)
+    _close(h, ref.diag_scan_ref(a, x, h0), torch.float32)
+    g = torch.randn(a.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    got = ops.diag_scan_bwd(a, None, h, None, g, None, h0, None)
+    want = ref.diag_scan_lanes_bwd_ref(a, None, h, None, g, None, h0, None)
+    assert (ops.diag_scan.launches, ops.diag_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g_, w_ in zip(got, want):
+        assert (g_ is None) == (w_ is None)
+        if w_ is not None:
+            assert g_.shape == w_.shape
+            _close_scaled(g_, w_, torch.float32)
+
+
+# recurrentgemma's local attention at seq 2048: _banded_attention's two
+# 1024-row query chunks, GQA 10:1, head_dim 256, window 2048 (the CUDA-core
+# route of the kernel), float32; and a small bfloat16 case of that route.
+LOCAL_CASES = {
+    "chunk0": ((2, 10, 1, 1024, 1024, 256), 0, torch.float32),
+    "chunk1": ((2, 10, 1, 1024, 2048, 256), 1024, torch.float32),
+    "window-bf16": ((1, 10, 1, 100, 300, 256), 200, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", list(LOCAL_CASES))
+def test_flash_attention_head_dim_256_matches_plain(dev, name):
+    (b, hq, hkv, sq, skv, d), q_offset, dtype = LOCAL_CASES[name]
+    window = 2048 if dtype == torch.float32 else 150
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype) for shape in
+               ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = ops.flash_attention_fwd.launches
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    assert ops.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,seq,launches", [
+    # 2 RG-LRU layers (B1 forward and backward) and a local layer at 1024
+    # tokens (one flash chunk)
+    ("recurrentgemma-2b", 1024, (2, 2, 1)),
+    # one sLSTM layer: its c and n scans
+    ("xlstm-125m", 128, (2, 2, 0)),
+], ids=["recurrentgemma", "xlstm"])
+def test_recurrent_train_step_card_matches_cpu(dev, arch, seq, launches):
+    """One loss-and-gradient step of a smoke-size recurrent LM from the
+    same weights: the card (B1 with per-timestep gates forward and
+    backward, B3 at the local layer) against the CPU, float32, TF32 off."""
+    cfg = smoke_config(arch)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, seq)))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        before = (ops.diag_scan.launches, ops.diag_scan_bwd.launches,
+                  ops.flash_attention_fwd.launches)
+        p = tree_map(lambda v: v.to(device), params)
+        loss, _, grads = loss_and_grads(cfg, p, {"tokens": toks.to(device)})
+        if device.type == "cuda":
+            assert (ops.diag_scan.launches - before[0],
+                    ops.diag_scan_bwd.launches - before[1],
+                    ops.flash_attention_fwd.launches - before[2]) == launches
+        out[device.type] = (float(loss), flatten(grads))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, w_ in g_cpu.items():
+        d = float((g_gpu[k].cpu() - w_).abs().max())
+        assert d <= 1e-4 * float(w_.abs().max()), k
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m"])
+def test_recurrent_bf16_decode_card_matches_cpu(dev, arch):
+    """The bfloat16 decode loop of a smoke-size recurrent LM on the card
+    against the CPU from the same weights and tokens: recurrentgemma's
+    float32 activations (the embed scale) to 1e-4 of the largest |logit|,
+    xlstm's bfloat16 ones to 5e-2 (chip_smoke.py's BF16_LM_TOL)."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="bfloat16")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 8)))
+    logits = {}
+    for device in (dev, torch.device("cpu")):
+        p = tree_map(lambda v: v.to(device), params)
+        cache = lm.make_decode_cache(p, cfg, 2, toks.shape[1])
+        steps = []
+        for t in range(toks.shape[1]):
+            out, cache = lm.decode_step(p, cfg, cache,
+                                        toks[:, t:t + 1].to(device))
+            steps.append(out.float().cpu())
+        logits[device.type] = torch.stack(steps)
+    tol = 1e-4 if cfg.embed_scale else 5e-2
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    assert err <= tol * float(logits["cpu"].abs().max()), err

@@ -228,10 +228,13 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
     assert res["teacher_tokens"] == 64 and res["finite"]
     assert res["refit_waves"] == res["refit_rows"] == 8
     assert res["rmse_second_half"] <= res["rmse_first_half"]
-    # Without --reservoir the LM loop runs (its default arch,
-    # recurrentgemma-2b, has blocks that are not ported yet).
-    for argv in (["--device", "cpu"], ["--arch", "xlstm-125m", "--smoke",
-                                       "--device", "cpu"]):
+    # Without --reservoir the LM loop runs: its default arch,
+    # recurrentgemma-2b, serves; an arch with unported blocks exits.
+    res = tserve.main(["--smoke", "--batch", "2", "--prompt-len", "3",
+                       "--gen", "2", "--device", "cpu"])
+    assert res["arch"] == "recurrentgemma-2b" and res["finite"]
+    for argv in (["--arch", "whisper-tiny", "--device", "cpu"],
+                 ["--arch", "kimi-k2-1t-a32b", "--smoke", "--device", "cpu"]):
         with pytest.raises(SystemExit, match="not ported yet: ROADMAP A12"):
             tserve.main(argv)
 
