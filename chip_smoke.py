@@ -15,7 +15,10 @@ warps a row at five shapes, its mean route with per-slot operands, and the
 engine's call shown to be one launch — and fails if a decode instantiation
 spills; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
-head_dim 256 (recurrentgemma's local layer, both band chunks); then drives
+head_dim 256 (recurrentgemma's local layer, both band chunks in float32
+and chunk 1 in bfloat16, through the route that splits the head dim
+between two warpgroups; its ptxas registers, spills and shared memory are
+printed, and a spill fails the build phase); then drives
 the port's fourteen main paths on the card, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -50,8 +53,9 @@ to 0 just before it and read just after:
    ``weighted`` and ``independent``): 8 independently seeded reservoirs in
    a param-batched engine — the prefill through B1 with one row of
    coefficients a reservoir, the mean's closed loop through B2's ensemble
-   route; ``--slots 16`` with ``mean`` must raise B2's limit; both fused
-   ensembles held against the CPU engine;
+   route; ``--slots 16`` with ``mean`` (past B2's one-block limit) must
+   serve on the step-at-a-time route, decided from the shapes, with no B2
+   launch; both fused ensembles held against the CPU engine;
 8. the decode-SLO interleave (two protected decoders, chunked prompts,
    8-token decode waves) bit-exact against the decode-blind schedule on
    the card; main path 1 through the driver under ``--decode-slo 2000
@@ -98,8 +102,9 @@ to 0 just before it and read just after:
    params, gradients and AdamW moments of 26 layers would take ~57 GB
    alone), batch 2 x 2048, 5 steps — every RG-LRU scan and its gradient
    through B1 with per-timestep gates, every local layer's two 1024-row
-   query chunks through B3 at head_dim 256; a 3-layer full-width trainer
-   held against the CPU's;
+   query chunks through B3 at head_dim 256 (its profiled step must name
+   that route's kernel); a 3-layer full-width trainer held against the
+   CPU's;
 13. ``repro_torch.launch.train --arch xlstm-125m``: the full config (12
    layers of mLSTM / sLSTM, d_model 768, vocab 50304), batch 8 x 2048, 10
    steps — each sLSTM layer's c and n scans and their gradients through
@@ -134,8 +139,7 @@ once) over HBM3's 3.35 TB/s and the operations over the rate of the units
 that run them (NVIDIA H100 SXM data sheet, dense): 67 TFLOP/s float32 and
 34 TFLOP/s float64 outside the tensor cores (float64 contractions 67 on
 them); flash attention on the tensor cores, float32 as 3xTF32 (three TF32
-products per float32 product at 495 TFLOP/s) and bfloat16 at 989 TFLOP/s,
-with its float32 CUDA-core bound (``simt_bound_ms``) beside it.
+products per float32 product at 495 TFLOP/s) and bfloat16 at 989 TFLOP/s.
 """
 import gc
 import json
@@ -188,7 +192,7 @@ BF16_TOL, LSE_TOL = 5e-2, 1e-5
 #: The port's kernels, by their CUDA function names (profile summaries).
 OWN_KERNELS = ("diag_scan_chunk", "diag_scan", "diag_scan_bwd_chunk",
                "diag_scan_bwd", "decode_fused", "flash_attention_fwd",
-               "flash_attention_fwd_simt")
+               "flash_attention_fwd_wide")
 
 
 def ptxas_spills(log: str) -> dict:
@@ -203,6 +207,29 @@ def ptxas_spills(log: str) -> dict:
                              for part in line.split(",")[1:3])
             if stores or loads:
                 out[func] = f"{stores} bytes spill stores, {loads} loads"
+            func = None
+    return out
+
+
+def wide_route_report(log: str) -> dict:
+    """ptxas's registers and spills of each instantiation of the head_dim
+    129..256 route (``flash_attention_fwd_wide_kernel<T, heads a block>``)
+    in a ``-Xptxas=-v`` log."""
+    out, func, spill = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            func = name if "flash_attention_fwd_wide_kernel" in name else None
+        elif func and "spill stores" in line:
+            parts = line.split(",")
+            spill = (f"{int(parts[1].split()[0])} bytes spill stores, "
+                     f"{int(parts[2].split()[0])} loads")
+        elif func and "Used" in line and "registers" in line:
+            t = "bfloat16" if "nv_bfloat16" in func else "float32"
+            heads = func.split("wide_kernelI")[1].split("Li")[1][0]
+            out[f"{t}, {heads} head(s) a block"] = {
+                "registers": int(line.split("Used")[1].split()[0]),
+                "spill": spill}
             func = None
     return out
 
@@ -323,21 +350,42 @@ def split_lanes(v):
     return v, None
 
 
+def cuda_events(fn, calls: int = 20):
+    """The device events of ``calls`` calls of ``fn`` in a ``torch.profiler``
+    window that follows a warm-up window of as many calls.  The calls sit
+    between two spin kernels (``torch.cuda._sleep``), left out of the
+    result: the tracer can lose a window's edge kernel (one of 20 decode
+    launches, in two runs in a row on torch 2.11)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = []
+
+    def keep(prof):
+        got.extend(e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.name)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
 def kernel_calls(fn, calls: int = 20):
     """Device time and CUDA launches per call of ``fn`` in a
     ``torch.profiler`` window of ``calls`` calls: the sum of the port's own
     kernels' times (``OWN_KERNELS``) and their count, each over ``calls``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    own = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and any(f"::{n}_kernel" in e.name for n in OWN_KERNELS)]
+    own = [e for e in cuda_events(fn, calls)
+           if any(f"::{n}_kernel" in e.name for n in OWN_KERNELS)]
     if not own:
         return {"device_ms": "not measured", "cuda_launches_per_call":
                 "not measured"}
@@ -620,16 +668,7 @@ def packed_decode_inputs(b, nc, d, batched, seed=2):
 def device_kernels(fn, calls: int = 20):
     """Every device kernel of one call of ``fn`` (names and count per call,
     from a ``torch.profiler`` window of ``calls`` calls)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e.name for e in cuda_events(fn, calls)]
     return {"kernels_per_call": len(dev) / calls,
             "kernel_names": sorted({n[:100] for n in dev})}
 
@@ -839,11 +878,14 @@ FLASH_CASES = [
     ("chunk1-bf16", (8, 9, 3, 1024, 2048, 64), True, None, 1024, None,
      "bfloat16", True),
     # recurrentgemma-2b's local layer in training at batch 2 x 2048: GQA
-    # 10:1, head_dim 256 (the CUDA-core route), window 2048, both chunks
+    # 10:1, head_dim 256 (the route that splits the head dim between two
+    # warpgroups), window 2048, both chunks; chunk 1 in bfloat16 as well
     ("local-chunk0", (2, 10, 1, 1024, 1024, 256), True, 2048, 0, None,
      "float32", True),
     ("local-chunk1", (2, 10, 1, 1024, 2048, 256), True, 2048, 1024, None,
      "float32", True),
+    ("local-chunk1-bf16", (2, 10, 1, 1024, 2048, 256), True, 2048, 1024,
+     None, "bfloat16", True),
     ("local-bf16", (1, 10, 1, 100, 300, 256), True, 150, 200, None,
      "bfloat16", False),
     # the cases of tests/test_kernels.py
@@ -885,15 +927,13 @@ def flash_cost(q, k, mask):
 def flash_bound(q, k, mask, dtype, copy_bw):
     """B3's bound on the route the kernel takes: the products on the tensor
     cores, float32 as 3xTF32 (three TF32 products of each pair's flops),
-    bfloat16 as one bf16 product; and the float32 CUDA-core bound of the
-    same flops, for comparison with a SIMT kernel."""
+    bfloat16 as one bf16 product."""
     nbytes, flops = flash_cost(q, k, mask)
     route, passes = (("3xTF32", 3) if dtype == "float32" else ("bf16", 1))
     peak = PEAK_TENSOR_FLOPS["tf32" if dtype == "float32" else "bfloat16"]
     out = bound(nbytes, 0.0, dtype, copy_bw, contract_flops=passes * flops,
                 contract_peak=peak)
-    out.update(mma_route=route, pair_flops=flops,
-               simt_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+    out.update(mma_route=route, pair_flops=flops)
     return out
 
 
@@ -2223,17 +2263,28 @@ def gate_rows(rows, keys, kernel, launches):
         for case, path in GATE_PATHS.items() if case in rows}
 
 
+#: B3's route per head dim (``csrc/flash_attention.cu``).
+FLASH_ROUTES = {
+    "head_dim 1..128": "wgmma, one warpgroup a head's 64-row query tile "
+                       "(padded to 32, 64 or 128)",
+    "head_dim 129..256": "wgmma, the head dim (padded to 256) split between "
+                         "two warpgroups that add their partial scores "
+                         "through shared memory"}
+
+
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
     (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
-    bfloat16 beside it."""
+    bfloat16 beside it; then recurrentgemma's head_dim-256 chunks (main
+    path 12, whose launches they share)."""
     by = {r["case"]: r for r in rows}
     c0, c1, bf = by["chunk0"], by["chunk1"], by["chunk1-bf16"]
-    more = ("simt_bound_ms", "mma_route", "library_ms",
+    more = ("mma_route", "library_ms",
             "library_max_abs_err", "device_ms", "cuda_launches_per_call")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:125",
+                routes_by_head_dim=FLASH_ROUTES,
                 **counts, max_abs_err=c1["max_abs_err"], tol=c1["tol"],
                 worst_err_over_tol=max(r["err_over_tol"] for r in rows),
                 worst_lse_rel_err=max(r["lse_max_rel_err"] for r in rows),
@@ -2246,15 +2297,22 @@ def flash_summary(rows, counts, keys):
                 chunk1_bf16={"shape": bf["shape"], "q_offset": 1024,
                              **{k: bf[k] for k in keys},
                              **{k: bf[k] for k in more}},
-                **{f"local_d256_{c}": {
+                **{f"local_d256_{c.replace('-', '_')}": {
                     "shape": by[f"local-{c}"]["shape"], "window": 2048,
                     "q_offset": by[f"local-{c}"]["q_offset"],
-                    "route": "CUDA cores (head_dim > 128)",
+                    "dtype": by[f"local-{c}"]["dtype"],
+                    "route": FLASH_ROUTES["head_dim 129..256"],
+                    "main_path": "train_recurrentgemma",
+                    "launches_on_main_path": (
+                        counts["launches_by_path"].get(
+                            "train_recurrentgemma", 0)
+                        if by[f"local-{c}"]["dtype"] == "float32" else 0),
                     "max_abs_err": by[f"local-{c}"]["max_abs_err"],
+                    "tol": by[f"local-{c}"]["tol"],
                     "lse_max_rel_err": by[f"local-{c}"]["lse_max_rel_err"],
                     **{k: by[f"local-{c}"][k] for k in keys},
                     **{k: by[f"local-{c}"][k] for k in more}}
-                   for c in ("chunk0", "chunk1")})
+                   for c in ("chunk0", "chunk1", "chunk1-bf16")})
 
 
 def main() -> None:
@@ -2329,6 +2387,11 @@ def main() -> None:
                      if "decode_fused_kernel" in f}
     if decode_spills:
         fail(f"decode_fused instantiations spill: {decode_spills}")
+    wide = wide_route_report(build.build_log("flash_attention"))
+    print(json.dumps({"flash_attention_d256_route_ptxas": wide}), flush=True)
+    if not wide or any(r["spill"] != "0 bytes spill stores, 0 loads"
+                       for r in wide.values()):
+        fail(f"the head_dim-256 route is missing or spills: {wide}")
     smem = build.library("flash_attention").flash_attention_smem_bytes
     print(json.dumps({"flash_attention_dynamic_smem_bytes": {
         f"{'bf16' if bf16 else 'f32'}_d{d}": smem(bf16, d)
@@ -2483,20 +2546,29 @@ def main() -> None:
         if ensemble != "independent" and not res["rmse_vs_signal"] < 0.1:
             fail(f"{path}: continuation rmse {res['rmse_vs_signal']:.3e} "
                  f"vs the signal")
+        want = {"mean": {"fused": 2, "step": 0},
+                "weighted": {"fused": 0, "step": 2}}.get(ensemble)
+        if want and res["decode_waves_by_route"] != want:
+            fail(f"{path}: decode waves by route "
+                 f"{res['decode_waves_by_route']}, expected {want}")
     if launches["serve_ensemble_weighted"]["decode_fused"]:
         fail("the weighted ensemble launched B2; it takes the "
              "step-at-a-time path, as in the JAX package")
-    try:
-        serve.main(ENS_ARGS[:4] + ["16"] + ENS_ARGS[5:]
-                   + ["--ensemble", "mean"])
-    except ValueError as e:
-        if "ensemble='mean' runs every row in one block" not in str(e):
-            raise
-        print(json.dumps({"serve_ensemble_mean_16_slots":
-                          f"refused: {str(e)[:160]}"}), flush=True)
-    else:
-        fail("--ensemble mean --slots 16 at n=1024 served; B2's one-block "
-             "mean route should refuse it")
+    # 16 per-slot members of 525 float64 lanes exceed B2's one-block mean
+    # route: the shapes send the decode to the step-at-a-time path.
+    argv = ENS_ARGS[:4] + ["16"] + ENS_ARGS[5:] + ["--ensemble", "mean"]
+    res = drive("serve_ensemble_mean_16_slots", lambda: serve.main(argv),
+                ("diag_scan",))
+    keep = {k: v for k, v in res.items() if k != "continuation"}
+    print(json.dumps({"serve_ensemble_mean_16_slots": keep,
+                      "launches": launches["serve_ensemble_mean_16_slots"]}),
+          flush=True)
+    if (not res["finite"] or not res["rmse_vs_signal"] < 0.1
+            or res["decode_waves_by_route"] != {"fused": 0, "step": 2}
+            or launches["serve_ensemble_mean_16_slots"]["decode_fused"]):
+        fail(f"--ensemble mean --slots 16 at n=1024: {keep}, launches "
+             f"{launches['serve_ensemble_mean_16_slots']}; expected the "
+             f"step route, no B2 launch, a finite continuation within 0.1")
     for ensemble in ("mean", "weighted"):
         print(json.dumps({f"ensemble_{ensemble}_vs_cpu": ensemble_vs_cpu(
             esn, ESNConfig, mso_series, ReservoirEngine, ensemble)}),
@@ -2602,9 +2674,16 @@ def main() -> None:
                 "diag_scan_bwd": rg_kinds.count("rglru"),
                 # two 1024-row query chunks a local layer
                 "flash_attention_fwd": 2 * rg_kinds.count("local")})
-    print(json.dumps({"profile_train_recurrentgemma_step": profile_train_step(
-        train, Trainer, TrainConfig, MarkovTokens, RG_TRAIN_ARGS)}),
-        flush=True)
+    rg_prof = profile_train_step(train, Trainer, TrainConfig, MarkovTokens,
+                                 RG_TRAIN_ARGS)
+    print(json.dumps({"profile_train_recurrentgemma_step": rg_prof}),
+          flush=True)
+    b3 = [k for k in rg_prof.get("port_kernels", ())
+          if "flash_attention_fwd_wide_kernel" in k["kernel"]]
+    print(json.dumps({"profiled_step_b3_head_dim_256": b3}), flush=True)
+    # (the launch count is the counters' check in train_path)
+    if not b3:
+        fail("path 12's profiled step names no head_dim-256 flash kernel")
     print(json.dumps({"recurrentgemma_trainer_vs_cpu": lm_trainer_vs_cpu(
         lm, loss_and_grads, Trainer, TrainConfig, MarkovTokens, get_config,
         tree, arch="recurrentgemma-2b", batch=1, seq=1024, n_layers=3)}),

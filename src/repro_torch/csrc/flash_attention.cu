@@ -19,6 +19,9 @@
 //   (p.astype(v.dtype)).  It also writes lse = m + log(l) per query row
 //   (float32; -1e30 for a fully masked row), which the model's backward
 //   (models/attention.py) reads; the TPU kernel held it in scratch only.
+//   Head dims up to 128 take the kernel described here; 129..256 take the
+//   second kernel of this file ("head_dim 129..256 route"), which splits
+//   the head dim between two warpgroups.  Each head dim has one route.
 //
 // Bound on this card: operations.  At the training shapes of smollm-135m
 //   (q (8, 9, 1024, 64) against k/v (8, 3, 1024 or 2048, 64), causal) a
@@ -185,6 +188,19 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& big,
 // wgmma m64nNk8 TF32 / m64nNk16 bf16, accumulating into d (N / 8 groups of
 // 4 registers): A from shared memory (descriptor da) or registers (a), B
 // from shared memory (descriptor db), both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[3][4], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11 "
+      "}, %12, %13, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4][4], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -430,6 +446,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+// A barrier of the 128 threads of warpgroup wg (named barrier wg + 1).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 // Makes this thread's shared-memory writes (stores and completed cp.async
 // copies) visible to wgmma's reads.
@@ -799,119 +819,170 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
   }
 }
 
-// ------------------------------------------------------------ SIMT route --
-// Head dims 129..256 (recurrentgemma's local attention: 10 query heads on 1
-// KV head of 256).  The tensor-core layout above does not fit there: at
-// DP = 256 its raw K/V stages, split operand tiles and one head's split Q
-// tile come to 393 KB of shared memory against 227 KB a block, and a 64 x
-// 256 float32 output tile is 128 accumulator registers a thread of one
-// warpgroup.  This route is a plain CUDA-core kernel, right first: one
-// block of 256 threads takes 64 query rows of one head, keeps their Q tile
-// (64 x 256, float32) in shared memory, and walks 32-key tiles of K and V
-// (staged whole, float32) in three phases between barriers:
-//   S   each thread computes a 2 x 4 block of the 64 x 32 scores (rows
-//       2 (t / 8) + {0, 1}, keys t % 8 + {0, 8, 16, 24}) over the 256 dims
-//       from float4 reads of the padded tiles (row stride 260 floats: the
-//       rows a warp reads fall in distinct banks);
-//   P   four threads a row mask their 8 scores each, take the row max with
-//       two shuffles, rescale the running sum and write p = exp2(s - m)
-//       (bfloat16 inputs: rounded to bfloat16, as p.astype(v.dtype)) and
-//       the row's correction factor;
-//   PV  each thread owns a 4-row x 16-dim block of the 64 x 256 output
-//       (dims 4 (t % 16) + {0, 64, 128, 192} + {0..3}: 64 accumulators),
-//       rescales it by the correction and adds its rows' p times V.
-// Everything is float32 FMAs (67 TFLOP/s on the card's CUDA cores against
-// the 3xTF32 tensor-core route's 165), so this route is bound by its
-// operations at a third of the tensor-core route's rate; a wgmma layout
-// that splits the head dim is the next step (PERF.md).  Masks, lse, the
-// empty-row zeros and the key-tile skipping are the tensor-core route's.
-namespace simt {
-constexpr int DP = 256;      // head dims (padded)
-constexpr int BQ = 64;       // query rows a block
-constexpr int BK = 32;       // keys a tile
-constexpr int NT = 256;      // threads a block
-constexpr int LD = DP + 4;   // row stride of the Q, K and V tiles (floats)
-constexpr int LP = BK + 1;   // row stride of the score tile
-constexpr int SMEM_FLOATS = BQ * LD + 2 * BK * LD + BQ * LP + 3 * BQ;
-}  // namespace simt
+// -------------------------------------------------- head_dim 129..256 route --
+// Head dims 129..256 (recurrentgemma-2b's local attention: 10 query heads on
+// 1 KV head of 256), padded to DP = 256, on the same tensor-core products as
+// the kernel above (3xTF32 for float32, one bf16 product for bfloat16), with
+// its masks, lse, empty-row zeros, strides, scalar staging for unaligned
+// rows, key-tile skipping and heavy-tiles-first order.  The layout above does
+// not fit at DP = 256 (its raw stages, split operand tiles and a head's split
+// Q come to 393 KB against 227 KB a block, and a 64 x 256 float32 output tile
+// is 128 accumulators a thread of one warpgroup), so this kernel:
+//   * Splits the head dim between two consumer warpgroups.  Warpgroup hf
+//     owns output dims [128 hf, 128 hf + 128): 64 accumulators a thread,
+//     P V as m64n128.  (One warpgroup holding the whole 64 x 256 output
+//     would need 128 accumulators a thread beside S, P's split and the
+//     prefetch, and would leave 4 warps on the SM.)  Each warpgroup
+//     computes a partial S over its 128 dims of Q and K (m64nBK); the two
+//     partials meet through shared memory and each warpgroup adds the
+//     other's to its own.  IEEE addition commutes, so both hold the same S
+//     bit for bit and run the same softmax (the same m, l and P) with no
+//     further exchange.
+//   * Stages K and V through registers instead of a raw shared stage: right
+//     after tile j is written into the operand tiles, every thread issues
+//     its global loads of tile j + 1 (16-byte loads of K rows, scalar loads
+//     of V columns, zeros past kv_len and d), which fly during tile j's
+//     products and softmax; the next tile splits (float32) and stores them.
+//     K lands straight in the canonical K-major layout (its rows already
+//     are K-major), V transposed (V^T, keys in tf32_vt_k order for float32).
+//   * Shared memory at float32 (BK = 24 keys a tile, one query head a
+//     block), of the 232,448 bytes a block may have:
+//       Q split, 2 halves x (big + small) x 64 x 128 x 4 B    131,072
+//       K split, 2 halves x 2 parts x 24 x 128 x 4 B           49,152
+//       V^T split, 2 halves x 2 parts x 128 x 24 x 4 B         49,152
+//                                                     total   229,376
+//     Each warpgroup's partial S (64 x 24 float32) goes into its own K
+//     half, which no other warpgroup reads, after a barrier of its 128
+//     threads (a warp passes its wgmma wait before the other warps of the
+//     warpgroup are done reading K).  A separate exchange buffer (12 KB)
+//     would not fit beside 24-key tiles; with 16-key tiles and one it came
+//     to 204,800 bytes and ran 11 % slower at chunk 1 (PERF.md §6):
+//     the S products at N = 16 or 24 re-read the 64-row Q operand from
+//     shared memory for every 8-deep step, so a wider N is worth more
+//     than the extra barrier.
+//   * bfloat16 (BK = 32): Q 32 KB a head, K and V^T 16 KB each, partial S
+//     16 KB a head in its own buffer: a block takes G = 2 query heads of
+//     one KV head when the GQA group is even (4 warpgroups, 512 threads,
+//     131,072 bytes), so each K / V tile is loaded and stored once for
+//     both (one head a block ran 54 % slower at chunk 1).
+//   * Registers (ptxas, sm_90a): 252 a thread at float32 (64 output
+//     accumulators, 12 of S, 24 of P's split, 48 of the next tile's K and
+//     V), 128 at bfloat16 with two heads (the 512-thread cap), 210 with
+//     one; no spills (chip_smoke.py phase 2 prints them).
+//   * Block barriers a tile: the last tile's readers are done; the operand
+//     tiles are written; the partial S are written.
+namespace wide {
+constexpr int DP = 256;    // head dims (padded)
+constexpr int HALF = 128;  // head dims of one consumer warpgroup
+}  // namespace wide
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// p as the p.v product sees it: p.astype(v.dtype).
-__device__ __forceinline__ float round_p(float p, float) { return p; }
-__device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-// Elements [col, col + 4) of row `row` of an operand with row stride ss, as
-// floats: zeros at row >= rows and past d.  vec: 4-element rows are aligned
-// (16 bytes for float32, 8 for bfloat16).
 template <typename T>
-__device__ __forceinline__ float4 load4(const T* base, long long ss, int row,
-                                        int rows, int col, int d, bool vec) {
-  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= rows || col >= d) return r;
-  const T* p = base + row * ss + col;
-  if (vec && col + 4 <= d) {
-    if constexpr (sizeof(T) == 4) {
-      return *reinterpret_cast<const float4*>(p);
-    } else {
-      const uint2 u = *reinterpret_cast<const uint2*>(p);
-      const float2 lo =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-      const float2 hi =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-      return make_float4(lo.x, lo.y, hi.x, hi.y);
-    }
+struct Wide {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int EPR = 16 / sizeof(T);       // elements a 16-byte row
+  static constexpr int PARTS = F32 ? 2 : 1;        // big, small
+  static constexpr int BK = F32 ? 24 : 32;         // keys a tile
+  static constexpr int HEADS = F32 ? 1 : 2;        // query heads a block, at most
+  static constexpr int QT = BQ * wide::HALF;       // a head's Q half, one part
+  static constexpr int KT = BK * wide::HALF;       // a K half, one part
+  static constexpr int VT = wide::HALF * BK;       // a V^T half, one part
+  static constexpr int XS = BQ * BK;               // one warpgroup's partial S
+  // Bytes of dynamic shared memory of a block of g query heads.
+  static constexpr int bytes(int g) {
+    return (int)sizeof(T) * (g * 2 * PARTS * QT + 2 * PARTS * KT +
+                             2 * PARTS * VT) +
+           (F32 ? 0 : 4 * g * 2 * XS);
   }
-  r.x = to_float(p[0]);
-  if (col + 1 < d) r.y = to_float(p[1]);
-  if (col + 2 < d) r.z = to_float(p[2]);
-  if (col + 3 < d) r.w = to_float(p[3]);
-  return r;
-}
+};
 
-template <typename T>
-__global__ void __launch_bounds__(simt::NT, 1)
-    flash_attention_fwd_simt_kernel(
+template <typename T, int G>
+__global__ void __launch_bounds__(256 * G, 1)
+    flash_attention_fwd_wide_kernel(
         const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
         int hq, int hkv, int sq, int skv, int d, long long q_sb,
         long long q_sh, long long q_ss, long long k_sb, long long k_sh,
         long long k_ss, long long v_sb, long long v_sh, long long v_ss,
         int causal, int has_window, int window, int q_offset, int kv_len,
-        float scale, int vec_q, int vec_k, int vec_v) {
-  using simt::BK;
-  using simt::BQ;
-  using simt::DP;
-  using simt::LD;
-  using simt::LP;
-  using simt::NT;
-  extern __shared__ __align__(16) float fsm[];
-  float* const qs = fsm;                 // [BQ][LD]
-  float* const ks = qs + BQ * LD;        // [BK][LD]
-  float* const vs = ks + BK * LD;        // [BK][LD]
-  float* const ps = vs + BK * LD;        // [BQ][LP]
-  float* const corr_s = ps + BQ * LP;    // [BQ]
-  float* const l_s = corr_s + BQ;        // [BQ]
-  float* const m_s = l_s + BQ;           // [BQ]
+        float scale, int vec_k) {
+  using W = Wide<T>;
+  using wide::DP;
+  using wide::HALF;
+  constexpr bool F32 = W::F32;
+  constexpr int BK = W::BK, EPR = W::EPR, PARTS = W::PARTS;
+  constexpr int NTH = 256 * G;       // threads a block
+  constexpr int NT = BK / 8;         // 8-key column groups of S
+  constexpr int ND = HALF / 8;       // 8-dim column groups of a half of O
+  constexpr int KSTEP = 2 * EPR;     // depth of one wgmma: 8 (TF32), 16 (bf16)
+  constexpr int KS = HALF / KSTEP;   // k-steps of a half's Q K^T
+  constexpr int KK = BK / KSTEP;     // k-steps of P V
+  constexpr int CPR = DP / EPR;      // 16-byte chunks a K row
+  constexpr int KCH = BK * CPR / NTH;        // K chunks a thread
+  constexpr int VCH = DP * (BK / EPR) / NTH; // V^T chunks a thread
+  static_assert(KCH * NTH == BK * CPR && VCH * NTH == DP * (BK / EPR),
+                "the tile's chunks must spread evenly over the threads");
+  extern __shared__ __align__(128) uint32_t smem[];
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
-  const int hk = h / (hq / hkv);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;          // consumer warpgroup
+  const int hl = wg >> 1;            // its query head within the block
+  const int hf = wg & 1;             // its half of the head dims
+  const int wtid = tid & 127;
+  const int group = hq / hkv, blocks_per_kv = group / G;
+  const int bx = blockIdx.x;
+  const int b = bx / (hkv * blocks_per_kv);
+  const int rest = bx - b * hkv * blocks_per_kv;
+  const int hk = rest / blocks_per_kv;
+  const int h = hk * group + (rest - hk * blocks_per_kv) * G + hl;
   // Late query tiles see the most keys under a causal mask: start them first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const T* const qh = q + b * q_sb + h * q_sh;
-  const T* const kb = k + b * k_sb + hk * k_sh;
-  const T* const vb = v + b * v_sb + hk * v_sh;
+  const int wrow = 16 * (warp & 3);  // the warp's first row in the tile
   const float scale2 = scale * LOG2E;
 
-  for (int i = tid; i < BQ * DP / 4; i += NT) {
-    const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
-    *reinterpret_cast<float4*>(qs + r * LD + c) =
-        load4(qh, q_ss, q0 + r, sq, c, d, vec_q);
+  const T* const kb = k + b * k_sb + hk * k_sh;
+  const T* const vb = v + b * v_sb + hk * v_sh;
+  const T* const qh = q + b * q_sb + h * q_sh;
+
+  // Shared memory (elements of T): each head's Q halves (big, small), the K
+  // halves, the V^T halves, then each warpgroup's partial S (float32).
+  T* const qt = reinterpret_cast<T*>(smem);
+  T* const kt = qt + G * 2 * PARTS * W::QT;
+  T* const vt = kt + 2 * PARTS * W::KT;
+  float* const xs = reinterpret_cast<float*>(vt + 2 * PARTS * W::VT);
+
+  // Chunk i of an R-row tile of CPR 16-byte chunks a row: 8 consecutive
+  // threads take one chunk of 8 consecutive rows (one core matrix: no bank
+  // conflict), 4 such groups of a warp the next chunks of those rows.
+  const auto chunk_rc = [](int i, int& row, int& col) {
+    const int r8 = i & 7, rest8 = i >> 3;
+    const int c = rest8 % CPR;
+    row = (rest8 / CPR) * 8 + r8;
+    col = c * EPR;
+  };
+
+  // q, split (float32) into this head's two Q halves, once.
+  for (int i = tid & 255; i < BQ * CPR; i += 256) {
+    int row, col;
+    chunk_rc(i, row, col);
+    alignas(16) T x[EPR];
+#pragma unroll
+    for (int e = 0; e < EPR; ++e)
+      x[e] = (q0 + row < sq && col + e < d) ? qh[(q0 + row) * q_ss + col + e]
+                                             : T(0.f);
+    T* const dst = qt + (hl * 2 + col / HALF) * PARTS * W::QT;
+    const int w = cm_index<EPR>(row, col % HALF, HALF / EPR);
+    if constexpr (F32) {
+      uint32_t bg[4], sm[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32_split(x[e], bg[e], sm[e]);
+      *reinterpret_cast<uint4*>(dst + w) = make_uint4(bg[0], bg[1], bg[2],
+                                                      bg[3]);
+      *reinterpret_cast<uint4*>(dst + W::QT + w) =
+          make_uint4(sm[0], sm[1], sm[2], sm[3]);
+    } else {
+      *reinterpret_cast<uint4*>(dst + w) = *reinterpret_cast<const uint4*>(x);
+    }
   }
 
   // The keys any row of this block can see: [k_begin, k_end).
@@ -924,188 +995,320 @@ __global__ void __launch_bounds__(simt::NT, 1)
     k_begin = (q_offset + q0 - window + 1) / BK * BK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const int s_r = 2 * (tid >> 3), s_c = tid & 7;        // S block
-  const int x_r = tid >> 2, x_part = tid & 3;           // softmax row
-  const int o_r = 4 * (tid >> 4), o_c = 4 * (tid & 15); // output block
-  const int qpos = q_offset + q0 + x_r;
-  float m_row = NEG_INF, l_row = 0.f;
-  float acc[4][16];
+  // The next tile in registers: K chunks (16 bytes of one key row) and V^T
+  // chunks (EPR keys of one dim), zeros past kv_lim and d.
+  uint4 kreg[KCH], vreg[VCH];
+  const auto load_tile = [&](int t0) {
 #pragma unroll
-  for (int rr = 0; rr < 4; ++rr)
+    for (int c = 0; c < KCH; ++c) {
+      int key, col;
+      chunk_rc(tid + c * NTH, key, col);
+      const int kpos = t0 + key;
+      const T* const src = kb + kpos * k_ss + col;
+      if (vec_k) {
+        kreg[c] = kpos < kv_lim && col < d
+                      ? *reinterpret_cast<const uint4*>(src)
+                      : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        alignas(16) T x[EPR];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[rr][e] = 0.f;
+        for (int e = 0; e < EPR; ++e)
+          x[e] = kpos < kv_lim && col + e < d ? src[e] : T(0.f);
+        kreg[c] = *reinterpret_cast<const uint4*>(x);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < VCH; ++c) {
+      const int i = tid + c * NTH;
+      const int dim = i % DP, jr = i / DP;
+      const int key0 = F32 ? (jr >> 1) * 8 + (jr & 1) : jr * 8;
+      alignas(16) T x[EPR];
+#pragma unroll
+      for (int e = 0; e < EPR; ++e) {
+        const int kpos = t0 + key0 + (F32 ? 2 * e : e);
+        x[e] = kpos < kv_lim && dim < d ? vb[kpos * v_ss + dim] : T(0.f);
+      }
+      vreg[c] = *reinterpret_cast<const uint4*>(x);
+    }
+  };
+  // The registers -> the K and V^T operand halves (split for float32).
+  const auto store_tile = [&]() {
+#pragma unroll
+    for (int c = 0; c < KCH; ++c) {
+      int key, col;
+      chunk_rc(tid + c * NTH, key, col);
+      T* const dst = kt + (col / HALF) * PARTS * W::KT +
+                     cm_index<EPR>(key, col % HALF, HALF / EPR);
+      if constexpr (F32) {
+        uint32_t bg[4], sm[4];
+        tf32_split(__uint_as_float(kreg[c].x), bg[0], sm[0]);
+        tf32_split(__uint_as_float(kreg[c].y), bg[1], sm[1]);
+        tf32_split(__uint_as_float(kreg[c].z), bg[2], sm[2]);
+        tf32_split(__uint_as_float(kreg[c].w), bg[3], sm[3]);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(bg[0], bg[1], bg[2],
+                                                    bg[3]);
+        *reinterpret_cast<uint4*>(dst + W::KT) =
+            make_uint4(sm[0], sm[1], sm[2], sm[3]);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = kreg[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < VCH; ++c) {
+      const int i = tid + c * NTH;
+      const int dim = i % DP, jr = i / DP;
+      T* const base = vt + (dim / HALF) * PARTS * W::VT;
+      if constexpr (F32) {
+        const int key0 = (jr >> 1) * 8 + (jr & 1);
+        T* const dst = base + cm_index<4>(dim % HALF, tf32_vt_k(key0), BK / 4);
+        uint32_t bg[4], sm[4];
+        tf32_split(__uint_as_float(vreg[c].x), bg[0], sm[0]);
+        tf32_split(__uint_as_float(vreg[c].y), bg[1], sm[1]);
+        tf32_split(__uint_as_float(vreg[c].z), bg[2], sm[2]);
+        tf32_split(__uint_as_float(vreg[c].w), bg[3], sm[3]);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(bg[0], bg[1], bg[2],
+                                                    bg[3]);
+        *reinterpret_cast<uint4*>(dst + W::VT) =
+            make_uint4(sm[0], sm[1], sm[2], sm[3]);
+      } else {
+        *reinterpret_cast<uint4*>(base + cm_index<8>(dim % HALF, jr * 8,
+                                                     BK / 8)) = vreg[c];
+      }
+    }
+  };
 
+  float oacc[ND][4], sacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+  float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
+
+  // Descriptors of this warpgroup's operand halves (a k-step adds 16); the
+  // small parts (float32) one part further.
+  T* const qmine = qt + (hl * 2 + hf) * PARTS * W::QT;
+  T* const kmine = kt + hf * PARTS * W::KT;
+  T* const vmine = vt + hf * PARTS * W::VT;
+  const uint64_t dq = smem_desc(qmine, HALF / EPR);
+  const uint64_t dk = smem_desc(kmine, HALF / EPR);
+  const uint64_t dv = smem_desc(vmine, BK / EPR);
+  const uint64_t dq_s = smem_desc(qmine + W::QT, HALF / EPR);
+  const uint64_t dk_s = smem_desc(kmine + W::KT, HALF / EPR);
+  const uint64_t dv_s = smem_desc(vmine + W::VT, BK / EPR);
+  // float32: each warpgroup's partial S in its own K half (read by no
+  // other warpgroup, and done with once its S products are).
+  float* const xmine = F32 ? reinterpret_cast<float*>(kt + hf * PARTS * W::KT)
+                           : xs + (hl * 2 + hf) * W::XS;
+  const float* const xother =
+      F32 ? reinterpret_cast<const float*>(kt + (hf ^ 1) * PARTS * W::KT)
+          : xs + (hl * 2 + (hf ^ 1)) * W::XS;
+
+  if (n_tiles > 0) load_tile(k_begin);
 #pragma unroll 1
   for (int j = 0; j < n_tiles; ++j) {
     const int t0 = k_begin + j * BK;
-    __syncthreads();  // the last tile's products are done (and Q is staged)
-    for (int i = tid; i < BK * DP / 4; i += NT) {
-      const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
-      *reinterpret_cast<float4*>(ks + r * LD + c) =
-          load4(kb, k_ss, t0 + r, kv_lim, c, d, vec_k);
-      *reinterpret_cast<float4*>(vs + r * LD + c) =
-          load4(vb, v_ss, t0 + r, kv_lim, c, d, vec_v);
-    }
+    __syncthreads();  // every warpgroup is done with tile j - 1 (and Q is in)
+    store_tile();
+    fence_proxy_async();  // the operand tiles (and Q) are wgmma's to read
     __syncthreads();
+    if (j + 1 < n_tiles) load_tile(t0 + BK);  // in flight during tile j
 
-    // ---- S = Q K^T (log2 units)
-    float sacc[2][4];
+    // ---- partial S = Q K^T over this warpgroup's 128 dims
+    wgmma_fence();
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sacc[rr][jj] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; c += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(qs + s_r * LD + c);
-      const float4 qb =
-          *reinterpret_cast<const float4*>(qs + (s_r + 1) * LD + c);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(ks + (s_c + 8 * jj) * LD + c);
-        sacc[0][jj] = fmaf(qa.x, kv.x, sacc[0][jj]);
-        sacc[0][jj] = fmaf(qa.y, kv.y, sacc[0][jj]);
-        sacc[0][jj] = fmaf(qa.z, kv.z, sacc[0][jj]);
-        sacc[0][jj] = fmaf(qa.w, kv.w, sacc[0][jj]);
-        sacc[1][jj] = fmaf(qb.x, kv.x, sacc[1][jj]);
-        sacc[1][jj] = fmaf(qb.y, kv.y, sacc[1][jj]);
-        sacc[1][jj] = fmaf(qb.z, kv.z, sacc[1][jj]);
-        sacc[1][jj] = fmaf(qb.w, kv.w, sacc[1][jj]);
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint64_t s = 16 * ks;
+      if constexpr (F32) {  // small terms first; the first overwrites S
+        wgmma_tf32_ss(sacc, dq_s + s, dk + s, ks > 0);
+        wgmma_tf32_ss(sacc, dq + s, dk_s + s, 1);
+        wgmma_tf32_ss(sacc, dq + s, dk + s, 1);
+      } else {
+        wgmma_bf16_ss(sacc, dq + s, dk + s, ks > 0);
       }
     }
+    wgmma_commit_and_wait();
+    fence_regs(sacc);
+
+    // ---- S = the two halves' partials, the same sum in both warpgroups
+    // (float32: the partial overwrites this half's K once every warp of the
+    // warpgroup is done reading it)
+    if constexpr (F32) warpgroup_sync(wg);
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        ps[(s_r + rr) * LP + s_c + 8 * jj] = sacc[rr][jj] * scale2;
+      for (int e = 0; e < 4; ++e) xmine[(4 * n + e) * 128 + wtid] = sacc[n][e];
     __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sacc[n][e] += xother[(4 * n + e) * 128 + wtid];
 
-    // ---- online softmax: row x_r, keys 8 x_part .. 8 x_part + 7
-    {
-      float sv[8];
-      uint32_t live = 0;
-      float mx = NEG_INF;
+    // ---- online softmax on the fragments (log2 units)
+    const bool full =
+        t0 + BK <= kv_lim && (!causal || t0 + BK - 1 <= q_offset + q0) &&
+        (!has_window || t0 > q_offset + q_hi - 1 - window);
+    uint32_t dead = 0;  // bit 4 n + e: that score is masked
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = 8 * x_part + e, kpos = t0 + key;
-        const bool ok = kpos < kv_lim && (!causal || kpos <= qpos) &&
-                        (!has_window || kpos > qpos - window);
-        sv[e] = ok ? ps[x_r * LP + key] : NEG_INF;
-        live |= (ok ? 1u : 0u) << e;
-        mx = fmaxf(mx, sv[e]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_row, mx);
-      const float corr = exp2f(m_row - m_new);
-      m_row = m_new;
-      l_row *= corr;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        // Explicit re-mask: a fully masked row would get exp2(0) = 1.
-        const float p = (live >> e) & 1u ? exp2f(sv[e] - m_new) : 0.f;
-        l_row += p;
-        ps[x_r * LP + 8 * x_part + e] = round_p(p, T(0.f));
-      }
-      if (x_part == 0) corr_s[x_r] = corr;
-    }
-    __syncthreads();
-
-    // ---- O = corr O + P V
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const float corr = corr_s[o_r + rr];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[rr][e] *= corr;
-    }
-#pragma unroll 2
-    for (int key = 0; key < BK; ++key) {
-      float pr[4];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) pr[rr] = ps[(o_r + rr) * LP + key];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + key * LD + o_c + 64 * jj);
-#pragma unroll
-        for (int rr = 0; rr < 4; ++rr) {
-          acc[rr][4 * jj + 0] = fmaf(pr[rr], vv.x, acc[rr][4 * jj + 0]);
-          acc[rr][4 * jj + 1] = fmaf(pr[rr], vv.y, acc[rr][4 * jj + 1]);
-          acc[rr][4 * jj + 2] = fmaf(pr[rr], vv.z, acc[rr][4 * jj + 2]);
-          acc[rr][4 * jj + 3] = fmaf(pr[rr], vv.w, acc[rr][4 * jj + 3]);
-        }
-      }
-    }
-  }
-
-  // ---- epilogue: the row sums across the four threads of a row, then
-  // o / l and lse
-  l_row += __shfl_xor_sync(0xffffffffu, l_row, 1);
-  l_row += __shfl_xor_sync(0xffffffffu, l_row, 2);
-  if (x_part == 0) {
-    l_s[x_r] = l_row;
-    m_s[x_r] = m_row;
-  }
-  __syncthreads();
-  const long long row_base = ((long long)b * hq + h) * sq;
-  if (x_part == 0 && q0 + x_r < sq)
-    lse[row_base + q0 + x_r] =
-        l_row == 0.f ? NEG_INF : m_s[x_r] * LN2 + logf(l_row);
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-    const int row = q0 + o_r + rr;
-    if (row >= sq) continue;
-    // Rows with no visible key have l == 0 (and acc == 0): zeros, not NaNs.
-    const float l = l_s[o_r + rr];
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-    T* const op = o + (row_base + row) * d;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int dim = o_c + 64 * jj + e;
-        if (dim < d) store(op + dim, acc[rr][4 * jj + e] * inv);
+        sacc[n][e] *= scale2;
+        if (!full) {
+          const int kpos = t0 + 8 * n + acc_col(lane, e);
+          const int qpos = q_offset + q0 + wrow + acc_row(lane, e);
+          const bool ok = kpos < kv_lim && (!causal || kpos <= qpos) &&
+                          (!has_window || kpos > qpos - window);
+          if (!ok) {
+            sacc[n][e] = NEG_INF;
+            dead |= 1u << (4 * n + e);
+          }
+        }
       }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(sacc[n][2 * hr], sacc[n][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[hr], mx);
+      corr[hr] = exp2f(m_row[hr] - m_new);
+      m_row[hr] = m_new;
+      l_row[hr] *= corr[hr];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // Explicit re-mask: a fully masked row would get exp2(0) = 1.
+        const float p = (dead >> (4 * n + e)) & 1u
+                            ? 0.f
+                            : exp2f(sacc[n][e] - m_row[e >> 1]);
+        l_row[e >> 1] += p;
+        sacc[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] *= corr[e >> 1];
+
+    // ---- O[:, this half] += P V[:, this half], P from the S registers
+    uint32_t pa[KK][4], ps[F32 ? KK : 1][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (F32) {
+          tf32_split(sacc[kk][tf32_p_from_acc(i)], pa[kk][i], ps[kk][i]);
+        } else {  // p.astype(v.dtype): p rounded to bfloat16 here
+          const float* c = sacc[2 * kk + bf16_p_group(i)] + bf16_p_first(i);
+          pa[kk][i] = pack_bf16(c[0], c[1]);
+        }
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint64_t s = 16 * kk;
+      if constexpr (F32) {
+        wgmma_tf32_rs(oacc, ps[kk], dv + s, 1);
+        wgmma_tf32_rs(oacc, pa[kk], dv_s + s, 1);
+        wgmma_tf32_rs(oacc, pa[kk], dv + s, 1);
+      } else {
+        wgmma_bf16_rs(oacc, pa[kk], dv + s, 1);
+      }
+    }
+    wgmma_commit_and_wait();
+    fence_regs(oacc);
+    fence_regs(pa);
+    if constexpr (F32) fence_regs(ps);
+  }
+
+  // ---- epilogue: the row sums across the quad, then o / l and lse (both
+  // warpgroups hold the same m and l; the first half writes lse)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l_row[hr] += __shfl_xor_sync(0xffffffffu, l_row[hr], 1);
+    l_row[hr] += __shfl_xor_sync(0xffffffffu, l_row[hr], 2);
+  }
+  const long long row_base = ((long long)b * hq + h) * sq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wrow + acc_row(lane, 2 * hr);
+    if (row >= sq) continue;
+    // Rows with no visible key have l == 0 (and acc == 0): zeros, not NaNs.
+    const float l = l_row[hr];
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    T* op = o + (row_base + row) * d;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int dim = HALF * hf + 8 * n + acc_col(lane, e);
+        if (dim < d) store(op + dim, oacc[n][2 * hr + e] * inv);
+      }
+    if (hf == 0 && lane_t(lane) == 0)
+      lse[row_base + row] =
+          l == 0.f ? NEG_INF : m_row[hr] * LN2 + logf(l);
   }
 }
 
+template <typename T, int G>
+int launch_wide_g(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int b, int hq, int hkv, int sq, int skv, int d,
+                  long long q_sb, long long q_sh, long long q_ss,
+                  long long k_sb, long long k_sh, long long k_ss,
+                  long long v_sb, long long v_sh, long long v_ss, int causal,
+                  int has_window, int window, int q_offset, int kv_len,
+                  float scale, int vec_k, cudaStream_t stream) {
+  constexpr int SMEM = Wide<T>::bytes(G);
+  auto kernel = flash_attention_fwd_wide_kernel<T, G>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid(b * hkv * (hq / hkv / G), (sq + BQ - 1) / BQ);
+  kernel<<<grid, 256 * G, SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      hq, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      v_ss, causal, has_window, window, q_offset, kv_len, scale, vec_k);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* o,
+int launch_wide(const void* q, const void* k, const void* v, void* o,
                 void* lse, int b, int hq, int hkv, int sq, int skv, int d,
                 long long q_sb, long long q_sh, long long q_ss,
                 long long k_sb, long long k_sh, long long k_ss,
                 long long v_sb, long long v_sh, long long v_ss, int causal,
                 int has_window, int window, int q_offset, int kv_len,
                 float scale, cudaStream_t stream) {
-  constexpr size_t SMEM = simt::SMEM_FLOATS * sizeof(float);
-  auto kernel = flash_attention_fwd_simt_kernel<T>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  // Four-element loads need rows, heads and batches aligned to 4 elements.
-  constexpr long long A = 4 * sizeof(T);
-  const auto aligned = [&](const void* p, long long sb, long long sh,
-                           long long ss) {
-    return reinterpret_cast<uintptr_t>(p) % A == 0 &&
-           (sb * (long long)sizeof(T)) % A == 0 &&
-           (sh * (long long)sizeof(T)) % A == 0 &&
-           (ss * (long long)sizeof(T)) % A == 0;
-  };
-  const dim3 grid(b * hq, (sq + simt::BQ - 1) / simt::BQ);
-  kernel<<<grid, simt::NT, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      hq, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-      v_ss, causal, has_window, window, q_offset, kv_len, scale,
-      aligned(q, q_sb, q_sh, q_ss), aligned(k, k_sb, k_sh, k_ss),
-      aligned(v, v_sb, v_sh, v_ss));
-  return (int)cudaGetLastError();
+  // 16-byte K loads need 16-byte aligned rows, heads and batches.
+  constexpr long long ES = sizeof(T);
+  const int vec_k = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                    (d * ES) % 16 == 0 && (k_sb * ES) % 16 == 0 &&
+                    (k_sh * ES) % 16 == 0 && (k_ss * ES) % 16 == 0;
+  // Two query heads a block where the GQA group allows it (bfloat16).
+  if (Wide<T>::HEADS == 2 && (hq / hkv) % 2 == 0)
+    return launch_wide_g<T, Wide<T>::HEADS>(
+        q, k, v, o, lse, b, hq, hkv, sq, skv, d, q_sb, q_sh, q_ss, k_sb, k_sh,
+        k_ss, v_sb, v_sh, v_ss, causal, has_window, window, q_offset, kv_len,
+        scale, vec_k, stream);
+  return launch_wide_g<T, 1>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, q_sb,
+                             q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                             causal, has_window, window, q_offset, kv_len,
+                             scale, vec_k, stream);
 }
-// ------------------------------------------------------- end SIMT route --
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -1160,7 +1363,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 128)
-    return launch_simt<T>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, q_sb,
+    return launch_wide<T>(q, k, v, o, lse, b, hq, hkv, sq, skv, d, q_sb,
                           q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                           causal, has_window, window, q_offset, kv_len, scale,
                           s);
@@ -1185,7 +1388,9 @@ const char* cuda_error_string(int err) {
 // Dynamic shared memory of one block at head dim d (ptxas reports only the
 // static kind), for the build report.
 int flash_attention_smem_bytes(int bf16, int d) {
-  if (d > 128) return simt::SMEM_FLOATS * (int)sizeof(float);
+  if (d > 128)
+    return bf16 ? Wide<__nv_bfloat16>::bytes(Wide<__nv_bfloat16>::HEADS)
+                : Wide<float>::bytes(Wide<float>::HEADS);
   const int dp = d <= 32 ? 32 : d <= 64 ? 64 : 128;
 #define FA_SMEM(T)                                                   \
   (int)sizeof(T) * (dp == 32   ? Tile<T, 32>::ELEMS                 \

@@ -19,10 +19,13 @@ from . import build
 
 __all__ = ["flash_attention_fwd_cuda", "MAX_HEAD_DIM"]
 
-#: The tensor-core route is built for head dims padded to 32, 64 or 128
-#: (each warp keeps its 16 rows' output accumulators for the padded width in
-#: registers); head dims 129..256 take the CUDA-core route of the same
-#: source (``csrc/flash_attention.cu``, "SIMT route").
+#: Both routes of ``csrc/flash_attention.cu`` run their products on the
+#: tensor cores (``wgmma``; 3xTF32 for float32, bf16 for bfloat16).  Head
+#: dims padded to 32, 64 or 128 take the first kernel (one warpgroup keeps
+#: a head's 64-row output tile in registers); head dims 129..256 take the
+#: second, which pads to 256 and splits the head dim between two
+#: warpgroups that add their partial scores through shared memory
+#: ("head_dim 129..256 route").
 MAX_HEAD_DIM = 256
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

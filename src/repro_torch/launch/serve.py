@@ -218,15 +218,19 @@ def serve_ensemble(engine, args, sig) -> dict:
     # closed-loop outputs align to sig[P+1 : P+1+G].
     truth = sig[p + 1:p + 1 + g]
     rmse = float(np.sqrt(np.mean((fused - truth) ** 2)))
+    routes = engine.stats().decode_waves_by_route
     res = {"device": str(device), "n": engine.cfg.n, "slots": args.slots,
            "ensemble": args.ensemble, "sessions": args.slots, "wall_s": wall,
            "sessions_per_s": args.slots / wall, "gen": g,
            "continuation": fused, "rmse_vs_signal": rmse,
-           "finite": bool(np.isfinite(fused).all())}
+           "finite": bool(np.isfinite(fused).all()),
+           "decode_waves_by_route": routes}
     print(f"ensemble-{args.ensemble} continuation: {g} tok closed loop, "
           f"rmse vs signal {rmse:.3e} (B={args.slots} reservoirs fused into "
           f"one output) in {wall:.3f}s ({res['sessions_per_s']:.2f} "
           f"sessions/s)")
+    print(f"decode waves by route: {routes['fused']} fused (K tokens a "
+          f"launch), {routes['step']} step at a time")
     engine.tracker.close()
     return res
 

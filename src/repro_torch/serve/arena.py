@@ -36,6 +36,7 @@ import torch
 
 from ..core import dispatch as dispatch_mod
 from ..core import esn as esn_fn
+from ..kernels import diag_scan as diag_scan_k
 
 __all__ = [
     "SlotArena",
@@ -52,6 +53,8 @@ __all__ = [
     "driven_loop",
     "closed_loop",
     "closed_loop_fused",
+    "decode_route",
+    "closed_loop_route",
     "prefill_wave",
 ]
 
@@ -236,17 +239,58 @@ def closed_loop(params, w_out, arena: SlotArena, mask, n_steps: int,
     return dataclasses.replace(arena, states=states, y_prev=y), ys
 
 
+def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
+                 *, ensemble: str = "off", per_slot: bool = False) -> str:
+    """Which path a diag-mode closed-loop decode with a readout takes, from
+    the shapes and the device type alone: ``"fused"`` (one launch of the
+    fused K-token decode kernel) or ``"step"`` (:func:`closed_loop`, one
+    step at a time on the same device).  ``weighted`` voting takes the
+    step path everywhere (the kernel reduces by plain mean only, as in the
+    JAX package).  On CUDA, ``mean`` runs every row in one block of the
+    kernel, so an arena whose B rows of NC lanes do not fit that block
+    (``kernels.diag_scan.decode_layout``: at n = 1024, float64, per-slot
+    members, more than 8 slots) takes the step path; the plain version on
+    the CPU has no such limit.  Decided before any launch, never by
+    catching a launch's error."""
+    if ensemble == "weighted":
+        return "step"
+    if device_type == "cuda" and ensemble == "mean":
+        try:
+            diag_scan_k.decode_layout(b, nc, d, itemsize, ensemble="mean",
+                                      batched=per_slot)
+        except ValueError:
+            return "step"
+    return "fused"
+
+
+def closed_loop_route(params, w_out, arena: SlotArena, *,
+                      ensemble: str = "off") -> str:
+    """:func:`decode_route` for this engine's operands (dense params or a
+    missing readout take the step path)."""
+    if w_out is None or params.mode != "diag":
+        return "step"
+    n = params.lam_q.shape[-1]
+    per_slot = (params.lam_q.dim() == 2 or params.win_q.dim() == 3
+                or (params.wfb_q is not None and params.wfb_q.dim() == 3)
+                or w_out.dim() == 3)
+    b, d = arena.y_prev.shape
+    return decode_route(b, (n + int(params.n_real)) // 2, d,
+                        arena.y_prev.element_size(), arena.y_prev.device.type,
+                        ensemble=ensemble, per_slot=per_slot)
+
+
 def closed_loop_fused(params, w_out, arena: SlotArena, mask, n_steps: int,
                       ens_weights=None, *, batched: bool = False,
                       ensemble: str = "off"):
     """:func:`closed_loop` through the fused K-token decode kernel: one
     launch runs all ``n_steps`` (``core.dispatch.run_decode_fused`` — the
     CUDA kernel on the GPU, the plain version elsewhere), including the
-    ``mean`` ensemble's reduce and seed.  Dense params, a missing readout or
-    ``weighted`` voting (the kernel reduces by plain mean only, as in the
-    JAX package) take the step-at-a-time path; the fused path reads
-    ``batched`` from the shape of ``lam_q``."""
-    if w_out is None or params.mode != "diag" or ensemble == "weighted":
+    ``mean`` ensemble's reduce and seed.  Where :func:`closed_loop_route`
+    says ``"step"`` (dense params, a missing readout, ``weighted`` voting,
+    a ``mean`` arena past the kernel's one-block limit) it runs
+    :func:`closed_loop` instead; the fused path reads ``batched`` from the
+    shape of ``lam_q``."""
+    if closed_loop_route(params, w_out, arena, ensemble=ensemble) == "step":
         return closed_loop(params, w_out, arena, mask, n_steps, ens_weights,
                            batched=batched, ensemble=ensemble)
     cfg = params.cfg

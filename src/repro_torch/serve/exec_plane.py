@@ -56,8 +56,7 @@ import torch
 
 from ..core import dispatch
 from . import arena as arena_mod
-from .ingest import SessionStats, host_array
-from .scheduler import WaveItem, bucket_length
+from .scheduler import WaveItem, bucket_length, host_array
 
 __all__ = ["ExecPlane", "DecodeResult", "EvictResult"]
 
@@ -789,21 +788,26 @@ class ExecPlane:
         event, the per-launch metadata ``collect_decoded`` reports, and the
         scheduler's deadline reset for these sessions."""
         wall = time.perf_counter()
-        fused = (kind not in ("step", "driven") and self.params.mode == "diag"
-                 and self.readout is not None)
+        route = ("step" if kind in ("step", "driven") else
+                 arena_mod.closed_loop_route(self.params, self._wave_w(),
+                                             self.arena,
+                                             ensemble=self.ensemble))
         self._decode_meta.append({"kind": kind, "rows": len(sids),
                                   "tokens": int(tokens), "us": us,
-                                  "fused": fused, "_pending": set(sids)})
+                                  "fused": route == "fused",
+                                  "_pending": set(sids)})
         self.tracker.log_wave({"kind": "decode", "wall": wall,
                                "sids": list(sids), "rows": len(sids),
                                "tokens": int(tokens), "us": us,
-                               "mode": "interleave" if interleave else kind})
+                               "mode": "interleave" if interleave else kind,
+                               "route": route})
         self.scheduler.note_decoded(sids, wall=wall)
 
     # -------------------------------------------------------------- prefill
     def _run_wave(self, wave: List[WaveItem], capacity: int,
                   results: Dict[Hashable, object], *, method: str,
                   chunk: int, want_outputs: bool) -> None:
+        from .ingest import SessionStats
         arena_before, base_event = self.arena, self._base_mark()
         touched: set = set()
         fresh = [it for it in wave if it.first]
@@ -927,6 +931,7 @@ class ExecPlane:
 
     # ------------------------------------------------------------- lifecycle
     def place(self, sid, slot: int, h0, y0) -> int:
+        from .ingest import SessionStats
         h0 = np.zeros(self.cfg.n, self._np_dtype) if h0 is None else h0
         y0 = np.zeros(self.cfg.d_out, self._np_dtype) if y0 is None else y0
         self.arena = arena_mod.place(self.arena, slot, h0, y0)

@@ -18,18 +18,9 @@ from typing import Dict, Hashable, List, Optional
 
 import numpy as np
 
-from .scheduler import PrefillRequest
+from .scheduler import PrefillRequest, host_array
 
-__all__ = ["AdmissionFull", "IngestPlane", "SessionStats", "SessionTable",
-           "host_array"]
-
-
-def host_array(v, dtype):
-    """``v`` (numpy array, sequence, or tensor on any device) as a host
-    numpy array of ``dtype``."""
-    if hasattr(v, "detach"):
-        v = v.detach().cpu().numpy()
-    return np.asarray(v, dtype)
+__all__ = ["AdmissionFull", "IngestPlane", "SessionStats", "SessionTable"]
 
 
 class AdmissionFull(RuntimeError):

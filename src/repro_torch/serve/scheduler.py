@@ -81,7 +81,19 @@ import dataclasses
 import time
 from typing import Dict, Hashable, List, Optional, Tuple
 
-__all__ = ["PrefillRequest", "WaveItem", "bucket_length", "WaveScheduler"]
+import numpy as np
+
+__all__ = ["PrefillRequest", "WaveItem", "bucket_length", "WaveScheduler",
+           "host_array"]
+
+
+def host_array(v, dtype):
+    """``v`` (numpy array, sequence, or tensor on any device) as a host
+    numpy array of ``dtype``.  Here, below both planes, so that the ingest
+    and exec planes share it without importing each other."""
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype)
 
 #: Deferral margin: the lookahead plan must beat serving the anchor first by
 #: this factor in predicted tok/s before the anchor is pushed back one wave —

@@ -212,6 +212,7 @@ class StatsAggregator(Tracker):
             "wave_us_sum": 0.0, "timed_waves": 0,
             "decode_waves": 0, "decode_rows": 0,
             "decode_interleave_waves": 0,
+            "decode_waves_by_route": {"fused": 0, "step": 0},
             "decode_us_sum": 0.0, "decode_timed_steps": 0,
             "page_waves": 0, "page_rows": 0, "page_us_sum": 0.0,
             "promote_waves": 0, "demote_waves": 0,
@@ -270,6 +271,7 @@ class StatsAggregator(Tracker):
         s["decode_tokens"] += e["rows"] * e["tokens"]
         if e.get("mode") == "interleave":
             s["decode_interleave_waves"] += 1
+        s["decode_waves_by_route"][e["route"]] += 1
         us = e.get("us")
         if us is not None:
             s["decode_us_sum"] += us
@@ -346,6 +348,7 @@ class StatsAggregator(Tracker):
             "decode_waves_total": s["decode_waves"],
             "decode_rows_total": s["decode_rows"],
             "decode_interleave_waves": s["decode_interleave_waves"],
+            "decode_waves_by_route": dict(s["decode_waves_by_route"]),
             "decode_us_per_step": (s["decode_us_sum"]
                                    / s["decode_timed_steps"]
                                    if s["decode_timed_steps"] else None),
@@ -398,6 +401,7 @@ class EngineStats:
     decode_waves_total: int
     decode_rows_total: int
     decode_interleave_waves: int
+    decode_waves_by_route: dict
     decode_us_per_step: Optional[float]
     decode_gaps: int
     decode_gap_p50_us: Optional[float]

@@ -319,3 +319,58 @@ def test_one_tf32_pass_misses_the_tolerances_and_3xtf32_keeps_them(q_scale):
     if q_scale > 1:
         assert out_1 > 2e-4
     assert out_3 <= 2e-4 and lse_3 <= 1e-5, (out_3, lse_3)
+
+
+def _split_product(a, b, passes):
+    """a @ b as the head_dim 129..256 route computes it: each of two
+    warpgroups takes half the head dim (the contraction), the two partials
+    are added (in either order: IEEE addition commutes)."""
+    h = a.shape[-1] // 2
+    lo = _product(a[..., :h], b[..., :h, :], passes)
+    hi = _product(a[..., h:], b[..., h:, :], passes)
+    assert torch.equal(lo + hi, hi + lo)
+    return lo + hi
+
+
+def _emulated_split_attention(q, k, v, q_offset, passes):
+    """The route's arithmetic: S = Q K^T as the sum of the two head-dim
+    halves' partials, then the softmax and P V, each warpgroup's P V over
+    its own half of V's dims (a plain product per output dim)."""
+    d = q.shape[-1]
+    s = _split_product(q, k.transpose(-1, -2), passes) * d ** -0.5
+    mask = tref.attention_mask(q.shape[-2], k.shape[-2], q_offset=q_offset)
+    s = torch.where(mask, s, tref.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    return _product(p, v, passes) / l, (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 30.0], ids=["chunk", "scores-30"])
+def test_head_dim_256_split_keeps_the_tolerances_one_tf32_pass_does_not(
+        q_scale):
+    """recurrentgemma's local layer, head_dim 256, the queries 512
+    positions in: the head_dim 129..256 route's arithmetic (3xTF32 on each
+    warpgroup's 128 dims, the two partial scores added) stays within the
+    kernel's 2e-4 (output) and 1e-5 (lse, relative) of a float64
+    reference; one TF32 pass over the same split misses the lse
+    tolerance (and, with scores of magnitude ~30, the output's)."""
+    rng = np.random.default_rng(1)
+    q = torch.tensor(rng.normal(size=(2, 512, 256)) * q_scale,
+                     dtype=torch.float32)
+    k, v = (torch.tensor(rng.normal(size=(2, 1024, 256)), dtype=torch.float32)
+            for _ in range(2))
+    want, want_lse = _emulated_attention(q.double(), k.double(), v.double(),
+                                         512, 0)
+
+    def errors(passes):
+        out, lse = _emulated_split_attention(q, k, v, 512, passes)
+        return (float((out.double() - want).abs().max()),
+                float(((lse.double() - want_lse).abs()
+                       / want_lse.abs().clamp(min=1.0)).max()))
+    out_1, lse_1 = errors(1)
+    out_3, lse_3 = errors(3)
+    assert lse_1 > 1e-5
+    if q_scale > 1:
+        assert out_1 > 2e-4
+    assert out_3 <= 2e-4 and lse_3 <= 1e-5, (out_3, lse_3)

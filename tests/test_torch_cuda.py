@@ -659,19 +659,41 @@ def test_ensemble_engine_on_card_matches_cpu(dev, ensemble):
 
 def test_mean_ensemble_of_16_slots_at_n1024_raises_the_limit(dev):
     """B2's mean route holds every row in one block: 16 per-slot rows of
-    525 float64 lanes exceed it, and the engine raises B2's ValueError
-    rather than serve on another path."""
+    525 float64 lanes exceed it.  The route is decided from the shapes
+    before any launch (``arena.decode_route``): the engine serves them on
+    the step-at-a-time path on the card, launches no B2, counts the wave
+    under ``step`` and holds against the CPU engine, elementwise at
+    1e-9 max(|ref|, 1); 8 slots still take one B2 launch a wave."""
     params, ro, sig = _ensemble(16, 1024)
-    eng = ReservoirEngine.from_param_batch(params, ro, ensemble="mean",
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        eng = ReservoirEngine.from_param_batch(params, ro, ensemble="mean",
+                                               device=device)
+        for i in range(16):
+            eng.submit(i, sig[:256, None])
+        eng.flush()
+        before = ops.decode_fused.launches
+        ys = eng.decode_closed_loop(8)
+        outs[device.type] = ([ys[i].cpu() for i in range(16)]
+                             + [eng.states.cpu(), eng.y_prev.cpu()],
+                             ops.decode_fused.launches - before,
+                             eng.stats().decode_waves_by_route)
+    assert outs["cuda"][1] == 0
+    assert outs["cuda"][2] == {"fused": 0, "step": 1}
+    assert outs["cpu"][2] == {"fused": 1, "step": 0}
+    for g_, w_ in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert bool(torch.isfinite(g_).all())
+        _close(g_, w_)
+    params8, ro8, _ = _ensemble(8, 1024)
+    eng = ReservoirEngine.from_param_batch(params8, ro8, ensemble="mean",
                                            device=dev)
-    for i in range(16):
+    for i in range(8):
         eng.submit(i, sig[:256, None])
     eng.flush()
     before = ops.decode_fused.launches
-    with pytest.raises(ValueError, match="ensemble='mean' runs every row in "
-                                         "one block"):
-        eng.decode_closed_loop(8)
-    assert ops.decode_fused.launches == before
+    eng.decode_closed_loop(8)
+    assert ops.decode_fused.launches - before == 1
+    assert eng.stats().decode_waves_by_route == {"fused": 1, "step": 0}
 
 
 # --------------------------------------------------------------------------- #
@@ -1131,24 +1153,57 @@ def test_diag_scan_per_timestep_gates_match_plain(dev, name):
             _close_scaled(g_, w_, torch.float32)
 
 
-# recurrentgemma's local attention at seq 2048: _banded_attention's two
-# 1024-row query chunks, GQA 10:1, head_dim 256, window 2048 (the CUDA-core
-# route of the kernel), float32; and a small bfloat16 case of that route.
+# Head dims 129..256 (the tensor-core route that splits the head dim between
+# two warpgroups).  recurrentgemma's local attention at seq 2048:
+# _banded_attention's two 1024-row query chunks, GQA 10:1, head_dim 256,
+# window 2048, float32 and chunk 1 in bfloat16; then the route's edges: odd
+# head dims (rows not 16-byte aligned: scalar staging), a sequence slice of
+# a larger tensor, kv_len inside a tile without the causal mask, a decode
+# row, GQA 1:1 and 10:1 (two heads a block in bfloat16), an odd GQA group.
+# (b, hq, hkv, sq, skv, d), causal, window, q_offset, kv_len, dtype, layout
 LOCAL_CASES = {
-    "chunk0": ((2, 10, 1, 1024, 1024, 256), 0, torch.float32),
-    "chunk1": ((2, 10, 1, 1024, 2048, 256), 1024, torch.float32),
-    "window-bf16": ((1, 10, 1, 100, 300, 256), 200, torch.bfloat16),
+    "chunk0": ((2, 10, 1, 1024, 1024, 256), True, 2048, 0, None,
+               torch.float32, "contiguous"),
+    "chunk1": ((2, 10, 1, 1024, 2048, 256), True, 2048, 1024, None,
+               torch.float32, "contiguous"),
+    "window-bf16": ((1, 10, 1, 100, 300, 256), True, 150, 200, None,
+                    torch.bfloat16, "contiguous"),
+    "chunk1-bf16": ((2, 10, 1, 1024, 2048, 256), True, 2048, 1024, None,
+                    torch.bfloat16, "contiguous"),
+    "hd129": ((1, 2, 2, 70, 90, 129), True, None, 20, None, torch.float32,
+              "contiguous"),
+    "hd192-window": ((1, 5, 1, 80, 200, 192), True, 64, 120, None,
+                     torch.float32, "contiguous"),
+    "hd255": ((2, 2, 1, 65, 65, 255), True, None, 0, None, torch.float32,
+              "contiguous"),
+    "hd255-bf16": ((1, 4, 2, 40, 90, 255), True, None, 50, None,
+                   torch.bfloat16, "contiguous"),
+    "seq-slice": ((1, 10, 1, 200, 400, 256), True, 300, 200, None,
+                  torch.float32, "slice"),
+    "seq-slice-hd200-bf16": ((1, 2, 1, 60, 120, 200), True, None, 60, None,
+                             torch.bfloat16, "slice"),
+    "kv_len-cross": ((2, 4, 2, 50, 160, 256), False, None, 0, 97,
+                     torch.float32, "contiguous"),
+    "decode": ((2, 10, 1, 1, 300, 256), True, None, 299, None,
+               torch.float32, "contiguous"),
+    "gqa1": ((1, 4, 4, 130, 130, 256), True, None, 0, None, torch.float32,
+             "contiguous"),
+    "gqa10": ((1, 10, 1, 130, 260, 256), True, 100, 130, None,
+              torch.float32, "contiguous"),
+    "gqa10-bf16": ((1, 10, 1, 130, 260, 256), True, 100, 130, None,
+                   torch.bfloat16, "contiguous"),
+    "gqa3-bf16": ((1, 3, 1, 70, 140, 256), True, None, 70, None,
+                  torch.bfloat16, "contiguous"),
 }
 
 
 @pytest.mark.parametrize("name", list(LOCAL_CASES))
 def test_flash_attention_head_dim_256_matches_plain(dev, name):
-    (b, hq, hkv, sq, skv, d), q_offset, dtype = LOCAL_CASES[name]
-    window = 2048 if dtype == torch.float32 else 150
-    g = torch.Generator().manual_seed(4)
-    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype) for shape in
-               ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
-    kw = dict(causal=True, window=window, q_offset=q_offset)
+    shape, causal, window, q_offset, kv_len, dtype, layout = LOCAL_CASES[name]
+    q, k, v = tiled_inputs(shape + (causal, window, q_offset, kv_len),
+                           layout, 1.0, dtype, dev, seed=4)
+    assert layout != "slice" or not q.is_contiguous()
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     before = ops.flash_attention_fwd.launches
     out, lse = ops.flash_attention_fwd(q, k, v, **kw)
     assert ops.flash_attention_fwd.launches == before + 1

@@ -242,6 +242,77 @@ def test_fused_mean_route_matches_scan_path(partial):
         np.testing.assert_array_equal(_np(ys[0]), _np(ys[i]))
 
 
+# ------------------------------------------- the closed-loop route (C7)
+@pytest.mark.parametrize("slots, per_slot, route", [
+    (16, True, "step"), (8, True, "fused"), (16, False, "step"),
+    (9, True, "step")])
+def test_decode_route_is_a_function_of_the_shapes(slots, per_slot, route):
+    """The route chooser, asked for a CUDA device with no card present:
+    ``mean`` over B rows of 525 float64 lanes (n = 1024) takes B2 while
+    the rows fit its one block and the step path past it; the CPU's plain
+    version and ``off`` take the fused path at every B; ``weighted``
+    always steps."""
+    kw = dict(ensemble="mean", per_slot=per_slot)
+    assert tarena.decode_route(slots, 525, 1, 8, "cuda", **kw) == route
+    assert tarena.decode_route(slots, 525, 1, 8, "cpu", **kw) == "fused"
+    assert tarena.decode_route(slots, 525, 1, 8, "cuda", ensemble="off",
+                               per_slot=per_slot) == "fused"
+    assert tarena.decode_route(slots, 525, 1, 8, "cuda", ensemble="weighted",
+                               per_slot=per_slot) == "step"
+
+
+def _port_batch(b, n=48):
+    ps = [tesn.dpg_params(tparams.ESNConfig(**{**CFG, "n": n,
+                                              "seed": 100 + i}),
+                          sigma=0.1, device="cpu") for i in range(b)]
+    w = torch.stack([tesn.fit(p, U[:400], Y[:400], washout=50).w_out
+                     for p in ps])
+    return tparams.stack_params(ps), tparams.Readout(w)
+
+
+def test_mean_closed_loop_of_16_slots_fused_equals_step():
+    """At 16 slots the fused ``mean`` path (its plain version on the CPU)
+    and the step path the card takes there agree to 1e-12 relative, so
+    the route the shapes pick does not change the served stream."""
+    tp, tr = _port_batch(16)
+    eng = ReservoirEngine.from_param_batch(tp, tr, ensemble="mean",
+                                           device="cpu")
+    for i in range(16):
+        eng.submit(i, U[20 * i:20 * i + 150])
+    eng.flush()
+    mask = torch.ones(16, dtype=torch.bool)
+    a_s, ys_s = tarena.closed_loop(tp, tr.w_out, eng.arena, mask, 9,
+                                   batched=True, ensemble="mean")
+    a_f, ys_f = tarena.closed_loop_fused(tp, tr.w_out, eng.arena, mask, 9,
+                                         batched=True, ensemble="mean")
+    for g, w in ((ys_f, ys_s), (a_f.states, a_s.states),
+                 (a_f.y_prev, a_s.y_prev)):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-12, atol=0)
+    assert tarena.closed_loop_route(tp, tr.w_out, eng.arena,
+                                    ensemble="mean") == "fused"
+
+
+@pytest.mark.parametrize("ensemble, route", [("mean", "fused"),
+                                             ("weighted", "step"),
+                                             ("off", "fused")])
+def test_engine_counts_decode_waves_by_route(ensemble, route):
+    """``stats().decode_waves_by_route`` counts each decode wave under the
+    path it took; single steps count as ``step``."""
+    tp, tr = _port_batch(3)
+    eng = ReservoirEngine.from_param_batch(tp, tr, ensemble=ensemble,
+                                           device="cpu")
+    for i in range(3):
+        eng.submit(i, U[30 * i:30 * i + 100])
+    eng.flush()
+    eng.decode_closed_loop(4)
+    eng.decode_closed_loop(4)
+    eng.decode_step({i: U[200 + i] for i in range(3)})
+    assert eng.stats().decode_waves_by_route == {
+        "fused": 2 * (route == "fused"), "step": 1 + 2 * (route == "step")}
+    waves = eng.collect_decoded().waves
+    assert [w["fused"] for w in waves] == [route == "fused"] * 2 + [False]
+
+
 # ------------------------------------------------------- batched prefill
 @pytest.mark.parametrize("method", ("sequential", "associative", "chunked",
                                     "kernel"))
@@ -309,3 +380,6 @@ def test_serve_driver_ensemble_on_cpu(ensemble):
         assert res["sessions"] == 3 and res["ensemble"] == ensemble
         assert res["continuation"].shape == (16,)
         assert res["rmse_vs_signal"] < 1e-2
+        fused = int(ensemble == "mean")
+        assert res["decode_waves_by_route"] == {"fused": 2 * fused,
+                                                "step": 2 * (1 - fused)}
