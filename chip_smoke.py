@@ -18,9 +18,11 @@ spills; the scan and its backward also with real per-timestep gates
 head_dim 256 (recurrentgemma's local layer, both band chunks in float32
 and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
-printed, and a spill fails the build phase); then drives
-the port's fourteen main paths on the card, each with the launch counts set
-to 0 just before it and read just after:
+printed, and a spill fails the build phase), and at whisper-tiny's encoder
+(1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
+32:8, head_dim 128); then drives the port's seventeen main paths and two
+more phases on the card, each with the launch counts set to 0 just before
+it and read just after:
 
 1. ``repro_torch.launch.serve --reservoir``: the full-width reservoir
    workload (n=1024, 8 slots, 16 sessions, 1024-token prompts, 128
@@ -111,7 +113,39 @@ to 0 just before it and read just after:
    B1; a 2-layer full-width trainer held against the CPU's;
 14. ``repro_torch.launch.serve --arch xlstm-125m``: its bfloat16 decode
    loop at full width (the sLSTM steps through B1), held against the CPU
-   replay as paths 3 and 5 are.
+   replay as paths 3 and 5 are;
+15. the open-loop front end (``serve.OpenLoopServer``) at the serving
+   profile: 16 sessions arrive on a seeded exponential schedule, each
+   submits a 1024-token prompt to an 8-slot engine with a bounded
+   admission queue (at least one ``AdmissionFull`` must happen; the
+   client retries 1 ms on) and streams 128 tokens; a graceful ``drain()`` ends
+   the run; with ``decode_interleave`` off, then on (a decode SLO,
+   256-token prefill chunks, 8-token decode waves) on the 16-slot arena,
+   where the reference's stall behind a full arena cannot arise (ROADMAP
+   C9); every streamed token
+   held against the CPU engine on the same sessions; TTFT, inter-token
+   p50 / p95, streamed tok/s and a ``torch.add`` of the same run;
+16. ``whisper-tiny`` at its published widths (4 encoder and 4 decoder
+   layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51865, 1500
+   frames), 10 AdamW steps in float32 through the library ``Trainer`` on
+   seeded tokens (8 x 448) and frames (8 x 1500 x 384) — the encoder's
+   attention through B3, one launch an encoder layer; a profiled step;
+   the whole model's loss and gradients at batch 2 (and again with the
+   attention dense on the card, the witness of B3's share of the gap) and
+   a prefill plus 8 ``decode_step``s held against the CPU;
+17. ``repro_torch.launch.train --arch kimi-k2-1t-a32b --d-model 1024
+   --layers 1``: kimi's 384 experts, top-8 and expert width 2048 (the MoE
+   block, no TPU kernel), batch 8 x 512, 5 steps, with the load-balance
+   and router-z losses and the share of assignments dropped; then
+   ``--arch arctic-480b --smoke`` through the driver and the loss and
+   gradients held against the CPU, and ``launch.serve --arch
+   kimi-k2-1t-a32b --smoke`` held against the CPU replay;
+
+then llava-next-mistral-7b's embedding inputs (full width, 2 of 32
+layers, float32: one trainer step on 2 x 2048 ``embeds`` with ``labels``,
+B3 at GQA 32:8 and head_dim 128; loss and gradients at 2 x 256 held
+against the CPU), and the four examples (``examples/torch_*.py``), each as
+its own process on its default device.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -132,7 +166,11 @@ largest logit allowed).  Paging moves rows with no change of dtype: a
 paged engine on the card is held bit for bit against the same workload on
 an unpaged engine of its width, a pipelined one against the synchronous
 one, and a restored one against the engine it was snapshotted from; the
-card against the CPU elementwise at 1e-9 * max(|ref|, 1).
+card against the CPU elementwise at 1e-9 * max(|ref|, 1).  Slice 12's
+whole float32 models on the card against the CPU: losses and gradients
+leaf by leaf to 1.3e-5 (``TRAINER_TOL``: arctic, and whisper with its
+attention dense on the card) or ``LM_TOL`` (whisper through B3, llava),
+one forward's or decode step's logits to 1e-5 of the largest |logit|.
 
 Bounds: the larger of the bytes (each input read once, each output written
 once) over HBM3's 3.35 TB/s and the operations over the rate of the units
@@ -142,10 +180,12 @@ them); flash attention on the tensor cores, float32 as 3xTF32 (three TF32
 products per float32 product at 495 TFLOP/s) and bfloat16 at 989 TFLOP/s.
 """
 import gc
+import importlib
 import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -189,6 +229,31 @@ XL_TRAIN_ARGS = ["--arch", "xlstm-125m", "--vocab", "50304", "--batch", "8",
 XL_SERVE_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--prompt-len",
                  "64", "--gen", "64"]
 BF16_TOL, LSE_TOL = 5e-2, 1e-5
+#: Slice 12: one float32 forward's or decode step's logits, card against
+#: CPU, against the largest |logit| (losses and gradients: ``LM_TOL``).
+LM_ONE_TOL = 1e-5
+#: Slice 12's trainers, card against CPU: losses and gradients of arctic
+#: smoke and of whisper-tiny with dense attention.  whisper through B3 is
+#: held to ``LM_TOL``: B3's float32 output carries ~12x SDPA's error
+#: (1.3e-5 against 1.1e-6 of a float64 reference at whisper's encoder),
+#: which the attention backward reads back through ``out`` (ROADMAP C10).
+TRAINER_TOL = 1.3e-5
+WHISPER_STEPS, WHISPER_BATCH, WHISPER_SEQ = 10, 8, 448
+KIMI_TRAIN_STEPS = 5
+#: kimi-k2's published experts (384), top-k (8) and expert width (2048),
+#: cut to d_model 1024 and one layer through the driver's own flags: 16
+#: heads over kimi's 8 KV heads (768 would give 12, which 8 does not
+#: divide).  Its step peaks at ~77.5 GB (params, gradients, AdamW moments
+#: and the update's new copies), within the card's 85.
+KIMI_TRAIN_ARGS = ["--arch", "kimi-k2-1t-a32b", "--d-model", "1024",
+                   "--layers", "1", "--batch", "8", "--seq", "512",
+                   "--steps", str(KIMI_TRAIN_STEPS)]
+ARCTIC_SMOKE_ARGS = ["--arch", "arctic-480b", "--smoke", "--batch", "4",
+                     "--seq", "64", "--steps", "3"]
+KIMI_SERVE_ARGS = ["--arch", "kimi-k2-1t-a32b", "--smoke", "--batch", "4",
+                   "--prompt-len", "16", "--gen", "16"]
+#: llava-next-mistral-7b at full width, 2 of its 32 layers.
+LLAVA_LAYERS, LLAVA_BATCH, LLAVA_SEQ, LLAVA_CHECK_SEQ = 2, 2, 2048, 256
 #: The port's kernels, by their CUDA function names (profile summaries).
 OWN_KERNELS = ("diag_scan_chunk", "diag_scan", "diag_scan_bwd_chunk",
                "diag_scan_bwd", "decode_fused", "flash_attention_fwd",
@@ -888,6 +953,16 @@ FLASH_CASES = [
      None, "bfloat16", True),
     ("local-bf16", (1, 10, 1, 100, 300, 256), True, 150, 200, None,
      "bfloat16", False),
+    # whisper-tiny's encoder in training at batch 8 (path 16): 6 heads of
+    # 64 over 1500 frames, non-causal; 1500 is no multiple of the key tile
+    ("whisper-encoder", (8, 6, 6, 1500, 1500, 64), False, None, 0, None,
+     "float32", True),
+    # llava-next-mistral-7b's layers at batch 2 x 2048 (the llava phase):
+    # GQA 32:8, head_dim 128, window 4096, both band chunks
+    ("llava-chunk0", (2, 32, 8, 1024, 1024, 128), True, 4096, 0, None,
+     "float32", True),
+    ("llava-chunk1", (2, 32, 8, 1024, 2048, 128), True, 4096, 1024, None,
+     "float32", True),
     # the cases of tests/test_kernels.py
     ("mha-causal", (1, 2, 2, 64, 64, 32), True, None, 0, None, "float32",
      False),
@@ -1110,30 +1185,24 @@ def profile_train_step(train, Trainer, TrainConfig, MarkovTokens,
                        argv=TRAIN_ARGS):
     """Device time by kernel over one full-width training step (the main
     path's configuration), after one untimed step."""
-    import torch
-    release_cache()
     args = train.build_parser().parse_args(argv)
     cfg = train.arch_config(args)
     data = MarkovTokens(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq)
-    tr = Trainer(cfg, TrainConfig(steps=1, log_every=0, lr=args.lr), data,
-                 device="cuda")
-    state = tr.init_state(0)
-    batch = {"tokens": torch.as_tensor(data.batch_at(0)["tokens"],
-                                       device="cuda")}
+    return profile_arch_step(cfg, data, Trainer, TrainConfig, lr=args.lr)
 
-    def step():
-        return tr.step_fn(state["params"], state["opt"], state["ef"], batch)
-    step()
-    return profiled(step)
+
+def leaf_rel(got, want):
+    """max|got - want| / max|want| of one leaf."""
+    d = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    return d / scale if scale else (0.0 if d == 0 else float("inf"))
 
 
 def leafwise(got, want):
     """max over leaves of max|got - want| / max|want| (flattened trees)."""
     worst, worst_key = 0.0, None
     for k, w in want.items():
-        d = float((got[k].cpu() - w).abs().max())
-        scale = float(w.abs().max())
-        r = d / scale if scale else (0.0 if d == 0 else float("inf"))
+        r = leaf_rel(got[k], w)
         if r >= worst:
             worst, worst_key = r, k
     return worst, worst_key
@@ -1183,13 +1252,15 @@ def step_errors(got, want):
     return (d / want.float().abs().amax(dim=(0, 2))).tolist()
 
 
-def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS, n_layers=None):
-    """The bfloat16 serve loop on the card (``res``, the main path's run)
-    against the CPU: the same weights and prompts (``serve.lm_setup``), the
-    card's tokens fed to the CPU loop (teacher forcing, so a near-tie that
-    the two devices break apart cannot part their paths), every step's
-    logits held to ``BF16_LM_TOL`` of the step's largest |logit|; the share
-    of steps whose greedy token the CPU picks too is reported.  With
+def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS, n_layers=None,
+                    dtype="bfloat16"):
+    """The serve loop on the card (``res``, the main path's run; a config
+    of ``dtype``) against the CPU: the same weights and prompts
+    (``serve.lm_setup``), the card's tokens fed to the CPU loop (teacher
+    forcing, so a near-tie that the two devices break apart cannot part
+    their paths), every step's logits held to ``BF16_LM_TOL`` (bfloat16)
+    or ``LM_TOL`` (float32) of the step's largest |logit|; the share of
+    steps whose greedy token the CPU picks too is reported.  With
     ``n_layers`` (an arch whose full depth is too slow to replay on the
     host) ``res`` is None: the model is cut to that depth at full width,
     from the same seeds, and its card run is made here."""
@@ -1212,17 +1283,17 @@ def lm_serve_vs_cpu(serve, res, argv=LM_SERVE_ARGS, n_layers=None):
                              seed=args.seed + 1)
     cpu = serve.generate(params, cfg, prompts, args.gen, seed=args.seed + 1,
                          forced=res["tokens"])
+    tol = BF16_LM_TOL if dtype == "bfloat16" else LM_TOL
     rel = step_errors(res["step_logits"], cpu["step_logits"])
     out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "prompt_len": args.prompt_len, "gen": args.gen,
            "max_rel_err": max(rel), "mean_rel_err": float(np.mean(rel)),
-           "tol": BF16_LM_TOL, "steps": len(rel),
+           "tol": tol, "steps": len(rel),
            "same_greedy_token_share": float(np.mean(
                res["tokens"] == cpu["tokens"])),
            "card_decode_tok_s": args.batch * args.gen / res["decode_s"],
            "cpu_decode_tok_s": args.batch * args.gen / cpu["decode_s"]}
-    if cfg.dtype != "bfloat16" or max(rel) > BF16_LM_TOL \
-            or not np.isfinite(rel).all():
+    if cfg.dtype != dtype or max(rel) > tol or not np.isfinite(rel).all():
         fail(f"{cfg.name} serve on the card vs the CPU replay: {out}")
     return out
 
@@ -2244,6 +2315,375 @@ def learn_snapshot_path(esn, ESNConfig, mso_series, ReservoirEngine):
             "cpu_snapshot_refit_predictions_over_max_y": pred}
 
 
+# --------------------------------------------------------------------------- #
+# Phases 23-27 (slice 12): the open-loop front end, whisper-tiny, the MoE     #
+# LMs, llava's embedding inputs, the examples                                  #
+# --------------------------------------------------------------------------- #
+FE_SESSIONS, FE_PROMPT, FE_DECODE, FE_SLOTS = 16, 1024, 128, 8
+#: With ``decode_interleave`` on, the reference's front end stops for good
+#: once a request queues while every slot holds a session that still owes
+#: tokens (ROADMAP C9, reproduced by the port): that run serves the 16
+#: sessions on the 16-slot arena (the JAX benchmark's mixed-traffic
+#: arena), where every queued request finds a slot at the next flush.
+FE_SLOTS_INTERLEAVE = 16
+#: The bounded admission queue: 8 sessions hold the slots and 4 more may
+#: wait; an arrival past that meets ``AdmissionFull`` and retries 1 ms on.
+FE_MAX_QUEUED = 4
+FE_MEAN_GAP_S = 0.002
+FE_SLO_US = 2000.0
+
+
+def frontend_workload(n_sessions=FE_SESSIONS, prompt=FE_PROMPT, seed=15):
+    """Seeded prompt starts in the signal and exponential arrival times
+    (s after the start, mean gap ``FE_MEAN_GAP_S``)."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, 2000 - prompt, size=n_sessions)
+    return starts, np.cumsum(rng.exponential(FE_MEAN_GAP_S, size=n_sessions))
+
+
+def percentiles(xs):
+    return {"p50": float(np.percentile(xs, 50)),
+            "p95": float(np.percentile(xs, 95))} if len(xs) else None
+
+
+def frontend_run(p, ro, sig, ReservoirEngine, OpenLoopServer, AdmissionFull,
+                 interleave, device="cuda", n_sessions=FE_SESSIONS,
+                 prompt=FE_PROMPT, n_decode=FE_DECODE, slots=FE_SLOTS,
+                 max_queued=FE_MAX_QUEUED):
+    """Main path 15: ``n_sessions`` clients arrive on the seeded schedule,
+    each submits its prompt to an ``OpenLoopServer`` over a bounded engine
+    (retrying on ``AdmissionFull``) and streams ``n_decode`` tokens; the
+    run ends with a graceful ``drain()``.  With ``interleave`` the engine
+    holds a decode SLO and prefills in 256-token chunks, decoding 8-token
+    waves between them."""
+    import asyncio
+    starts, arrivals = frontend_workload(n_sessions, prompt)
+    kw = (dict(decode_slo_us=FE_SLO_US, decode_wave_tokens=8, chunk_max=256)
+          if interleave else {})
+    eng = ReservoirEngine(p, slots, readout=ro, device=device,
+                          max_queued=max_queued, **kw)
+    rejected = []
+
+    async def client(server, sid, t0):
+        lo = int(starts[sid])
+        await asyncio.sleep(max(0.0, t0 + arrivals[sid] - time.perf_counter()))
+        t_arrive = time.perf_counter()
+        while True:
+            try:
+                h = await server.submit(sid, sig[lo:lo + prompt, None],
+                                        n_decode=n_decode)
+                break
+            except AdmissionFull:
+                rejected.append(sid)
+                await asyncio.sleep(0.001)
+        return t_arrive, h, await h.tokens()
+
+    async def serve():
+        server = OpenLoopServer(eng, decode_interleave=interleave)
+        await server.start()
+        t0 = time.perf_counter()
+        runs = await asyncio.gather(*(client(server, s, t0)
+                                      for s in range(n_sessions)))
+        await server.drain()
+        return runs, time.perf_counter() - t0
+
+    runs, wall = asyncio.run(serve())
+    ttft, itl, tokens = [], [], {}
+    for sid, (t_arrive, h, toks) in enumerate(runs):
+        # With interleave on, one flush may stream a session past its
+        # quota (ROADMAP C9): at least n_decode, in order.
+        if [t.index for t in toks] != list(range(len(toks))) or \
+                len(toks) < n_decode or (len(toks) > n_decode and
+                                         not interleave):
+            fail(f"front end: session {sid} streamed {len(toks)} tokens, "
+                 f"not {n_decode}")
+        tokens[sid] = np.stack([t.y for t in toks])
+        ttft.append((h.t_first - t_arrive) * 1e3)
+        walls = [t.t_wall for t in toks]
+        itl.extend(np.diff(walls) * 1e3)
+    st = eng.stats()
+    if eng.sessions or len(eng.scheduler) or not (rejected or interleave):
+        fail(f"front end: {len(eng.sessions)} sessions and "
+             f"{len(eng.scheduler)} queued after drain, "
+             f"{len(rejected)} AdmissionFull")
+    out = {"decode_interleave": interleave, "sessions": n_sessions,
+           "prompt_len": prompt, "n_decode": n_decode, "slots": slots,
+           "max_queued": max_queued, "admission_full": len(rejected),
+           "sessions_rejected_at_least_once": len(set(rejected)),
+           "wall_s": wall, "streamed_tok_s": n_sessions * n_decode / wall,
+           "tokens_past_quota": sum(len(v) - n_decode
+                                    for v in tokens.values()),
+           "ttft_ms": percentiles(ttft), "inter_token_ms": percentiles(itl),
+           "prefill_waves": st.waves_total,
+           "decode_interleave_waves": st.decode_interleave_waves}
+    return out, tokens
+
+
+def frontend_reference(p, ro, sig, ReservoirEngine, device="cpu",
+                       n_sessions=FE_SESSIONS, prompt=FE_PROMPT,
+                       n_decode=2 * FE_DECODE, slots=FE_SLOTS):
+    """The same sessions on a plain engine, ``slots`` at a time: submit,
+    flush, ``decode_closed_loop(n_decode)`` (twice the streams' quota: an
+    interleaved stream may run past it)."""
+    starts, _ = frontend_workload(n_sessions, prompt)
+    out = {}
+    for g0 in range(0, n_sessions, slots):
+        eng = ReservoirEngine(p, slots, readout=ro, device=device)
+        group = range(g0, min(g0 + slots, n_sessions))
+        for sid in group:
+            eng.submit(sid, sig[starts[sid]:starts[sid] + prompt, None])
+        eng.flush()
+        ys = eng.decode_closed_loop(n_decode)
+        out.update({sid: ys[sid].cpu().numpy() for sid in group})
+    return out
+
+
+def stream_err(tokens, ref):
+    """Fail unless every streamed token is finite and within ``F64_TOL``
+    of the reference, element by element against max(|ref|, 1)."""
+    worst = 0.0
+    for sid, want in ref.items():
+        got = tokens[sid]
+        if not np.isfinite(got).all() or len(got) > len(want):
+            fail(f"front end: session {sid}: {len(got)} tokens, finite "
+                 f"{bool(np.isfinite(got).all())}")
+        want = want[:len(got)]
+        worst = max(worst, float((np.abs(got - want)
+                                  / np.maximum(np.abs(want), 1.0)).max()))
+    if worst > F64_TOL:
+        fail(f"front end vs the CPU engine: {worst:.3e} > {F64_TOL:.0e}")
+    return {"max_rel_err": worst, "tol": F64_TOL, "tokens_checked":
+            sum(v.size for v in tokens.values())}
+
+
+class ArchBatches:
+    """Seeded batches of an arch's inputs, as ``tests/test_arch_smoke.py::
+    _batch`` makes them: ``embeds`` (B, S, d) and ``labels`` for an
+    embedding-input config, else ``tokens`` (B, S); plus ``frames`` (B,
+    encoder_seq, d) for an encoder-decoder.  A trainer's data source."""
+
+    def __init__(self, cfg, batch, seq, seed=16):
+        self.cfg, self.batch, self.seq, self.seed = cfg, batch, seq, seed
+
+    def batch_at(self, step):
+        cfg, b, s = self.cfg, self.batch, self.seq
+        rng = np.random.default_rng([self.seed, step])
+        out = {}
+        if cfg.input_mode == "embeddings":
+            out["embeds"] = rng.standard_normal((b, s, cfg.d_model),
+                                                dtype=np.float32)
+            out["labels"] = rng.integers(0, cfg.vocab, size=(b, s),
+                                         dtype=np.int32)
+        else:
+            out["tokens"] = rng.integers(0, cfg.vocab, size=(b, s),
+                                         dtype=np.int32)
+        if cfg.is_encoder_decoder:
+            out["frames"] = rng.standard_normal(
+                (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+        return out
+
+
+def trainer_run(cfg, data, Trainer, TrainConfig, steps, device="cuda"):
+    """``steps`` AdamW steps of the library's ``Trainer`` on ``data``:
+    losses, median ms a step (steps 2..N), tokens/s, peak memory."""
+    import torch
+    release_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainConfig(steps=steps, log_every=0), data,
+                 device=device)
+    tr.run()
+    ms = 1e3 * float(np.median(tr.step_seconds[1:] or tr.step_seconds))
+    out = {"arch": cfg.name, "params": cfg.param_count(), "n_layers":
+           cfg.n_layers, "batch": data.batch, "seq": data.seq,
+           "steps_run": len(tr.losses), "losses": tr.losses,
+           "ms_per_step": ms, "tokens_per_s": data.batch * data.seq / (
+               ms * 1e-3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if len(tr.losses) != steps or not np.isfinite(tr.losses).all():
+        fail(f"{cfg.name} training: {out}")
+    return out
+
+
+def profile_arch_step(cfg, data, Trainer, TrainConfig, lr=3e-3):
+    """``device_summary`` of one training step of ``cfg`` on ``data``
+    after one untimed step."""
+    import torch
+    release_cache()
+    tr = Trainer(cfg, TrainConfig(steps=1, log_every=0, lr=lr), data,
+                 device="cuda")
+    state = tr.init_state(0)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(0).items()}
+
+    def step():
+        return tr.step_fn(state["params"], state["opt"], state["ef"], batch)
+    step()
+    return profiled(step)
+
+
+def encdec_decode_vs_cpu(cfg, lm, tree, seq, n_steps=8, batch=2):
+    """whisper's forward in prefill mode (frames through the encoder) and
+    ``n_steps`` ``decode_step``s from an empty cache, on the card and the
+    CPU from the same weights: each one's logits within ``LM_ONE_TOL`` of
+    its largest |logit|."""
+    import torch
+    weights = tree.tree_map(lambda v: v.numpy(), lm.init_params(
+        torch.Generator().manual_seed(0), cfg, "cpu"))
+    data = ArchBatches(cfg, batch, seq).batch_at(0)
+    outs = {}
+    with torch.no_grad():
+        for device in ("cuda", "cpu"):
+            params = lm.lm_params_from_numpy(weights, device)
+            b = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+            logits, _, _ = lm.forward(params, cfg, b, mode="prefill")
+            cache = lm.make_decode_cache(params, cfg, batch, n_steps)
+            steps = []
+            for t in range(n_steps):
+                step, cache = lm.decode_step(params, cfg, cache,
+                                             b["tokens"][:, t:t + 1])
+                steps.append(step.cpu())
+            outs[device] = (logits.cpu(), torch.cat(steps, 1))
+    rel = {name: float((g - w).abs().max() / w.abs().max()) for name, g, w in
+           zip(("prefill", "decode"), outs["cuda"], outs["cpu"])}
+    out = {"batch": batch, "seq": seq, "decode_steps": n_steps,
+           "max_rel_err": rel, "tol": LM_ONE_TOL}
+    if max(rel.values()) > LM_ONE_TOL:
+        fail(f"{cfg.name} prefill / decode on the card vs the CPU: {out}")
+    return out
+
+
+def loss_grads_vs_cpu(cfg, data, lm, loss_and_grads, tree, tol,
+                      witness=None, witness_tol=None):
+    """One loss-and-gradient evaluation of ``cfg`` on ``data.batch_at(0)``
+    on the card and the CPU from the same weights: the loss (with its MoE
+    aux) and every gradient leaf within ``tol`` relative.  ``witness``
+    (model keywords, e.g. ``{"attn_impl": "dense"}``) adds one more card
+    evaluation with them, held against the same CPU one to
+    ``witness_tol``: its gap at the first evaluation's worst leaf tells
+    the route's share of that gap."""
+    import torch
+    weights = tree.tree_map(lambda v: v.numpy(), lm.init_params(
+        torch.Generator().manual_seed(0), cfg, "cpu"))
+    runs = {"cuda": ("cuda", {}), "cpu": ("cpu", {})}
+    if witness:
+        runs["witness"] = ("cuda", witness)
+    out = {}
+    for name, (device, kw) in runs.items():
+        params = lm.lm_params_from_numpy(weights, device)
+        b = {k: torch.as_tensor(v, device=device)
+             for k, v in data.batch_at(0).items()}
+        loss, metrics, grads = loss_and_grads(cfg, params, b, **kw)
+        out[name] = (float(loss), tree.flatten(grads),
+                     {k: float(v) for k, v in metrics.items()})
+        del params, grads
+        release_cache()
+    (l_gpu, g_gpu, m_gpu), (l_cpu, g_cpu, m_cpu) = out["cuda"], out["cpu"]
+    grad_rel, grad_key = leafwise(g_gpu, g_cpu)
+    res = {"loss_cuda": l_gpu, "loss_cpu": l_cpu,
+           "rel_loss_err": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "worst_leaf_grad_err": grad_rel, "worst_leaf": grad_key,
+           "metrics_cuda": m_gpu, "metrics_cpu": m_cpu, "tol": tol}
+    ok = np.isfinite(l_gpu) and res["rel_loss_err"] <= tol and grad_rel <= tol
+    if witness:
+        l_w, g_w, _ = out["witness"]
+        w_rel, w_key = leafwise(g_w, g_cpu)
+        res["witness"] = {
+            "kw": witness, "tol": witness_tol,
+            "rel_loss_err": abs(l_w - l_cpu) / abs(l_cpu),
+            "worst_leaf_grad_err": w_rel, "worst_leaf": w_key,
+            "grad_err_at_first_worst_leaf": leaf_rel(g_w[grad_key],
+                                                     g_cpu[grad_key])}
+        ok = ok and np.isfinite(l_w) and w_rel <= witness_tol \
+            and res["witness"]["rel_loss_err"] <= witness_tol
+    if not ok:
+        fail(f"{cfg.name} loss and gradients on the card vs the CPU: {res}")
+    return res
+
+
+def driver_trainer_vs_cpu(train, argv, tol):
+    """The training driver on ``argv`` on the card and the CPU (the same
+    seeded weights and batches): every step's loss within ``tol``
+    relative."""
+    runs = {d: train.main(argv + ["--device", d]) for d in ("cuda", "cpu")}
+    l_gpu, l_cpu = runs["cuda"]["losses"], runs["cpu"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    res = {"argv": argv, "losses_cuda": l_gpu, "losses_cpu": l_cpu,
+           "max_rel_loss_err": rel, "tol": tol}
+    if len(l_gpu) != len(l_cpu) or rel > tol:
+        fail(f"training driver on the card vs the CPU: {res}")
+    return res
+
+
+class MoeStats:
+    """Counts the MoE block's routed and dropped assignments
+    (``blocks.moe_route``) and keeps the aux losses of each ``lm.loss_fn``
+    while installed; read after the run (the counts stay on the device
+    until then)."""
+
+    def __init__(self, blocks, lm):
+        self.blocks, self.lm = blocks, lm
+        self.route, self.loss_fn = blocks.moe_route, lm.loss_fn
+        self.assignments, self.dropped, self.aux = 0, [], []
+
+    def __enter__(self):
+        def route(*a, **kw):
+            out = self.route(*a, **kw)
+            self.assignments += out[5].numel()
+            self.dropped.append((~out[5]).sum())
+            return out
+
+        def loss_fn(*a, **kw):
+            total, metrics = self.loss_fn(*a, **kw)
+            self.aux.append({k: metrics[k].detach()
+                             for k in ("load_balance", "router_z")})
+            return total, metrics
+        self.blocks.moe_route, self.lm.loss_fn = route, loss_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_route, self.lm.loss_fn = self.route, self.loss_fn
+
+    def summary(self):
+        per_call = [int(d) for d in self.dropped]
+        dropped = sum(per_call)
+        return {"assignments": self.assignments, "dropped": dropped,
+                "dropped_share": dropped / max(self.assignments, 1),
+                "dropped_share_by_call": [
+                    d / (self.assignments / len(per_call)) for d in per_call],
+                "load_balance": [float(a["load_balance"]) for a in self.aux],
+                "router_z": [float(a["router_z"]) for a in self.aux]}
+
+
+#: The examples (``examples/torch_*.py``), each run as its own process on
+#: its default device (the card).
+EXAMPLES = ("torch_quickstart.py", "torch_serve_sessions.py",
+            "torch_serve_batched.py", "torch_train_reservoir_lm.py")
+
+
+def examples_phase():
+    """Each example as a subprocess (the kernels already built); a nonzero
+    exit fails the run.  Returns each one's seconds and last line."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    rows = []
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "examples" / name)],
+                              cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0:
+            fail(f"example {name} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        rows.append({"example": name, "s": time.perf_counter() - t0,
+                     "last_line": lines[-1] if lines else ""})
+        print(json.dumps({"example": rows[-1]}), flush=True)
+    return rows
+
+
 #: The scan's per-timestep-gate shapes, each with the main path that gives
 #: the kernel that shape.
 GATE_PATHS = {"rglru-gates": "train_recurrentgemma",
@@ -2272,15 +2712,31 @@ FLASH_ROUTES = {
                          "through shared memory"}
 
 
+#: Slice 12's B3 shapes, each with the main path that gives it its shape.
+SLICE12_FLASH_PATHS = {"whisper-encoder": "train_whisper",
+                       "llava-chunk0": "llava_embeds",
+                       "llava-chunk1": "llava_embeds"}
+
+
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
     (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
     bfloat16 beside it; then recurrentgemma's head_dim-256 chunks (main
-    path 12, whose launches they share)."""
+    path 12, whose launches they share), whisper's encoder (path 16) and
+    llava's two band chunks (the llava phase)."""
     by = {r["case"]: r for r in rows}
-    c0, c1, bf = by["chunk0"], by["chunk1"], by["chunk1-bf16"]
     more = ("mma_route", "library_ms",
             "library_max_abs_err", "device_ms", "cuda_launches_per_call")
+    slice12 = {case.replace("-", "_"): {
+        "shape": by[case]["shape"], "causal": by[case]["causal"],
+        "window": by[case]["window"], "q_offset": by[case]["q_offset"],
+        "dtype": by[case]["dtype"], "main_path": path,
+        "launches_on_main_path": counts["launches_by_path"].get(path, 0),
+        "max_abs_err": by[case]["max_abs_err"], "tol": by[case]["tol"],
+        "lse_max_rel_err": by[case]["lse_max_rel_err"],
+        **{k: by[case][k] for k in keys}, **{k: by[case][k] for k in more}}
+        for case, path in SLICE12_FLASH_PATHS.items()}
+    c0, c1, bf = by["chunk0"], by["chunk1"], by["chunk1-bf16"]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:125",
@@ -2312,7 +2768,108 @@ def flash_summary(rows, counts, keys):
                     "lse_max_rel_err": by[f"local-{c}"]["lse_max_rel_err"],
                     **{k: by[f"local-{c}"][k] for k in keys},
                     **{k: by[f"local-{c}"][k] for k in more}}
-                   for c in ("chunk0", "chunk1", "chunk1-bf16")})
+                   for c in ("chunk0", "chunk1", "chunk1-bf16")},
+                **slice12)
+
+
+def slice12_phases(drive, launches, m):
+    """Phases 23-27: main paths 15-17, the llava phase and the examples.
+    ``m``: the port's modules and names that ``main`` imported."""
+    import dataclasses
+
+    phase(f"23 main path 15: the open-loop front end at the serving profile "
+          f"({FE_SESSIONS} sessions on a seeded exponential schedule, "
+          f"{FE_PROMPT}-token prompts, {FE_DECODE} streamed tokens each, "
+          f"max_queued {FE_MAX_QUEUED}): decode_interleave off on "
+          f"{FE_SLOTS} slots, then on on {FE_SLOTS_INTERLEAVE} (C9)")
+    p, ro, sig = served_model(m.esn, m.ESNConfig, m.mso_series)
+    ref = frontend_reference(p, ro, sig, m.ReservoirEngine)
+    for interleave in (False, True):
+        path = f"frontend_interleave_{'on' if interleave else 'off'}"
+        slots = FE_SLOTS_INTERLEAVE if interleave else FE_SLOTS
+        res, tokens = drive(path, lambda: frontend_run(
+            p, ro, sig, m.ReservoirEngine, m.OpenLoopServer, m.AdmissionFull,
+            interleave, slots=slots), ("diag_scan", "decode_fused"))
+        res["vs_cpu_engine"] = stream_err(tokens, ref)
+        res["torch_add_us"] = torch_add_us()
+        print(json.dumps({path: res, "launches": launches[path]}),
+              flush=True)
+
+    phase(f"24 main path 16: whisper-tiny at its published widths "
+          f"({WHISPER_STEPS} AdamW steps, batch {WHISPER_BATCH} x "
+          f"{WHISPER_SEQ} tokens and 1500 frames, float32, through the "
+          f"library Trainer)")
+    wcfg = dataclasses.replace(m.get_config("whisper-tiny"), dtype="float32")
+    wdata = ArchBatches(wcfg, WHISPER_BATCH, WHISPER_SEQ)
+    res = drive("train_whisper", lambda: trainer_run(
+        wcfg, wdata, m.Trainer, m.TrainConfig, WHISPER_STEPS),
+        ("flash_attention_fwd",))
+    want = wcfg.encoder_layers * WHISPER_STEPS    # one launch an encoder layer
+    if launches["train_whisper"]["flash_attention_fwd"] != want:
+        fail(f"whisper training launched B3 "
+             f"{launches['train_whisper']['flash_attention_fwd']} times, "
+             f"expected {want}")
+    print(json.dumps({"train_whisper": res,
+                      "launches": launches["train_whisper"]}), flush=True)
+    print(json.dumps({"profile_train_whisper_step": profile_arch_step(
+        wcfg, wdata, m.Trainer, m.TrainConfig)}), flush=True)
+    print(json.dumps({"whisper_loss_grads_vs_cpu": loss_grads_vs_cpu(
+        wcfg, ArchBatches(wcfg, 2, WHISPER_SEQ), m.lm, m.loss_and_grads,
+        m.tree, LM_TOL, witness={"attn_impl": "dense"},
+        witness_tol=TRAINER_TOL)}), flush=True)
+    print(json.dumps({"whisper_decode_vs_cpu": encdec_decode_vs_cpu(
+        wcfg, m.lm, m.tree, seq=WHISPER_SEQ)}), flush=True)
+
+    phase("25 main path 17: repro_torch.launch.train "
+          + " ".join(KIMI_TRAIN_ARGS) + "; arctic-480b --smoke and "
+          "kimi-k2-1t-a32b --smoke serving against the CPU")
+    with MoeStats(m.blocks, m.lm) as stats:
+        res = train_path(drive, launches, m.train, "train_kimi",
+                         KIMI_TRAIN_ARGS, KIMI_TRAIN_STEPS, {})
+    moe = stats.summary()
+    print(json.dumps({"train_kimi_moe": moe}), flush=True)
+    if not 0.0 <= moe["dropped_share"] < 1.0 or not moe["load_balance"]:
+        fail(f"kimi MoE statistics: {moe}")
+    release_cache()
+    print(json.dumps({"arctic_smoke_driver_vs_cpu": driver_trainer_vs_cpu(
+        m.train, ARCTIC_SMOKE_ARGS, TRAINER_TOL)}), flush=True)
+    acfg = m.train.arch_config(m.train.build_parser().parse_args(
+        ARCTIC_SMOKE_ARGS))
+    print(json.dumps({"arctic_smoke_loss_grads_vs_cpu": loss_grads_vs_cpu(
+        acfg, m.MarkovTokens(vocab=acfg.vocab, batch=4, seq_len=64), m.lm,
+        m.loss_and_grads, m.tree, TRAINER_TOL)}), flush=True)
+    res = drive("serve_kimi", lambda: m.serve.main(KIMI_SERVE_ARGS), ())
+    print(json.dumps({"serve_kimi": {k: v for k, v in res.items()
+                                     if k not in ("tokens", "step_logits",
+                                                  "last_logits")},
+                      "launches": launches["serve_kimi"]}), flush=True)
+    if not res["finite"]:
+        fail("kimi serve: the last logits are not finite")
+    print(json.dumps({"serve_kimi_vs_cpu": lm_serve_vs_cpu(
+        m.serve, res, KIMI_SERVE_ARGS, dtype="float32")}), flush=True)
+
+    phase(f"26 llava-next-mistral-7b embeddings: full width, "
+          f"{LLAVA_LAYERS} of 32 layers, float32, one trainer step on "
+          f"batch {LLAVA_BATCH} x {LLAVA_SEQ} embeds with labels")
+    lcfg = dataclasses.replace(m.get_config("llava-next-mistral-7b"),
+                               n_layers=LLAVA_LAYERS, dtype="float32")
+    res = drive("llava_embeds", lambda: trainer_run(
+        lcfg, ArchBatches(lcfg, LLAVA_BATCH, LLAVA_SEQ), m.Trainer,
+        m.TrainConfig, 1), ("flash_attention_fwd",))
+    want = 2 * LLAVA_LAYERS            # two 1024-row band chunks a layer
+    if launches["llava_embeds"]["flash_attention_fwd"] != want:
+        fail(f"llava's step launched B3 "
+             f"{launches['llava_embeds']['flash_attention_fwd']} times, "
+             f"expected {want}")
+    print(json.dumps({"llava_embeds": res,
+                      "launches": launches["llava_embeds"]}), flush=True)
+    print(json.dumps({"llava_loss_grads_vs_cpu": loss_grads_vs_cpu(
+        lcfg, ArchBatches(lcfg, LLAVA_BATCH, LLAVA_CHECK_SEQ), m.lm,
+        m.loss_and_grads, m.tree, LM_TOL)}), flush=True)
+    release_cache()
+
+    phase("27 the examples on the card: " + ", ".join(EXAMPLES))
+    examples_phase()
 
 
 def main() -> None:
@@ -2331,9 +2888,11 @@ def main() -> None:
     from repro_torch.data.pipeline import MarkovTokens
     from repro_torch.data.signals import mso_series
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels import diag_scan as dsk
+    # The launcher module; the package binds ``diag_scan`` to the wrapper.
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
     from repro_torch.launch import serve, train
-    from repro_torch.models import lm
+    from repro_torch.models import blocks, lm
+    from repro_torch.serve import AdmissionFull, OpenLoopServer
     from repro_torch.serve.engine import ReservoirEngine
     from repro_torch.train.trainer import (TrainConfig, Trainer,
                                            loss_and_grads)
@@ -2719,7 +3278,15 @@ def main() -> None:
     print(json.dumps({"serve_xlstm_vs_cpu": lm_serve_vs_cpu(
         serve, res, XL_SERVE_ARGS)}), flush=True)
 
-    phase("23 summary")
+    slice12_phases(drive, launches, types.SimpleNamespace(
+        esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
+        ReservoirEngine=ReservoirEngine, OpenLoopServer=OpenLoopServer,
+        AdmissionFull=AdmissionFull, get_config=get_config, Trainer=Trainer,
+        TrainConfig=TrainConfig, MarkovTokens=MarkovTokens, lm=lm,
+        blocks=blocks, tree=tree, loss_and_grads=loss_and_grads,
+        train=train, serve=serve))
+
+    phase("28 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]

@@ -45,8 +45,9 @@ token and decodes greedily (or samples at ``--temperature``) through the
 decode caches (KV caches for attention layers, ring buffers for windowed
 ones, carried states for recurrent ones; decode attention is a dense
 product and an RG-LRU step one sequential update, as in the JAX package),
-for archs whose blocks are attention, recurrent or reservoir layers with
-dense MLPs or none — its default arch, ``recurrentgemma-2b``, among them:
+for every registered decoder-only arch (attention, recurrent or reservoir
+layers with dense MLPs, MoE blocks or none) — its default arch,
+``recurrentgemma-2b``, among them:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --batch 4 --prompt-len 64 --gen 64
@@ -61,7 +62,8 @@ its embeddings by a float32 scalar, so its activations are float32 against
 the bfloat16 weights, as in JAX.  :func:`generate` is the loop
 as a library function; with ``forced`` tokens it replays another run's
 sequence (teacher forcing), which is how a bfloat16 run on the card is held
-against the CPU.  Other archs exit naming ROADMAP A12.
+against the CPU.  An encoder-decoder (``whisper-tiny``) exits, as the JAX
+driver does: serving it needs audio frames.
 
 ``--device cpu`` runs either loop on the host with the plain PyTorch
 versions of the kernels.  The reservoir flag of the JAX driver whose plane
@@ -499,10 +501,9 @@ def lm_setup(args, device=None):
     ``--batch`` random prompts of ``--prompt-len`` tokens."""
     device = resolve_device(args.device if device is None else device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    try:
-        lm.check_ported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    if cfg.is_encoder_decoder:
+        raise SystemExit("enc-dec serving needs audio frames; use the "
+                         "decoder-only archs for this driver")
     params = lm.init_params(torch.Generator().manual_seed(args.seed), cfg,
                             device)
     rng = np.random.default_rng(args.seed)
@@ -548,7 +549,7 @@ def _wave_tokens(v: str):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="recurrentgemma-2b",
-                    help="the LM loop's arch (ported: "
+                    help="the LM loop's arch (a decoder-only one of: "
                          + ", ".join(lm.ported_archs()) + ")")
     ap.add_argument("--smoke", action="store_true",
                     help="the LM loop on the arch's reduced smoke config")

@@ -1,5 +1,5 @@
-"""LM model stack of the port: blocks and the LM assembly (reservoir
-layers; attention is ROADMAP A12)."""
-from . import blocks, lm
+"""LM model stack of the port: attention, the blocks and the LM assembly
+(the JAX package's ``models``)."""
+from . import attention, blocks, lm
 
-__all__ = ["blocks", "lm"]
+__all__ = ["attention", "blocks", "lm"]

@@ -9,7 +9,7 @@ nothing of size Sq x Skv is kept between the passes.
 else flash; causal flash runs as ``_banded_attention``, one kernel launch
 per 1024-row query chunk over only the keys that chunk can see.  The JAX
 module's ``UNROLL_SCANS`` switch serves its dry-run cost probe, which is
-not ported (ROADMAP A12).
+not ported (the dry run of ROADMAP A12).
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
 """LM building blocks of the port: norms, the SwiGLU/GELU MLP, GQA attention
-(full, sliding-window or local, with RoPE and a KV cache), the recurrent
-mixers — recurrentgemma's RG-LRU block, xLSTM's mLSTM and sLSTM — and the
-paper's LinearReservoir layer as a sequence mixer (the JAX package's
-``models/blocks.py`` without the MoE block).
+(full, sliding-window or local, with RoPE and a KV cache), the MoE block
+(top-k routing into per-expert capacity buffers), the recurrent mixers —
+recurrentgemma's RG-LRU block, xLSTM's mLSTM and sLSTM — and the paper's
+LinearReservoir layer as a sequence mixer (the JAX package's
+``models/blocks.py``).
 
 Parameters are nested dicts of tensors under the JAX package's key names,
 and every ``init_*`` draws from an explicit CPU ``torch.Generator`` and
 returns the params alone (the JAX ``init_*`` also return sharding specs: the
-port runs on one device, ROADMAP A11).  The MoE block is not ported yet:
-:func:`not_ported` raises for it, naming ROADMAP A12.
+port runs on one device; a mesh — :func:`constrain`, the MoE block's
+expert-parallel path — raises naming ROADMAP A11).
 
 Products promote as ``jnp``'s do (:func:`mm`, :func:`einsum`): float32
 activations against a bfloat16 weight (recurrentgemma's embed scale makes
@@ -30,17 +31,13 @@ from ..core import spectral
 from ..kernels import ops as kops
 from . import attention as attn_mod
 
-__all__ = ["ShardProfile", "NULL_PROFILE", "constrain", "not_ported",
+__all__ = ["ShardProfile", "NULL_PROFILE", "one_device", "constrain",
            "torch_dtype", "init_norm", "apply_norm", "init_mlp", "apply_mlp",
            "init_attention", "apply_attention", "apply_attention_decode",
+           "init_moe", "moe_route", "apply_moe",
            "init_reservoir", "apply_reservoir", "mm", "einsum",
            "init_rglru_block", "apply_rglru_block", "init_mlstm",
            "apply_mlstm", "init_slstm", "apply_slstm"]
-
-
-def not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP A12 (the "
-                              f"MoE and encoder-decoder blocks)")
 
 
 # --------------------------------------------------------------------------- #
@@ -61,11 +58,16 @@ class ShardProfile:
 NULL_PROFILE = ShardProfile()
 
 
-def constrain(x, spec, prof: ShardProfile):
-    """A sharding constraint: the identity on one device."""
+def one_device(prof: ShardProfile) -> None:
+    """Raise unless ``prof`` is the one-device layout the port runs."""
     if prof.mesh is not None:
         raise NotImplementedError("sharded layouts are not ported yet: "
                                   "ROADMAP A11")
+
+
+def constrain(x, spec, prof: ShardProfile):
+    """A sharding constraint: the identity on one device."""
+    one_device(prof)
     return x
 
 
@@ -230,6 +232,96 @@ def apply_attention_decode(p, x, cfg, cache, *, window=None):
                                   ring=ring)
     out = einsum("bhsk,hkd->bsd", o, p["wo"])
     return out, {"k": k_cache, "v": v_cache, "len": cur + 1}
+
+
+# --------------------------------------------------------------------------- #
+# Mixture of Experts (the one-device path)                                    #
+# --------------------------------------------------------------------------- #
+def init_moe(gen, cfg, dtype):
+    """A float32 ``router`` (d, E) beside the experts' ``wg`` / ``wu`` (E, d,
+    F) and ``wd`` (E, F, d) in ``dtype``, as the JAX ``init_moe``."""
+    d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
+    return {"router": _dense_init(gen, (d, e), torch.float32),
+            "wg": _dense_init(gen, (e, d, f), dtype),
+            "wu": _dense_init(gen, (e, d, f), dtype),
+            "wd": _dense_init(gen, (e, f, d), dtype)}
+
+
+def moe_route(x2d, router, *, top_k, capacity, e_local):
+    """The router and the capacity dispatch of :func:`_moe_local`: float32
+    logits and softmax, the top ``top_k`` experts of each token with their
+    weights renormalised to sum 1, and each assignment's slot in its
+    expert's buffer of ``capacity`` rows.
+
+    The slot is the running count of earlier assignments to the same
+    expert in token-major ``(T·k)`` order — the JAX package's ``cumsum``
+    over a one-hot — so an assignment past ``capacity`` is dropped exactly
+    where JAX drops it.  Returns ``(logits (T, E), probs, top_w (T, k),
+    top_e (T, k), slot (T·k,), keep (T·k,))``; a dropped assignment has
+    ``keep`` False and ``slot`` ``e_local * capacity`` (the drop row)."""
+    logits = x2d.float() @ router
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, top_k, dim=-1)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    col = top_e.reshape(-1)
+    running = F.one_hot(col, e_local).cumsum(0)
+    pos = running.gather(1, col[:, None])[:, 0] - 1
+    keep = pos < capacity
+    slot = torch.where(keep, col * capacity + pos, e_local * capacity)
+    return logits, probs, top_w, top_e, slot, keep
+
+
+def _moe_local(x2d, router, wg, wu, wd, *, top_k, capacity, e_total,
+               act="silu"):
+    """Dispatch the tokens ``x2d`` (T, d) against the experts ``w*``
+    (E, ...): gather each expert's kept tokens into its (capacity, d)
+    buffer, run the gated expert MLPs as batched products, and add each
+    token's ``top_k`` outputs back, weighted, one k at a time — each sum
+    rounds to ``x2d``'s dtype, as JAX's loop does.  Returns ``(out (T, d),
+    {"load_balance", "router_z"})``, the aux losses float32 over the full
+    router."""
+    t, d = x2d.shape
+    e_local = wg.shape[0]
+    logits, probs, top_w, top_e, slot, keep = moe_route(
+        x2d, router, top_k=top_k, capacity=capacity, e_local=e_local)
+    drop = e_local * capacity
+    flat_t = torch.arange(t, device=x2d.device).repeat_interleave(top_k)
+    # Token indices into the buffers (the drop row collects every dropped
+    # assignment and is cut off), then one gather of the activations.
+    token_idx = torch.full((drop + 1,), t, dtype=torch.long,
+                           device=x2d.device)
+    token_idx[slot] = torch.where(keep, flat_t, t)
+    x_pad = torch.cat([x2d, x2d.new_zeros((1, d))])
+    xg = x_pad[token_idx[:-1]].reshape(e_local, capacity, d)
+    h = einsum("ecd,edf->ecf", xg, wu)
+    g = einsum("ecd,edf->ecf", xg, wg)
+    h = _ACTS[act](g) * h
+    y = einsum("ecf,efd->ecd", h, wd).reshape(drop, d)
+    y = torch.cat([y, y.new_zeros((1, d))])
+    out = x2d.new_zeros((t, d))
+    slot_tk = slot.reshape(t, top_k)
+    for j in range(top_k):
+        out = out + (top_w[:, j, None] * y[slot_tk[:, j]]).to(x2d.dtype)
+    me = probs.mean(0)
+    ce = F.one_hot(top_e[:, 0], e_total).float().mean(0)
+    aux = {"load_balance": e_total * (me * ce).sum(),
+           "router_z": (torch.logsumexp(logits, dim=-1) ** 2).mean()}
+    return out, aux
+
+
+def apply_moe(p, x, cfg, prof: ShardProfile = NULL_PROFILE):
+    """x: (B, S, d) -> ``(out (B, S, d), aux)`` on one device, every token
+    against every expert, with the JAX package's capacity
+    ``int(capacity_factor * B * S * top_k / E) + 1``.  The expert-parallel
+    path of a mesh (JAX's ``shard_map``) is ROADMAP A11."""
+    one_device(prof)
+    b, s, d = x.shape
+    e_total = cfg.n_experts
+    cap = int(cfg.capacity_factor * b * s * cfg.top_k / e_total) + 1
+    out, aux = _moe_local(x.reshape(b * s, d), p["router"], p["wg"], p["wu"],
+                          p["wd"], top_k=cfg.top_k, capacity=cap,
+                          e_total=e_total, act=cfg.act)
+    return out.reshape(b, s, d), aux
 
 
 # --------------------------------------------------------------------------- #

@@ -36,7 +36,7 @@ import torch
 
 from ..core import dispatch as dispatch_mod
 from ..core import esn as esn_fn
-from ..kernels import diag_scan as diag_scan_k
+from ..kernels.diag_scan import decode_layout
 
 __all__ = [
     "SlotArena",
@@ -256,7 +256,7 @@ def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
         return "step"
     if device_type == "cuda" and ensemble == "mean":
         try:
-            diag_scan_k.decode_layout(b, nc, d, itemsize, ensemble="mean",
+            decode_layout(b, nc, d, itemsize, ensemble="mean",
                                       batched=per_slot)
         except ValueError:
             return "step"

@@ -52,13 +52,22 @@ class TrainConfig:
 
 def loss_and_grads(cfg_arch, params, batch, **fwd_kw):
     """``(loss, metrics, grads)`` of ``lm.loss_fn`` at ``params``; ``grads``
-    has the params' tree.  ``params`` are not modified."""
+    has the params' tree.  The token embeddings of an untied model fed
+    ``embeds`` are the one leaf the loss cannot reach: they get zeros, as
+    ``jax.grad`` gives.  Any other leaf cut off from the loss raises.
+    ``params`` are not modified."""
     flat = flatten(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     loss, metrics = lm.loss_fn(unflatten(leaves), cfg_arch, batch, **fwd_kw)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    fed_embeds = cfg_arch.input_mode == "embeddings" and "embeds" in batch
+    unreached = ({"embed"} if fed_embeds and not cfg_arch.tie_embeddings
+                 else set())
+    reached = [k for k in leaves if k not in unreached]
+    grads = dict(zip(reached, torch.autograd.grad(
+        loss, [leaves[k] for k in reached])))
+    grads.update({k: torch.zeros_like(leaves[k]) for k in unreached})
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            unflatten(dict(zip(leaves, grads))))
+            unflatten({k: grads[k] for k in leaves}))
 
 
 def make_step_fn(cfg_arch, train_cfg: TrainConfig, opt, **fwd_kw):

@@ -24,10 +24,12 @@ from repro_torch.core import esn
 from repro_torch.core.params import ESNConfig
 from repro_torch.data.signals import mso_series
 from repro_torch.configs import smoke_config
-from repro_torch.kernels import diag_scan as dsk
+from repro_torch.kernels.diag_scan import (decode_fused_cuda, decode_layout,
+                                          diag_scan_lanes_bwd_cuda,
+                                          diag_scan_lanes_cuda)
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.serve.engine import ReservoirEngine
 from repro_torch.train.trainer import loss_and_grads
 from repro_torch.tree import flatten, tree_map
@@ -200,7 +202,7 @@ def test_diag_scan_chunks_match_both_plain_versions(dev, name, chunks):
     shape, a_kind, cplx, with_h0, dtype = CHUNK_CASES[name]
     a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype, dev)
     lanes = (*_split(a, cplx), *_split(x, cplx), *_split(h0, cplx))
-    got = dsk.diag_scan_lanes_cuda(*lanes, chunks=chunks)
+    got = diag_scan_lanes_cuda(*lanes, chunks=chunks)
     torch.cuda.synchronize()
     for want in (ref.diag_scan_lanes_ref(*lanes),
                  ref.diag_scan_lanes_chunked_ref(*lanes, chunks=chunks)):
@@ -218,14 +220,14 @@ def test_diag_scan_bwd_chunks_match_both_plain_versions(dev, name, chunks):
     shape, a_kind, cplx, with_h0, dtype = CHUNK_CASES[name]
     a, x, h0 = scan_inputs(shape, a_kind, cplx, with_h0, dtype, dev)
     (a_re, a_im), (h0_re, h0_im) = _split(a, cplx), _split(h0, cplx)
-    h_re, h_im = dsk.diag_scan_lanes_cuda(a_re, a_im, *_split(x, cplx),
+    h_re, h_im = diag_scan_lanes_cuda(a_re, a_im, *_split(x, cplx),
                                           h0_re, h0_im, chunks=chunks)
     g = torch.Generator().manual_seed(7)
     g_re = torch.randn(shape, generator=g, dtype=dtype).to(dev)
     g_im = torch.randn(shape, generator=g, dtype=dtype).to(dev) if cplx \
         else None
     args = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
-    got = dsk.diag_scan_lanes_bwd_cuda(*args, chunks=chunks)
+    got = diag_scan_lanes_bwd_cuda(*args, chunks=chunks)
     torch.cuda.synchronize()
     for want in (ref.diag_scan_lanes_bwd_ref(*args),
                  ref.diag_scan_lanes_bwd_chunked_ref(*args, chunks=chunks)):
@@ -327,7 +329,7 @@ def _decode_or_limit(ensemble, b, nc, d, batched, call):
     """``call()``, or — where the one-block ``mean`` route cannot hold the
     shape — the ValueError that names the limit, before any launch."""
     try:
-        dsk.decode_layout(b, nc, d, 8, ensemble=ensemble, batched=batched)
+        decode_layout(b, nc, d, 8, ensemble=ensemble, batched=batched)
     except ValueError:
         assert ensemble == "mean", "the off route takes every test shape"
         before = ops.decode_fused.launches
@@ -403,13 +405,13 @@ def test_decode_fused_every_fitting_warp_count(dev, warps):
     args = decode_inputs(8, 525, 1, False, dev)
     mask = torch.ones(8, dtype=torch.bool, device=dev)
     try:
-        dsk.decode_layout(8, 525, 1, 8, warps=warps)
+        decode_layout(8, 525, 1, 8, warps=warps)
     except ValueError:
         assert warps in (1, 32)
         with pytest.raises(ValueError, match=f"warps={warps} does not fit"):
-            dsk.decode_fused_cuda(*args, mask, k=128, warps=warps)
+            decode_fused_cuda(*args, mask, k=128, warps=warps)
         return
-    got = dsk.decode_fused_cuda(*args, mask, k=128, warps=warps)
+    got = decode_fused_cuda(*args, mask, k=128, warps=warps)
     want = ref.decode_fused_ref(*args, mask, k=128)
     for g_, w_ in zip(got, want):
         _close(g_, w_)
@@ -576,7 +578,7 @@ def test_diag_scan_per_row_static_a_matches_plain(dev, shape, chunks):
                        torch.randn((b, nc), generator=g, dtype=torch.float64))
     lanes = [v.to(dev).contiguous() for z in (a, x, h0)
              for v in (z.real, z.imag)]
-    got = dsk.diag_scan_lanes_cuda(*lanes, chunks=chunks)
+    got = diag_scan_lanes_cuda(*lanes, chunks=chunks)
     want = ref.diag_scan_ref(a, x, h0)
     _close(got[0], want.real)
     _close(got[1], want.imag)
@@ -1272,3 +1274,114 @@ def test_recurrent_bf16_decode_card_matches_cpu(dev, arch):
     tol = 1e-4 if cfg.embed_scale else 5e-2
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
     assert err <= tol * float(logits["cpu"].abs().max()), err
+
+
+# --------------------------------------------------------------------------- #
+# Slice 12: whisper's encoder and llava's layers through B3; the MoE block     #
+# --------------------------------------------------------------------------- #
+#: (b, hq, hkv, sq, skv, d, causal, window, q_offset): whisper-tiny's
+#: encoder self-attention at its published shape (non-causal, 1500 frames:
+#: no multiple of the kernel's key tile), and llava-next-mistral-7b's
+#: second 1024-row band chunk at batch 1 (GQA 32 / 8, head_dim 128, window
+#: 4096).
+SLICE12_FLASH = {
+    "whisper-encoder": (8, 6, 6, 1500, 1500, 64, False, None, 0),
+    "llava-chunk1": (1, 32, 8, 1024, 2048, 128, True, 4096, 1024),
+}
+
+
+@pytest.mark.parametrize("name", list(SLICE12_FLASH))
+def test_flash_attention_slice12_shapes_match_plain(dev, name):
+    case = SLICE12_FLASH[name]
+    causal, window, q_offset = case[6:]
+    q, k, v = flash_inputs(case, torch.float32, dev, seed=6)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = ops.flash_attention_fwd.launches
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    assert ops.flash_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_whisper_encoder_attention_takes_one_unpadded_launch(dev):
+    """``attention`` at 1500 non-causal keys: one kernel launch with the
+    500-key backward chunks, no padding and no ``kv_len`` — the kernel
+    masks its own key tail."""
+    q, k, v = flash_inputs((1, 6, 6, 1500, 1500, 64), torch.float32, dev,
+                           seed=7)
+    before = ops.flash_attention_fwd.launches
+    out = attn_mod.attention(q, k, v, causal=False)
+    assert ops.flash_attention_fwd.launches == before + 1
+    want = attn_mod.dense_attention(q, k, v, causal=False)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_apply_moe_card_matches_cpu(dev):
+    """kimi's MoE block at smoke size with its buffers overflowing (a
+    capacity factor of 0.5): the same kept assignments, outputs and aux
+    losses on the card as on the CPU (float32, TF32 off)."""
+    cfg = dataclasses.replace(smoke_config("kimi-k2-1t-a32b"),
+                              capacity_factor=0.5)
+    p = lm.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    moe = tree_map(lambda v: v[0], p["layers"]["moe"])
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(3))
+    cap = int(cfg.capacity_factor * 4 * 64 * cfg.top_k / cfg.n_experts) + 1
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        m = tree_map(lambda v: v.to(device), moe)
+        xd = x.to(device)
+        out, aux = blocks.apply_moe(m, xd, cfg)
+        route = blocks.moe_route(xd.reshape(-1, cfg.d_model), m["router"],
+                                 top_k=cfg.top_k, capacity=cap,
+                                 e_local=cfg.n_experts)
+        res[device.type] = (out.cpu(), {k: float(v) for k, v in aux.items()},
+                            route[4].cpu(), route[5].cpu())
+    (o_g, a_g, s_g, k_g), (o_c, a_c, s_c, k_c) = res["cuda"], res["cpu"]
+    assert bool((~k_c).any())                       # drops happen
+    assert torch.equal(k_g, k_c) and torch.equal(s_g, s_c)
+    np.testing.assert_allclose(o_g.numpy(), o_c.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(o_c.abs().max()))
+    for k in a_c:
+        assert abs(a_g[k] - a_c[k]) <= 1e-5 * abs(a_c[k]), k
+
+
+def test_whisper_train_step_and_decode_card_match_cpu(dev):
+    """whisper-tiny at smoke size: one loss-and-gradient step with the
+    encoder's attention through B3 (``attn_impl="flash"``: one launch an
+    encoder layer, and the decoder's causal layers through it too), then
+    four decode steps, on the card against the CPU from the same weights."""
+    cfg = smoke_config("whisper-tiny")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g),
+             "frames": torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                   generator=g)}
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        p = tree_map(lambda v: v.to(device), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        before = ops.flash_attention_fwd.launches
+        loss, _, grads = loss_and_grads(cfg, p, b, attn_impl="flash")
+        if device.type == "cuda":
+            assert ops.flash_attention_fwd.launches - before == \
+                cfg.encoder_layers + cfg.n_layers
+        cache = lm.make_decode_cache(p, cfg, 2, 4)
+        steps = []
+        for t in range(4):
+            logits, cache = lm.decode_step(p, cfg, cache,
+                                           b["tokens"][:, t:t + 1])
+            steps.append(logits.cpu())
+        out[device.type] = (float(loss), flatten(grads), torch.stack(steps))
+    (l_gpu, g_gpu, d_gpu), (l_cpu, g_cpu, d_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, w_ in g_cpu.items():
+        d = float((g_gpu[k].cpu() - w_).abs().max())
+        assert d <= 1e-4 * float(w_.abs().max()), k
+    assert float((d_gpu - d_cpu).abs().max()) <= 1e-5 * float(
+        d_cpu.abs().max())

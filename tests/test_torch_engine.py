@@ -229,14 +229,18 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
     assert res["refit_waves"] == res["refit_rows"] == 8
     assert res["rmse_second_half"] <= res["rmse_first_half"]
     # Without --reservoir the LM loop runs: its default arch,
-    # recurrentgemma-2b, serves; an arch with unported blocks exits.
+    # recurrentgemma-2b, serves, and so does an MoE arch; an
+    # encoder-decoder exits with the JAX driver's message.
     res = tserve.main(["--smoke", "--batch", "2", "--prompt-len", "3",
                        "--gen", "2", "--device", "cpu"])
     assert res["arch"] == "recurrentgemma-2b" and res["finite"]
-    for argv in (["--arch", "whisper-tiny", "--device", "cpu"],
-                 ["--arch", "kimi-k2-1t-a32b", "--smoke", "--device", "cpu"]):
-        with pytest.raises(SystemExit, match="not ported yet: ROADMAP A12"):
-            tserve.main(argv)
+    with pytest.raises(SystemExit, match="enc-dec serving needs audio "
+                                         "frames"):
+        tserve.main(["--arch", "whisper-tiny", "--device", "cpu"])
+    res = tserve.main(["--arch", "kimi-k2-1t-a32b", "--smoke", "--batch",
+                       "2", "--prompt-len", "3", "--gen", "2", "--device",
+                       "cpu"])
+    assert res["arch"] == "kimi-k2-1t-a32b" and res["finite"]
 
 
 def test_paged_serve_driver_on_cpu_restores_its_snapshot(tmp_path):

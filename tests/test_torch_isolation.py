@@ -19,7 +19,8 @@ from repro_torch.train.trainer import TrainConfig, Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
         ".__init__") for p in PORT.rglob("*.py"))
@@ -31,6 +32,7 @@ def test_sources_import_no_jax_and_nothing_of_repro():
                  for p in SOURCES for m in BANNED.finditer(p.read_text())]
     assert not offenders, offenders
     assert len(MODULES) >= 20
+    assert len(SOURCES) - len(MODULES) == 5     # chip_smoke, 4 examples
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -17,7 +17,8 @@ from torch.autograd import gradcheck
 from repro.core import dispatch as jdispatch
 from repro.kernels import ops as jops
 from repro_torch.core import dispatch as tdispatch
-from repro_torch.kernels import diag_scan as tkern
+from repro_torch.kernels.diag_scan import (DECODE_MAX_SMEM_BYTES,
+                                          decode_layout, decode_max_threads)
 from repro_torch.kernels import ops as tops
 
 F64 = dict(rtol=1e-12, atol=1e-12)
@@ -251,31 +252,31 @@ def test_run_decode_fused_matches_jax(use_feedback, ensemble):
 
 def test_decode_layout_limits():
     """The decode kernel's layout rule and limits (``decode_layout``)."""
-    lay = tkern.decode_layout(8, 525, 1, 8)
+    lay = decode_layout(8, 525, 1, 8)
     assert (lay.warps, lay.per, lay.copies, lay.threads) == (4, 5, 1, 128)
     # ensemble="off": one block a row, so the layout never depends on B.
     for b in (1, 8, 16, 4096):
-        assert tkern.decode_layout(b, 525, 1, 8) == lay
+        assert decode_layout(b, 525, 1, 8) == lay
     # The shapes the one-block kernel refused: a 16-slot arena at n = 1024,
     # the served model at n = 2048 (1043 lanes), and 4096 lanes.
-    assert tkern.decode_layout(16, 525, 1, 8).warps == 4
-    assert tkern.decode_layout(8, 1043, 1, 8)[:2] == (8, 5)
-    assert tkern.decode_layout(4, 4096, 1, 8)[:2] == (8, 16)
-    assert tkern.decode_layout(4, 4608, 1, 8)[:2] == (16, 9)
-    assert tkern.decode_layout(4, 525, 8, 8).warps == 8
-    assert tkern.decode_layout(3, 40, 2, 8)[:2] == (1, 2)
+    assert decode_layout(16, 525, 1, 8).warps == 4
+    assert decode_layout(8, 1043, 1, 8)[:2] == (8, 5)
+    assert decode_layout(4, 4096, 1, 8)[:2] == (8, 16)
+    assert decode_layout(4, 4608, 1, 8)[:2] == (16, 9)
+    assert decode_layout(4, 525, 8, 8).warps == 8
+    assert decode_layout(3, 40, 2, 8)[:2] == (1, 2)
     with pytest.raises(ValueError, match="NC <= 4608 fits"):
-        tkern.decode_layout(4, 8192, 1, 8)
+        decode_layout(4, 8192, 1, 8)
     with pytest.raises(ValueError, match="1 <= D <= 8"):
-        tkern.decode_layout(4, 64, 9, 8)
+        decode_layout(4, 64, 9, 8)
     # ensemble="mean": every row in one block of at most 32 warps.
-    mean = tkern.decode_layout(8, 525, 1, 8, ensemble="mean", batched=True)
+    mean = decode_layout(8, 525, 1, 8, ensemble="mean", batched=True)
     assert (mean.warps, mean.copies, mean.threads) == (2, 8, 512)
-    assert mean.smem <= tkern.DECODE_MAX_SMEM_BYTES
+    assert mean.smem <= DECODE_MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="ensemble='mean' runs every row"):
-        tkern.decode_layout(16, 525, 1, 8, ensemble="mean")
+        decode_layout(16, 525, 1, 8, ensemble="mean")
     with pytest.raises(ValueError, match="warps=1 does not fit"):
-        tkern.decode_layout(8, 525, 1, 8, warps=1)
+        decode_layout(8, 525, 1, 8, warps=1)
 
 
 @pytest.mark.parametrize("per,d,itemsize,threads", [
@@ -285,7 +286,7 @@ def test_decode_max_threads_mirrors_the_kernel_bounds(per, d, itemsize,
                                                        threads):
     """The launcher's thread bounds, which ``csrc/decode_fused.cu`` repeats
     in each instantiation's ``__launch_bounds__``."""
-    assert tkern.decode_max_threads(per, d, itemsize) == threads
+    assert decode_max_threads(per, d, itemsize) == threads
 
 
 def test_wrappers_reject_other_devices():

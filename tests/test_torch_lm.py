@@ -172,9 +172,16 @@ def test_decode_matches_forward_and_jax(model):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    for name in ("kimi-k2-1t-a32b", "arctic-480b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            tlm.init_params(torch.Generator(), tsmoke_config(name), "cpu")
+    # The A12 families are ported: their params build and match the JAX
+    # package's tree key for key, shape for shape.
+    for name in ("kimi-k2-1t-a32b", "arctic-480b", "whisper-tiny",
+                 "llava-next-mistral-7b"):
+        cfg = tsmoke_config(name)
+        p = flatten(tlm.init_params(torch.Generator(), cfg, "cpu"))
+        jp, _ = jlm.init_params(jax.random.PRNGKey(0), smoke_config(name))
+        want = {"/".join(str(k.key) for k in path): tuple(v.shape) for
+                path, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
+        assert {k: tuple(v.shape) for k, v in p.items()} == want
     # The recurrent families are ported: their params build.
     for name in ("recurrentgemma-2b", "xlstm-125m"):
         p = tlm.init_params(torch.Generator(), tsmoke_config(name), "cpu")

@@ -21,7 +21,8 @@ import torch
 
 from repro.core import scan as jscan
 from repro.kernels import ops as jops
-from repro_torch.kernels import diag_scan as tkern
+from repro_torch.kernels.diag_scan import (SCAN_MIN_CHUNK,
+                                          SCAN_TARGET_THREADS, scan_chunks)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref
 
@@ -207,13 +208,13 @@ def test_chunk_layout_rejects_no_chunks():
 ], ids=["train", "wave", "fit", "lm-decode", "wide", "short"])
 def test_scan_chunk_rule(shape, expect):
     b, t, n = shape
-    c = tkern.scan_chunks(b, t, n)
+    c = scan_chunks(b, t, n)
     assert c == expect
     # A power of two, with chunks of at least SCAN_MIN_CHUNK steps, that
     # reaches the thread target unless doubling it would break that floor.
-    assert c & (c - 1) == 0 and (c == 1 or t >= c * tkern.SCAN_MIN_CHUNK)
-    assert (c * b * n >= tkern.SCAN_TARGET_THREADS
-            or t < 2 * c * tkern.SCAN_MIN_CHUNK)
+    assert c & (c - 1) == 0 and (c == 1 or t >= c * SCAN_MIN_CHUNK)
+    assert (c * b * n >= SCAN_TARGET_THREADS
+            or t < 2 * c * SCAN_MIN_CHUNK)
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "no-operand-requires-grad",

@@ -33,9 +33,6 @@ _FORBIDDEN = {
                     "scheduler", "cost"},
 }
 
-#: Planes of the reference that the port does not have yet (ROADMAP A10).
-_NOT_PORTED = {"frontend.py"}
-
 
 def _module_level_import(src: str, mod: str):
     pat = re.compile(rf"^(from|import)\s+[.\w]*\b{mod}\b", re.MULTILINE)
@@ -44,11 +41,7 @@ def _module_level_import(src: str, mod: str):
 
 @pytest.mark.parametrize("fname", sorted(_FORBIDDEN))
 def test_plane_imports_are_one_way(fname):
-    path = SERVE_DIR / fname
-    if fname in _NOT_PORTED:
-        assert not path.exists(), f"{fname} is ported: drop it from _NOT_PORTED"
-        return
-    src = path.read_text()
+    src = (SERVE_DIR / fname).read_text()
     for mod in sorted(_FORBIDDEN[fname]):
         m = _module_level_import(src, mod)
         assert m is None, (
