@@ -20,7 +20,7 @@ and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
 printed, and a spill fails the build phase), and at whisper-tiny's encoder
 (1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
-32:8, head_dim 128); then drives the port's seventeen main paths and two
+32:8, head_dim 128); then drives the port's eighteen main paths and two
 more phases on the card, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -131,8 +131,8 @@ it and read just after:
    seeded tokens (8 x 448) and frames (8 x 1500 x 384) — the encoder's
    attention through B3, one launch an encoder layer; a profiled step;
    the whole model's loss and gradients at batch 2 (and again with the
-   attention dense on the card, the witness of B3's share of the gap) and
-   a prefill plus 8 ``decode_step``s held against the CPU;
+   attention dense on the card) and a prefill plus 8 ``decode_step``s held
+   against the CPU;
 17. ``repro_torch.launch.train --arch kimi-k2-1t-a32b --d-model 1024
    --layers 1``: kimi's 384 experts, top-8 and expert width 2048 (the MoE
    block, no TPU kernel), batch 8 x 512, 5 steps, with the load-balance
@@ -145,7 +145,19 @@ then llava-next-mistral-7b's embedding inputs (full width, 2 of 32
 layers, float32: one trainer step on 2 x 2048 ``embeds`` with ``labels``,
 B3 at GQA 32:8 and head_dim 128; loss and gradients at 2 x 256 held
 against the CPU), and the four examples (``examples/torch_*.py``), each as
-its own process on its default device.
+its own process on its default device; then
+
+18. the sharded slot arena at the serving profile: ``launch.serve
+   --reservoir ... --mesh 1x1`` bit-equal to path 1's run without
+   ``--mesh``, with path 1's launches; engines on logical (2, 1), (1, 2)
+   and (2, 2) meshes of the one card (each cell its own shard and
+   launches) serving path 1's 16 sessions against the unsharded card
+   engine, one scan launch a cell a prefill wave, one fused decode a data
+   shard a closed-loop wave where the model axis is whole and the step
+   route where it is split, each mesh's wall beside the unsharded
+   engine's; ``--ensemble mean``'s 8 reservoirs on (2, 1) on the step
+   route; a (2, 1) snapshot restored unsharded and on (1, 2); and B3's
+   float32 output at whisper's encoder against float64.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -168,9 +180,12 @@ an unpaged engine of its width, a pipelined one against the synchronous
 one, and a restored one against the engine it was snapshotted from; the
 card against the CPU elementwise at 1e-9 * max(|ref|, 1).  Slice 12's
 whole float32 models on the card against the CPU: losses and gradients
-leaf by leaf to 1.3e-5 (``TRAINER_TOL``: arctic, and whisper with its
-attention dense on the card) or ``LM_TOL`` (whisper through B3, llava),
-one forward's or decode step's logits to 1e-5 of the largest |logit|.
+leaf by leaf to 1.3e-5 (``TRAINER_TOL``: arctic, llava, and whisper
+through B3 and with its attention dense on the card), one forward's or
+decode step's logits to 1e-5 of the largest |logit|.  The
+sharded arena on the card against the unsharded card engine elementwise
+at 1e-9 * max(|ref|, 1) (the readout sums in shard order); B3's float32
+output against float64 3e-6.
 
 Bounds: the larger of the bytes (each input read once, each output written
 once) over HBM3's 3.35 TB/s and the operations over the rate of the units
@@ -179,6 +194,7 @@ that run them (NVIDIA H100 SXM data sheet, dense): 67 TFLOP/s float32 and
 them); flash attention on the tensor cores, float32 as 3xTF32 (three TF32
 products per float32 product at 495 TFLOP/s) and bfloat16 at 989 TFLOP/s.
 """
+import dataclasses
 import gc
 import importlib
 import json
@@ -230,13 +246,10 @@ XL_SERVE_ARGS = ["--arch", "xlstm-125m", "--batch", "4", "--prompt-len",
                  "64", "--gen", "64"]
 BF16_TOL, LSE_TOL = 5e-2, 1e-5
 #: Slice 12: one float32 forward's or decode step's logits, card against
-#: CPU, against the largest |logit| (losses and gradients: ``LM_TOL``).
+#: CPU, against the largest |logit| (losses and gradients: ``TRAINER_TOL``).
 LM_ONE_TOL = 1e-5
 #: Slice 12's trainers, card against CPU: losses and gradients of arctic
-#: smoke and of whisper-tiny with dense attention.  whisper through B3 is
-#: held to ``LM_TOL``: B3's float32 output carries ~12x SDPA's error
-#: (1.3e-5 against 1.1e-6 of a float64 reference at whisper's encoder),
-#: which the attention backward reads back through ``out`` (ROADMAP C10).
+#: smoke, llava and whisper-tiny (through B3 and with dense attention).
 TRAINER_TOL = 1.3e-5
 WHISPER_STEPS, WHISPER_BATCH, WHISPER_SEQ = 10, 8, 448
 KIMI_TRAIN_STEPS = 5
@@ -2815,7 +2828,7 @@ def slice12_phases(drive, launches, m):
         wcfg, wdata, m.Trainer, m.TrainConfig)}), flush=True)
     print(json.dumps({"whisper_loss_grads_vs_cpu": loss_grads_vs_cpu(
         wcfg, ArchBatches(wcfg, 2, WHISPER_SEQ), m.lm, m.loss_and_grads,
-        m.tree, LM_TOL, witness={"attn_impl": "dense"},
+        m.tree, TRAINER_TOL, witness={"attn_impl": "dense"},
         witness_tol=TRAINER_TOL)}), flush=True)
     print(json.dumps({"whisper_decode_vs_cpu": encdec_decode_vs_cpu(
         wcfg, m.lm, m.tree, seq=WHISPER_SEQ)}), flush=True)
@@ -2865,11 +2878,243 @@ def slice12_phases(drive, launches, m):
                       "launches": launches["llava_embeds"]}), flush=True)
     print(json.dumps({"llava_loss_grads_vs_cpu": loss_grads_vs_cpu(
         lcfg, ArchBatches(lcfg, LLAVA_BATCH, LLAVA_CHECK_SEQ), m.lm,
-        m.loss_and_grads, m.tree, LM_TOL)}), flush=True)
+        m.loss_and_grads, m.tree, TRAINER_TOL)}), flush=True)
     release_cache()
 
     phase("27 the examples on the card: " + ", ".join(EXAMPLES))
     examples_phase()
+
+
+# --------------------------------------------------------------------------- #
+# Main path 18: the sharded slot arena                                        #
+# --------------------------------------------------------------------------- #
+#: Logical meshes on the one card: each cell its own shard with its own
+#: launches (``launch.mesh.make_local_mesh(..., devices=[cuda:0] * D*M)``).
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+#: B3's float32 output against float64 at whisper-tiny's encoder: the
+#: error the tile-accumulator repair holds it to (SDPA: 1.38e-6).
+B3_F64_TOL = 3e-6
+
+
+class EngineRecorder:
+    """While active, records every ``decode_closed_loop`` token block and
+    every released ``(state, y_prev)`` of a ``ReservoirEngine`` class, in
+    call order (the driver returns rates, not tokens)."""
+
+    def __init__(self, cls):
+        self.cls, self.rec = cls, []
+
+    def __enter__(self):
+        loop, release, rec = (self.cls.decode_closed_loop, self.cls.release,
+                              self.rec)
+
+        def looped(eng, *a, **kw):
+            out = loop(eng, *a, **kw)
+            rec.extend(out[s].detach().clone() for s in out)
+            return out
+
+        def released(eng, sid, **kw):
+            out = release(eng, sid, **kw)
+            rec.extend(v.detach().clone() for v in out[:2])
+            return out
+        self._saved = (loop, release)
+        self.cls.decode_closed_loop, self.cls.release = looped, released
+        return self.rec
+
+    def __exit__(self, *exc):
+        self.cls.decode_closed_loop, self.cls.release = self._saved
+        return False
+
+
+def card_mesh(make_local_mesh, d, m, device="cuda:0"):
+    """A (d, m) mesh of logical shards, every cell on ``device``."""
+    return make_local_mesh(d, m, devices=[device] * (d * m))
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_sessions(p, ro, sig, ReservoirEngine, mesh, n=16, slots=8,
+                  prompt=1024, gen=128, device="cuda"):
+    """The serving profile's 16 sessions through ``slots`` slots: two
+    waves of 1024-token prompts, 128 closed-loop tokens each, every
+    session released.  Returns the outputs in order, the wall ms (host
+    clock, synchronised) and the decode waves by route."""
+    rng = np.random.default_rng(3)
+    starts = rng.integers(0, 2000 - prompt, size=n)
+    kw = dict(device=device) if mesh is None else dict(mesh=mesh)
+    eng = ReservoirEngine(p, slots, readout=ro, **kw)
+    out = []
+    sync(device)
+    t0 = time.perf_counter()
+    for sid, lo in enumerate(starts):
+        eng.submit(sid, sig[lo:lo + prompt, None])
+    while len(eng.pending) or eng.active_sessions:
+        eng.flush()
+        wave = list(eng.ready_sessions)
+        ys = eng.decode_closed_loop(gen, sids=wave)
+        for sid in wave:
+            out += [ys[sid], *eng.release(sid)]
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3, \
+        eng.stats().decode_waves_by_route
+
+
+def mesh_snapshot_path(p, ro, sig, ReservoirEngine, make_local_mesh,
+                       prompt=1024, device="cuda"):
+    """A (2, 1) engine snapshotted mid-workload (8 of 16 sessions admitted,
+    64 tokens decoded), restored unsharded and on (1, 2) on the card; each
+    continues the workload against the uninterrupted engine."""
+    starts = np.random.default_rng(4).integers(0, 2000 - prompt, size=16)
+
+    def start(eng):
+        for sid, lo in enumerate(starts):
+            eng.submit(sid, sig[lo:lo + prompt, None])
+        eng.flush()
+        eng.decode_closed_loop(64)
+        return eng
+
+    def finish(eng):
+        buf = eng.collect_decoded().tokens
+        out = [buf[s] for s in range(8)]
+        out += [eng.decode_closed_loop(64)[s] for s in range(8)]
+        for sid in range(8):
+            out += list(eng.release(sid))
+        eng.flush()
+        ys = eng.decode_closed_loop(128)
+        return out + [ys[s] for s in range(8, 16)]
+    dev0 = "cuda:0" if device == "cuda" else device
+    eng = start(ReservoirEngine(p, 8, readout=ro, mesh=card_mesh(
+        make_local_mesh, 2, 1, dev0)))
+    path = eng.snapshot(fresh_dir("mesh_snap") + "/engine")
+    want = finish(eng)
+    res = {}
+    for name, mesh in (("unsharded", None),
+                       ("1x2", card_mesh(make_local_mesh, 1, 2, dev0))):
+        got = finish(ReservoirEngine.restore(path, device=device, mesh=mesh))
+        errs = [traj_err(g, w, f"(2, 1) snapshot restored {name}, output "
+                               f"{i}") for i, (g, w) in enumerate(
+                                   zip(got, want))]
+        res[f"restored_{name}_max_rel_err"] = max(e["max_rel_err"]
+                                                  for e in errs)
+    return res
+
+
+def b3_f64_error(ops):
+    """B3's float32 output at whisper-tiny's encoder (8, 6, 1500, 64),
+    non-causal, against dense softmax attention in float64, beside SDPA's
+    (``scripts/b3_f32_error.py``'s ``random`` case)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((8, 6, 1500, 64), generator=g).cuda()
+               for _ in range(3))
+    out, _ = ops.flash_attention_fwd(q, k, v, causal=False)
+    s = q.double() @ k.double().transpose(-1, -2) * 64 ** -0.5
+    want = torch.softmax(s, dim=-1) @ v.double()
+    del s
+    res = {"b3_err": float((out.double() - want).abs().max()),
+           "sdpa_err": float((F.scaled_dot_product_attention(q, k, v)
+                              .double() - want).abs().max()),
+           "tol": B3_F64_TOL}
+    if res["b3_err"] > B3_F64_TOL:
+        fail(f"B3 float32 at whisper's encoder: {res['b3_err']:.3e} off "
+             f"float64 (tol {B3_F64_TOL:.0e})")
+    return res
+
+
+def slice13_phases(drive, launches, m):
+    """Phase 28: main path 18, the sharded slot arena, and B3's float32
+    error against float64.  ``m``: the port's modules and names."""
+    import torch
+    phase("28 main path 18: the sharded slot arena at the serving profile — "
+          "repro_torch.launch.serve " + " ".join(SERVE_ARGS) + " --mesh 1x1 "
+          "against path 1; logical (2, 1), (1, 2), (2, 2) meshes on the card; "
+          "--ensemble mean on (2, 1); snapshots across meshes; B3's float32 "
+          "error")
+    with EngineRecorder(m.ReservoirEngine) as want:
+        m.serve.main(SERVE_ARGS)
+    with EngineRecorder(m.ReservoirEngine) as got:
+        res = drive("serve_mesh_1x1", lambda: m.serve.main(
+            SERVE_ARGS + ["--mesh", "1x1"]), ("diag_scan", "decode_fused"))
+    if len(got) != len(want) or not all(torch.equal(a, b)
+                                        for a, b in zip(got, want)):
+        fail("--mesh 1x1 differs from the run without --mesh")
+    if launches["serve_mesh_1x1"] != launches["serve_reservoir"]:
+        fail(f"--mesh 1x1 launches {launches['serve_mesh_1x1']}, path 1 "
+             f"{launches['serve_reservoir']}")
+    print(json.dumps({"serve_mesh_1x1": {
+        "sessions_per_s": res["sessions_per_s"], "bit_equal_to_path_1": True,
+        "outputs_compared": len(got)},
+        "launches": launches["serve_mesh_1x1"]}), flush=True)
+
+    p, ro, sig = served_model(m.esn, m.ESNConfig, m.mso_series)
+    ref, ref_ms, ref_routes = mesh_sessions(p, ro, sig, m.ReservoirEngine,
+                                            None)
+    rows = {"unsharded": {"wall_ms": ref_ms, "routes": ref_routes}}
+    for d, k in MESH_SHAPES:
+        path = f"serve_mesh_{d}x{k}"
+        out, ms, routes = drive(path, lambda: mesh_sessions(
+            p, ro, sig, m.ReservoirEngine,
+            card_mesh(m.make_local_mesh, d, k)), ("diag_scan",))
+        errs = [traj_err(g, w, f"{d}x{k} mesh, output {i}")
+                for i, (g, w) in enumerate(zip(out, ref))]
+        # Two prefill waves, one scan launch a cell each; two closed-loop
+        # waves, one fused decode a data shard where the model axis is
+        # whole, else the step route and no fused decode.
+        want_l = {"diag_scan": 2 * d * k,
+                  "decode_fused": 2 * d if k == 1 else 0}
+        got_l = {n: launches[path][n] for n in want_l}
+        want_r = {"fused": 2, "step": 0} if k == 1 else {"fused": 0,
+                                                          "step": 2}
+        if got_l != want_l or routes != want_r:
+            fail(f"{d}x{k} mesh: launches {got_l} (want {want_l}), routes "
+                 f"{routes} (want {want_r})")
+        rows[f"{d}x{k}"] = {"wall_ms": ms, "routes": routes,
+                            "launches": launches[path],
+                            "max_rel_err": max(e["max_rel_err"]
+                                               for e in errs)}
+    print(json.dumps({"mesh_sessions": rows}), flush=True)
+
+    members = [m.esn.dpg_params(dataclasses.replace(
+        serving_profile(m.ESNConfig), seed=i), "noisy_golden", sigma=0.1,
+        device="cpu") for i in range(8)]
+    outs = {}
+    stack = m.stack_params(members)
+    readout = m.Readout(torch.stack([m.esn.fit(
+        q, sig[:2000, None], sig[1:2001, None], washout=100).w_out
+        for q in members]))
+
+    def ensemble(mesh):
+        kw = dict(device="cuda") if mesh is None else dict(mesh=mesh)
+        eng = m.ReservoirEngine.from_param_batch(stack, readout,
+                                                 ensemble="mean", **kw)
+        for i in range(8):
+            eng.submit(i, sig[:1024, None])
+        eng.flush()
+        ys = eng.decode_closed_loop(128)
+        return ([ys[i] for i in range(8)] + [eng.states],
+                eng.stats().decode_waves_by_route)
+    outs["unsharded"], _ = ensemble(None)
+    got, routes = drive("serve_mesh_ensemble_2x1", lambda: ensemble(
+        card_mesh(m.make_local_mesh, 2, 1)), ("diag_scan",))
+    errs = [traj_err(g, w, f"ensemble mean on (2, 1), output {i}")
+            for i, (g, w) in enumerate(zip(got, outs["unsharded"]))]
+    lc = launches["serve_mesh_ensemble_2x1"]
+    if lc["diag_scan"] != 2 or lc["decode_fused"] != 0 or routes != {
+            "fused": 0, "step": 1}:
+        fail(f"ensemble mean on (2, 1): launches {lc}, routes {routes}")
+    print(json.dumps({"mesh_ensemble_2x1": {
+        "routes": routes, "max_rel_err": max(e["max_rel_err"]
+                                             for e in errs)},
+        "launches": lc}), flush=True)
+    print(json.dumps({"mesh_snapshots": mesh_snapshot_path(
+        p, ro, sig, m.ReservoirEngine, m.make_local_mesh)}), flush=True)
+    print(json.dumps({"b3_f32_vs_float64": b3_f64_error(m.ops)}),
+          flush=True)
 
 
 def main() -> None:
@@ -2891,6 +3136,8 @@ def main() -> None:
     # The launcher module; the package binds ``diag_scan`` to the wrapper.
     dsk = importlib.import_module("repro_torch.kernels.diag_scan")
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.core.params import Readout, stack_params
     from repro_torch.models import blocks, lm
     from repro_torch.serve import AdmissionFull, OpenLoopServer
     from repro_torch.serve.engine import ReservoirEngine
@@ -3285,8 +3532,13 @@ def main() -> None:
         TrainConfig=TrainConfig, MarkovTokens=MarkovTokens, lm=lm,
         blocks=blocks, tree=tree, loss_and_grads=loss_and_grads,
         train=train, serve=serve))
+    slice13_phases(drive, launches, types.SimpleNamespace(
+        esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
+        ReservoirEngine=ReservoirEngine, serve=serve, ops=ops,
+        make_local_mesh=make_local_mesh, stack_params=stack_params,
+        Readout=Readout))
 
-    phase("28 summary")
+    phase("29 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]

@@ -1,14 +1,11 @@
 #!/usr/bin/env python3
-"""Time flash attention (B3) at head_dim 256 of one checkout of the port on
-the GPU.
+"""Time flash attention (B3) of one checkout of the port on the GPU.
 
     python3 scripts/flash_turns.py --src path/to/checkout/src [--label NAME]
+        [--cases d256|f32|all]
 
 Imports ``repro_torch`` from ``--src`` (this checkout's ``src`` by default),
-builds its kernels, and at recurrentgemma-2b's local-attention training
-launches (batch 2 x 2048: q (2, 10, 1024, 256) against k / v (2, 1, 1024 or
-2048, 256), window 2048; chunk 0 at q_offset 0, chunk 1 at 1024; float32,
-and chunk 1 in bfloat16) prints one JSON line with, per case:
+builds its kernels, and prints one JSON line with, per case:
 
 * ``max_abs_err`` / ``lse_max_rel_err`` of ``ops.flash_attention_fwd``
   against ``ref.flash_attention_fwd_ref`` on the same inputs;
@@ -23,7 +20,16 @@ and chunk 1 in bfloat16) prints one JSON line with, per case:
   TFLOP/s), bfloat16 at 989 TFLOP/s (NVIDIA H100 SXM data sheet);
 
 and ptxas's lines of the build (registers, spills) and the card's name and
-power limit.  Run two checkouts in turns in one session on one card
+power limit.  The cases (``--cases``): ``d256`` (the default) are
+recurrentgemma-2b's local-attention training launches (batch 2 x 2048: q
+(2, 10, 1024, 256) against k / v (2, 1, 1024 or 2048, 256), window 2048;
+chunk 0 at q_offset 0, chunk 1 at 1024; float32, and chunk 1 in bfloat16);
+``f32`` every float32 launch of a main path of ``chip_smoke.py``: those
+two chunks, smollm-135m's two band chunks (q (8, 9, 1024, 64) against k /
+v (8, 3, 1024 or 2048, 64), causal), whisper-tiny's encoder (8, 6, 1500,
+64, non-causal) and llava-next-mistral-7b's two band chunks (q (2, 32,
+1024, 128) against k / v (2, 8, 1024 or 2048, 128), window 4096); ``all``
+both.  Run two checkouts in turns in one session on one card
 (parent, change, change, parent) to compare them; every number is only
 comparable with the others of the same session.
 """
@@ -36,9 +42,23 @@ from pathlib import Path
 
 PEAK_BYTES_S = 3.35e12
 PEAK = {"float32": (3, 495e12), "bfloat16": (1, 989e12)}
-CASES = [("local-chunk0", 1024, 0, "float32"),
-         ("local-chunk1", 2048, 1024, "float32"),
-         ("local-chunk1-bf16", 2048, 1024, "bfloat16")]
+# name: (b, hq, hkv, sq, skv, d), causal, window, q_offset, dtype
+D256 = {
+    "local-chunk0": ((2, 10, 1, 1024, 1024, 256), True, 2048, 0, "float32"),
+    "local-chunk1": ((2, 10, 1, 1024, 2048, 256), True, 2048, 1024,
+                     "float32"),
+    "local-chunk1-bf16": ((2, 10, 1, 1024, 2048, 256), True, 2048, 1024,
+                          "bfloat16")}
+F32 = {
+    "chunk0": ((8, 9, 3, 1024, 1024, 64), True, None, 0, "float32"),
+    "chunk1": ((8, 9, 3, 1024, 2048, 64), True, None, 1024, "float32"),
+    "whisper-encoder": ((8, 6, 6, 1500, 1500, 64), False, None, 0,
+                        "float32"),
+    "llava-chunk0": ((2, 32, 8, 1024, 1024, 128), True, 4096, 0, "float32"),
+    "llava-chunk1": ((2, 32, 8, 1024, 2048, 128), True, 4096, 1024,
+                     "float32"),
+    "local-chunk0": D256["local-chunk0"], "local-chunk1": D256["local-chunk1"]}
+CASES = {"d256": D256, "f32": F32, "all": {**F32, **D256}}
 
 
 def device_ms(fn, calls=10):
@@ -90,6 +110,7 @@ def main():
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--cases", choices=sorted(CASES), default="d256")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -110,20 +131,22 @@ def main():
            "ptxas": ptxas, "smem_bytes_d256": {"f32": smem(0, 256),
                                                "bf16": smem(1, 256)},
            "cases": {}}
-    for name, skv, q_offset, dtype in CASES:
+    for name, (shape, causal, window, q_offset, dtype) in \
+            CASES[args.cases].items():
+        b, hq, hkv, sq, skv, d = shape
         g = torch.Generator().manual_seed(0)
-        q = torch.randn((2, 10, 1024, 256), generator=g)
-        k = torch.randn((2, 1, skv, 256), generator=g)
-        v = torch.randn((2, 1, skv, 256), generator=g)
+        q = torch.randn((b, hq, sq, d), generator=g)
+        k = torch.randn((b, hkv, skv, d), generator=g)
+        v = torch.randn((b, hkv, skv, d), generator=g)
         q, k, v = (t.to("cuda", getattr(torch, dtype)) for t in (q, k, v))
-        kw = dict(causal=True, window=2048, q_offset=q_offset)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
         got, lse = ops.flash_attention_fwd(q, k, v, **kw)
         want, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
-        mask = ref.attention_mask(1024, skv, device="cuda", **kw)
+        mask = ref.attention_mask(sq, skv, device="cuda", **kw)
         passes, peak = PEAK[dtype]
-        flops = 4 * 256 * int(mask.sum()) * 2 * 10
+        flops = 4 * d * int(mask.sum()) * b * hq
         nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel())
-                  + 4 * 2 * 10 * 1024)
+                  + 4 * b * hq * sq)
         dms, names = device_ms(lambda: ops.flash_attention_fwd(q, k, v,
                                                                **kw))
         out["cases"][name] = {

@@ -73,6 +73,18 @@
 //     divisor of Hq/Hkv up to MaxHeads) for one 64-row query tile, so each
 //     K/V tile is staged and split once for all of them: 3 x 64 rows, 12
 //     warps at smollm-135m.
+//   * float32 accumulation of O: each key tile's P V goes into a zeroed
+//     accumulator of its own, and joins the running O on the CUDA cores,
+//     o = o corr + tile (one FFMA, round to nearest).  The tensor core's
+//     float32 accumulate truncates; with one accumulator across the whole
+//     key loop, every one of the 3 BK / 8 products of every tile truncated
+//     against O's full magnitude, and the bias grew with the key count
+//     (whisper's encoder, 1500 keys: 1.34e-5 off float64 against SDPA's
+//     1.38e-6, 3.6e-6 at 256 keys, 2.6e-6 at 32; scripts/b3_f32_error.py).
+//     S and the tile sum live within one tile and not at once (S is split
+//     into P before the P V products), and the descriptors of the
+//     products are computed where they issue (desc_at), so the tile
+//     accumulator costs no registers at head_dim 64 and no spill at 128.
 //   * Online softmax on the accumulator fragments: a row's scores sit in
 //     the 4 threads of a quad, so row max takes 2 shuffles; the row sum
 //     stays per thread until the end.  Scores are kept in log2 units
@@ -88,7 +100,8 @@
 //   * Occupancy: one block an SM.  At head_dim 64, float32, the two raw
 //     stages (64 KB), the K and V^T operand tiles (64 KB) and three heads'
 //     Q tiles (96 KB) fill 224 KB of shared memory, and ptxas fits the 12
-//     warps in 168 registers with no spill.  Between the block's two
+//     warps in 168 registers with no spill (220 at head_dim 128, one head
+//     a block).  Between the block's two
 //     barriers of a tile every warp splits operands, so the tensor cores
 //     idle there; the softmax of a warpgroup waits on its own products.
 //     A producer warp and ping-ponged consumer warpgroups are the next
@@ -188,16 +201,15 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& big,
 // wgmma m64nNk8 TF32 / m64nNk16 bf16, accumulating into d (N / 8 groups of
 // 4 registers): A from shared memory (descriptor da) or registers (a), B
 // from shared memory (descriptor db), both K-major; scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[3][4], uint64_t da,
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[2][4], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11 "
-      "}, %12, %13, p, 1, 1;\n}\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -424,6 +436,14 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, int kc) {
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
          ((uint64_t)((128 * kc) >> 4) << 32);
 }
+// A descriptor plus a k-step (or pass) offset, computed where the product
+// issues: the asm makes the base opaque, so the compiler cannot hoist
+// base + offset out of the key loop and keep every (operand, k-step)
+// descriptor of a tile in its own 64-bit register pair.
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint64_t off) {
+  asm volatile("" : "+l"(base));
+  return base + off;
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -431,6 +451,7 @@ __device__ __forceinline__ void wgmma_commit_and_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
 // Pins registers that an in-flight wgmma reads or writes in place, so the
 // compiler neither reads nor reuses them across the wait.
 template <int N>
@@ -446,6 +467,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[i][e] = 0.f;
+}
+// o = o corr + t on the CUDA cores (one rounding, to nearest): a key tile's
+// P V sum t joins the running output's column groups [off, off + M),
+// rescaled by its row's softmax correction (accumulator register e is of
+// row half e / 2).  off must be a constant after unrolling.
+template <int N, int M>
+__device__ __forceinline__ void promote(float (&o)[N][4],
+                                        const float (&t)[M][4],
+                                        const float (&corr)[2], int off = 0) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[off + i][e] = fmaf(o[off + i][e], corr[e >> 1], t[i][e]);
 }
 // A barrier of the 128 threads of warpgroup wg (named barrier wg + 1).
 __device__ __forceinline__ void warpgroup_sync(int wg) {
@@ -641,15 +684,8 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
     }
   }
 
-  float oacc[ND][4], sacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+  float oacc[ND][4];
+  zero_regs(oacc);
   float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
 
   // The keys any row of this block can see: [k_begin, k_end).
@@ -693,17 +729,21 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
     fence_proxy_async();  // the operand tiles (and Q) are wgmma's to read
     __syncthreads();
 
-    // ---- S = Q K^T: this warpgroup's 64 rows against BK keys
+    // ---- S = Q K^T: this warpgroup's 64 rows against BK keys (S, and
+    // below P V's tile sum, live within one tile: a tile's P V runs while
+    // S is dead, so the two take no more registers than one)
+    float sacc[NT][4];
+    zero_regs(sacc);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint64_t s = 16 * ks;
       if constexpr (F32) {  // small terms first; the first overwrites S
-        wgmma_tf32_ss(sacc, dq_s + s, dk + s, ks > 0);
-        wgmma_tf32_ss(sacc, dq + s, dk_s + s, 1);
-        wgmma_tf32_ss(sacc, dq + s, dk + s, 1);
+        wgmma_tf32_ss(sacc, desc_at(dq_s, s), desc_at(dk, s), ks > 0);
+        wgmma_tf32_ss(sacc, desc_at(dq, s), desc_at(dk_s, s), 1);
+        wgmma_tf32_ss(sacc, desc_at(dq, s), desc_at(dk, s), 1);
       } else {
-        wgmma_bf16_ss(sacc, dq + s, dk + s, ks > 0);
+        wgmma_bf16_ss(sacc, desc_at(dq, s), desc_at(dk, s), ks > 0);
       }
     }
     wgmma_commit_and_wait();
@@ -755,12 +795,12 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
         l_row[e >> 1] += p;
         sacc[n][e] = p;
       }
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[n][e] *= corr[e >> 1];
 
-    // ---- O += P V, P from the S registers
+    // ---- O = O corr + P V, P from the S registers.  The tile's P V goes
+    // into its own zeroed accumulator and joins O by an FFMA (round to
+    // nearest): the tensor core's float32 accumulate truncates, and
+    // adding every tile into O itself would truncate once for each of the
+    // 3 BK / 8 products of every tile against O's full magnitude.
     uint32_t pa[KK][4], ps[F32 ? KK : 1][4];
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk)
@@ -773,22 +813,25 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
           pa[kk][i] = pack_bf16(c[0], c[1]);
         }
       }
+    float tacc[ND][4];
+    zero_regs(tacc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
       const uint64_t s = 16 * kk;
       if constexpr (F32) {
-        wgmma_tf32_rs(oacc, ps[kk], dv + s, 1);
-        wgmma_tf32_rs(oacc, pa[kk], dv_s + s, 1);
-        wgmma_tf32_rs(oacc, pa[kk], dv + s, 1);
+        wgmma_tf32_rs(tacc, ps[kk], desc_at(dv, s), 1);
+        wgmma_tf32_rs(tacc, pa[kk], desc_at(dv_s, s), 1);
+        wgmma_tf32_rs(tacc, pa[kk], desc_at(dv, s), 1);
       } else {
-        wgmma_bf16_rs(oacc, pa[kk], dv + s, 1);
+        wgmma_bf16_rs(tacc, pa[kk], desc_at(dv, s), 1);
       }
     }
     wgmma_commit_and_wait();
-    fence_regs(oacc);
+    fence_regs(tacc);
     fence_regs(pa);
     if constexpr (F32) fence_regs(ps);
+    promote(oacc, tacc, corr);
   }
 
   // ---- epilogue: the row sums across the quad, then o / l and lse
@@ -845,30 +888,31 @@ __global__ void __launch_bounds__(128 * MaxHeads<T, DP>::value, 1)
 //     products and softmax; the next tile splits (float32) and stores them.
 //     K lands straight in the canonical K-major layout (its rows already
 //     are K-major), V transposed (V^T, keys in tf32_vt_k order for float32).
-//   * Shared memory at float32 (BK = 24 keys a tile, one query head a
+//   * Shared memory at float32 (BK = 16 keys a tile, one query head a
 //     block), of the 232,448 bytes a block may have:
 //       Q split, 2 halves x (big + small) x 64 x 128 x 4 B    131,072
-//       K split, 2 halves x 2 parts x 24 x 128 x 4 B           49,152
-//       V^T split, 2 halves x 2 parts x 128 x 24 x 4 B         49,152
-//                                                     total   229,376
-//     Each warpgroup's partial S (64 x 24 float32) goes into its own K
+//       K split, 2 halves x 2 parts x 16 x 128 x 4 B           32,768
+//       V^T split, 2 halves x 2 parts x 128 x 16 x 4 B         32,768
+//                                                     total   196,608
+//     Each warpgroup's partial S (64 x 16 float32) goes into its own K
 //     half, which no other warpgroup reads, after a barrier of its 128
 //     threads (a warp passes its wgmma wait before the other warps of the
-//     warpgroup are done reading K).  A separate exchange buffer (12 KB)
-//     would not fit beside 24-key tiles; with 16-key tiles and one it came
-//     to 204,800 bytes and ran 11 % slower at chunk 1 (PERF.md §6):
-//     the S products at N = 16 or 24 re-read the 64-row Q operand from
-//     shared memory for every 8-deep step, so a wider N is worth more
-//     than the extra barrier.
+//     warpgroup are done reading K).  The S products at N = 16 re-read
+//     the 64-row Q operand from shared memory for every 8-deep step, and
+//     24-key tiles ran 7-8 % faster; but a tile's P V sum needs its own
+//     64 accumulators a thread (float32 accuracy: see the kernel above),
+//     and at 24 keys S, P's split and the next tile's K and V do not fit
+//     beside them in 255 registers (ptxas spilled 32 bytes).
 //   * bfloat16 (BK = 32): Q 32 KB a head, K and V^T 16 KB each, partial S
 //     16 KB a head in its own buffer: a block takes G = 2 query heads of
 //     one KV head when the GQA group is even (4 warpgroups, 512 threads,
 //     131,072 bytes), so each K / V tile is loaded and stored once for
 //     both (one head a block ran 54 % slower at chunk 1).
-//   * Registers (ptxas, sm_90a): 252 a thread at float32 (64 output
-//     accumulators, 12 of S, 24 of P's split, 48 of the next tile's K and
-//     V), 128 at bfloat16 with two heads (the 512-thread cap), 210 with
-//     one; no spills (chip_smoke.py phase 2 prints them).
+//   * Registers (ptxas, sm_90a): 254 a thread at float32 (64 output
+//     accumulators, 64 of the tile's P V, 8 of S, 16 of P's split, 32 of
+//     the next tile's K and V), 127 at bfloat16 with two heads (the
+//     512-thread cap), 209 with one; no spills (chip_smoke.py phase 2
+//     prints them).
 //   * Block barriers a tile: the last tile's readers are done; the operand
 //     tiles are written; the partial S are written.
 namespace wide {
@@ -881,7 +925,7 @@ struct Wide {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int EPR = 16 / sizeof(T);       // elements a 16-byte row
   static constexpr int PARTS = F32 ? 2 : 1;        // big, small
-  static constexpr int BK = F32 ? 24 : 32;         // keys a tile
+  static constexpr int BK = F32 ? 16 : 32;         // keys a tile
   static constexpr int HEADS = F32 ? 1 : 2;        // query heads a block, at most
   static constexpr int QT = BQ * wide::HALF;       // a head's Q half, one part
   static constexpr int KT = BK * wide::HALF;       // a K half, one part
@@ -1078,14 +1122,8 @@ __global__ void __launch_bounds__(256 * G, 1)
   };
 
   float oacc[ND][4], sacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+  zero_regs(oacc);
+  zero_regs(sacc);
   float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
 
   // Descriptors of this warpgroup's operand halves (a k-step adds 16); the
@@ -1123,11 +1161,11 @@ __global__ void __launch_bounds__(256 * G, 1)
     for (int ks = 0; ks < KS; ++ks) {
       const uint64_t s = 16 * ks;
       if constexpr (F32) {  // small terms first; the first overwrites S
-        wgmma_tf32_ss(sacc, dq_s + s, dk + s, ks > 0);
-        wgmma_tf32_ss(sacc, dq + s, dk_s + s, 1);
-        wgmma_tf32_ss(sacc, dq + s, dk + s, 1);
+        wgmma_tf32_ss(sacc, desc_at(dq_s, s), desc_at(dk, s), ks > 0);
+        wgmma_tf32_ss(sacc, desc_at(dq, s), desc_at(dk_s, s), 1);
+        wgmma_tf32_ss(sacc, desc_at(dq, s), desc_at(dk, s), 1);
       } else {
-        wgmma_bf16_ss(sacc, dq + s, dk + s, ks > 0);
+        wgmma_bf16_ss(sacc, desc_at(dq, s), desc_at(dk, s), ks > 0);
       }
     }
     wgmma_commit_and_wait();
@@ -1194,40 +1232,58 @@ __global__ void __launch_bounds__(256 * G, 1)
         l_row[e >> 1] += p;
         sacc[n][e] = p;
       }
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[n][e] *= corr[e >> 1];
 
-    // ---- O[:, this half] += P V[:, this half], P from the S registers
-    uint32_t pa[KK][4], ps[F32 ? KK : 1][4];
+    // ---- O[:, this half] = O corr + P V[:, this half], P from the S
+    // registers
+    if constexpr (F32) {
+      // As the kernel above: the tile's P V in a zeroed accumulator (64
+      // registers beside O's 64), joined to O by an FFMA.
+      uint32_t pa[KK][4], ps[KK][4];
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk)
+      for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (F32) {
+        for (int i = 0; i < 4; ++i)
           tf32_split(sacc[kk][tf32_p_from_acc(i)], pa[kk][i], ps[kk][i]);
-        } else {  // p.astype(v.dtype): p rounded to bfloat16 here
+      float tacc[ND][4];
+      zero_regs(tacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const uint64_t s = 16 * kk;
+        wgmma_tf32_rs(tacc, ps[kk], desc_at(dv, s), 1);
+        wgmma_tf32_rs(tacc, pa[kk], desc_at(dv_s, s), 1);
+        wgmma_tf32_rs(tacc, pa[kk], desc_at(dv, s), 1);
+      }
+      wgmma_commit_and_wait();
+      fence_regs(tacc);
+      fence_regs(pa);
+      fence_regs(ps);
+      promote(oacc, tacc, corr);
+    } else {
+      // bfloat16 (tolerance 5e-2) keeps one accumulator: two heads a block
+      // hold 128 registers a thread, the 512-thread cap, with no room for
+      // a tile accumulator.
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[n][e] *= corr[e >> 1];
+      uint32_t pa[KK][4];
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // p.astype(v.dtype): p rounded to bfloat16 here
           const float* c = sacc[2 * kk + bf16_p_group(i)] + bf16_p_first(i);
           pa[kk][i] = pack_bf16(c[0], c[1]);
         }
-      }
-    wgmma_fence();
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const uint64_t s = 16 * kk;
-      if constexpr (F32) {
-        wgmma_tf32_rs(oacc, ps[kk], dv + s, 1);
-        wgmma_tf32_rs(oacc, pa[kk], dv_s + s, 1);
-        wgmma_tf32_rs(oacc, pa[kk], dv + s, 1);
-      } else {
-        wgmma_bf16_rs(oacc, pa[kk], dv + s, 1);
-      }
+      for (int kk = 0; kk < KK; ++kk)
+        wgmma_bf16_rs(oacc, pa[kk], desc_at(dv, 16 * kk), 1);
+      wgmma_commit_and_wait();
+      fence_regs(oacc);
+      fence_regs(pa);
     }
-    wgmma_commit_and_wait();
-    fence_regs(oacc);
-    fence_regs(pa);
-    if constexpr (F32) fence_regs(ps);
   }
 
   // ---- epilogue: the row sums across the quad, then o / l and lse (both

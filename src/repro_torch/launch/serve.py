@@ -65,10 +65,18 @@ sequence (teacher forcing), which is how a bfloat16 run on the card is held
 against the CPU.  An encoder-decoder (``whisper-tiny``) exits, as the JAX
 driver does: serving it needs audio frames.
 
+``--mesh DxM`` places the slot arena on a (data, model) device mesh
+(``launch.mesh.make_local_mesh``; slots data-parallel, N split over the
+model axis — ``sharding.rules.plan_arena``): on the GPU the first D·M
+cards, with ``--device cpu`` D·M logical shards of the CPU, so that the
+sharded code path runs end to end on the host:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reservoir \
+        --n 96 --slots 4 --sessions 8 --prompt-len 300 --gen 16 \
+        --device cpu --mesh 2x1
+
 ``--device cpu`` runs either loop on the host with the plain PyTorch
-versions of the kernels.  The reservoir flag of the JAX driver whose plane
-is not ported yet (``--mesh``) exits with a message naming the ROADMAP
-item.
+versions of the kernels.
 """
 from __future__ import annotations
 
@@ -84,15 +92,10 @@ from ..configs import get_config, smoke_config
 from ..core import esn as esn_fn
 from ..core.params import ESNConfig, Readout, stack_params
 from ..data.signals import mso_series
+from ..launch.mesh import make_local_mesh
 from ..models import lm
 from ..serve.cost import WaveCostModel, cost_key
 from ..serve.engine import ReservoirEngine
-
-#: Flags of the JAX driver that later slices port -> the ROADMAP item.
-_NOT_PORTED = {
-    "mesh": "A11 (sharded arena)",
-}
-
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -131,6 +134,26 @@ def _checked(make, *args, **kw):
         raise SystemExit(f"serve: {e}") from None
 
 
+def _mesh(args, device: torch.device):
+    """The ``--mesh DxM`` mesh: the first D·M cards (the JAX driver's
+    device-count check and message), or D·M logical shards of a CPU
+    device."""
+    if not args.mesh:
+        return None
+    d, m = (int(v) for v in args.mesh.lower().split("x"))
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if d * m > have:
+            raise SystemExit(f"--mesh {args.mesh} needs {d * m} devices, "
+                             f"have {have}")
+        mesh = make_local_mesh(d, m)
+    else:
+        mesh = make_local_mesh(d, m, devices=[device] * (d * m))
+    print(f"arena mesh: ({d}, {m}) over (data, model) — slots "
+          f"data-parallel, N TP-sharded")
+    return mesh
+
+
 def build_engine(args):
     """The served model in a ``ReservoirEngine``: a ``DiagParams`` struct
     from ``dpg_params`` plus a ridge-fitted ``Readout`` — or, with
@@ -150,7 +173,7 @@ def build_engine(args):
               decode_slo_us=args.decode_slo,
               decode_wave_tokens=args.decode_wave_tokens,
               park_host_rows=args.park_host_rows, cold_dir=args.cold_dir,
-              profile_dir=args.profile_dir)
+              profile_dir=args.profile_dir, mesh=_mesh(args, device))
     if args.park_host_rows is not None:
         tiers = (f"{args.slots} hot slots -> {args.park_host_rows} host rows"
                  + (f" -> cold dir {args.cold_dir}" if args.cold_dir else ""))
@@ -563,6 +586,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sessions", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="place the slot arena on a (data, model) device "
+                         "mesh, e.g. 2x1 (slots data-parallel, N TP-sharded)")
     ap.add_argument("--bucket", type=int, default=16,
                     help="smallest prefill bucket; prompt lengths are "
                          "padded up to powers of two for wave batching")
@@ -642,18 +668,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
-    for name in _NOT_PORTED:
-        ap.add_argument("--" + name.replace("_", "-"), dest=name, nargs="?",
-                        const=True, default=None, help=argparse.SUPPRESS)
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    for name, item in _NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
-                             f"ROADMAP {item}")
     if not args.reservoir:
         return serve_lm(args)
     return serve_reservoir(args)

@@ -8,8 +8,9 @@ LinearReservoir layer as a sequence mixer (the JAX package's
 Parameters are nested dicts of tensors under the JAX package's key names,
 and every ``init_*`` draws from an explicit CPU ``torch.Generator`` and
 returns the params alone (the JAX ``init_*`` also return sharding specs: the
-port runs on one device; a mesh — :func:`constrain`, the MoE block's
-expert-parallel path — raises naming ROADMAP A11).
+LM runs on one device; a mesh — :func:`constrain`, the MoE block's
+expert-parallel path — raises naming ROADMAP A11's LM half; the serving
+arena's mesh is ``sharding.rules.plan_arena``).
 
 Products promote as ``jnp``'s do (:func:`mm`, :func:`einsum`): float32
 activations against a bfloat16 weight (recurrentgemma's embed scale makes
@@ -46,7 +47,7 @@ __all__ = ["ShardProfile", "NULL_PROFILE", "one_device", "constrain",
 @dataclasses.dataclass(frozen=True)
 class ShardProfile:
     """How an arch maps onto a device mesh; all-None is one device, the only
-    layout the port runs (a mesh is ROADMAP A11)."""
+    layout the port's LM runs (a mesh is ROADMAP A11 (LM sharding))."""
     mesh: Optional[Any] = None
     tp: Optional[str] = None
     fsdp: Optional[str] = None
@@ -61,8 +62,8 @@ NULL_PROFILE = ShardProfile()
 def one_device(prof: ShardProfile) -> None:
     """Raise unless ``prof`` is the one-device layout the port runs."""
     if prof.mesh is not None:
-        raise NotImplementedError("sharded layouts are not ported yet: "
-                                  "ROADMAP A11")
+        raise NotImplementedError("sharded LM layouts are not ported yet: "
+                                  "ROADMAP A11 (LM sharding)")
 
 
 def constrain(x, spec, prof: ShardProfile):
@@ -313,7 +314,7 @@ def apply_moe(p, x, cfg, prof: ShardProfile = NULL_PROFILE):
     """x: (B, S, d) -> ``(out (B, S, d), aux)`` on one device, every token
     against every expert, with the JAX package's capacity
     ``int(capacity_factor * B * S * top_k / E) + 1``.  The expert-parallel
-    path of a mesh (JAX's ``shard_map``) is ROADMAP A11."""
+    path of a mesh (JAX's ``shard_map``) is ROADMAP A11 (LM sharding)."""
     one_device(prof)
     b, s, d = x.shape
     e_total = cfg.n_experts

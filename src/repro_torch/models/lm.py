@@ -22,7 +22,7 @@ in the same dtypes: with ``embed_scale`` the embeddings are scaled by a
 float32 scalar, as JAX's ``np.float32`` scale does, so a bfloat16 model runs
 float32 activations against its bfloat16 weights from there on.  Every
 registered config is ported; a device mesh raises ``NotImplementedError``
-naming ROADMAP A11.
+naming ROADMAP A11 (LM sharding).
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ def _is_homogeneous(cfg):
 def check_ported(cfg, prof: ShardProfile = NULL_PROFILE) -> None:
     """Raise unless the port runs ``cfg`` under ``prof``: a ``ValueError``
     for a layer kind no package knows, ``NotImplementedError`` naming
-    ROADMAP A11 for a device mesh."""
+    ROADMAP A11 (LM sharding) for a device mesh."""
     other = sorted(set(layer_kinds(cfg)) - set(MIXERS))
     if other:
         raise ValueError(f"{cfg.name}: unknown mixer(s) {', '.join(other)}")

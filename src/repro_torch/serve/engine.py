@@ -12,13 +12,15 @@ with ``learn=True`` every ``observe`` also accumulates the session's
 readout statistics and ``refit`` / ``flush(refit=True)`` re-solve them.
 
 The engine runs on one device, the GPU unless ``device="cpu"`` is passed;
-params and readout are moved there at construction.  ``park_host_rows`` /
+params and readout are moved there at construction.  ``mesh=`` (a
+``launch.mesh.Mesh``) places the slot arena on a (data, model) device mesh
+instead (``sharding.rules.plan_arena``: slots on ``data``, N on ``model``;
+``serve.arena.ShardedArena``); the engine's device is then the mesh's
+first, where it keeps the params and readout whole.  ``park_host_rows`` /
 ``cold_dir`` back the slot arena with the tiered session store
 (``serve.store``: a host pool and a cold tier of ``.npz`` records),
 and :meth:`ReservoirEngine.snapshot` / :meth:`ReservoirEngine.restore`
-serialize the whole engine in the JAX package's snapshot layout.  The one
-option of the JAX engine whose plane is not ported yet (a device mesh)
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+serialize the whole engine in the JAX package's snapshot layout.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..launch.mesh import check_mesh
 from ..core.params import DiagParams, Readout, StandardParams, params_to
 from . import store as store_mod
 from .cost import WaveCostModel, cost_key
@@ -40,13 +43,6 @@ from .telemetry import (EngineStats, MultiTracker, ProfilerTracker,
 
 __all__ = ["SessionStats", "DecodeResult", "EvictResult", "EngineStats",
            "AdmissionFull", "ReservoirEngine"]
-
-#: Constructor options of the JAX engine that later slices port, with the
-#: ROADMAP item that brings each.
-_NOT_PORTED = {
-    "mesh": "A11 (sharded arena)",
-}
-
 
 def _batch_size(params) -> int:
     """The number of reservoirs in a stacked (param-batched) struct."""
@@ -97,7 +93,9 @@ class ReservoirEngine:
     rows of the host pool behind the arena (a full arena then admits by
     parking its least-recently-used idle sessions, and touching a parked
     session promotes it); ``cold_dir``: the cold tier the pool spills to.
-    ``device``: where the engine runs (``None`` means the GPU).
+    ``device``: where the engine runs (``None`` means the GPU); ``mesh``:
+    the device mesh its arena is sharded over (``device`` then must be of
+    the mesh's device type, and is the mesh's first device).
     ``ensemble`` fuses the slots of a param batch (:meth:`from_param_batch`).
     ``learn=True``: learn while serving — ``observe`` accumulates each
     session's eigenbasis ``(G, C)`` (λ = ``refit_decay`` a token, the first
@@ -126,10 +124,15 @@ class ReservoirEngine:
                  growth_sigma: float = 0.1, growth_washout: int = 64,
                  profile_dir: Optional[str] = None,
                  _param_batch: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh= is not ported yet: ROADMAP {_NOT_PORTED['mesh']}")
         params, readout = _coerce_model(model, readout)
+        if mesh is not None:
+            check_mesh(mesh)
+            if device is not None and torch.device(device).type != \
+                    mesh.home.type:
+                raise ValueError(f"device={device!r} is not of the mesh's "
+                                 f"device type {mesh.home.type!r}")
+            device = mesh.home
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         # The readout in default (row-major) strides: a snapshot stores it
@@ -162,6 +165,12 @@ class ReservoirEngine:
                 f"of a param-batched engine — use from_param_batch with a "
                 f"readout")
         self.ensemble = ensemble
+        plan = None
+        if mesh is not None:
+            from ..sharding import rules as sharding_rules
+            plan = sharding_rules.plan_arena(
+                mesh, self.params, self.max_slots, batched=self._batched,
+                readout=None if self.readout is None else self.readout.w_out)
         self._learn_knobs(learn, refit_alpha, refit_decay, refit_washout,
                           drift_threshold, drift_beta, growth_max_members,
                           growth_sigma, growth_washout)
@@ -241,7 +250,8 @@ class ReservoirEngine:
         self._exec = ExecPlane(
             self.params, self.readout, self.cfg, self._dtype,
             batched=self._batched, ensemble=self.ensemble,
-            max_slots=self.max_slots, pipeline_depth=int(pipeline_depth),
+            max_slots=self.max_slots, plan=plan,
+            pipeline_depth=int(pipeline_depth),
             decode_slo_us=decode_slo_us,
             decode_wave_tokens=int(decode_wave_tokens),
             decode_k_auto=decode_k_auto, store=store, cost_model=cost_model,
@@ -642,12 +652,10 @@ class ReservoirEngine:
     def restore(cls, path: str, *, device=None,
                 mesh=None) -> "ReservoirEngine":
         """Rebuild an engine on ``device`` (``None``: the GPU) from a
-        snapshot written by either package and resume it bit-exactly.
+        snapshot written by either package and resume it bit-exactly;
+        ``mesh`` re-places the arena on a (possibly different) device mesh.
         Stats counters start fresh.  See ``serve.store.restore_engine``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh= is not ported yet: ROADMAP {_NOT_PORTED['mesh']}")
-        return store_mod.restore_engine(cls, path, device=device)
+        return store_mod.restore_engine(cls, path, device=device, mesh=mesh)
 
     # ---------------------------------------------------------------- stats
     def stats(self) -> EngineStats:

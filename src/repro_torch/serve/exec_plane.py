@@ -39,6 +39,12 @@ one row per slot, re-scattered at every placement and promotion).  The
 pool has value semantics like the arena: a refit builds a new pool tensor,
 so a wave in flight keeps the one it was launched with.
 
+**On a device mesh** (an engine built with ``mesh=``) the arena is a
+``serve.arena.ShardedArena`` laid out by the engine's plan
+(``sharding.rules.plan_arena``): this plane builds it (``_fresh_arena``,
+:meth:`ExecPlane.place_arena`) and hands it to the same ``serve.arena``
+calls, with slot indices on the host (each shard takes its own rows).
+
 Control-plane state (session table, admission queue, open-loop input
 queues) reaches this plane through the facade-wired ``table``,
 ``scheduler`` and callbacks; so do the learn plane's effects (teacher
@@ -146,7 +152,7 @@ class ExecPlane:
     the ``tracker`` receives every wave / decode / pipeline event."""
 
     def __init__(self, params, readout, cfg, dtype, *, batched: bool,
-                 ensemble: str, max_slots: int, pipeline_depth: int,
+                 ensemble: str, max_slots: int, plan, pipeline_depth: int,
                  decode_slo_us: Optional[float], decode_wave_tokens: int,
                  decode_k_auto: bool, store, cost_model, autotune: bool,
                  tracker, table, scheduler):
@@ -171,6 +177,8 @@ class ExecPlane:
         self.scheduler = scheduler
         self._ens_weights = None
         self._slot_w = None
+        self._layout = (None if plan is None
+                        else arena_mod.ArenaLayout.build(plan, params))
         self.arena = self._fresh_arena()
         self._chunk_outs: Dict[Hashable, List] = {}
         self._decode_buf: Dict[Hashable, List] = {}
@@ -212,9 +220,17 @@ class ExecPlane:
         self.dirty_sids = lambda: []
         self.refit_wave = lambda sids: {}
 
-    def _fresh_arena(self) -> arena_mod.SlotArena:
-        return arena_mod.make_arena(self.cfg.n, self.cfg.d_out,
-                                    self.max_slots, self._dtype, self.device)
+    def _fresh_arena(self):
+        return self.place_arena(arena_mod.make_arena(
+            self.cfg.n, self.cfg.d_out, self.max_slots, self._dtype,
+            self.device))
+
+    def place_arena(self, arena: arena_mod.SlotArena):
+        """``arena`` as this plane holds it: sharded on the mesh when the
+        engine has one, else as it is."""
+        if self._layout is None:
+            return arena
+        return arena_mod.shard_arena(self._layout, arena)
 
     def _tensor(self, v, dtype=None):
         return torch.as_tensor(v, dtype=dtype, device=self.device)
@@ -317,6 +333,14 @@ class ExecPlane:
         return (time.perf_counter() - t0) * 1e6
 
     # ---------------------------------------------------------------- paging
+    def _arena_index(self, slots) -> torch.Tensor:
+        """Slot indices for a ``serve.arena`` call: on the host for a
+        sharded arena (each shard takes its own rows), else
+        :meth:`_index`."""
+        if self._layout is not None:
+            return torch.tensor(list(slots), dtype=torch.int64)
+        return self._index(slots)
+
     def _index(self, slots) -> torch.Tensor:
         """``slots`` as an index tensor on the device.  On the card it goes
         through page-locked memory ``non_blocking`` on the current stream: a
@@ -335,7 +359,7 @@ class ExecPlane:
         before the rows are read.  ``after``: run on the side stream, which
         waits only for this event (the work that produced ``arena``)."""
         if self.device.type != "cuda":
-            s, y = arena_mod.gather_rows(arena, self._index(slots))
+            s, y = arena_mod.gather_rows(arena, self._arena_index(slots))
             return s.numpy(), y.numpy()
         k = len(slots)
         stream = (torch.cuda.current_stream(self.device) if after is None
@@ -343,7 +367,7 @@ class ExecPlane:
         with torch.cuda.stream(stream):
             if after is not None:
                 stream.wait_event(after)
-            s, y = arena_mod.gather_rows(arena, self._index(slots))
+            s, y = arena_mod.gather_rows(arena, self._arena_index(slots))
             self._stage[0][:k].copy_(s, non_blocking=True)
             self._stage[1][:k].copy_(y, non_blocking=True)
             done = _record_event(self.device)
@@ -362,8 +386,8 @@ class ExecPlane:
             self._stage[1][:k].numpy()[:] = ys
             h0s = self._stage[0][:k].to(self.device, non_blocking=True)
             y0s = self._stage[1][:k].to(self.device, non_blocking=True)
-        self.arena = arena_mod.place_many(self.arena, self._index(slots),
-                                          h0s, y0s)
+        self.arena = arena_mod.place_many(self.arena,
+                                          self._arena_index(slots), h0s, y0s)
         _wait(_record_event(self.device))
 
     def _capacity(self, protect=frozenset()) -> int:
@@ -416,7 +440,8 @@ class ExecPlane:
             self.table.slots[st.slot] = None
             st.slot = -1
             stats.append(st)
-        self.arena = arena_mod.release_many(self.arena, self._index(slots))
+        self.arena = arena_mod.release_many(self.arena,
+                                            self._arena_index(slots))
         self.store.park_many(sids, states, ys, stats)
         self._note_page(len(sids), us, promote=False)
 
@@ -829,7 +854,7 @@ class ExecPlane:
                 self.note_admission(it.sid, it.req.tenant)
             touched.update(slots)
             self.arena = arena_mod.place_many(
-                self.arena, self._tensor(slots), self._tensor(h0s),
+                self.arena, self._arena_index(slots), self._tensor(h0s),
                 self._tensor(y0s))
             # Freshly placed slots serve their tenant's pool readout from
             # their first wave, not the engine-wide base.
@@ -869,7 +894,8 @@ class ExecPlane:
             self._drain_inflight()
             t0 = time.perf_counter()
         self.arena, out = arena_mod.prefill_wave(
-            self.params, self._wave_w(), self.arena, self._tensor(slot_list),
+            self.params, self._wave_w(), self.arena,
+            self._arena_index(slot_list),
             self._tensor(u_pad), self._tensor(lengths),
             None if yt_pad is None else self._tensor(yt_pad),
             batched=self._batched, method=wave_method, chunk=chunk,
@@ -1087,10 +1113,7 @@ class ExecPlane:
         if self.ensemble == "mean":
             ready = [self.table.sessions[s].slot for s in self.table.ready]
             self._pipeline_taint(ready)
-            slots = self._tensor(ready)
-            self.arena = dataclasses.replace(
-                self.arena, y_prev=self.arena.y_prev.index_put(
-                    (slots,), y.expand(len(slots), -1)))
+            self.arena = arena_mod.force_output(self.arena, ready, y)
             return
         self._pipeline_taint([st.slot])
         self.arena = arena_mod.force_output(self.arena, st.slot, y)

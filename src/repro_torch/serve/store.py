@@ -573,7 +573,7 @@ def snapshot_engine(engine, path: str) -> str:
     return str(path)
 
 
-def restore_engine(cls, path: str, *, device=None):
+def restore_engine(cls, path: str, *, device=None, mesh=None):
     """Rebuild a serving engine on ``device`` from :func:`snapshot_engine`
     output (or the JAX package's, which has the same layout) and resume it
     bit-exactly: same params and readout, arena, hot / parked / queued
@@ -582,7 +582,9 @@ def restore_engine(cls, path: str, *, device=None):
     epoch is bumped so new cold records never collide with the ones the
     snapshot references.  Learn state is restored first, then the readout
     pools (a hot session's pool key resolves through its restored tenant),
-    which are re-scattered into the hot slots."""
+    which are re-scattered into the hot slots.  ``mesh`` re-places the
+    arena on a (possibly different) device mesh: a snapshot holds whole
+    arrays, never a shard layout, so any mesh restores any snapshot."""
     from ..core.params import params_from_numpy, readout_from_numpy
     from . import arena as arena_mod
     from .cost import WaveCostModel
@@ -598,6 +600,9 @@ def restore_engine(cls, path: str, *, device=None):
         raise ValueError(f"snapshot version {m.get('version')!r} != "
                          f"{SNAPSHOT_VERSION} (incompatible layout)")
     ek = m["engine"]
+    if mesh is not None and device is None:
+        from ..launch.mesh import check_mesh
+        device = check_mesh(mesh).home
 
     with np.load(os.path.join(path, "arrays.npz")) as npz:
         data = {k: npz[k] for k in npz.files}
@@ -624,7 +629,7 @@ def restore_engine(cls, path: str, *, device=None):
               decode_wave_tokens=ek["decode_wave_tokens"],
               park_host_rows=ek["park_host_rows"], cold_dir=ek["cold_dir"],
               pipeline_depth=ek.get("pipeline_depth", 2), device=device,
-              _param_batch=ek["param_batch"],
+              mesh=mesh, _param_batch=ek["param_batch"],
               **{k: ek.get(k, default)
                  for k, (_, default) in _LEARN_KNOBS.items()})
     eng.scheduler.max_wave = ek["max_wave"]
@@ -634,10 +639,10 @@ def restore_engine(cls, path: str, *, device=None):
     def tensor(v):
         return torch.tensor(v, device=dev)
 
-    eng._exec.arena = arena_mod.SlotArena(
+    eng._exec.arena = eng._exec.place_arena(arena_mod.SlotArena(
         states=tensor(data["arena/states"]),
         y_prev=tensor(data["arena/y_prev"]),
-        active=tensor(data["arena/active"]))
+        active=tensor(data["arena/active"])))
     for rec in m["sessions"]:
         sid = _sid_from_json(rec["sid"])
         eng.sessions[sid] = _stats_from_rec(rec)

@@ -1385,3 +1385,72 @@ def test_whisper_train_step_and_decode_card_match_cpu(dev):
         assert d <= 1e-4 * float(w_.abs().max()), k
     assert float((d_gpu - d_cpu).abs().max()) <= 1e-5 * float(
         d_cpu.abs().max())
+
+
+# ------------------------------------------------------- the sharded arena
+def _served_n1024():
+    cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, input_scaling=0.5,
+                    ridge_alpha=1e-8, seed=0)
+    sig = mso_series(3, 2001)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cpu")
+    return p, esn.fit(p, sig[:-1, None], sig[1:, None], washout=100), sig
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_arena_on_a_logical_card_mesh_matches_unsharded(dev, shape):
+    """8 sessions at n = 1024 on a logical mesh of the one card (each cell
+    its own shard and launches): one scan launch a cell; one fused decode
+    a data shard where the model axis is whole, the step route where it is
+    split; elementwise within 1e-9 * max(|ref|, 1) of the unsharded card
+    engine (the readout sums in shard order)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    p, ro, sig = _served_n1024()
+    starts = np.random.default_rng(1).integers(0, 2000 - 512, size=8)
+    d, m = shape
+    outs, counts = {}, {}
+    for name, kw in (("plain", dict(device=dev)), ("mesh", dict(
+            mesh=make_local_mesh(d, m, devices=[dev] * (d * m))))):
+        eng = ReservoirEngine(p, 8, readout=ro, **kw)
+        b1, b2 = ops.diag_scan.launches, ops.decode_fused.launches
+        for sid, lo in enumerate(starts):
+            eng.submit(sid, sig[lo:lo + 512, None])
+        eng.flush()
+        ys = eng.decode_closed_loop(32)
+        torch.cuda.synchronize()
+        counts[name] = (ops.diag_scan.launches - b1,
+                        ops.decode_fused.launches - b2)
+        outs[name] = [v for s in range(8)
+                      for v in (ys[s], *eng.release(s))]
+    assert counts["mesh"] == (d * m, d if m == 1 else 0)
+    for g_, w_ in zip(outs["mesh"], outs["plain"]):
+        g_, w_ = g_.cpu(), w_.cpu()
+        assert bool(torch.isfinite(g_).all())
+        assert float(((g_ - w_).abs() / w_.abs().clamp(min=1.0)).max()) \
+            <= 1e-9
+
+
+def test_serve_mesh_needs_the_cards_it_names(dev):
+    """``--mesh 2x1`` on a one-card machine exits with the JAX driver's
+    device-count message (a machine with more cards serves it)."""
+    from repro_torch.launch import serve
+    have = torch.cuda.device_count()
+    argv = ["--reservoir", "--n", "32", "--slots", "2", "--sessions", "2",
+            "--prompt-len", "40", "--gen", "4", "--mesh", f"{have + 1}x1"]
+    with pytest.raises(SystemExit, match=f"--mesh {have + 1}x1 needs "
+                                         f"{have + 1} devices, have {have}"):
+        serve.main(argv)
+
+
+def test_flash_attention_f32_error_at_whisper_encoder_vs_float64(dev):
+    """B3's float32 output at whisper-tiny's encoder (8, 6, 1500, 64),
+    non-causal, within 3e-6 of dense softmax attention in float64 (each
+    key tile's P V in its own accumulator, joined to O on the CUDA
+    cores); ``scripts/b3_f32_error.py``'s ``random`` inputs."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((8, 6, 1500, 64), generator=g).to(dev)
+               for _ in range(3))
+    out, _ = ops.flash_attention_fwd(q, k, v, causal=False)
+    s = q.double() @ k.double().transpose(-1, -2) * 64 ** -0.5
+    want = torch.softmax(s, dim=-1) @ v.double()
+    assert float((out.double() - want).abs().max()) <= 3e-6

@@ -161,11 +161,6 @@ def test_engine_stats_and_collect():
     assert not eng.active_sessions and not len(eng.pending)
 
 
-#: Still unported -> the ROADMAP item its error names; every other option
-#: of the list below is ported and builds an engine.
-_UNPORTED = {"mesh": "A11"}
-
-
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(autotune=True),
                                 dict(cost_model=WaveCostModel()),
                                 dict(decode_slo_us=100.0),
@@ -174,17 +169,17 @@ _UNPORTED = {"mesh": "A11"}
                                 dict(decode_wave_tokens="auto"),
                                 dict(ensemble="mean")])
 def test_unported_options_name_their_roadmap_item(kw):
-    """Options of later slices raise naming their ROADMAP item; the ported
-    ones build (``ensemble`` on a non-batched engine is refused as the JAX
-    engine refuses it, and so is ``cold_dir`` without ``park_host_rows``;
+    """Every option is ported and builds (``mesh`` takes a
+    ``launch.mesh.Mesh`` and raises ``TypeError`` on anything else;
+    ``ensemble`` on a non-batched engine is refused as the JAX engine
+    refuses it, and so is ``cold_dir`` without ``park_host_rows``;
     ``park_host_rows`` builds a store and a cost model; ``learn`` builds an
     engine with an enabled learn plane and a cost model that prices its
     refit waves)."""
     _, _, tp, tr = _models("dpg")
     (name, value), = kw.items()
-    if name in _UNPORTED:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP {_UNPORTED[name]}"):
+    if name == "mesh":
+        with pytest.raises(TypeError, match="launch.mesh.Mesh"):
             ReservoirEngine(tp, 2, readout=tr, device="cpu", **kw)
     elif name == "ensemble":
         with pytest.raises(ValueError, match="param-batched"):
@@ -220,8 +215,12 @@ def test_serve_driver_runs_on_cpu_and_rejects_unported_flags():
                        "--device", "cpu"])
     assert res["sessions"] == 3 and res["finite"]
     assert res["prefill_tokens"] == 120 and res["decode_tokens"] == 12
-    with pytest.raises(SystemExit, match="not ported yet: ROADMAP A11"):
-        tserve.main(["--reservoir", "--device", "cpu", "--mesh", "1x1"])
+    # --mesh is ported: a 1x1 mesh serves the same workload.
+    meshed = tserve.main(["--reservoir", "--n", "32", "--slots", "2",
+                          "--sessions", "3", "--prompt-len", "40", "--gen",
+                          "4", "--device", "cpu", "--mesh", "1x1"])
+    assert all(meshed[k] == res[k] for k in ("sessions", "prefill_tokens",
+                                             "decode_tokens", "finite"))
     res = tserve.main(["--reservoir", "--n", "32", "--slots", "2",
                        "--prompt-len", "40", "--gen", "4", "--learn",
                        "--refit-every", "8", "--device", "cpu"])

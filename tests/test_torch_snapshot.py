@@ -141,7 +141,8 @@ def test_restore_refuses_bad_snapshots():
         json.dump(m, f)
     with pytest.raises(ValueError, match="version"):
         ReservoirEngine.restore(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # mesh= is ported: it takes a launch.mesh.Mesh and nothing else.
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         ReservoirEngine.restore(eng.snapshot(_snap_dir()), mesh=object())
 
 
