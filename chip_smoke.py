@@ -20,7 +20,7 @@ and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
 printed, and a spill fails the build phase), and at whisper-tiny's encoder
 (1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
-32:8, head_dim 128); then drives the port's eighteen main paths and two
+32:8, head_dim 128); then drives the port's nineteen main paths and two
 more phases on the card, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -157,7 +157,22 @@ its own process on its default device; then
    route where it is split, each mesh's wall beside the unsharded
    engine's; ``--ensemble mean``'s 8 reservoirs on (2, 1) on the step
    route; a (2, 1) snapshot restored unsharded and on (1, 2); and B3's
-   float32 output at whisper's encoder against float64.
+   float32 output at whisper's encoder against float64;
+19. the sharded LM (DTensor over a process group, one spawned process a
+   rank; ``LM_MESH_BACKEND`` says why the card's mesh is (1, 1) over
+   NCCL): ``linear-esn`` at its published widths and depth, float32,
+   AdamW, batch 8 x 1024 — its first step's loss and gradients, then 5
+   trainer steps (``Trainer(prof=)``), against the unsharded card run from
+   the same seed (losses 1e-5 relative, gradients ``LM_TOL`` of each
+   leaf's largest entry), B1 and its backward counted on the rank (12 a
+   step each), the wall ms a step beside the unsharded run's;
+   ``smollm-135m`` at its published widths and depth, float32, batch 8 x
+   2048 — its first step's loss and gradients through B3 on the rank's
+   local heads and batch, against the unsharded card step (the same
+   limits), B3 counted in each and launched as often on the mesh; and
+   kimi-k2's expert-parallel MoE block (384 experts, top-8, expert width
+   2048, d_model 1024, 2 x 256 tokens) against the one-device block at
+   the MoE check's 2e-3.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -743,12 +758,19 @@ def packed_decode_inputs(b, nc, d, batched, seed=2):
             t(rng.normal(size=(b, n))), t(rng.normal(size=(b, d))))
 
 
-def device_kernels(fn, calls: int = 20):
+def device_kernels(fn, calls: int = 20, windows: int = 3):
     """Every device kernel of one call of ``fn`` (names and count per call,
-    from a ``torch.profiler`` window of ``calls`` calls)."""
-    dev = [e.name for e in cuda_events(fn, calls)]
+    from a ``torch.profiler`` window of ``calls`` calls).  The tracer can
+    drop a window's events (3 of 20 decode launches once on torch 2.11),
+    never add any: a window with fewer events than calls is taken again,
+    up to ``windows`` in all, and the last one taken is returned."""
+    for window in range(1, windows + 1):
+        dev = [e.name for e in cuda_events(fn, calls)]
+        if len(dev) >= calls:
+            break
     return {"kernels_per_call": len(dev) / calls,
-            "kernel_names": sorted({n[:100] for n in dev})}
+            "kernel_names": sorted({n[:100] for n in dev}),
+            "windows": window}
 
 
 def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
@@ -3117,6 +3139,232 @@ def slice13_phases(drive, launches, m):
           flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# Main path 19: the sharded LM (DTensor, one process a rank)                  #
+# --------------------------------------------------------------------------- #
+#: Path 19's process group and meshes.  scripts/probe_process_group.py on
+#: the H100, ranks sharing the card: NCCL refuses two ("Duplicate GPU
+#: detected"); over gloo, at world 2 and 4, the functional all-gather —
+#: what DTensor's Shard -> Replicate redistribution calls — did not return
+#: within 45 s, nor did that redistribution (the classic collectives and
+#: the functional all-reduce, reduce-scatter and permute did).  So the
+#: card runs the (1, 1) mesh over NCCL, at full width, through the same
+#: DTensor code (placements, local_map bodies, the gradient reduction) as
+#: the multi-rank meshes, which run on the CPU over gloo
+#: (tests/test_torch_distributed.py).
+LM_MESH_BACKEND = "nccl"
+LM_MESHES = ((1, 1),)
+SHARDED_STEPS = 5
+#: kimi-k2's expert parallelism on the (1, 1) mesh: its 384 experts, top-8
+#: and expert width 2048 at d_model 1024 (path 17's cut), 2 x 256 tokens.
+KIMI_EP_BATCH, KIMI_EP_SEQ, MOE_TOL = 2, 256, 2e-3
+
+
+def sharded_lm_rank(rank, shape, steps):
+    """One rank of main path 19 on its own process (spawned; it imports
+    the port itself).  ``linear-esn`` at its published widths and depth,
+    float32, AdamW, batch 8 x 1024: the first step's loss and gradients,
+    then ``steps`` trainer steps, each on the ``shape`` mesh against the
+    unsharded card run from the same seed; B1's and its backward's
+    launches counted on this rank, set to 0 just before the sharded run
+    and read just after.  Then B3 on DTensor operands: ``smollm-135m`` at
+    its published widths and depth, float32, batch 8 x 2048 (path 4's
+    shape), the first step's loss and gradients on the mesh against the
+    unsharded card step, B3's launches counted in each.  Then kimi-k2's
+    expert-parallel MoE block."""
+    src = str(Path(__file__).resolve().parent / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import blocks, lm
+    from repro_torch.sharding.rules import make_profile
+    from repro_torch.train.trainer import TrainConfig, Trainer, \
+        loss_and_grads
+    from repro_torch.tree import flatten
+    counters = {"diag_scan": ops.diag_scan, "diag_scan_bwd": ops.diag_scan_bwd,
+                "decode_fused": ops.decode_fused,
+                "flash_attention_fwd": ops.flash_attention_fwd}
+    mesh = make_lm_mesh(shape, device_type="cuda")
+    cfg = dataclasses.replace(get_config("linear-esn"), dtype="float32")
+    prof = make_profile(mesh, cfg)
+    data = MarkovTokens(vocab=cfg.vocab, batch=8, seq_len=1024)
+    out = {"mesh": list(shape), "backend": LM_MESH_BACKEND,
+           "params": cfg.param_count()}
+
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(0).items()}
+    l_p, _, g_p = loss_and_grads(cfg, params, batch, attn_impl="auto")
+    g_p = flatten(g_p)
+    l_d, _, g_d = loss_and_grads(
+        cfg, lm.place_params(params, cfg, prof),
+        dist.place(batch, {k: (prof.dp_spec,) + (None,) * (v.ndim - 1)
+                           for k, v in batch.items()}, mesh),
+        prof=prof, attn_impl="auto")
+    g_d = flatten(dist.full(g_d))
+    out["first_loss_rel"] = abs(float(l_d) - float(l_p)) / abs(float(l_p))
+    out["grad_rel_max"] = max(
+        float((g_d[k] - g_p[k]).abs().max())
+        / max(float(g_p[k].abs().max()), 1e-30) for k in g_p)
+    del params, batch, g_p, g_d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tc = TrainConfig(steps=steps, log_every=0)
+    plain = Trainer(cfg, tc, data, device="cuda", attn_impl="auto")
+    plain.run(seed=0)
+    sharded = Trainer(cfg, tc, data, device="cuda", prof=prof,
+                      attn_impl="auto")
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    sharded.run(seed=0)
+    torch.cuda.synchronize()
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    out["losses"] = sharded.losses
+    out["losses_unsharded"] = plain.losses
+    out["loss_rel_max"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(sharded.losses, plain.losses))
+    out["ms_per_step"] = 1e3 * float(np.median(sharded.step_seconds[1:]))
+    out["ms_per_step_unsharded"] = 1e3 * float(
+        np.median(plain.step_seconds[1:]))
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B3 on the rank's local heads and batch (attention.attention's
+    # local_map), with 2048 keys so the flash route is taken.
+    scfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    sprof = make_profile(mesh, scfg)
+    params = lm.init_params(torch.Generator().manual_seed(2), scfg, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in MarkovTokens(
+        vocab=scfg.vocab, batch=8, seq_len=2048).batch_at(0).items()}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: c.launches for k, c in counters.items()}
+    (l_p, _, g_p), plain_launches = counted(lambda: loss_and_grads(
+        scfg, params, batch, attn_impl="auto"))
+    (l_d, _, g_d), launches = counted(lambda: loss_and_grads(
+        scfg, lm.place_params(params, scfg, sprof),
+        dist.place(batch, {k: (sprof.dp_spec, None) for k in batch}, mesh),
+        prof=sprof, attn_impl="auto"))
+    g_p, g_d = flatten(g_p), flatten(dist.full(g_d))
+    out["smollm"] = {
+        "params": scfg.param_count(), "batch": [8, 2048],
+        "launches": launches, "launches_unsharded": plain_launches,
+        "loss_rel": abs(float(l_d) - float(l_p)) / abs(float(l_p)),
+        "grad_rel_max": max(
+            float((g_d[k] - g_p[k]).abs().max())
+            / max(float(g_p[k].abs().max()), 1e-30) for k in g_p)}
+    del params, batch, g_p, g_d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kcfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), d_model=1024,
+                               n_heads=16, n_kv=8, d_ff=4096, n_layers=1,
+                               dtype="float32")
+    kprof = make_profile(mesh, kcfg)
+    gen = torch.Generator().manual_seed(1)
+    pm = {k: v.cuda() for k, v in blocks.init_moe(gen, kcfg,
+                                                   torch.float32).items()}
+    x = torch.randn((KIMI_EP_BATCH, KIMI_EP_SEQ, kcfg.d_model),
+                    generator=gen).cuda()
+    want, aux = blocks.apply_moe(pm, x, kcfg)
+    pm_d = dist.place(pm, blocks.moe_specs(kcfg, kprof), mesh)
+    x_d = dist.place(x, (kprof.dp_spec, None, None), mesh)
+    got, aux_d = blocks.apply_moe(pm_d, x_d, kcfg, kprof)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        blocks.apply_moe(pm_d, x_d, kcfg, kprof)[0].full_tensor()
+    torch.cuda.synchronize()
+    ep_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        blocks.apply_moe(pm, x, kcfg)
+    torch.cuda.synchronize()
+    out["kimi_ep"] = {
+        "experts": kcfg.n_experts, "top_k": kcfg.top_k,
+        "moe_ff": kcfg.moe_ff, "d_model": kcfg.d_model,
+        "tokens": KIMI_EP_BATCH * KIMI_EP_SEQ,
+        "out_rel": float((got.full_tensor() - want).abs().max()
+                         / want.abs().max()),
+        "load_balance_rel": abs(float(aux_d["load_balance"].full_tensor())
+                                - float(aux["load_balance"]))
+        / abs(float(aux["load_balance"])),
+        "ms": ep_ms,
+        "ms_unsharded": (time.perf_counter() - t0) / 3 * 1e3}
+    return out
+
+
+def slice14_phases(launches, m):
+    """Phase 29: main path 19, the sharded LM on the card, one rank a
+    process (``LM_MESH_BACKEND``), each mesh of ``LM_MESHES`` against the
+    unsharded card run."""
+    phase(f"29 main path 19: the sharded LM — linear-esn (float32, batch 8 "
+          f"x 1024, AdamW, {SHARDED_STEPS} steps) on the meshes {LM_MESHES} "
+          f"over {LM_MESH_BACKEND}, against the unsharded card step; "
+          f"smollm-135m's step through B3 (batch 8 x 2048); kimi-k2's "
+          f"expert-parallel MoE")
+    release_cache()
+    for shape in LM_MESHES:
+        world = shape[0] * shape[1]
+        path = f"train_sharded_{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        ranks = m.spawn_ranks(sharded_lm_rank, world,
+                              backend=LM_MESH_BACKEND,
+                              args=(shape, SHARDED_STEPS), timeout=900)
+        wall = time.perf_counter() - t0
+        n_layers = m.get_config("linear-esn").n_layers
+        for r, res in enumerate(ranks):
+            want = n_layers * SHARDED_STEPS
+            got = {k: res["launches"][k] for k in ("diag_scan",
+                                                   "diag_scan_bwd")}
+            if got != {"diag_scan": want, "diag_scan_bwd": want}:
+                fail(f"{path} rank {r} launched {got}, expected {want} of "
+                     f"each ({n_layers} layers x {SHARDED_STEPS} steps)")
+            if res["loss_rel_max"] > 1e-5 or res["first_loss_rel"] > 1e-5:
+                fail(f"{path} rank {r}: losses {res['losses']} against "
+                     f"{res['losses_unsharded']} (1e-5 relative)")
+            if res["grad_rel_max"] > LM_TOL:
+                fail(f"{path} rank {r}: gradients {res['grad_rel_max']} of "
+                     f"the leaf max (LM_TOL {LM_TOL})")
+            sm = res["smollm"]
+            flash = sm["launches"]["flash_attention_fwd"]
+            if not 0 < flash == sm["launches_unsharded"][
+                    "flash_attention_fwd"]:
+                fail(f"{path} rank {r}: smollm-135m launched B3 {flash} "
+                     f"times on the mesh, {sm['launches_unsharded']} "
+                     f"unsharded")
+            if sm["loss_rel"] > 1e-5 or sm["grad_rel_max"] > LM_TOL:
+                fail(f"{path} rank {r}: smollm-135m on the mesh {sm} "
+                     f"(loss 1e-5 relative, gradients LM_TOL {LM_TOL})")
+            ep = res["kimi_ep"]
+            if ep["out_rel"] > MOE_TOL or ep["load_balance_rel"] > 0.2:
+                fail(f"{path} rank {r}: kimi's EP MoE {ep}")
+        # The path's launches: rank 0's (each rank counts its own).
+        launches[path] = ranks[0]["launches"]
+        launches[path + "_smollm"] = ranks[0]["smollm"]["launches"]
+        print(json.dumps({"sharded_lm": ranks, "wall_s": wall,
+                          "launches": launches[path],
+                          "launches_smollm": launches[path + "_smollm"]}),
+              flush=True)
+        print(m.smi_line, flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3136,7 +3384,7 @@ def main() -> None:
     # The launcher module; the package binds ``diag_scan`` to the wrapper.
     dsk = importlib.import_module("repro_torch.kernels.diag_scan")
     from repro_torch.launch import serve, train
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, spawn_ranks
     from repro_torch.core.params import Readout, stack_params
     from repro_torch.models import blocks, lm
     from repro_torch.serve import AdmissionFull, OpenLoopServer
@@ -3537,8 +3785,10 @@ def main() -> None:
         ReservoirEngine=ReservoirEngine, serve=serve, ops=ops,
         make_local_mesh=make_local_mesh, stack_params=stack_params,
         Readout=Readout))
+    slice14_phases(launches, types.SimpleNamespace(
+        spawn_ranks=spawn_ranks, get_config=get_config, smi_line=smi_line))
 
-    phase("29 summary")
+    phase("30 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]

@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the hand-written kernel (``kernels.diag_scan``); a
 CPU tensor takes the plain PyTorch version (``kernels.ref``); any other
-device raises.  There is no fallback from a CUDA tensor to the plain version.
+device raises — but inside :func:`shape_only` (the dry run's trace) a meta
+tensor gets an empty output of the kernel's shape.  There is no fallback from a CUDA tensor to the plain version.
 Each wrapper counts its kernel launches in its ``launches`` attribute, so a
 run can show that its main path went through the kernels.
 
@@ -29,20 +30,39 @@ flash_attention``), with two entries: :func:`flash_attention_fwd` returns
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import dist
 from . import ref
 from .diag_scan import (decode_fused_cuda, decode_fused_packed_cuda,
                         diag_scan_lanes_bwd_cuda, diag_scan_lanes_cuda)
 from .flash_attention import flash_attention_fwd_cuda
 
-__all__ = ["diag_scan", "diag_scan_lanes", "diag_scan_bwd", "decode_fused",
+__all__ = ["shape_only", "diag_scan", "diag_scan_lanes", "diag_scan_bwd",
+           "decode_fused",
            "decode_fused_packed",
            "flash_attention_fwd", "flash_attention"]
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+_SHAPE_ONLY = [False]
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Within it, the wrappers take meta tensors and return empty outputs
+    of their kernels' shapes: the dry run traces shapes, and nothing runs
+    (``launch.dryrun``)."""
+    old, _SHAPE_ONLY[0] = _SHAPE_ONLY[0], True
+    try:
+        yield
+    finally:
+        _SHAPE_ONLY[0] = old
 
 
 def _route(*tensors) -> str:
@@ -52,9 +72,16 @@ def _route(*tensors) -> str:
         raise ValueError(f"kernel inputs must share one device, got "
                          f"{sorted(map(str, devices))}")
     kind = devices.pop().type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda") and not (kind == "meta" and
+                                            _SHAPE_ONLY[0]):
         raise ValueError(f"no kernel for device type {kind!r}")
     return kind
+
+
+def _like(v):
+    """An empty tensor shaped as ``v`` (None for None): a kernel's output
+    on the meta device, where the dry run traces shapes only."""
+    return None if v is None else torch.empty_like(v)
 
 
 def _lanes(v, dtype: torch.dtype, cplx: bool):
@@ -93,8 +120,11 @@ def diag_scan(a, x, h0=None):
 def _scan_forward(a_re, a_im, x_re, x_im, h0_re, h0_im):
     if not x_re.is_cuda:
         args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
-        if _route(*args) == "cpu":
+        kind = _route(*args)
+        if kind == "cpu":
             return ref.diag_scan_lanes_ref(*args)
+        if kind == "meta":
+            return _like(x_re), _like(x_im)
     # The launcher checks that every operand lies on x's card.
     out = diag_scan_lanes_cuda(a_re, a_im, x_re, x_im, h0_re, h0_im)
     if x_re.numel():                # an empty scan launches nothing
@@ -112,8 +142,12 @@ def diag_scan_bwd(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None, h0_im=None):
     dx_im, dh0_re, dh0_im)``, ``da``/``dh0`` summed to the shapes of
     ``a_re``/``h0_re``; counts in ``diag_scan_bwd.launches``."""
     args = (a_re, a_im, h_re, h_im, g_re, g_im, h0_re, h0_im)
-    if _route(*args) == "cpu":
+    kind = _route(*args)
+    if kind == "cpu":
         return ref.diag_scan_lanes_bwd_ref(*args)
+    if kind == "meta":
+        return tuple(_like(v) for v in (a_re, a_im, g_re, g_im, h0_re,
+                                        h0_im))
     out = diag_scan_lanes_bwd_cuda(*args)
     if g_re.numel():
         diag_scan_bwd.launches += 1
@@ -151,12 +185,58 @@ def diag_scan_lanes(a_re, a_im, x_re, x_im, h0_re=None, h0_im=None):
     Function (its outputs have no ``grad_fn``)."""
     if x_re.ndim != 3:
         raise ValueError(f"x must be (B, T, N), got {tuple(x_re.shape)}")
+    if dist.is_dtensor(x_re):
+        return _scan_on_local_lanes(a_re, a_im, x_re, x_im, h0_re, h0_im)
     if torch.is_grad_enabled():
         args = (a_re, a_im, x_re, x_im, h0_re, h0_im)
         if any(v is not None and v.requires_grad for v in args):
             _route(*args)
             return _DiagScanLanes.apply(*args)
     return _scan_forward(a_re, a_im, x_re, x_im, h0_re, h0_im)
+
+
+def _scan_on_local_lanes(a_re, a_im, x_re, x_im, h0_re, h0_im):
+    """The lane scan on DTensor operands, run on each rank's own batch rows
+    and lanes (``local_map``): the scan is element-wise in N, so a split of
+    the batch or of the lanes needs no collective.  Per mesh dim, x's split
+    of its batch (dim 0) or lanes (dim 2) is kept and each other operand
+    split alike on the dims it has; a split of time, or a partial sum, is
+    replicated first.  An operand without a batch dim (``a`` of shape (N,)
+    or (T, N), ``h0`` of shape (N,)) gets a gradient that is partial over
+    the batch split: each rank sums its own rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x_re.device_mesh
+    x_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in x_re.placements]
+    batched = {"a": a_re.ndim == 3, "h0": h0_re is not None and
+               h0_re.ndim == 2}
+
+    def like(v, has_batch, grad=False):
+        if v is None:
+            return None
+        out = []
+        for p in x_pl:
+            if isinstance(p, Shard) and p.dim == 2:
+                out.append(Shard(v.ndim - 1))
+            elif isinstance(p, Shard) and has_batch:
+                out.append(Shard(0))
+            elif isinstance(p, Shard):
+                out.append(Partial() if grad else Replicate())
+            else:
+                out.append(Replicate())
+        return out
+    ins = (like(a_re, batched["a"]), like(a_im, batched["a"]), x_pl,
+           None if x_im is None else x_pl, like(h0_re, batched["h0"]),
+           like(h0_im, batched["h0"]))
+    grads = (like(a_re, batched["a"], True), like(a_im, batched["a"], True),
+             x_pl, None if x_im is None else x_pl,
+             like(h0_re, batched["h0"], True),
+             like(h0_im, batched["h0"], True))
+    run = local_map(diag_scan_lanes, out_placements=(x_pl, ins[3]),
+                    in_placements=ins, in_grad_placements=grads,
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(a_re, a_im, x_re, x_im, h0_re, h0_im)
 
 
 def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,
@@ -202,8 +282,11 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0,
     ragged edges.  Not differentiable by itself."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
               scale=scale)
-    if _route(q, k, v) == "cpu":
+    kind = _route(q, k, v)
+    if kind == "cpu":
         return ref.flash_attention_fwd_ref(q, k, v, **kw)
+    if kind == "meta":
+        return _like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
     out = flash_attention_fwd_cuda(q, k, v, **kw)
     if q.numel():                   # an empty query grid launches nothing
         flash_attention_fwd.launches += 1

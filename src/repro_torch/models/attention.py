@@ -7,22 +7,40 @@ nothing of size Sq x Skv is kept between the passes.
 
 ``attention`` is the front door the blocks call: dense below 1024 keys,
 else flash; causal flash runs as ``_banded_attention``, one kernel launch
-per 1024-row query chunk over only the keys that chunk can see.  The JAX
-module's ``UNROLL_SCANS`` switch serves its dry-run cost probe, which is
-not ported (the dry run of ROADMAP A12).
+per 1024-row query chunk over only the keys that chunk can see.
+
+On a device mesh q, k and v are DTensors and ``attention`` runs the same
+code on each rank's own batch rows and heads (``local_map``): the kernel
+has no DTensor sharding rule, and attention needs no collective when the
+heads are split.  :func:`decode_attention_sharded` is decode against a KV
+cache split over the sequence (JAX's flash-decoding layout ``P(dp, None,
+tp, None)``): each rank attends to its own slice of the cache and the
+slices' softmax terms are combined by one max and two sums over the axis.
+
+``UNROLL_SCANS`` (the JAX module's cost-probe switch, set by the dry run's
+``--probes``) runs the flash forward as its plain version in PyTorch ops
+(``kernels.ref.flash_attention_fwd_ref``), so a FLOP counter sees its
+products; it is never set on the main path.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from .. import dist
 from ..kernels import ops as kops
-from ..kernels.ref import NEG_INF, attention_mask
+from ..kernels.ref import NEG_INF, attention_mask, flash_attention_fwd_ref
 
-__all__ = ["NEG_INF", "rope_frequencies", "apply_rope", "dense_attention",
-           "decode_attention", "jnp_flash", "BANDED", "BAND_Q_CHUNK",
-           "attention"]
+__all__ = ["NEG_INF", "UNROLL_SCANS", "rope_frequencies", "apply_rope",
+           "dense_attention", "decode_attention", "decode_attention_sharded",
+           "jnp_flash", "BANDED", "BAND_Q_CHUNK", "attention"]
+
+#: The dry run's cost-probe switch (see the module docstring).
+UNROLL_SCANS = False
 
 
 # --------------------------------------------------------------------------- #
@@ -139,9 +157,10 @@ class _JnpFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, block_k, kv_len):
-        out, lse = kops.flash_attention_fwd(q, k, v, causal=causal,
-                                            window=window, q_offset=q_offset,
-                                            kv_len=kv_len)
+        fwd = flash_attention_fwd_ref if UNROLL_SCANS \
+            else kops.flash_attention_fwd
+        out, lse = fwd(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset, kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.masks = (causal, window, q_offset, block_k, kv_len)
         return out
@@ -198,7 +217,12 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
               impl: str = "auto", block_k: int = 512):
     """Front door: dense or flash (``impl="auto"``: flash from 1024 keys);
     pads the keys to a multiple of ``block_k`` where the flash backward's
-    chunking needs it."""
+    chunking needs it.  DTensor operands run on each rank's own batch rows
+    and heads (:func:`_on_local_heads`)."""
+    if dist.is_dtensor(q):
+        return _on_local_heads(functools.partial(
+            attention, causal=causal, window=window, q_offset=q_offset,
+            impl=impl, block_k=block_k), q, k, v)
     skv = k.shape[2]
     if impl == "auto":
         impl = "flash" if skv >= 1024 else "dense"
@@ -225,3 +249,122 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0,
                 k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
                 kv_len = skv
     return jnp_flash(q, k, v, causal, window, q_offset, block_k, kv_len)
+
+
+# --------------------------------------------------------------------------- #
+# On a device mesh                                                             #
+# --------------------------------------------------------------------------- #
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` on DTensors (B, H, S, D), run on local shards.
+
+    Per mesh dim: where q is split over the batch, k and v are too; where
+    q is split over its heads, k and v are split over theirs if that keeps
+    every rank's query groups whole, else they enter whole and each rank
+    takes the KV heads its query heads read; anything else (a sequence
+    split, a partial sum) is replicated first.  A rank's k / v gradient is
+    then partial where they entered whole but the heads were split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    hq, hkv = q.shape[1], k.shape[1]
+    q_pl, kv_pl, kv_grad = [], [], []
+    head_split = 1
+    for i, pq in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(pq, Shard) and pq.dim == 0:
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            kv_grad.append(Shard(0))
+        elif isinstance(pq, Shard) and pq.dim == 1 and hq % n == 0:
+            q_pl.append(Shard(1))
+            head_split *= n
+            whole = hkv % n != 0
+            kv_pl.append(Replicate() if whole else Shard(1))
+            kv_grad.append(Partial() if whole else Shard(1))
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    kv_split = math.prod(mesh.size(i) for i, p in enumerate(kv_pl)
+                         if isinstance(p, Shard) and p.dim == 1)
+    head_axes = tuple(mesh.mesh_dim_names[i] for i, p in enumerate(q_pl)
+                      if p == Shard(1))
+    group = hq // hkv
+
+    def local(q, k, v):
+        hl = q.shape[1]
+        if kv_split == 1 and head_split > 1:
+            # This rank's query heads start at h0; query head h reads KV
+            # head h // group.
+            h0 = hl * dist.block_index(mesh, head_axes)
+            if hl % group == 0:
+                k = k[:, h0 // group:(h0 + hl) // group]
+                v = v[:, h0 // group:(h0 + hl) // group]
+            else:
+                idx = torch.arange(h0, h0 + hl, device=q.device) // group
+                k, v = k.index_select(1, idx), v.index_select(1, idx)
+        return fn(q, k, v)
+
+    run = local_map(local, out_placements=q_pl,
+                    in_placements=(q_pl, kv_pl, kv_pl),
+                    in_grad_placements=(q_pl, kv_grad, kv_grad),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(q, k, v)
+
+
+def decode_attention_sharded(q, k_new, v_new, k_cache, v_cache, cur, *,
+                             window=None, ring=False):
+    """One decode step against a KV cache split over its sequence dim:
+    write ``k_new`` / ``v_new`` (B, Hkv, 1, D) at slot ``cur`` (modulo the
+    cache length for a ring), then attend q (B, Hq, 1, D) to the ``cur + 1``
+    valid slots.  All DTensors; ``cur`` a replicated 0-d count.
+
+    Each rank holds a contiguous slice of the slots: it writes the new
+    entry if the slot is its own, scores its slice (float32, masked as
+    :func:`decode_attention`), weighs it by ``exp(s - M)`` with ``M`` the
+    largest score over the split (``pmax``), and the output is the sum of
+    the weighted values over the split divided by the sum of the weights.
+    Returns ``(out (B, Hq, 1, D), k_cache, v_cache)``, the caches as split
+    as they came."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_cache.device_mesh
+    names = mesh.mesh_dim_names
+    cache_pl = list(k_cache.placements)
+    seq_axes = tuple(names[i] for i, p in enumerate(cache_pl)
+                     if isinstance(p, Shard) and p.dim == 2)
+    tok_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+              Replicate() for p in cache_pl]
+    rep = [Replicate()] * mesh.ndim
+    smax = k_cache.shape[2]
+
+    def local(q, k_new, v_new, kc, vc, cur):
+        s_loc = kc.shape[2]
+        pos = dist.block_index(mesh, seq_axes) * s_loc + torch.arange(
+            s_loc, device=kc.device)
+        slot = torch.remainder(cur, smax) if ring else cur.clamp(0, smax - 1)
+        hit = (pos == slot)[None, None, :, None]
+        kc = torch.where(hit, k_new.to(kc.dtype), kc)
+        vc = torch.where(hit, v_new.to(vc.dtype), vc)
+        b, hq, _, d = q.shape
+        hkv = kc.shape[1]
+        qf = q.reshape(b, hkv, hq // hkv, d)
+        s = torch.einsum("bhgd,bhkd->bhgk", qf.float(),
+                         kc.float()) * d ** -0.5
+        m_ok = pos < cur + 1
+        if not ring and window is not None:
+            m_ok &= pos > cur - window
+        s = torch.where(m_ok, s, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        big = dist.pmax(m, mesh, seq_axes)
+        p = torch.where(m_ok, torch.exp(s - big), 0.0)
+        l = dist.psum(p.sum(-1, keepdim=True), mesh, seq_axes)
+        o = torch.einsum("bhgk,bhkd->bhgd", p.to(vc.dtype), vc)
+        o = dist.psum(o.float(), mesh, seq_axes) / l
+        return o.to(vc.dtype).reshape(b, hq, 1, d), kc, vc
+
+    run = local_map(local, out_placements=(tok_pl, cache_pl, cache_pl),
+                    in_placements=(tok_pl, tok_pl, tok_pl, cache_pl,
+                                   cache_pl, rep),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(q, k_new, v_new, k_cache, v_cache, cur)

@@ -1,4 +1,5 @@
-"""Placement rules of the sharded slot arena (``sharding.rules``)."""
+"""Sharding plans (``sharding.rules``): the LM's on a device mesh, and the
+serving slot arena's."""
 from . import rules
 
 __all__ = ["rules"]

@@ -1,6 +1,6 @@
-"""Training of the port: optimizers, gradient compression, checkpoints and
-the trainer (the JAX package's ``train/``; its multi-device
-``pipeline.py`` is ROADMAP A11)."""
+"""Training of the port: optimizers, gradient compression, checkpoints, the
+trainer and the pipeline-parallel stage loop (the JAX package's
+``train/``)."""
 from . import optimizer
 
 __all__ = ["optimizer"]

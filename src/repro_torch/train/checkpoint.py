@@ -11,6 +11,13 @@ leaves the previous checkpoint in charge.  ``keep`` bounds how many stay.
 bfloat16 arrays are stored as uint16 with the true dtype in the manifest.
 The two packages read each other's checkpoints: the keys, shapes and dtypes
 of a trainer state are the same in both.
+
+A sharded state (DTensor leaves, one process a rank) is saved whole, as
+JAX's single ``shard_0.npz``: every rank gathers each leaf, rank 0 writes,
+and the ranks meet at a barrier before the call returns.  ``restore`` reads
+the full arrays on every rank and places each leaf where ``shardings``
+says (the elastic re-mesh: any mesh, or one device), by default where its
+``like`` leaf lies.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import dist
 from ..tree import flatten, unflatten
 
 __all__ = ["save", "save_async", "all_steps", "latest_step", "restore"]
@@ -43,8 +51,22 @@ def _to_numpy(t: torch.Tensor):
 
 
 def _snapshot(tree) -> Dict[str, tuple]:
-    """Host copies of every leaf, taken now (the tree may move on)."""
-    return {k: _to_numpy(v) for k, v in flatten(tree).items()}
+    """Host copies of every leaf, taken now (the tree may move on); a
+    DTensor leaf is gathered whole first (a collective: every rank
+    calls)."""
+    return {k: _to_numpy(v.full_tensor() if dist.is_dtensor(v) else v)
+            for k, v in flatten(tree).items()}
+
+
+def _sharded(tree) -> bool:
+    return any(dist.is_dtensor(v) for v in flatten(tree).values())
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of an initialised process group,
+    or the only process."""
+    import torch.distributed as tdist
+    return not tdist.is_initialized() or tdist.get_rank() == 0
 
 
 def _write(ckpt_dir: str, step: int, arrays: Dict[str, tuple],
@@ -69,14 +91,27 @@ def _write(ckpt_dir: str, step: int, arrays: Dict[str, tuple],
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
-    """Write a checkpoint of ``tree`` now; returns its path."""
-    return _write(ckpt_dir, step, _snapshot(tree), keep)
+    """Write a checkpoint of ``tree`` now; returns its path.  A sharded tree
+    is saved by every rank's call together (see the module docstring)."""
+    arrays = _snapshot(tree)
+    if not _sharded(tree):
+        return _write(ckpt_dir, step, arrays, keep)
+    import torch.distributed as tdist
+    if _writer():
+        _write(ckpt_dir, step, arrays, keep)
+    tdist.barrier()
+    return _step_dir(ckpt_dir, step)
 
 
 def save_async(executor: Executor, ckpt_dir: str, step: int, tree, *,
                keep: int = 3) -> Future:
     """Copy ``tree`` to the host now and write it on ``executor``; the
-    future's result is the path (read it: it raises if the write failed)."""
+    future's result is the path (read it: it raises if the write failed).
+    A sharded tree is saved at once, as :func:`save` does."""
+    if _sharded(tree):
+        fut = Future()
+        fut.set_result(save(ckpt_dir, step, tree, keep=keep))
+        return fut
     return executor.submit(_write, ckpt_dir, step, _snapshot(tree), keep)
 
 
@@ -96,13 +131,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like):
-    """The checkpoint at ``step`` in the structure of the tree ``like``,
-    each leaf on its ``like`` leaf's device, in the stored dtype.  Raises if
-    a key is missing or a shape differs."""
+def restore(ckpt_dir: str, step: int, like, shardings=None):
+    """The checkpoint at ``step`` in the structure of the tree ``like``, in
+    the stored dtypes.  Each leaf goes where the matching leaf of
+    ``shardings`` says — a ``(DeviceMesh, spec)`` pair places it as a
+    DTensor (each rank keeps its slice), a device puts it whole there —
+    and without ``shardings`` where its ``like`` leaf lies (a DTensor
+    ``like`` leaf: on its mesh, in its placements).  Raises if a key is
+    missing or a shape differs."""
     path = _step_dir(ckpt_dir, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    targets = {} if shardings is None else flatten(shardings)
     flat = {}
     with np.load(os.path.join(path, "shard_0.npz")) as data:
         for key, ref in flatten(like).items():
@@ -116,5 +156,28 @@ def restore(ckpt_dir: str, step: int, like):
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} "
                                  f"!= {tuple(ref.shape)}")
-            flat[key] = t.to(ref.device)
+            flat[key] = _put(t, targets.get(key, ref))
     return unflatten(flat)
+
+
+def _put(t: torch.Tensor, target):
+    """``t`` (a full host tensor) where ``target`` says: a ``(mesh,
+    spec)`` pair, a DTensor to match, a tensor whose device to take, or a
+    device."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(target, tuple):
+        mesh, spec = target
+        return dist.place(t.to(_mesh_device(mesh)), spec, mesh)
+    if dist.is_dtensor(target):
+        return distribute_tensor(t.to(target.to_local().device),
+                                 target.device_mesh, target.placements,
+                                 src_data_rank=None)
+    return t.to(target.device if isinstance(target, torch.Tensor)
+                else target)
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -19,8 +19,9 @@ __all__ = ["init_ef", "quantize", "dequantize", "compress_decompress_ef"]
 
 
 def init_ef(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """float32 zeros shaped (and, on a mesh, placed) as each param."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def quantize(x):

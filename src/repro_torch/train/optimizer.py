@@ -8,6 +8,12 @@ with the state under its key names (``m``, ``v``, ``step``; ``f/<leaf>/vr``,
 ``vc``, ``v``), so checkpoints carry over key for key.  ``torch.optim`` is
 not used: its update rule and state layout differ.  Updates are functional:
 new tensors, nothing is modified in place.
+
+On a device mesh the params, gradients and state are DTensors, each state
+leaf placed as ``sharding.rules.opt_state_specs`` says: AdamW's moments as
+their params, Adafactor's ``vr`` / ``vc`` as their params less the
+factored dim (a mesh dim that split it holds the factor whole), the step
+replicated.  The global norm and Adafactor's means are DTensor reductions.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Any, Optional
 
 import torch
 
+from .. import dist
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["global_norm", "clip_by_global_norm", "cosine_schedule", "AdamW",
@@ -60,6 +67,46 @@ def _lr(lr, step):
     return lr(step) if callable(lr) else lr
 
 
+def _step0(params):
+    """The step counter at 0: on the params' device, replicated on their
+    mesh when they are DTensors."""
+    leaf = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if dist.is_dtensor(leaf):
+        step = dist.place(step, (), leaf.device_mesh)
+    return step
+
+
+def _zeros_without(p, dim):
+    """float32 zeros shaped as ``p`` less its dim ``dim`` (negative); for a
+    DTensor ``p``, placed as ``p`` with that dim dropped (a mesh dim that
+    split it holds the result whole)."""
+    shape = p.shape[:dim] + p.shape[dim + 1:] if dim != -1 else p.shape[:-1]
+    if not dist.is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    cut = p.ndim + dim
+    pl = []
+    for q in p.placements:
+        if isinstance(q, Shard) and q.dim == cut:
+            pl.append(Replicate())
+        elif isinstance(q, Shard) and q.dim > cut:
+            pl.append(Shard(q.dim - 1))
+        else:
+            pl.append(q)
+    return distribute_tensor(
+        torch.zeros(shape, dtype=torch.float32, device=p.to_local().device),
+        p.device_mesh, pl, src_data_rank=None)
+
+
+def _as(v, like):
+    """``v`` redistributed to ``like``'s placements (a DTensor state leaf
+    keeps its placements across updates); ``v`` itself off a mesh."""
+    if dist.is_dtensor(like) and v.placements != like.placements:
+        return v.redistribute(like.device_mesh, like.placements)
+    return v
+
+
 # --------------------------------------------------------------------------- #
 # AdamW                                                                        #
 # --------------------------------------------------------------------------- #
@@ -74,11 +121,9 @@ class AdamW:
 
     def init(self, params):
         def z(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        step = torch.zeros((), dtype=torch.int32,
-                           device=tree_leaves(params)[0].device)
+            return torch.zeros_like(p, dtype=torch.float32)
         return {"m": tree_map(z, params), "v": tree_map(z, params),
-                "step": step}
+                "step": _step0(params)}
 
     def update(self, grads, state, params):
         """One leaf at a time: a gradient is clipped, folded into its
@@ -124,16 +169,13 @@ class Adafactor:
 
     def init(self, params):
         def one(p):
-            kw = dict(dtype=torch.float32, device=p.device)
             if p.ndim >= 2:
                 # Factor the trailing two dims; leading dims (layer stacks)
                 # ride along.
-                return {"vr": torch.zeros(p.shape[:-1], **kw),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **kw)}
-            return {"v": torch.zeros(p.shape, **kw)}
-        step = torch.zeros((), dtype=torch.int32,
-                           device=tree_leaves(params)[0].device)
-        return {"f": tree_map(one, params), "step": step}
+                return {"vr": _zeros_without(p, -1),
+                        "vc": _zeros_without(p, -2)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"f": tree_map(one, params), "step": _step0(params)}
 
     def update(self, grads, state, params):
         step = state["step"] + 1
@@ -150,11 +192,11 @@ class Adafactor:
                 mean_r = torch.clamp(vr.mean(-1, keepdim=True), min=self.eps)
                 u = gf / (torch.sqrt(vr / mean_r)[..., :, None]
                           * torch.sqrt(vc)[..., None, :])
-                newf = {"vr": vr, "vc": vc}
+                newf = {"vr": _as(vr, f["vr"]), "vc": _as(vc, f["vc"])}
             else:
                 v = beta * f["v"] + (1 - beta) * g2
                 u = gf / torch.sqrt(v)
-                newf = {"v": v}
+                newf = {"v": _as(v, f["v"])}
             rms = torch.sqrt(torch.mean(torch.square(u)))
             u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
             if self.weight_decay:

@@ -13,7 +13,14 @@ The state is the JAX trainer's tree — ``params``, ``opt`` (``m``, ``v``,
 restores in the other.  On a CUDA device every reservoir scan and its
 gradient, and every flash-attention forward, run through the hand-written
 kernels (``kernels.ops``).  Keyword arguments of :class:`Trainer` beyond the
-device (``attn_impl``, ``remat``) go to ``lm.forward``.
+device and ``prof`` (``attn_impl``, ``remat``) go to ``lm.forward``.
+
+``prof`` (a ``ShardProfile`` over a ``DeviceMesh``; every rank of the
+process group runs the same loop) trains on the mesh: the params, their
+state and each batch are DTensors placed by ``lm.param_specs`` and the
+batch axes, each gradient is reduced to its param's placements, and
+checkpoints hold full tensors, so they restore onto any mesh or one device
+(``checkpoint.restore(..., shardings=)``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from .. import resolve_device
+from .. import dist, resolve_device
 from ..models import lm
 from ..tree import flatten, tree_map, unflatten
 from . import checkpoint as ckpt_mod
@@ -55,7 +62,10 @@ def loss_and_grads(cfg_arch, params, batch, **fwd_kw):
     has the params' tree.  The token embeddings of an untied model fed
     ``embeds`` are the one leaf the loss cannot reach: they get zeros, as
     ``jax.grad`` gives.  Any other leaf cut off from the loss raises.
-    ``params`` are not modified."""
+    ``params`` are not modified.  DTensor gradients come back in their
+    params' placements (a partial sum over the batch axes is summed: the
+    data-parallel gradient reduction); the loss and metrics come back
+    whole (plain tensors)."""
     flat = flatten(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     loss, metrics = lm.loss_fn(unflatten(leaves), cfg_arch, batch, **fwd_kw)
@@ -63,16 +73,29 @@ def loss_and_grads(cfg_arch, params, batch, **fwd_kw):
     unreached = ({"embed"} if fed_embeds and not cfg_arch.tie_embeddings
                  else set())
     reached = [k for k in leaves if k not in unreached]
-    grads = dict(zip(reached, torch.autograd.grad(
-        loss, [leaves[k] for k in reached])))
+    # The backward, like the forward, may meet plain constants on a mesh.
+    with dist.mesh_context(loss.device_mesh if dist.is_dtensor(loss)
+                           else None):
+        grads = dict(zip(reached, torch.autograd.grad(
+            loss, [leaves[k] for k in reached])))
     grads.update({k: torch.zeros_like(leaves[k]) for k in unreached})
+    if dist.is_dtensor(loss):
+        grads = {k: g.redistribute(leaves[k].device_mesh,
+                                   leaves[k].placements)
+                 for k, g in grads.items()}
+        # The loss and metrics whole on every rank (a DTensor scalar may be
+        # a partial mean, which .item() would read as this rank's term).
+        loss, metrics = loss.full_tensor(), dist.full(metrics)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             unflatten({k: grads[k] for k in leaves}))
 
 
-def make_step_fn(cfg_arch, train_cfg: TrainConfig, opt, **fwd_kw):
+def make_step_fn(cfg_arch, train_cfg: TrainConfig, opt, prof=None,
+                 **fwd_kw):
     """``step_fn(params, opt_state, ef_state, batch) -> (params, opt_state,
-    ef_state, loss, metrics)``."""
+    ef_state, loss, metrics)``; ``prof``: the sharding profile (None: one
+    device)."""
+    fwd_kw = dict(fwd_kw, prof=prof or lm.NULL_PROFILE)
     def step_fn(params, opt_state, ef_state, batch):
         if train_cfg.accum > 1:
             # Mean of the microbatches' gradients and losses.
@@ -103,17 +126,21 @@ def make_step_fn(cfg_arch, train_cfg: TrainConfig, opt, **fwd_kw):
 
 
 class Trainer:
-    """The training loop; ``device`` ``None`` means the GPU."""
+    """The training loop; ``device`` ``None`` means the GPU (on a mesh:
+    this rank's device); ``prof`` a sharding profile (see the module
+    docstring)."""
 
     def __init__(self, cfg_arch, train_cfg: TrainConfig, data, device=None,
-                 **fwd_kw):
+                 prof=None, **fwd_kw):
         self.cfg_arch = cfg_arch
         self.tc = train_cfg
         self.data = data
         self.device = resolve_device(device)
+        self.prof = prof or lm.NULL_PROFILE
         self.opt = opt_mod.make_optimizer(train_cfg.optimizer, lr=train_cfg.lr)
         self._stop = False
-        self.step_fn = make_step_fn(cfg_arch, train_cfg, self.opt, **fwd_kw)
+        self.step_fn = make_step_fn(cfg_arch, train_cfg, self.opt, self.prof,
+                                    **fwd_kw)
         self.losses: list = []
         self.step_seconds: list = []      # host wall time of each step
 
@@ -124,7 +151,10 @@ class Trainer:
         return self.state_of(params)
 
     def state_of(self, params):
-        """A fresh trainer state around ``params``."""
+        """A fresh trainer state around ``params`` (a full tree: on a mesh it
+        is placed by ``lm.param_specs``)."""
+        if self.prof.mesh is not None:
+            params = lm.place_params(params, self.cfg_arch, self.prof)
         ef = (compression.init_ef(params) if self.tc.compress_grads else
               {"_": torch.zeros((), device=self.device)})
         return {"params": params, "opt": self.opt.init(params), "ef": ef,
@@ -138,6 +168,17 @@ class Trainer:
         if last is None:
             return state, 0
         return ckpt_mod.restore(self.tc.ckpt_dir, last, state), int(last)
+
+    def batch_at(self, step):
+        """The data's batch at ``step`` on the device; on a mesh each leaf
+        split over the batch axes on dim 0."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in self.data.batch_at(step).items()}
+        if self.prof.mesh is None:
+            return batch
+        specs = {k: (self.prof.dp_spec,) + (None,) * (v.ndim - 1)
+                 for k, v in batch.items()}
+        return dist.place(batch, specs, self.prof.mesh)
 
     def _on_sigterm(self, signum, frame):
         self._stop = True
@@ -154,8 +195,7 @@ class Trainer:
             t0 = time.perf_counter()
             for step in range(start, self.tc.steps):
                 t_step = time.perf_counter()
-                batch = {k: torch.as_tensor(v, device=self.device)
-                         for k, v in self.data.batch_at(step).items()}
+                batch = self.batch_at(step)
                 p, o, ef, loss, _ = self.step_fn(
                     state["params"], state["opt"], state["ef"], batch)
                 state = {"params": p, "opt": o, "ef": ef,

@@ -1454,3 +1454,116 @@ def test_flash_attention_f32_error_at_whisper_encoder_vs_float64(dev):
     s = q.double() @ k.double().transpose(-1, -2) * 64 ** -0.5
     want = torch.softmax(s, dim=-1) @ v.double()
     assert float((out.double() - want).abs().max()) <= 3e-6
+
+
+# --------------------------------------------------------------------------- #
+# Slice 14: the sharded LM on the card (DTensor over one NCCL rank)           #
+# --------------------------------------------------------------------------- #
+# NCCL refuses two ranks on one card, and over gloo the functional
+# all-gather that DTensor's redistribution calls did not return on CUDA
+# tensors of ranks that share it (scripts/probe_process_group.py): the card
+# runs the (1, 1) mesh over NCCL, through the same DTensor code as the
+# multi-rank meshes of tests/test_torch_distributed.py on the CPU.
+def _sharded_rank(rank, which):
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import blocks, lm
+    from repro_torch.sharding.rules import make_profile
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.tree import flatten
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_lm_mesh((1, 1), device_type="cuda")
+    gen = torch.Generator().manual_seed(0)
+    if which == "esn":
+        cfg = smoke_config("linear-esn")
+        prof = make_profile(mesh, cfg)
+        params = lm.init_params(gen, cfg, "cuda")
+        tokens = torch.randint(0, cfg.vocab, (4, 64), generator=gen).cuda()
+        l_p, _, g_p = loss_and_grads(cfg, params, {"tokens": tokens})
+        ops.diag_scan.launches = ops.diag_scan_bwd.launches = 0
+        l_d, _, g_d = loss_and_grads(
+            cfg, lm.place_params(params, cfg, prof),
+            dist.place({"tokens": tokens}, {"tokens": (prof.dp_spec, None)},
+                       mesh), prof=prof)
+        torch.cuda.synchronize()
+        fd, fp = flatten(dist.full(g_d)), flatten(g_p)
+        return {"loss_rel": abs(float(l_d) - float(l_p)) / abs(float(l_p)),
+                "grad_rel": max(float((fd[k] - fp[k]).abs().max())
+                                / max(float(fp[k].abs().max()), 1e-30)
+                                for k in fp),
+                "launches": [ops.diag_scan.launches,
+                             ops.diag_scan_bwd.launches]}
+    if which == "attn":
+        cfg = smoke_config("smollm-135m")
+        prof = make_profile(mesh, cfg)
+        params = lm.init_params(gen, cfg, "cuda")
+        tokens = torch.randint(0, cfg.vocab, (4, 64), generator=gen).cuda()
+        ops.flash_attention_fwd.launches = 0
+        l_p, _, g_p = loss_and_grads(cfg, params, {"tokens": tokens},
+                                     attn_impl="flash")
+        plain = ops.flash_attention_fwd.launches
+        ops.flash_attention_fwd.launches = 0
+        l_d, _, g_d = loss_and_grads(
+            cfg, lm.place_params(params, cfg, prof),
+            dist.place({"tokens": tokens}, {"tokens": (prof.dp_spec, None)},
+                       mesh), prof=prof, attn_impl="flash")
+        torch.cuda.synchronize()
+        fd, fp = flatten(dist.full(g_d)), flatten(g_p)
+        return {"loss_rel": abs(float(l_d) - float(l_p)) / abs(float(l_p)),
+                "grad_rel": max(float((fd[k] - fp[k]).abs().max())
+                                / max(float(fp[k].abs().max()), 1e-30)
+                                for k in fp),
+                "launches": [ops.flash_attention_fwd.launches, plain]}
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"), d_model=256,
+                              n_heads=4, n_kv=4, moe_ff=512, n_experts=64,
+                              dtype="float32")
+    prof = make_profile(mesh, cfg)
+    pm = {k: v.cuda() for k, v in blocks.init_moe(gen, cfg,
+                                                   torch.float32).items()}
+    x = torch.randn((2, 64, cfg.d_model), generator=gen).cuda()
+    want, aux = blocks.apply_moe(pm, x, cfg)
+    got, aux_d = blocks.apply_moe(
+        dist.place(pm, blocks.moe_specs(cfg, prof), mesh),
+        dist.place(x, (prof.dp_spec, None, None), mesh), cfg, prof)
+    return {"out_rel": float((got.full_tensor() - want).abs().max()
+                             / want.abs().max()),
+            "lb_rel": abs(float(aux_d["load_balance"].full_tensor())
+                          - float(aux["load_balance"]))
+            / abs(float(aux["load_balance"]))}
+
+
+def test_sharded_linear_esn_step_on_the_card_matches_unsharded(dev):
+    """linear-esn smoke on the (1, 1) NCCL mesh: the loss within 1e-5 of
+    the unsharded card step's, every gradient leaf within 1e-4 of its
+    largest entry, B1 and its backward launched on the rank (2 layers)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    (res,) = spawn_ranks(_sharded_rank, 1, backend="nccl", args=("esn",),
+                         timeout=300)
+    assert res["loss_rel"] <= 1e-5 and res["grad_rel"] <= 1e-4, res
+    assert res["launches"] == [2, 2], res
+
+
+def test_sharded_attention_step_on_the_card_matches_unsharded(dev):
+    """smollm-135m smoke on the (1, 1) NCCL mesh through B3 on DTensor
+    operands (``attention.attention``'s ``local_map``): the loss within
+    1e-5 of the unsharded card step's, every gradient leaf within 1e-4 of
+    its largest entry, B3 launched as often as unsharded."""
+    from repro_torch.launch.mesh import spawn_ranks
+    (res,) = spawn_ranks(_sharded_rank, 1, backend="nccl", args=("attn",),
+                         timeout=300)
+    assert res["loss_rel"] <= 1e-5 and res["grad_rel"] <= 1e-4, res
+    assert res["launches"][0] == res["launches"][1] > 0, res
+
+
+def test_expert_parallel_moe_on_the_card_matches_local(dev):
+    """The expert-parallel MoE (a ``local_map`` body) on the (1, 1) NCCL
+    mesh against the one-device block, at the MoE check's 2e-3."""
+    from repro_torch.launch.mesh import spawn_ranks
+    (res,) = spawn_ranks(_sharded_rank, 1, backend="nccl", args=("moe",),
+                         timeout=300)
+    assert res["out_rel"] <= 2e-3 and res["lb_rel"] <= 0.2, res

@@ -11,6 +11,7 @@ and dtype for dtype (at smoke size in the config's own dtype: bfloat16
 weights beside the MoE block's float32 router).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -72,9 +73,17 @@ def test_embeds_and_labels_match_jax():
 
 def test_every_registered_arch_is_ported():
     assert tlm.ported_archs() == list(REGISTRY)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # A11's LM half is ported: a mesh profile is accepted for every config
+    # (tests/test_torch_lm_sharding.py); one naming an axis its mesh lacks
+    # is refused.
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((2, 4)))
+    for name in REGISTRY:
+        tlm.check_ported(smoke_config(name), tblocks.ShardProfile(
+            mesh=mesh, tp="model", dp=("data",), tp_size=4))
+    with pytest.raises(ValueError, match="not in the mesh"):
         tlm.check_ported(smoke_config("smollm-135m"),
-                         tblocks.ShardProfile(mesh=object()))
+                         tblocks.ShardProfile(mesh=mesh, dp=("pod",)))
 
 
 @pytest.mark.parametrize("name", list(REGISTRY))

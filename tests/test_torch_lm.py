@@ -186,8 +186,11 @@ def test_unported_blocks_name_their_roadmap_item():
     for name in ("recurrentgemma-2b", "xlstm-125m"):
         p = tlm.init_params(torch.Generator(), tsmoke_config(name), "cpu")
         assert set(p) == {"embed", "layers", "final_norm", "head"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tblocks.constrain(torch.zeros(1), None,
+    # A11's LM half is ported (tests/test_torch_lm_sharding.py and
+    # tests/test_torch_distributed.py): on a mesh, constrain redistributes
+    # DTensors and refuses a plain tensor.
+    with pytest.raises(TypeError, match="DTensor"):
+        tblocks.constrain(torch.zeros(1), (None,),
                           tblocks.ShardProfile(mesh=object()))
 
 
