@@ -11,9 +11,10 @@ count the launcher picks, with the profiler's device time, the host time
 of a call and a sweep of the chunk count, and at the param-batched wave
 with one row of coefficients a reservoir; the fused decode through both of
 its entries (split lanes, the engine's packed layout), with a sweep of its
-warps a row at five shapes, its mean route with per-slot operands, and the
-engine's call shown to be one launch — and fails if a decode instantiation
-spills; the scan and its backward also with real per-timestep gates
+warps a row at five shapes, its mean route on a thread-block cluster at 8,
+16 and 32 slots (and, at 2, 4 and 8, beside the whole arena in one block),
+and the engine's call shown to be one launch — and fails if a decode
+instantiation spills; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
 head_dim 256 (recurrentgemma's local layer, both band chunks in float32
 and chunk 1 in bfloat16, through the route that splits the head dim
@@ -55,9 +56,11 @@ it and read just after:
    ``weighted`` and ``independent``): 8 independently seeded reservoirs in
    a param-batched engine — the prefill through B1 with one row of
    coefficients a reservoir, the mean's closed loop through B2's ensemble
-   route; ``--slots 16`` with ``mean`` (past B2's one-block limit) must
-   serve on the step-at-a-time route, decided from the shapes, with no B2
-   launch; both fused ensembles held against the CPU engine;
+   route; ``--slots 16`` and ``--slots 32`` with ``mean`` must decode
+   every wave through one B2 launch on its thread-block cluster, no wave
+   on the step route; both fused ensembles held against the CPU engine,
+   ``mean`` at 8 and 16 slots, the 16-slot wave timed beside the step
+   route it took before the cluster;
 8. the decode-SLO interleave (two protected decoders, chunked prompts,
    8-token decode waves) bit-exact against the decode-blind schedule on
    the card; main path 1 through the driver under ``--decode-slo 2000
@@ -473,12 +476,18 @@ def cuda_events(fn, calls: int = 20):
     return got
 
 
-def kernel_calls(fn, calls: int = 20):
+def kernel_calls(fn, calls: int = 20, windows: int = 1):
     """Device time and CUDA launches per call of ``fn`` in a
     ``torch.profiler`` window of ``calls`` calls: the sum of the port's own
-    kernels' times (``OWN_KERNELS``) and their count, each over ``calls``."""
-    own = [e for e in cuda_events(fn, calls)
-           if any(f"::{n}_kernel" in e.name for n in OWN_KERNELS)]
+    kernels' times (``OWN_KERNELS``) and their count, each over ``calls``.
+    With ``windows`` > 1, a window with fewer of them than calls (the
+    tracer dropped some, see ``device_kernels``) is taken again, up to
+    ``windows`` in all."""
+    for _ in range(windows):
+        own = [e for e in cuda_events(fn, calls)
+               if any(f"::{n}_kernel" in e.name for n in OWN_KERNELS)]
+        if len(own) >= calls:
+            break
     if not own:
         return {"device_ms": "not measured", "cuda_launches_per_call":
                 "not measured"}
@@ -771,6 +780,104 @@ def device_kernels(fn, calls: int = 20, windows: int = 3):
     return {"kernels_per_call": len(dev) / calls,
             "kernel_names": sorted({n[:100] for n in dev}),
             "windows": window}
+
+
+#: Slot counts of phase 4's ``mean`` rows on the cluster, and those timed
+#: beside the one-block layout (``rows=B``: the whole arena in one block).
+MEAN_SLOTS = (8, 16, 32)
+MEAN_VS_ONE_BLOCK = (2, 4, 8)
+
+
+def check_mean_cluster(ops, ref, dsk, copy_bw, spills):
+    """B2's ``mean`` route on its thread-block cluster at 525 float64
+    lanes, D = 1, K = 128, per-slot and shared operands: against the plain
+    version with row 1 frozen (every live row fed back the same y, bit for
+    bit), then with every row live its kernel ms (CUDA events), device ms
+    and launches a call (profiler; one a call, or the phase fails), µs a
+    step, the cluster launched, the bound and the plain version's time; at
+    MEAN_VS_ONE_BLOCK slots also the one-block layout's, in the same
+    call, and at 16 per-slot rows every W that fits."""
+    import torch
+    nc, d, k = 525, 1, DECODE_K
+    out = []
+    for b in sorted(set(MEAN_SLOTS + MEAN_VS_ONE_BLOCK)):
+        for batched in (True, False):
+            args = decode_inputs(b, nc, d, batched)
+            frozen = torch.arange(b, device="cuda") != 1
+            live = torch.ones(b, dtype=torch.bool, device="cuda")
+            lay = dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+                                    batched=batched)
+            got = ops.decode_fused(*args, frozen, k=k, ensemble="mean")
+            want = ref.decode_fused_ref(*args, frozen, k=k, ensemble="mean")
+            errs = [max_err(g, w) for g, w in zip(got, want)]
+            case = f"mean-{'per_slot' if batched else 'shared'}-B{b}"
+            for e, t in errs:
+                if e > t:
+                    fail(f"decode_fused {case}: {e:.3e} > {t:.3e}")
+            rows = frozen.nonzero()[:, 0]
+            if not torch.equal(got[3][:, rows], got[3][:, rows[:1]].expand(
+                    -1, len(rows), -1)):
+                fail(f"decode_fused {case}: live rows fed back different y")
+
+            def call():
+                return ops.decode_fused(*args, live, k=k, ensemble="mean")
+            row = {"case": case, "shape": [b, nc, d, k], **worst_of(errs),
+                   "fed_back_y": "bit-equal across live rows",
+                   "cluster": {"blocks": lay.cluster, "rows_a_block":
+                               lay.rows, "warps_a_row": lay.warps,
+                               "lanes_a_thread": lay.per,
+                               "threads_a_block": lay.threads,
+                               "smem_a_block": lay.smem},
+                   "ptxas_decode_instantiations_spilling": spills,
+                   "ms": time_ms(call, reps=50),
+                   **kernel_calls(call, windows=3),
+                   "plain_ms": time_ms(lambda: ref.decode_fused_ref(
+                       *args, live, k=k, ensemble="mean"), reps=2,
+                       warmup=1)}
+            if row["cuda_launches_per_call"] != 1:
+                fail(f"decode_fused {case}: {row['cuda_launches_per_call']}"
+                     f" CUDA launches a call, expected 1")
+            row["us_per_step"] = row["device_ms"] * 1e3 / k
+            nbytes, flops, cflops = decode_cost(args, live, k)
+            row.update(bound(nbytes, flops + k * (b + 1) * d, "float64",
+                             copy_bw, contract_flops=cflops))
+            if b in MEAN_VS_ONE_BLOCK:
+                one = dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+                                        batched=batched, rows=b)
+
+                def one_call():
+                    return dsk.decode_fused_cuda(*args, live, k=k,
+                                                 ensemble="mean", rows=b)
+                oerrs = [max_err(g, w) for g, w in zip(
+                    dsk.decode_fused_cuda(*args, frozen, k=k,
+                                          ensemble="mean", rows=b), want)]
+                for e, t in oerrs:
+                    if e > t:
+                        fail(f"decode_fused {case} in one block: {e:.3e} > "
+                             f"{t:.3e}")
+                oc = kernel_calls(one_call, windows=3)
+                row["one_block"] = {
+                    "warps_a_row": one.warps, "threads": one.threads,
+                    **worst_of(oerrs), "ms": time_ms(one_call, reps=50),
+                    **oc, "us_per_step": oc["device_ms"] * 1e3 / k}
+            if b == 16 and batched:
+                # The rule takes the fewest warps a row that fit
+                # (DECODE_MEAN_AIM_WARPS): every W beside it.
+                sweep = {}
+                for w in (1, 2, 4, 8, 16):
+                    try:
+                        dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+                                          batched=True, warps=w)
+                    except ValueError:
+                        sweep[w] = "does not fit"
+                        continue
+                    sweep[w] = kernel_calls(lambda: dsk.decode_fused_cuda(
+                        *args, live, k=k, ensemble="mean", warps=w),
+                        windows=3)["device_ms"]
+                row["warps_sweep_device_ms"] = sweep
+            out.append(row)
+            print(json.dumps({"decode_fused_mean": row}), flush=True)
+    return out
 
 
 def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
@@ -1504,35 +1611,41 @@ ENS_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--prompt-len",
             "1024", "--gen", "128"]
 
 
-def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble):
-    """A param-batched engine (8 dpg reservoirs at the serving profile,
-    readouts fitted on the card) on the card and the CPU: prefill 8 x 1024
-    (B1 with per-row coefficients), one open-loop step, ``observe``, 128
-    closed-loop tokens (``mean``: B2's ensemble route; ``weighted``: the
-    step-at-a-time path) — held at 1e-9 max(|ref|, 1); with the card's
-    time of the closed loop."""
+def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble,
+                    slots=8):
+    """A param-batched engine (``slots`` dpg reservoirs at the serving
+    profile, readouts fitted on the card) on the card and the CPU: prefill
+    slots x 1024 (B1 with per-row coefficients), one open-loop step,
+    ``observe``, 128 closed-loop tokens (``mean``: B2's ensemble route on
+    its thread-block cluster; ``weighted``: the step-at-a-time path) —
+    held at 1e-9 max(|ref|, 1); with the card's time of the closed loop
+    and, for ``mean``, of the same 128-token wave on the step route
+    (``arena.closed_loop``, which ``mean`` past 8 slots took before the
+    cluster) from the same arena."""
     import dataclasses
     import torch
     from repro_torch.core.params import Readout, stack_params
     from repro_torch.kernels import ops
+    from repro_torch.serve import arena as arena_mod
     cfg = serving_profile(ESNConfig)
     sig = mso_series(3, 2601)
     u, y = sig[:-1, None], sig[1:, None]
     ps = [esn.dpg_params(dataclasses.replace(cfg, seed=i), "noisy_golden",
-                         sigma=0.1, device="cuda") for i in range(8)]
+                         sigma=0.1, device="cuda") for i in range(slots)]
     ro = Readout(torch.stack([esn.fit(p, u[:2000], y[:2000],
                                       washout=100).w_out for p in ps]))
     params = stack_params(ps)
-    outs, res = {}, {}
+    outs, res = {}, {"slots": slots}
     for device in ("cuda", "cpu"):
         eng = ReservoirEngine.from_param_batch(params, ro, ensemble=ensemble,
                                                device=device)
         if ensemble == "weighted":
-            eng.set_ensemble_weights(np.linspace(0.5, 2.0, 8))
-        for i in range(8):
+            eng.set_ensemble_weights(np.linspace(0.5, 2.0, slots))
+        for i in range(slots):
             eng.submit(i, sig[16 * i:16 * i + 1024, None])
         eng.flush()
-        step = eng.decode_step({i: sig[1100 + i, None] for i in range(8)})
+        step = eng.decode_step({i: sig[1100 + i, None]
+                                for i in range(slots)})
         eng.observe(3, [0.5])
         counts = ops.decode_fused.launches
         ys = eng.decode_closed_loop(128)
@@ -1540,10 +1653,20 @@ def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble):
             torch.cuda.synchronize()
             res["decode_fused_launches_in_closed_loop"] = (
                 ops.decode_fused.launches - counts)
+            res["decode_waves_by_route"] = eng.stats().decode_waves_by_route
             res["closed_loop_128_ms"] = wall_ms(
                 lambda: eng.decode_closed_loop(128))
-        outs[device] = ([torch.as_tensor(step[i]) for i in range(8)],
-                        [ys[i] for i in range(8)], eng)
+            if ensemble == "mean":
+                p, w, a = eng.params, eng.w_out, eng.arena
+                mask = torch.ones(slots, dtype=torch.bool, device="cuda")
+                res["wave_128_fused_ms"] = wall_ms(
+                    lambda: arena_mod.closed_loop_fused(
+                        p, w, a, mask, 128, batched=True, ensemble="mean"))
+                res["wave_128_step_route_ms"] = wall_ms(
+                    lambda: arena_mod.closed_loop(
+                        p, w, a, mask, 128, batched=True, ensemble="mean"))
+        outs[device] = ([torch.as_tensor(step[i]) for i in range(slots)],
+                        [ys[i] for i in range(slots)], eng)
     for name, i in (("step", 0), ("ys", 1)):
         errs = [traj_err(g, w, f"{ensemble} ensemble {name} {j}")
                 for j, (g, w) in enumerate(zip(outs["cuda"][i],
@@ -3461,6 +3584,8 @@ def main() -> None:
     phase("4 decode_fused kernel vs plain")
     decode_rows = check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig,
                                      copy_bw)
+    mean_rows = check_mean_cluster(ops, ref, dsk, copy_bw,
+                                   len(decode_spills))
 
     phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
@@ -3608,24 +3733,29 @@ def main() -> None:
     if launches["serve_ensemble_weighted"]["decode_fused"]:
         fail("the weighted ensemble launched B2; it takes the "
              "step-at-a-time path, as in the JAX package")
-    # 16 per-slot members of 525 float64 lanes exceed B2's one-block mean
-    # route: the shapes send the decode to the step-at-a-time path.
-    argv = ENS_ARGS[:4] + ["16"] + ENS_ARGS[5:] + ["--ensemble", "mean"]
-    res = drive("serve_ensemble_mean_16_slots", lambda: serve.main(argv),
-                ("diag_scan",))
-    keep = {k: v for k, v in res.items() if k != "continuation"}
-    print(json.dumps({"serve_ensemble_mean_16_slots": keep,
-                      "launches": launches["serve_ensemble_mean_16_slots"]}),
-          flush=True)
-    if (not res["finite"] or not res["rmse_vs_signal"] < 0.1
-            or res["decode_waves_by_route"] != {"fused": 0, "step": 2}
-            or launches["serve_ensemble_mean_16_slots"]["decode_fused"]):
-        fail(f"--ensemble mean --slots 16 at n=1024: {keep}, launches "
-             f"{launches['serve_ensemble_mean_16_slots']}; expected the "
-             f"step route, no B2 launch, a finite continuation within 0.1")
-    for ensemble in ("mean", "weighted"):
-        print(json.dumps({f"ensemble_{ensemble}_vs_cpu": ensemble_vs_cpu(
-            esn, ESNConfig, mso_series, ReservoirEngine, ensemble)}),
+    # 16 and 32 per-slot members of 525 float64 lanes: B2's mean route
+    # spreads them over one thread-block cluster, one launch a wave.
+    for slots in (16, 32):
+        path = f"serve_ensemble_mean_{slots}_slots"
+        argv = ENS_ARGS[:4] + [str(slots)] + ENS_ARGS[5:] + ["--ensemble",
+                                                             "mean"]
+        res = drive(path, lambda: serve.main(argv),
+                    ("diag_scan", "decode_fused"))
+        keep = {k: v for k, v in res.items() if k != "continuation"}
+        print(json.dumps({path: keep, "launches": launches[path]}),
+              flush=True)
+        if (not res["finite"] or not res["rmse_vs_signal"] < 0.1
+                or res["decode_waves_by_route"] != {"fused": 2, "step": 0}
+                or launches[path]["decode_fused"] != 2):
+            fail(f"--ensemble mean --slots {slots} at n=1024: {keep}, "
+                 f"launches {launches[path]}; expected one B2 launch a "
+                 f"wave (2), no step wave, a finite continuation within "
+                 f"0.1")
+    for ensemble, slots in (("mean", 8), ("weighted", 8), ("mean", 16)):
+        name = f"ensemble_{ensemble}_vs_cpu" + (
+            f"_{slots}_slots" if slots != 8 else "")
+        print(json.dumps({name: ensemble_vs_cpu(
+            esn, ESNConfig, mso_series, ReservoirEngine, ensemble, slots)}),
             flush=True)
 
     phase("16 main path 8: decode-SLO interleave (8 slots, 2 protected "
@@ -3850,13 +3980,14 @@ def main() -> None:
                            "(src/repro/kernels/diag_scan.py:110-154)",
              **count("decode_fused"),
              max_abs_err=dec["max_abs_err"], tol=dec["tol"],
-             worst_err_over_tol=max(r["err_over_tol"] for r in decode_rows),
+             worst_err_over_tol=max(r["err_over_tol"]
+                                    for r in decode_rows + mean_rows),
              shape=dec["shape"], dtype="float64",
              **{k: dec[k] for k in keys + (
                  "device_ms", "cuda_launches_per_call", "us_per_step",
                  "warps", "per", "mean_route", "mean_per_slot",
                  "run_decode_fused", "tenant_pool", "shapes")},
-             library_ms=None),
+             mean_cluster=mean_rows, library_ms=None),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,6 +16,12 @@ n = 1024: 525 lanes, D = 1, K = 128 steps, float64) prints one JSON line:
   beside the host µs of one ``torch.add`` in the same run;
 * the card's name and power limit.
 
+With ``--mean`` it prints instead the ``ensemble="mean"`` route with
+per-slot members (drive, feedback and readout weights a slot) at 525
+lanes, D = 1, K = 128, float64, for B in ``MEAN_SLOTS``: ``kernel_ms``,
+``device_ms`` and kernels a call as above, µs a step, or the checkout's
+refusal (its ValueError) where its layout rule refuses B.
+
 Run two checkouts in turns in one session on one card (parent, change,
 change, parent) to compare them; every number is only comparable with the
 others of the same session.
@@ -61,11 +67,61 @@ def host_us(fn, calls=200, repeats=10):
     return min(per), float(np.median(per))
 
 
+MEAN_SLOTS = (2, 4, 8, 16, 32, 64, 128)
+
+
+def kernel_ms(fn, reps=50):
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def mean_rows(ops, nc, k, dev):
+    """The ``mean`` route at every B of ``MEAN_SLOTS``, per-slot members."""
+    import torch
+    rows = []
+    for b in MEAN_SLOTS:
+        g = torch.Generator().manual_seed(2)
+
+        def r(*shape, s=1.0):
+            return (s * torch.randn(shape, generator=g,
+                                    dtype=torch.float64)).to(dev)
+        lanes = [r(nc, s=0.5), r(nc, s=0.5), r(b, nc), r(b, nc), r(b, 1),
+                 r(b, 1, nc, s=0.3), r(b, 1, nc, s=0.3), r(b, 1, 1, s=0.2),
+                 r(b, 1, s=0.1), r(b, nc, 1, s=0.5 / nc),
+                 r(b, nc, 1, s=0.5 / nc)]
+        mask = torch.ones(b, dtype=torch.bool, device=dev)
+
+        def call():
+            return ops.decode_fused(*lanes, mask, k=k, ensemble="mean")
+        try:
+            call()
+        except ValueError as e:
+            rows.append({"b": b, "refused": str(e)})
+            continue
+        ms, per_call, _ = device_kernels(call)
+        rows.append({"b": b, "kernel_ms": kernel_ms(call), "device_ms": ms,
+                     "kernels_per_call": per_call,
+                     "us_per_step": ms * 1e3 / k})
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--mean", action="store_true",
+                    help="time the ensemble='mean' route at MEAN_SLOTS")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -89,6 +145,16 @@ def main():
              r(1, nc, s=0.3), r(1, nc, s=0.3), r(1, 1, s=0.2), r(1, s=0.1),
              r(nc, 1, s=0.5 / nc), r(nc, 1, s=0.5 / nc)]
     mask = torch.ones(b, dtype=torch.bool, device=dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0] if smi else "nvidia-smi: no output"
+    if args.mean:
+        print(json.dumps({"label": args.label, "src": args.src,
+                          "mean": mean_rows(ops, nc, k, dev),
+                          "lanes": nc, "d": 1, "k": k, "dtype": "float64",
+                          "card": card}), flush=True)
+        return
 
     def split():
         return ops.decode_fused(*lanes, mask, k=k)
@@ -118,10 +184,7 @@ def main():
         "device_ms": ms, "kernels_per_call": per_call, "kernels": names,
         "host_us": least, "host_us_median": median,
         "host_us_torch_add": add[0], "host_us_torch_add_median": add[1]}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    out["card"] = smi.splitlines()[0] if smi else "nvidia-smi: no output"
+    out["card"] = card
     print(json.dumps(out), flush=True)
 
 

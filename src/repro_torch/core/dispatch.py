@@ -16,8 +16,9 @@ runs, from the shape of the work and the device it lives on:
 Closed-loop decode has its own funnel: ``run_decode_fused`` executes K
 feedback steps per call through ``kernels.ops.decode_fused_packed`` — the
 fused CUDA kernel on the GPU, reading the packed layout in place, the plain
-version on the CPU (the wrapper routes by device, so there is no decode
-method to choose here).
+version on the CPU.  ``resolve_decode_method`` names the two: ``"kernel"``
+on CUDA, ``"ref"`` elsewhere; ``"ref"`` on the card only when the caller
+asks for it.
 
 All entry points take Q-basis (Appendix-A realified) operands.
 """
@@ -34,6 +35,7 @@ __all__ = [
     "KERNEL_MIN_T",
     "resolve_method",
     "run_scan_q",
+    "resolve_decode_method",
     "run_decode_fused",
 ]
 
@@ -126,9 +128,18 @@ def run_scan_q(lam_q, x_q, n_real: int, h0=None, *, method: str = "auto",
 # --------------------------------------------------------------------------- #
 # Fused multi-token closed-loop decode                                         #
 # --------------------------------------------------------------------------- #
+def resolve_decode_method(device=None) -> str:
+    """Backend for the fused K-token decode: ``"kernel"`` (the CUDA kernel,
+    ``kernels.ops.decode_fused_packed``) where the work lives on CUDA —
+    ``device=None`` means the GPU, as for every entry point of the port —
+    and ``"ref"`` (the plain version) elsewhere.  Decode is step-serial at
+    any K, so there is no threshold: the device alone decides."""
+    return "kernel" if _device_type(device) == "cuda" else "ref"
+
+
 def run_decode_fused(lam_q, n_real: int, w_drive, w_out, states, y_prev,
                      mask, k: int, *, use_bias: bool, use_feedback: bool,
-                     ensemble: str = "off"):
+                     ensemble: str = "off", method: str = "auto"):
     """Execute K fused closed-loop decode steps over the slot block.
 
     ``lam_q``: (N,) packed — or (B, N) for a slot-batched param stack;
@@ -137,10 +148,20 @@ def run_decode_fused(lam_q, n_real: int, w_drive, w_out, states, y_prev,
     one; ``w_out``: (F, D) / (B, F, D) readout with rows
     ``[bias? | y_prev? | states]``; ``states``/``y_prev``/``mask``: the
     (B, N)/(B, D)/(B,) arena tensors.  Returns ``(states', y_prev', ys)`` in
-    the packed layout, ``ys`` (k, B, D).  ``kernels.ops.decode_fused_packed``
-    picks the CUDA kernel (one launch, reading and writing the packed
-    layout in place) or the plain version from the tensors' device.
+    the packed layout, ``ys`` (k, B, D).  ``method``: ``"auto"``
+    (:func:`resolve_decode_method` of the states' device), ``"kernel"``
+    (``kernels.ops.decode_fused_packed``: one launch of the CUDA kernel,
+    reading and writing the packed layout in place — the plain version for
+    CPU tensors) or ``"ref"`` (``kernels.ref.decode_fused_packed_ref`` on
+    any device).
     """
-    return kernel_ops.decode_fused_packed(
-        lam_q, n_real, w_drive, w_out, states, y_prev, mask, k=k,
-        use_bias=use_bias, use_feedback=use_feedback, ensemble=ensemble)
+    if method == "auto":
+        method = resolve_decode_method(states.device)
+    if method not in ("kernel", "ref"):
+        raise ValueError(f"unknown decode method {method!r}: 'auto', "
+                         f"'kernel' or 'ref'")
+    fn = (kernel_ops.decode_fused_packed if method == "kernel"
+          else kernel_refs.decode_fused_packed_ref)
+    return fn(lam_q, n_real, w_drive, w_out, states, y_prev, mask, k=k,
+              use_bias=use_bias, use_feedback=use_feedback,
+              ensemble=ensemble)

@@ -34,21 +34,29 @@ __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
            "decode_fused_cuda", "decode_fused_packed_cuda", "decode_layout",
            "decode_max_threads", "DecodeLayout", "scan_chunks",
            "SCAN_TARGET_THREADS", "SCAN_MIN_CHUNK",
-           "DECODE_LANES_PER_THREAD", "DECODE_AIM_WARPS", "DECODE_PER",
-           "DECODE_MAX_D", "DECODE_MAX_WARPS", "DECODE_MAX_SMEM_BYTES"]
+           "DECODE_LANES_PER_THREAD", "DECODE_AIM_WARPS",
+           "DECODE_MEAN_AIM_WARPS", "DECODE_PER",
+           "DECODE_MAX_D", "DECODE_MAX_WARPS", "DECODE_MAX_SMEM_BYTES",
+           "DECODE_MAX_CLUSTER"]
 
 #: B2's layout rule (:func:`decode_layout`): the lanes a thread it aims at
 #: for D = 1 and for D > 1 and the most warps a row it aims at
-#: (``chip_smoke.py`` phase 4's sweep of W), the lanes-a-thread
+#: (``chip_smoke.py`` phase 4's sweep of W), the warps a row the ``mean``
+#: route aims at (the fewest that fit: its exchange grows with W, and
+#: phase 4's sweep of the mean route's W shows the fewest fastest at 525
+#: float64 lanes), the lanes-a-thread
 #: instantiations of ``csrc/decode_fused.cu`` (a layout rounds up to the
 #: next), the most outputs D, warps a block and dynamic shared memory a
-#: block (227 KB) it takes.
+#: block (227 KB) it takes, and the most blocks in the ``mean`` route's
+#: thread-block cluster (the H100's non-portable cluster size).
 DECODE_LANES_PER_THREAD = (8, 4)
 DECODE_AIM_WARPS = 8
+DECODE_MEAN_AIM_WARPS = 1
 DECODE_PER = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16)
 DECODE_MAX_D = 8
 DECODE_MAX_WARPS = 32
 DECODE_MAX_SMEM_BYTES = 232448
+DECODE_MAX_CLUSTER = 16
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -303,13 +311,17 @@ def diag_scan_lanes_bwd_cuda(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
 class DecodeLayout(NamedTuple):
     """How one decode call runs: ``warps`` a slot row, ``per`` lanes a
     thread (the instantiation, rounded up), ``copies`` of the lane operands
-    in shared memory, ``smem`` its dynamic shared memory in bytes, and
-    ``threads`` a block."""
+    in shared memory, ``smem`` its dynamic shared memory in bytes,
+    ``threads`` a block, ``rows`` a block and ``cluster``, the blocks of the
+    ``mean`` route's one thread-block cluster (the ``off`` route launches
+    one plain block a row: ``rows`` and ``cluster`` 1)."""
     warps: int
     per: int
     copies: int
     smem: int
     threads: int
+    rows: int = 1
+    cluster: int = 1
 
 
 def decode_max_threads(per: int, d: int, itemsize: int) -> int:
@@ -327,8 +339,11 @@ def decode_max_threads(per: int, d: int, itemsize: int) -> int:
     return 512
 
 
-def _decode_fit(warps, nc, d, itemsize, rows, copies):
-    """The layout of ``warps`` warps a row, or None if it does not fit."""
+def _decode_fit(warps, nc, d, itemsize, rows, copies, seen=1, header=0):
+    """The layout of ``warps`` warps a row and ``rows`` rows a block, or
+    None if it does not fit; ``seen``: the rows whose mask and readout
+    partials a block keeps (every row of the cluster for ``mean``);
+    ``header``: bytes ahead of them (``mean``'s two mbarriers)."""
     need = -(-nc // (32 * warps))
     per = next((p for p in DECODE_PER if p >= need), None)
     threads = rows * 32 * warps
@@ -336,17 +351,33 @@ def _decode_fit(warps, nc, d, itemsize, rows, copies):
             threads > decode_max_threads(per, d, itemsize):
         return None
     # Shared lane operands: ``per`` slots a thread (padded ones zero).
-    smem = itemsize * (copies * per * (2 + 4 * d) * 32 * warps
-                       + rows * (d * d + d) + rows + 2 * rows * warps * d)
+    smem = header + itemsize * (copies * per * (2 + 4 * d) * 32 * warps
+                                + rows * (d * d + d) + seen
+                                + 2 * seen * warps * d)
     if smem > DECODE_MAX_SMEM_BYTES:
         return None
-    return DecodeLayout(warps, per, copies, smem, threads)
+    return DecodeLayout(warps, per, copies, smem, threads, rows)
+
+
+def _mean_fits(b, nc, d, itemsize, batched, rows, options):
+    """The ``mean`` layouts of B rows at ``rows`` rows a block (default:
+    one while B <= DECODE_MAX_CLUSTER, else the fewest that keep the
+    cluster at DECODE_MAX_CLUSTER blocks), one per W in ``options`` that
+    fits."""
+    r = rows or -(-b // DECODE_MAX_CLUSTER)
+    g = -(-b // r)
+    if not 1 <= r <= b or g > DECODE_MAX_CLUSTER:
+        return []
+    return [lay._replace(cluster=g) for w in options
+            if (lay := _decode_fit(w, nc, d, itemsize, r,
+                                   r if batched else 1, seen=b, header=16))]
 
 
 @functools.lru_cache(maxsize=1024)
 def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
                   ensemble: str = "off", batched: bool = False,
-                  warps: Optional[int] = None) -> DecodeLayout:
+                  warps: Optional[int] = None,
+                  rows: Optional[int] = None) -> DecodeLayout:
     """The decode kernel's layout for B rows of NC lanes and D outputs, or
     a ValueError naming the limit the shape exceeds.
 
@@ -355,11 +386,16 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
     thread (8 for D = 1, 4 above): W = the smallest power of two with
     NC <= 32 W x that, at most DECODE_AIM_WARPS (past it more lanes a
     thread cost less than a wider barrier) — or, where that W does not fit
-    (registers, lanes a thread, shared memory), the nearest one that does.  ``ensemble="mean"``: every row in
-    one block (B x W <= 32 warps), W the nearest fitting one to the same
-    aim; per-slot (``batched``) operands take one shared-memory copy a row.
-    ``warps`` forces W (the sweep in ``chip_smoke.py`` uses it).  Cached:
-    a serving loop asks for the same few shapes every call."""
+    (registers, lanes a thread, shared memory), the nearest one that does.
+    ``ensemble="mean"``: the rows spread over one thread-block cluster of
+    G = ceil(B / R) <= DECODE_MAX_CLUSTER blocks of R rows (R = 1 while
+    B <= DECODE_MAX_CLUSTER, else the fewest that keep G there), R x W <=
+    DECODE_MAX_WARPS, W the nearest fitting one to DECODE_MEAN_AIM_WARPS
+    (the fewest); per-slot (``batched``) operands take one shared-memory
+    copy a row of a block.  At NC = 525 (n = 1024), float64, D = 1 that
+    is W = 2 and holds 128 rows.  ``warps`` forces W and ``rows`` forces R
+    (``chip_smoke.py``'s sweeps; ``rows=B`` is the one-block layout).
+    Cached: a serving loop asks for the same few shapes every call."""
     if ensemble not in ("off", "mean"):
         raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
     if not 1 <= d <= DECODE_MAX_D:
@@ -369,42 +405,62 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
         raise ValueError(f"decode_fused kernel needs B >= 1 and NC >= 1, "
                          f"got B={b}, NC={nc}")
     mean = ensemble == "mean"
-    rows, copies = (b, b if batched else 1) if mean else (1, 1)
-    lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
-    while aim < DECODE_AIM_WARPS and 32 * aim * lanes < nc:
-        aim *= 2
+    if rows is not None and not mean:
+        raise ValueError("decode_fused kernel: rows= applies to "
+                         "ensemble='mean' only")
     options = [w for w in (1, 2, 4, 8, 16, 32) if warps in (None, w)]
-    fits = [lay for w in options
-            if (lay := _decode_fit(w, nc, d, itemsize, rows, copies))]
+    if mean:
+        aim = DECODE_MEAN_AIM_WARPS
+        fits = _mean_fits(b, nc, d, itemsize, batched, rows, options)
+    else:
+        lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
+        while aim < DECODE_AIM_WARPS and 32 * aim * lanes < nc:
+            aim *= 2
+        fits = [lay for w in options
+                if (lay := _decode_fit(w, nc, d, itemsize, 1, 1))]
     if fits:
         # Nearest to the aim in powers of two; the larger on a tie.
         return min(fits, key=lambda lay: (abs(lay.warps.bit_length()
                                               - aim.bit_length()),
                                           -lay.warps))
-    if warps is not None:
-        raise ValueError(f"decode_fused kernel: warps={warps} does not fit "
+    if warps is not None or rows is not None:
+        forced = ", ".join(f"{k}={v}" for k, v in (("warps", warps),
+                                                   ("rows", rows))
+                           if v is not None)
+        raise ValueError(f"decode_fused kernel: {forced} does not fit "
                          f"B={b}, NC={nc}, D={d} ({ensemble})")
     if mean:
+        most = _most(lambda m: _mean_fits(m, nc, d, itemsize, batched, None,
+                                          options), DECODE_MAX_CLUSTER
+                     * DECODE_MAX_WARPS)
         raise ValueError(
-            f"decode_fused kernel with ensemble='mean' runs every row in "
-            f"one block of at most {DECODE_MAX_WARPS} warps, "
-            f"{max(DECODE_PER)} lanes a thread, the registers of an SM and "
-            f"{DECODE_MAX_SMEM_BYTES} bytes of shared memory: B={b}, "
-            f"NC={nc}, D={d} ({'per-slot' if batched else 'shared'} "
-            f"weights, {8 * itemsize}-bit) does not fit")
-    lo, hi = 1, nc                       # the most lanes that fit
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if any(_decode_fit(w, mid, d, itemsize, 1, 1)
-               for w in (1, 2, 4, 8, 16, 32)):
-            lo = mid
-        else:
-            hi = mid - 1
+            f"decode_fused kernel with ensemble='mean' spreads the rows over "
+            f"one cluster of at most {DECODE_MAX_CLUSTER} blocks, each of at "
+            f"most {DECODE_MAX_WARPS} warps, {max(DECODE_PER)} lanes a "
+            f"thread, the registers of an SM and {DECODE_MAX_SMEM_BYTES} "
+            f"bytes of shared memory: B={b}, NC={nc}, D={d} "
+            f"({'per-slot' if batched else 'shared'} weights, "
+            f"{8 * itemsize}-bit) does not fit: B <= {most} fits")
+    most = _most(lambda m: any(_decode_fit(w, m, d, itemsize, 1, 1)
+                               for w in (1, 2, 4, 8, 16, 32)), nc)
     raise ValueError(
         f"decode_fused kernel holds a row's lanes in one block (at most "
         f"{max(DECODE_PER)} lanes a thread, the registers of an SM, "
         f"{DECODE_MAX_SMEM_BYTES} bytes of shared memory): NC={nc} with "
-        f"D={d} ({8 * itemsize}-bit) exceeds it: NC <= {lo} fits")
+        f"D={d} ({8 * itemsize}-bit) exceeds it: NC <= {most} fits")
+
+
+def _most(fits, hi: int) -> int:
+    """The largest m in [0, hi] with ``fits(m)`` (0 if none; ``fits`` holds
+    up to some m and not past it)."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def _batch_stride(name, w, shared_shape, b, dtype, device) -> int:
@@ -463,19 +519,22 @@ def _decode_launch(dtype, layout, dev, *fields):
     """Call ``decode_fused_<f32|f64>`` with ``fields`` (``DecodeCall`` up to
     ``seed_mean``), the layout and the stream packed into one int64
     block."""
-    block = array("q", (*fields, layout.copies, layout.smem, _stream(dev)))
+    block = array("q", (*fields, layout.rows, layout.cluster, layout.copies,
+                        layout.smem, _stream(dev)))
     _check(_entry("decode_fused", dtype)(block.buffer_info()[0]),
            "decode_fused")
 
 
 def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
                       wh_re, wh_im, mask, *, k: int, ensemble: str = "off",
-                      warps: Optional[int] = None):
+                      warps: Optional[int] = None,
+                      rows: Optional[int] = None):
     """K closed-loop decode steps through the CUDA kernel, on split lanes.
 
     Same operands and result as ``ref.decode_fused_ref``: ``h_*`` (B, NC),
     ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).
-    ``warps``: force W (default :func:`decode_layout`'s rule).
+    ``warps`` / ``rows``: force W / the ``mean`` route's rows a block
+    (default :func:`decode_layout`'s rule).
     Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D)."""
     dev, dtype = _decode_operands(y0, ensemble, k)
     (b, d), nc = y0.shape, h_re.shape[-1]
@@ -487,7 +546,8 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     wh_sb = _pair_stride("wh", wh_re, wh_im, (nc, d), b, dtype, dev)
     m = _mask_bytes(mask, b, dev)
     layout = decode_layout(b, nc, d, y0.element_size(), ensemble=ensemble,
-                           batched=bool(a_sb or wd_sb or wh_sb), warps=warps)
+                           batched=bool(a_sb or wd_sb or wh_sb), warps=warps,
+                           rows=rows)
     o_h_re = torch.empty_like(h_re)
     o_h_im = torch.empty_like(h_re)
     o_y = torch.empty_like(y0)

@@ -310,18 +310,18 @@ def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
     fused K-token decode kernel) or ``"step"`` (:func:`closed_loop`, one
     step at a time on the same device).  ``weighted`` voting takes the
     step path everywhere (the kernel reduces by plain mean only, as in the
-    JAX package).  On CUDA, ``mean`` runs every row in one block of the
-    kernel, so an arena whose B rows of NC lanes do not fit that block
-    (``kernels.diag_scan.decode_layout``: at n = 1024, float64, per-slot
-    members, more than 8 slots) takes the step path; the plain version on
-    the CPU has no such limit.  Decided before any launch, never by
+    JAX package).  On CUDA, ``mean`` spreads the rows over one
+    thread-block cluster of the kernel, so an arena whose B rows of NC
+    lanes exceed it (``kernels.diag_scan.decode_layout``: at n = 1024,
+    float64, more than 128 slots) takes the step path; the plain version
+    on the CPU has no such limit.  Decided before any launch, never by
     catching a launch's error."""
     if ensemble == "weighted":
         return "step"
     if device_type == "cuda" and ensemble == "mean":
         try:
             decode_layout(b, nc, d, itemsize, ensemble="mean",
-                                      batched=per_slot)
+                          batched=per_slot)
         except ValueError:
             return "step"
     return "fused"
@@ -348,20 +348,20 @@ def closed_loop_route(params, w_out, arena: SlotArena, *,
 
 def closed_loop_fused(params, w_out, arena: SlotArena, mask, n_steps: int,
                       ens_weights=None, *, batched: bool = False,
-                      ensemble: str = "off"):
+                      ensemble: str = "off", method: str = "auto"):
     """:func:`closed_loop` through the fused K-token decode kernel: one
     launch runs all ``n_steps`` (``core.dispatch.run_decode_fused`` — the
-    CUDA kernel on the GPU, the plain version elsewhere), including the
-    ``mean`` ensemble's reduce and seed.  Where :func:`closed_loop_route`
-    says ``"step"`` (dense params, a missing readout, ``weighted`` voting,
-    a ``mean`` arena past the kernel's one-block limit) it runs
-    :func:`closed_loop` instead; the fused path reads ``batched`` from the
-    shape of ``lam_q``.  A sharded arena on the fused route runs it once a
-    cell."""
+    CUDA kernel on the GPU, the plain version elsewhere; ``method`` as
+    there), including the ``mean`` ensemble's reduce and seed.  Where
+    :func:`closed_loop_route` says ``"step"`` (dense params, a missing
+    readout, ``weighted`` voting, a ``mean`` arena past the kernel's
+    cluster limit) it runs :func:`closed_loop` instead; the fused path
+    reads ``batched`` from the shape of ``lam_q``.  A sharded arena on the
+    fused route runs it once a cell."""
     if isinstance(arena, ShardedArena):
         return _sh_closed_loop_fused(params, w_out, arena, mask, n_steps,
                                      ens_weights, batched=batched,
-                                     ensemble=ensemble)
+                                     ensemble=ensemble, method=method)
     if closed_loop_route(params, w_out, arena, ensemble=ensemble) == "step":
         return closed_loop(params, w_out, arena, mask, n_steps, ens_weights,
                            batched=batched, ensemble=ensemble)
@@ -371,7 +371,7 @@ def closed_loop_fused(params, w_out, arena: SlotArena, mask, n_steps: int,
     states, y_prev, ys = dispatch_mod.run_decode_fused(
         params.lam_q, params.n_real, w_drive, w_out, arena.states,
         arena.y_prev, mask, int(n_steps), use_bias=cfg.use_bias,
-        use_feedback=cfg.use_feedback, ensemble=ensemble)
+        use_feedback=cfg.use_feedback, ensemble=ensemble, method=method)
     return dataclasses.replace(arena, states=states, y_prev=y_prev), ys
 
 
@@ -850,7 +850,7 @@ def _sh_closed_loop_route(params, w_out, arena, *, ensemble):
 
 
 def _sh_closed_loop_fused(params, w_out, arena, mask, n_steps, ens_weights,
-                          *, batched, ensemble):
+                          *, batched, ensemble, method):
     if _sh_closed_loop_route(params, w_out, arena,
                              ensemble=ensemble) == "step":
         return _sh_closed_loop(params, w_out, arena, mask, n_steps,
@@ -866,7 +866,7 @@ def _sh_closed_loop_fused(params, w_out, arena, mask, n_steps, ens_weights,
             cells[i][j], y = closed_loop_fused(
                 lay.params[i, j], w_cells[i, j], cells[i][j],
                 lay.cut(mask, i, j), n_steps, lay.cut(ens_weights, i, j),
-                batched=batched, ensemble=ensemble)
+                batched=batched, ensemble=ensemble, method=method)
             if j == 0:
                 ys.append(y)
     return _with_cells(arena, cells), _join_rows(lay, ys, 1)

@@ -25,6 +25,7 @@ import json
 import os
 import re
 import shutil
+import threading
 from concurrent.futures import Executor, Future
 from typing import Dict, Optional
 
@@ -34,7 +35,8 @@ import torch
 from .. import dist
 from ..tree import flatten, unflatten
 
-__all__ = ["save", "save_async", "all_steps", "latest_step", "restore"]
+__all__ = ["save", "save_async", "wait_pending", "all_steps", "latest_step",
+           "restore"]
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
@@ -90,10 +92,20 @@ def _write(ckpt_dir: str, step: int, arrays: Dict[str, tuple],
     return path
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
-    """Write a checkpoint of ``tree`` now; returns its path.  A sharded tree
-    is saved by every rank's call together (see the module docstring)."""
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
+         async_: bool = False) -> str:
+    """Write a checkpoint of ``tree``; returns its path.  ``async_=True``
+    copies the tree to the host now and returns at once: a daemon thread
+    writes it, and :func:`wait_pending` joins the writes (as the JAX
+    package's ``save``).  A sharded tree is saved by every rank's call
+    together, at once (see the module docstring)."""
     arrays = _snapshot(tree)
+    if async_ and not _sharded(tree):
+        t = _Write(target=_write, args=(ckpt_dir, step, arrays, keep),
+                   daemon=True)
+        t.start()
+        _PENDING.append(t)
+        return _step_dir(ckpt_dir, step)
     if not _sharded(tree):
         return _write(ckpt_dir, step, arrays, keep)
     import torch.distributed as tdist
@@ -113,6 +125,34 @@ def save_async(executor: Executor, ckpt_dir: str, step: int, tree, *,
         fut.set_result(save(ckpt_dir, step, tree, keep=keep))
         return fut
     return executor.submit(_write, ckpt_dir, step, _snapshot(tree), keep)
+
+
+class _Write(threading.Thread):
+    """A write of ``save(..., async_=True)``; keeps its error for
+    :func:`wait_pending`."""
+    error = None
+
+    def run(self):
+        try:
+            super().run()
+        except BaseException as e:   # re-raised by wait_pending
+            self.error = e
+
+
+_PENDING: list = []
+
+
+def wait_pending() -> None:
+    """Join every write ``save(..., async_=True)`` started; raises the
+    first one's error, if a write failed, once all have ended."""
+    errors = []
+    for t in list(_PENDING):
+        t.join()
+        _PENDING.remove(t)
+        if t.error is not None:
+            errors.append(t.error)
+    if errors:
+        raise errors[0]
 
 
 def all_steps(ckpt_dir: str):

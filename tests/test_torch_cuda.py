@@ -326,15 +326,15 @@ DECODE_SHAPES = [(8, 525, 1), (3, 40, 2), (1, 700, 1), (16, 525, 1),
 
 
 def _decode_or_limit(ensemble, b, nc, d, batched, call):
-    """``call()``, or — where the one-block ``mean`` route cannot hold the
+    """``call()``, or — where the ``mean`` route's cluster cannot hold the
     shape — the ValueError that names the limit, before any launch."""
     try:
         decode_layout(b, nc, d, 8, ensemble=ensemble, batched=batched)
     except ValueError:
         assert ensemble == "mean", "the off route takes every test shape"
         before = ops.decode_fused.launches
-        with pytest.raises(ValueError, match="ensemble='mean' runs every "
-                                             "row in one block"):
+        with pytest.raises(ValueError, match="ensemble='mean' spreads the "
+                                             "rows over one cluster"):
             call()
         assert ops.decode_fused.launches == before
         return None
@@ -454,6 +454,67 @@ def test_decode_fused_split_runs_repeat_bitwise(dev, ensemble):
     second = ops.decode_fused(*args, mask, k=128, ensemble=ensemble)
     for a_, b_ in zip(first, second):
         assert torch.equal(a_, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("b", [1, 3, 8, 16, 17, 32])
+def test_decode_mean_cluster_matches_plain(dev, b, batched, d, dtype):
+    """B2's ``mean`` route on its thread-block cluster (one block a row up
+    to 16 rows, two from 17) against the plain version at 525 lanes, K =
+    128, with row 1 frozen: one launch, the B2 tolerance (2e-4 in float32,
+    1e-9 max(|ref|, 1) in float64), the frozen row's state and output
+    kept, and every live row fed back the same y, bit for bit."""
+    args = [v.to(dtype) for v in decode_inputs(b, 525, d, batched, dev)]
+    mask = torch.arange(b, device=dev) != 1
+    lay = decode_layout(b, 525, d, args[0].element_size(), ensemble="mean",
+                        batched=batched)
+    assert lay.cluster == -(-b // lay.rows) <= 16
+    before = ops.decode_fused.launches
+    got = ops.decode_fused(*args, mask, k=128, ensemble="mean")
+    assert ops.decode_fused.launches == before + 1
+    torch.cuda.synchronize()
+    want = ref.decode_fused_ref(*args, mask, k=128, ensemble="mean")
+    for g_, w_ in zip(got, want):
+        assert bool(torch.isfinite(g_).all())
+        _close_scaled(g_, w_, dtype)
+    live = mask.nonzero()[:, 0]
+    assert torch.equal(got[3][:, live], got[3][:, live[:1]].expand(
+        -1, len(live), -1))
+    assert torch.equal(got[2][live], got[2][live[:1]].expand(len(live), -1))
+    if b > 1:
+        assert torch.equal(got[0][1], args[2][1])
+        assert torch.equal(got[3][:, 1], args[4][1].expand(128, d))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("b", [64, 128])
+def test_decode_mean_cluster_at_the_limit(dev, b, batched):
+    """The rule's largest ``mean`` layouts at n = 1024 (525 float64 lanes):
+    64 rows at 4 a block and 128 at 8 a block (W = 2; 221 KB of shared
+    memory a block with per-slot operands), 16 blocks a cluster — the card
+    holds the cluster (the launcher raises if it does not) and the kernel
+    matches the plain version; 129 rows are refused before any launch."""
+    args = decode_inputs(b, 525, 1, batched, dev)
+    mask = torch.arange(b, device=dev) % 7 != 1
+    lay = decode_layout(b, 525, 1, 8, ensemble="mean", batched=batched)
+    assert (lay.cluster, lay.rows) == (16, b // 16)
+    got = ops.decode_fused(*args, mask, k=128, ensemble="mean")
+    torch.cuda.synchronize()
+    want = ref.decode_fused_ref(*args, mask, k=128, ensemble="mean")
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    live = mask.nonzero()[:, 0]
+    assert torch.equal(got[3][:, live], got[3][:, live[:1]].expand(
+        -1, len(live), -1))
+    more = decode_inputs(129, 525, 1, batched, dev)
+    before = ops.decode_fused.launches
+    with pytest.raises(ValueError, match="B <= 128 fits"):
+        ops.decode_fused(*more, torch.ones(129, dtype=torch.bool, device=dev),
+                         k=8, ensemble="mean")
+    assert ops.decode_fused.launches == before
 
 
 def test_run_decode_fused_is_one_launch(dev):
@@ -660,42 +721,36 @@ def test_ensemble_engine_on_card_matches_cpu(dev, ensemble):
 
 
 def test_mean_ensemble_of_16_slots_at_n1024_raises_the_limit(dev):
-    """B2's mean route holds every row in one block: 16 per-slot rows of
-    525 float64 lanes exceed it.  The route is decided from the shapes
-    before any launch (``arena.decode_route``): the engine serves them on
-    the step-at-a-time path on the card, launches no B2, counts the wave
-    under ``step`` and holds against the CPU engine, elementwise at
-    1e-9 max(|ref|, 1); 8 slots still take one B2 launch a wave."""
-    params, ro, sig = _ensemble(16, 1024)
-    outs = {}
-    for device in (dev, torch.device("cpu")):
-        eng = ReservoirEngine.from_param_batch(params, ro, ensemble="mean",
-                                               device=device)
-        for i in range(16):
-            eng.submit(i, sig[:256, None])
-        eng.flush()
-        before = ops.decode_fused.launches
-        ys = eng.decode_closed_loop(8)
-        outs[device.type] = ([ys[i].cpu() for i in range(16)]
-                             + [eng.states.cpu(), eng.y_prev.cpu()],
-                             ops.decode_fused.launches - before,
-                             eng.stats().decode_waves_by_route)
-    assert outs["cuda"][1] == 0
-    assert outs["cuda"][2] == {"fused": 0, "step": 1}
-    assert outs["cpu"][2] == {"fused": 1, "step": 0}
-    for g_, w_ in zip(outs["cuda"][0], outs["cpu"][0]):
-        assert bool(torch.isfinite(g_).all())
-        _close(g_, w_)
-    params8, ro8, _ = _ensemble(8, 1024)
-    eng = ReservoirEngine.from_param_batch(params8, ro8, ensemble="mean",
-                                           device=dev)
-    for i in range(8):
-        eng.submit(i, sig[:256, None])
-    eng.flush()
-    before = ops.decode_fused.launches
-    eng.decode_closed_loop(8)
-    assert ops.decode_fused.launches - before == 1
-    assert eng.stats().decode_waves_by_route == {"fused": 1, "step": 0}
+    """B2's mean route spreads the rows over one thread-block cluster, so
+    16 and 32 per-slot rows of 525 float64 lanes decode on it: the engine
+    decodes each wave with ONE B2 launch, counts it under ``fused`` and
+    holds against the CPU engine, elementwise at 1e-9 max(|ref|, 1); 8
+    slots likewise."""
+    for slots in (16, 32, 8):
+        params, ro, sig = _ensemble(slots, 1024)
+        outs = {}
+        for device in (dev, torch.device("cpu")):
+            eng = ReservoirEngine.from_param_batch(params, ro,
+                                                   ensemble="mean",
+                                                   device=device)
+            for i in range(slots):
+                eng.submit(i, sig[8 * i:8 * i + 256, None])
+            eng.flush()
+            before = ops.decode_fused.launches
+            ys = eng.decode_closed_loop(8)
+            outs[device.type] = ([ys[i].cpu() for i in range(slots)]
+                                 + [eng.states.cpu(), eng.y_prev.cpu()],
+                                 ops.decode_fused.launches - before,
+                                 eng.stats().decode_waves_by_route)
+        assert outs["cuda"][1] == 1, slots
+        assert outs["cuda"][2] == {"fused": 1, "step": 0}, slots
+        assert outs["cpu"][2] == {"fused": 1, "step": 0}, slots
+        for g_, w_ in zip(outs["cuda"][0], outs["cpu"][0]):
+            assert bool(torch.isfinite(g_).all())
+            _close(g_, w_)
+            g_, w_ = g_.cpu(), w_.cpu()
+            assert bool(((g_ - w_).abs()
+                         <= 1e-9 * w_.abs().clamp(min=1.0)).all()), slots
 
 
 # --------------------------------------------------------------------------- #

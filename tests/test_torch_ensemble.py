@@ -242,16 +242,45 @@ def test_fused_mean_route_matches_scan_path(partial):
         np.testing.assert_array_equal(_np(ys[0]), _np(ys[i]))
 
 
+@pytest.mark.parametrize("method", ("auto", "kernel", "ref"))
+def test_closed_loop_fused_method_matches_jax(method):
+    """``closed_loop_fused(..., method=)`` as in the JAX package: every
+    method gives the JAX fused loop's ``method="ref"`` stream on the CPU
+    (1e-9), and the port's methods agree with each other bit for bit."""
+    jp, jr, tp, tr, *_ = _batch()
+    je = JaxEngine.from_param_batch(jp, readout=jr, ensemble="mean")
+    te = ReservoirEngine.from_param_batch(tp, tr, ensemble="mean",
+                                          device="cpu")
+    for eng in (je, te):
+        for i in range(3):
+            eng.submit(i, U[600 + 10 * i:700])
+        eng.flush()
+    mask = np.array([True, False, True])
+    ja, jys = jarena.closed_loop_fused(jp, jr.w_out, je.arena,
+                                       jnp.asarray(mask), 7, batched=True,
+                                       ensemble="mean", method="ref")
+    ta, tys = tarena.closed_loop_fused(tp, tr.w_out, te.arena,
+                                       torch.tensor(mask), 7, batched=True,
+                                       ensemble="mean", method=method)
+    for g, w in ((tys, jys), (ta.states, ja.states), (ta.y_prev, ja.y_prev)):
+        np.testing.assert_allclose(_np(g), _np(w), **TOL)
+    _, auto = tarena.closed_loop_fused(tp, tr.w_out, te.arena,
+                                       torch.tensor(mask), 7, batched=True,
+                                       ensemble="mean")
+    assert torch.equal(tys, auto)
+
+
 # ------------------------------------------- the closed-loop route (C7)
 @pytest.mark.parametrize("slots, per_slot, route", [
-    (16, True, "step"), (8, True, "fused"), (16, False, "step"),
-    (9, True, "step")])
+    (16, True, "fused"), (8, True, "fused"), (16, False, "fused"),
+    (9, True, "fused"), (32, True, "fused"), (32, False, "fused"),
+    (128, True, "fused"), (129, True, "step"), (129, False, "step")])
 def test_decode_route_is_a_function_of_the_shapes(slots, per_slot, route):
     """The route chooser, asked for a CUDA device with no card present:
     ``mean`` over B rows of 525 float64 lanes (n = 1024) takes B2 while
-    the rows fit its one block and the step path past it; the CPU's plain
-    version and ``off`` take the fused path at every B; ``weighted``
-    always steps."""
+    the rows fit its thread-block cluster (128 rows) and the step path
+    past it; the CPU's plain version and ``off`` take the fused path at
+    every B; ``weighted`` always steps."""
     kw = dict(ensemble="mean", per_slot=per_slot)
     assert tarena.decode_route(slots, 525, 1, 8, "cuda", **kw) == route
     assert tarena.decode_route(slots, 525, 1, 8, "cpu", **kw) == "fused"
@@ -272,8 +301,8 @@ def _port_batch(b, n=48):
 
 def test_mean_closed_loop_of_16_slots_fused_equals_step():
     """At 16 slots the fused ``mean`` path (its plain version on the CPU)
-    and the step path the card takes there agree to 1e-12 relative, so
-    the route the shapes pick does not change the served stream."""
+    and the step path agree to 1e-12 relative, so the route the shapes
+    pick does not change the served stream."""
     tp, tr = _port_batch(16)
     eng = ReservoirEngine.from_param_batch(tp, tr, ensemble="mean",
                                            device="cpu")

@@ -17,7 +17,8 @@ from torch.autograd import gradcheck
 from repro.core import dispatch as jdispatch
 from repro.kernels import ops as jops
 from repro_torch.core import dispatch as tdispatch
-from repro_torch.kernels.diag_scan import (DECODE_MAX_SMEM_BYTES,
+from repro_torch.kernels.diag_scan import (DECODE_MAX_CLUSTER,
+                                          DECODE_MAX_SMEM_BYTES,
                                           decode_layout, decode_max_threads)
 from repro_torch.kernels import ops as tops
 
@@ -203,12 +204,16 @@ DECODE_NAMES = ("a_re", "a_im", "h_re", "h_im", "y0", "wd_re", "wd_im", "wy",
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
-@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("b,ensemble", [(4, "off"), (4, "mean"),
+                                        (16, "mean"), (17, "mean")])
 @pytest.mark.parametrize("d", [1, 2])
-def test_decode_fused_wrapper_matches_jax_kernel(batched, ensemble, d):
+def test_decode_fused_wrapper_matches_jax_kernel(batched, b, ensemble, d):
+    """The plain version against the JAX kernel (interpret mode) with a
+    frozen row (row 1); B = 16 and 17 are the ``mean`` route's largest
+    one-row-a-block cluster and its first two-rows-a-block one."""
     rng = np.random.default_rng(1)
-    ops = _decode_case(rng, d=d, batched=batched)
-    mask = np.array([True, False, True, True])
+    ops = _decode_case(rng, b=b, d=d, batched=batched)
+    mask = np.arange(b) != 1
     want = jops.decode_fused(*[_j(ops[k]) for k in DECODE_NAMES],
                              jnp.asarray(mask), k=9, ensemble=ensemble)
     before = tops.decode_fused.launches
@@ -250,6 +255,44 @@ def test_run_decode_fused_matches_jax(use_feedback, ensemble):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
 
 
+@pytest.mark.parametrize("method", ["ref", "kernel"])
+def test_run_decode_fused_methods_match_jax(method):
+    """``resolve_decode_method`` and ``run_decode_fused(method=)`` as in the
+    JAX package: ``"ref"`` off the card (JAX: off the TPU), ``"kernel"``
+    on CUDA and by default; each method on CPU tensors against the JAX
+    funnel's ``method="ref"``, and ``"auto"`` bit-equal to the method it
+    resolves to."""
+    assert tdispatch.resolve_decode_method("cpu") == "ref"
+    assert jdispatch.resolve_decode_method("cpu") == "ref"
+    assert tdispatch.resolve_decode_method("cuda") == "kernel"
+    assert tdispatch.resolve_decode_method(torch.device("cuda", 0)) == \
+        "kernel"
+    assert tdispatch.resolve_decode_method() == "kernel"
+    rng = np.random.default_rng(3)
+    nr, npairs, b, d = 2, 6, 5, 2
+    n = nr + 2 * npairs
+    lam_q = np.concatenate([rng.uniform(-0.9, 0.9, (b, nr)),
+                            0.6 * rng.normal(size=(b, 2 * npairs))], -1)
+    w_drive = rng.normal(size=(b, d, n))
+    w_out = 0.1 * rng.normal(size=(b, n + 1 + d, d))
+    states, y_prev = rng.normal(size=(b, n)), rng.normal(size=(b, d))
+    mask = np.arange(b) != 3
+    kw = dict(use_bias=True, use_feedback=True, ensemble="mean")
+    want = jdispatch.run_decode_fused(
+        *map(jnp.asarray, (lam_q,)), nr,
+        *map(jnp.asarray, (w_drive, w_out, states, y_prev, mask)), 5,
+        method="ref", **kw)
+    args = (_t(lam_q), nr, _t(w_drive), _t(w_out), _t(states), _t(y_prev),
+            torch.tensor(mask), 5)
+    got = tdispatch.run_decode_fused(*args, method=method, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+    for g, a in zip(got, tdispatch.run_decode_fused(*args, **kw)):
+        assert torch.equal(g, a)
+    with pytest.raises(ValueError, match="unknown decode method"):
+        tdispatch.run_decode_fused(*args, method="pallas", **kw)
+
+
 def test_decode_layout_limits():
     """The decode kernel's layout rule and limits (``decode_layout``)."""
     lay = decode_layout(8, 525, 1, 8)
@@ -269,14 +312,39 @@ def test_decode_layout_limits():
         decode_layout(4, 8192, 1, 8)
     with pytest.raises(ValueError, match="1 <= D <= 8"):
         decode_layout(4, 64, 9, 8)
-    # ensemble="mean": every row in one block of at most 32 warps.
-    mean = decode_layout(8, 525, 1, 8, ensemble="mean", batched=True)
-    assert (mean.warps, mean.copies, mean.threads) == (2, 8, 512)
-    assert mean.smem <= DECODE_MAX_SMEM_BYTES
-    with pytest.raises(ValueError, match="ensemble='mean' runs every row"):
-        decode_layout(16, 525, 1, 8, ensemble="mean")
+    # ensemble="mean": the rows over one cluster of G <= 16 blocks of R
+    # rows, R x W <= 32 warps, W the fewest that fit; R = 1 up to 16 rows.
+    # rows=B forces the one-block layout (G = 1).
+    one = decode_layout(8, 525, 1, 8, ensemble="mean", batched=True, rows=8)
+    assert (one.warps, one.copies, one.threads, one.cluster) == (2, 8, 512, 1)
+    assert one.smem <= DECODE_MAX_SMEM_BYTES
+    for b in (1, 8, 16):
+        mean = decode_layout(b, 525, 1, 8, ensemble="mean", batched=True)
+        assert (mean.warps, mean.per, mean.copies, mean.threads, mean.rows,
+                mean.cluster) == (2, 9, 1, 64, 1, b)
+    for b, batched in ((16, True), (16, False), (17, True), (32, True),
+                       (64, True), (64, False), (100, True), (128, True)):
+        mean = decode_layout(b, 525, 1, 8, ensemble="mean", batched=batched)
+        assert mean.cluster <= DECODE_MAX_CLUSTER
+        assert mean.cluster * mean.rows >= b > (mean.cluster - 1) * mean.rows
+        assert mean.rows * mean.warps <= 32
+        assert mean.copies == (mean.rows if batched else 1)
+        assert mean.smem <= DECODE_MAX_SMEM_BYTES
+        assert mean.threads <= decode_max_threads(mean.per, 1, 8)
+    assert decode_layout(64, 525, 1, 8, ensemble="mean", batched=True)[
+        :3] == (2, 9, 4)
+    assert decode_layout(128, 525, 1, 8, ensemble="mean", batched=True)[
+        :3] == (2, 9, 8)
+    for batched in (True, False):
+        with pytest.raises(ValueError, match=r"one cluster of at most 16 "
+                                             r"blocks.*B <= 128 fits"):
+            decode_layout(129, 525, 1, 8, ensemble="mean", batched=batched)
     with pytest.raises(ValueError, match="warps=1 does not fit"):
         decode_layout(8, 525, 1, 8, warps=1)
+    with pytest.raises(ValueError, match="rows=3 does not fit"):
+        decode_layout(64, 525, 1, 8, ensemble="mean", rows=3)
+    with pytest.raises(ValueError, match="ensemble='mean' only"):
+        decode_layout(8, 525, 1, 8, rows=1)
 
 
 @pytest.mark.parametrize("per,d,itemsize,threads", [

@@ -285,6 +285,38 @@ def test_checkpoint_layout_bf16_and_retention(tmp_path):
         tckpt.restore(str(tmp_path), 10, {**tree, "a": torch.zeros(2)})
 
 
+def test_async_save_and_wait_pending_as_in_jax(tmp_path):
+    """``save(..., async_=True)`` returns the path at once and
+    ``wait_pending`` joins the writes, as in the JAX package: the same
+    files as a blocking save, the tree copied when ``save`` was called
+    (later in-place edits do not reach it), and the JAX package reads it;
+    a write that fails raises from ``wait_pending``."""
+    tree = {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+            "s": torch.tensor(5, dtype=torch.int64)}
+    want = {k: v.clone() for k, v in tree.items()}
+    path = tckpt.save(str(tmp_path / "port"), 3, tree, async_=True)
+    tree["w"].add_(100.0)
+    tckpt.wait_pending()
+    assert path == str(tmp_path / "port" / "step_00000003")
+    out = tckpt.restore(str(tmp_path / "port"), 3, tree)
+    for k, v in want.items():
+        torch.testing.assert_close(out[k], v, rtol=0, atol=0)
+    jpath = jckpt.save(str(tmp_path / "jax"), 3,
+                       {k: jnp.asarray(v.numpy()) for k, v in want.items()},
+                       async_=True)
+    jckpt.wait_pending()
+    assert sorted(os.listdir(path)) == sorted(os.listdir(jpath))
+    jout = jckpt.restore(str(tmp_path / "port"), 3, {
+        "w": jnp.zeros((3, 4), jnp.float32), "s": jnp.zeros((), jnp.int64)})
+    np.testing.assert_array_equal(np.asarray(jout["w"]), want["w"].numpy())
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    tckpt.save(str(blocker), 1, want, async_=True)
+    with pytest.raises(OSError):
+        tckpt.wait_pending()
+    tckpt.wait_pending()                  # nothing left pending
+
+
 def test_jax_checkpoint_restores_into_the_port(tmp_path):
     """A checkpoint the JAX Trainer wrote restores into the port's state
     with the same keys, shapes and values, and the next step's loss matches
