@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wide 16384 1
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel (the diagonal scan, its backward, the fused decode, flash attention)
@@ -13,7 +14,9 @@ with one row of coefficients a reservoir; the fused decode through both of
 its entries (split lanes, the engine's packed layout), with a sweep of its
 warps a row at five shapes, its mean route on a thread-block cluster at 8,
 16 and 32 slots (and, at 2, 4 and 8, beside the whole arena in one block),
-and the engine's call shown to be one launch — and fails if a decode
+a row's lanes split over a cluster at four wide shapes (``off`` and
+``mean``) with a sweep of the segments a row, and the engine's call shown
+to be one launch — and fails if a decode
 instantiation spills; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
 head_dim 256 (recurrentgemma's local layer, both band chunks in float32
@@ -21,7 +24,7 @@ and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
 printed, and a spill fails the build phase), and at whisper-tiny's encoder
 (1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
-32:8, head_dim 128); then drives the port's nineteen main paths and two
+32:8, head_dim 128); then drives the port's twenty main paths and two
 more phases on the card, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -175,7 +178,18 @@ its own process on its default device; then
    limits), B3 counted in each and launched as often on the mesh; and
    kimi-k2's expert-parallel MoE block (384 experts, top-8, expert width
    2048, d_model 1024, 2 x 256 tokens) against the one-device block at
-   the MoE check's 2e-3.
+   the MoE check's 2e-3;
+20. a wide reservoir through ``ReservoirEngine``: n = 8192 with D = 2
+   outputs fed back, float64, 8 slots, 16 sessions, 1024-token
+   teacher-forced prompts, 128 closed-loop tokens, DPG noise 0.01 and a
+   readout drawn from a seed — every decode wave one B2 launch that splits
+   each row's 4133 lanes over a thread-block cluster, the streams held
+   against the CPU engine elementwise at 1e-9 * max(|ref|, 1).
+
+``--wide N D`` builds the kernels and runs only path 20 at n = N with D
+outputs (``--wide 16384 1``: 8244 lanes, a DPG build of minutes on the
+host), prints the card's name and power limit, and stops without the
+device line.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -782,101 +796,181 @@ def device_kernels(fn, calls: int = 20, windows: int = 3):
             "windows": window}
 
 
-#: Slot counts of phase 4's ``mean`` rows on the cluster, and those timed
-#: beside the one-block layout (``rows=B``: the whole arena in one block).
+#: Slot counts of phase 4's ``mean`` rows at the serving width (525 lanes,
+#: D = 1), those timed beside the one-block layout (``rows=B``: the whole
+#: arena in one block), and the (B, NC, D) past one block, where a row's
+#: lanes split over a cluster: the served model at n = 16384 (8244 lanes),
+#: path 20's n = 8192 at D = 2 (4133 lanes), one lane past the one-block
+#: limit, eight outputs.
 MEAN_SLOTS = (8, 16, 32)
 MEAN_VS_ONE_BLOCK = (2, 4, 8)
+SPLIT_SHAPES = [(8, 8244, 1), (8, 4133, 2), (3, 4609, 1), (2, 8244, 8)]
+#: Phase 4's cluster cases, (B, NC, D, ensemble, per-slot), float64.
+CLUSTER_CASES = (
+    [(b, 525, 1, "mean", batched)
+     for b in sorted(set(MEAN_SLOTS + MEAN_VS_ONE_BLOCK))
+     for batched in (True, False)]
+    + [(b, nc, d, ensemble, True) for b, nc, d in SPLIT_SHAPES
+       for ensemble in ("off", "mean")])
+#: The S sweep at B = 8, ``off``, float64: (D, NC, the segment counts S)
+#: timed beside each other (n = 4096, 8192 and 16384), each at the rule's W
+#: for that S and at every W of SEG_SWEEP_WARPS.
+SEG_SWEEP = ((1, 2074, (1, 2, 4, 8)), (1, 4133, (1, 2, 4, 8)),
+             (1, 8244, (2, 4, 8)), (2, 2074, (1, 2, 4)))
+SEG_SWEEP_WARPS = (4,)
 
 
-def check_mean_cluster(ops, ref, dsk, copy_bw, spills):
-    """B2's ``mean`` route on its thread-block cluster at 525 float64
-    lanes, D = 1, K = 128, per-slot and shared operands: against the plain
-    version with row 1 frozen (every live row fed back the same y, bit for
-    bit), then with every row live its kernel ms (CUDA events), device ms
-    and launches a call (profiler; one a call, or the phase fails), µs a
-    step, the cluster launched, the bound and the plain version's time; at
-    MEAN_VS_ONE_BLOCK slots also the one-block layout's, in the same
-    call, and at 16 per-slot rows every W that fits."""
+def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
+    """B2's thread-block cluster routes at every case of ``cases``: the
+    ``mean`` route's rows over one cluster, and a row's lanes split over S
+    blocks (``off``: a cluster a row; ``mean``: B x S blocks).  Float64,
+    K = 128: both entries (split lanes, packed Q) against their plain
+    versions with row 1 frozen (its state and outputs kept; with ``mean``
+    every live row fed back the same y, bit for bit), then with every row
+    live its kernel ms (CUDA events), device ms and CUDA launches a call
+    (profiler; one, or the phase fails), µs a step, the layout launched,
+    the bound and the plain version's time.  A ``mean`` case whose B x S
+    passes 16 blocks is refused before any launch.  At MEAN_VS_ONE_BLOCK
+    slots also the one-block layout, in the same call, and at 16 per-slot
+    rows every W that fits."""
     import torch
-    nc, d, k = 525, 1, DECODE_K
-    out = []
-    for b in sorted(set(MEAN_SLOTS + MEAN_VS_ONE_BLOCK)):
-        for batched in (True, False):
-            args = decode_inputs(b, nc, d, batched)
-            frozen = torch.arange(b, device="cuda") != 1
-            live = torch.ones(b, dtype=torch.bool, device="cuda")
-            lay = dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+    k, out = DECODE_K, []
+    for b, nc, d, ensemble, batched in cases:
+        case = (f"{ensemble}-{'per_slot' if batched else 'shared'}-B{b}-"
+                f"NC{nc}-D{d}")
+        args = decode_inputs(b, nc, d, batched)
+        try:
+            lay = dsk.decode_layout(b, nc, d, 8, ensemble=ensemble,
                                     batched=batched)
-            got = ops.decode_fused(*args, frozen, k=k, ensemble="mean")
-            want = ref.decode_fused_ref(*args, frozen, k=k, ensemble="mean")
-            errs = [max_err(g, w) for g, w in zip(got, want)]
-            case = f"mean-{'per_slot' if batched else 'shared'}-B{b}"
-            for e, t in errs:
+        except ValueError as e:
+            out.append({"case": case, "refused": str(e)})
+            continue
+        frozen = torch.arange(b, device="cuda") != 1
+        live = torch.ones(b, dtype=torch.bool, device="cuda")
+        got = ops.decode_fused(*args, frozen, k=k, ensemble=ensemble)
+        want = ref.decode_fused_ref(*args, frozen, k=k, ensemble=ensemble)
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        packed = packed_decode_inputs(b, nc, d, batched)
+        kw = dict(k=k, use_bias=True, use_feedback=True, ensemble=ensemble)
+        errs += [max_err(g, w) for g, w in zip(
+            ops.decode_fused_packed(*packed, frozen, **kw),
+            ref.decode_fused_packed_ref(*packed, frozen, **kw))]
+        for e, t in errs:
+            if e > t:
+                fail(f"decode_fused {case}: {e:.3e} > {t:.3e}")
+        if not (torch.equal(got[0][1], args[2][1]) and torch.equal(
+                got[3][:, 1], args[4][1].expand(k, d))):
+            fail(f"decode_fused {case}: the frozen row moved")
+        keep = frozen.nonzero()[:, 0]
+        if ensemble == "mean" and not torch.equal(
+                got[3][:, keep], got[3][:, keep[:1]].expand(-1, len(keep),
+                                                            -1)):
+            fail(f"decode_fused {case}: live rows fed back different y")
+
+        def call():
+            return ops.decode_fused(*args, live, k=k, ensemble=ensemble)
+        row = {"case": case, "shape": [b, nc, d, k], **worst_of(errs),
+               "layout": {"segs": lay.segs, "warps_a_row": lay.warps,
+                          "lanes_a_thread": lay.per,
+                          "rows_a_block": lay.rows, "cluster": lay.cluster,
+                          "blocks": (lay.cluster if ensemble == "mean"
+                                     else b * lay.segs),
+                          "threads_a_block": lay.threads,
+                          "smem_a_block": lay.smem},
+               "ptxas_decode_instantiations_spilling": spills,
+               "ms": time_ms(call, reps=50), **kernel_calls(call, windows=3),
+               "plain_ms": time_ms(lambda: ref.decode_fused_ref(
+                   *args, live, k=k, ensemble=ensemble), reps=2, warmup=1)}
+        if row["cuda_launches_per_call"] != 1:
+            fail(f"decode_fused {case}: {row['cuda_launches_per_call']} "
+                 f"CUDA launches a call, expected 1")
+        row["us_per_step"] = row["device_ms"] * 1e3 / k
+        nbytes, flops, cflops = decode_cost(args, live, k)
+        if ensemble == "mean":
+            # the step's mean over the live rows: a sum and a scale an output
+            flops += k * (b + 1) * d
+        row.update(bound(nbytes, flops, "float64", copy_bw,
+                         contract_flops=cflops))
+        if ensemble == "mean" and nc == 525 and b in MEAN_VS_ONE_BLOCK:
+            one = dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+                                    batched=batched, rows=b)
+
+            def one_call():
+                return dsk.decode_fused_cuda(*args, live, k=k,
+                                             ensemble="mean", rows=b)
+            oerrs = [max_err(g, w) for g, w in zip(
+                dsk.decode_fused_cuda(*args, frozen, k=k, ensemble="mean",
+                                      rows=b), want)]
+            for e, t in oerrs:
                 if e > t:
-                    fail(f"decode_fused {case}: {e:.3e} > {t:.3e}")
-            rows = frozen.nonzero()[:, 0]
-            if not torch.equal(got[3][:, rows], got[3][:, rows[:1]].expand(
-                    -1, len(rows), -1)):
-                fail(f"decode_fused {case}: live rows fed back different y")
+                    fail(f"decode_fused {case} in one block: {e:.3e} > "
+                         f"{t:.3e}")
+            oc = kernel_calls(one_call, windows=3)
+            row["one_block"] = {
+                "warps_a_row": one.warps, "threads": one.threads,
+                **worst_of(oerrs), "ms": time_ms(one_call, reps=50), **oc,
+                "us_per_step": oc["device_ms"] * 1e3 / k}
+        if ensemble == "mean" and nc == 525 and b == 16 and batched:
+            # The rule takes the fewest warps a row that fit
+            # (DECODE_MEAN_AIM_WARPS): every W beside it.
+            sweep = {}
+            for w in (1, 2, 4, 8, 16):
+                try:
+                    dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+                                      batched=True, warps=w)
+                except ValueError:
+                    sweep[w] = "does not fit"
+                    continue
+                sweep[w] = kernel_calls(lambda: dsk.decode_fused_cuda(
+                    *args, live, k=k, ensemble="mean", warps=w),
+                    windows=3)["device_ms"]
+            row["warps_sweep_device_ms"] = sweep
+        out.append(row)
+        print(json.dumps({"decode_fused_cluster": row}), flush=True)
+    return out
 
-            def call():
-                return ops.decode_fused(*args, live, k=k, ensemble="mean")
-            row = {"case": case, "shape": [b, nc, d, k], **worst_of(errs),
-                   "fed_back_y": "bit-equal across live rows",
-                   "cluster": {"blocks": lay.cluster, "rows_a_block":
-                               lay.rows, "warps_a_row": lay.warps,
-                               "lanes_a_thread": lay.per,
-                               "threads_a_block": lay.threads,
-                               "smem_a_block": lay.smem},
-                   "ptxas_decode_instantiations_spilling": spills,
-                   "ms": time_ms(call, reps=50),
-                   **kernel_calls(call, windows=3),
-                   "plain_ms": time_ms(lambda: ref.decode_fused_ref(
-                       *args, live, k=k, ensemble="mean"), reps=2,
-                       warmup=1)}
-            if row["cuda_launches_per_call"] != 1:
-                fail(f"decode_fused {case}: {row['cuda_launches_per_call']}"
-                     f" CUDA launches a call, expected 1")
-            row["us_per_step"] = row["device_ms"] * 1e3 / k
-            nbytes, flops, cflops = decode_cost(args, live, k)
-            row.update(bound(nbytes, flops + k * (b + 1) * d, "float64",
-                             copy_bw, contract_flops=cflops))
-            if b in MEAN_VS_ONE_BLOCK:
-                one = dsk.decode_layout(b, nc, d, 8, ensemble="mean",
-                                        batched=batched, rows=b)
 
-                def one_call():
+def segs_sweep(ref, dsk, sweep=SEG_SWEEP, warps=SEG_SWEEP_WARPS):
+    """B2's device ms (a ``torch.profiler`` window of 20 calls) at 8 rows,
+    K = 128, ``off``, float64, over the segments a row S of each ``sweep``
+    entry, at the rule's W for that S and at each W of ``warps`` that
+    fits; each layout first held against the plain version."""
+    import torch
+    k, out = DECODE_K, {}
+    for d, nc, options in sweep:
+        args = decode_inputs(8, nc, d, False)
+        live = torch.ones(8, dtype=torch.bool, device="cuda")
+        want = ref.decode_fused_ref(*args, live, k=k)
+        rule = dsk.decode_layout(8, nc, d, 8)
+        by = []
+        for segs in options:
+            for w in (None,) + tuple(warps):
+                try:
+                    lay = dsk.decode_layout(8, nc, d, 8, segs=segs, warps=w)
+                except ValueError:
+                    continue
+                if w is not None and w == dsk.decode_layout(
+                        8, nc, d, 8, segs=segs).warps:
+                    continue
+
+                def call():
                     return dsk.decode_fused_cuda(*args, live, k=k,
-                                                 ensemble="mean", rows=b)
-                oerrs = [max_err(g, w) for g, w in zip(
-                    dsk.decode_fused_cuda(*args, frozen, k=k,
-                                          ensemble="mean", rows=b), want)]
-                for e, t in oerrs:
+                                                 segs=segs, warps=w)
+                errs = [max_err(g, v) for g, v in zip(call(), want)]
+                for e, t in errs:
                     if e > t:
-                        fail(f"decode_fused {case} in one block: {e:.3e} > "
-                             f"{t:.3e}")
-                oc = kernel_calls(one_call, windows=3)
-                row["one_block"] = {
-                    "warps_a_row": one.warps, "threads": one.threads,
-                    **worst_of(oerrs), "ms": time_ms(one_call, reps=50),
-                    **oc, "us_per_step": oc["device_ms"] * 1e3 / k}
-            if b == 16 and batched:
-                # The rule takes the fewest warps a row that fit
-                # (DECODE_MEAN_AIM_WARPS): every W beside it.
-                sweep = {}
-                for w in (1, 2, 4, 8, 16):
-                    try:
-                        dsk.decode_layout(b, nc, d, 8, ensemble="mean",
-                                          batched=True, warps=w)
-                    except ValueError:
-                        sweep[w] = "does not fit"
-                        continue
-                    sweep[w] = kernel_calls(lambda: dsk.decode_fused_cuda(
-                        *args, live, k=k, ensemble="mean", warps=w),
-                        windows=3)["device_ms"]
-                row["warps_sweep_device_ms"] = sweep
-            out.append(row)
-            print(json.dumps({"decode_fused_mean": row}), flush=True)
+                        fail(f"decode_fused D {d} NC {nc} at S {segs} x W "
+                             f"{lay.warps}: {e:.3e} > {t:.3e}")
+                dev = kernel_calls(call, windows=3)["device_ms"]
+                by.append({"segs": segs, "warps": lay.warps,
+                           "lanes_a_thread": lay.per,
+                           "rule": (segs, lay.warps) == (rule.segs,
+                                                         rule.warps),
+                           "device_ms": dev, "us_per_step": dev * 1e3 / k,
+                           **worst_of(errs)})
+        out[f"D{d}-NC{nc}"] = by
+        print(json.dumps({"decode_fused_segs_sweep": {f"D{d}-NC{nc}": by}}),
+              flush=True)
     return out
 
 
@@ -3488,7 +3582,159 @@ def slice14_phases(launches, m):
         print(m.smi_line, flush=True)
 
 
-def main() -> None:
+# --------------------------------------------------------------------------- #
+# Slice 16: main path 20, a wide reservoir served end to end                   #
+# --------------------------------------------------------------------------- #
+#: Main path 20: n = 8192 with two outputs fed back (D = 2), float64, 8
+#: slots, 16 sessions, 1024-token prompts (teacher-forced), 128 closed-loop
+#: tokens.  Its 4133 lanes pass the one-block layout at D = 2 (2560), so
+#: every decode wave splits each row over a cluster.  The readout is drawn
+#: from a seed, as the JAX package's D = 2 decode tests draw theirs
+#: (``tests/test_decode_fused.py::test_ref_and_pallas_interpret_agree``):
+#: at this width the ridge fit's Gram is not positive definite in float64
+#: at any alpha up to 1 (ROADMAP C12).  The DPG noise is 0.01, where the
+#: serving profile's 0.1 has modes with |lambda| > 1 that a drawn readout
+#: would feed back without bound.
+WIDE_N, WIDE_D, WIDE_SLOTS, WIDE_SESSIONS = 8192, 2, 8, 16
+WIDE_PROMPT, WIDE_GEN, WIDE_SIGMA = 1024, 128, 0.01
+
+
+def wide_profile(ESNConfig, n=WIDE_N, d=WIDE_D):
+    return ESNConfig(n=n, d_in=d, d_out=d, spectral_radius=0.95, leak=0.9,
+                     input_scaling=0.5, use_feedback=d > 1, seed=0)
+
+
+def wide_signal(mso_series, d=WIDE_D, t=2001):
+    """``d`` MSO channels (3, 5, ... sines): the model's input and output,
+    (t, d)."""
+    return np.stack([mso_series(3 + 2 * i, t) for i in range(d)], -1)
+
+
+def wide_readout(Readout, p, seed=20):
+    """A readout drawn from ``seed`` as the JAX package's D = 2 decode
+    tests draw theirs (normal, scale 0.1), its state rows scaled by 5 / n
+    so that the closed loop's gain stays below one."""
+    import torch
+    f, n, d = p.cfg.n_features, p.cfg.n, p.cfg.d_out
+    w = np.random.default_rng(seed).normal(0.0, 0.1, (f, d))
+    w[f - n:] *= 5.0 / n
+    return Readout(torch.tensor(w, dtype=torch.float64))
+
+
+def wide_sessions(p, ro, sig, ReservoirEngine, device, slots=WIDE_SLOTS,
+                  sessions=WIDE_SESSIONS, prompt=WIDE_PROMPT, gen=WIDE_GEN):
+    """``sessions`` sessions in waves of ``slots``: prefill (teacher-forced
+    where the model feeds its output back), ``gen`` closed-loop tokens,
+    release.  Returns ``({sid: (ys, state, y_prev)}, wall s, decode waves
+    by route, prompt starts)``."""
+    eng = ReservoirEngine(p, slots, readout=ro, device=device)
+    starts = np.random.default_rng(20).integers(
+        0, len(sig) - prompt - gen - 1, size=sessions)
+    outs = {}
+    sync(device)
+    t0 = time.perf_counter()
+    for w0 in range(0, sessions, slots):
+        wave = range(w0, min(w0 + slots, sessions))
+        for sid in wave:
+            lo = int(starts[sid])
+            teacher = (sig[lo + 1:lo + 1 + prompt],) if \
+                p.cfg.use_feedback else ()
+            eng.submit(sid, sig[lo:lo + prompt], *teacher)
+        eng.flush()
+        ys = eng.decode_closed_loop(gen)
+        for sid in wave:
+            outs[sid] = (ys[sid], *eng.release(sid))
+    sync(device)
+    wall = time.perf_counter() - t0
+    return outs, wall, dict(eng.stats().decode_waves_by_route), starts
+
+
+def streams_vs_cpu(card, cpu, tol=F64_TOL, name="path 20"):
+    """Every session's stream, final state and y against the CPU engine's:
+    finite, max |d| within tol x max(|ref|, 1), and elementwise each
+    element within tol x max(|its ref|, 1) (unstable modes grow large)."""
+    import torch
+    worst = {}
+    for sid in card:
+        for what, g, w in zip(("ys", "state", "y_prev"), card[sid],
+                              cpu[sid]):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{name} session {sid} {what} is not finite")
+            err, t = max_err(g, w)
+            g, w = g.cpu(), w.cpu()
+            rel = float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+            if err > t or rel > tol:
+                fail(f"{name} card vs CPU, session {sid} {what}: {err:.3e}"
+                     f" (tol {t:.3e}), elementwise {rel:.3e} > {tol:.0e}")
+            cur = worst.setdefault(what, {"max_abs_err": 0.0, "tol": t,
+                                          "max_rel_err": 0.0,
+                                          "rel_tol": tol})
+            if err > cur["max_abs_err"]:
+                cur.update(max_abs_err=err, tol=t)
+            cur["max_rel_err"] = max(cur["max_rel_err"], rel)
+    return worst
+
+
+def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D):
+    """Main path 20 (phase 30): the wide reservoir (n states, D outputs)
+    on the card, every decode wave one B2 launch that splits each row over
+    a cluster, held against the CPU engine on the same parameters."""
+    phase(f"30 main path 20: a wide reservoir served end to end — n = "
+          f"{n}, D = {d}{' fed back' if d > 1 else ''}, float64, "
+          f"{WIDE_SLOTS} slots, "
+          f"{WIDE_SESSIONS} sessions, {WIDE_PROMPT}-token prompts, "
+          f"{WIDE_GEN} closed-loop tokens, against the CPU engine")
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    cfg = wide_profile(m.ESNConfig, n, d)
+    sig = wide_signal(m.mso_series, d)
+    t0 = time.perf_counter()
+    p = m.esn.dpg_params(cfg, "noisy_golden", sigma=WIDE_SIGMA,
+                         device="cpu")
+    build_s = time.perf_counter() - t0
+    ro = wide_readout(m.Readout, p)
+    nc = (n + int(p.n_real)) // 2
+    lay = dsk.decode_layout(WIDE_SLOTS, nc, d, 8)
+    if lay.segs < 2:
+        fail(f"path 20's {nc} lanes at D = {d} do not split: {lay}")
+    card, wall, routes, _ = drive(
+        "serve_wide", lambda: wide_sessions(p, ro, sig, m.ReservoirEngine,
+                                            "cuda"),
+        ("diag_scan", "decode_fused"))
+    b2 = launches["serve_wide"]["decode_fused"]
+    if routes["step"] or routes["fused"] < 1 or b2 != routes["fused"]:
+        fail(f"path 20: decode waves by route {routes}, {b2} B2 launches "
+             f"(every wave must be one B2 launch)")
+    _, wall2, _, _ = wide_sessions(p, ro, sig, m.ReservoirEngine, "cuda")
+    t1 = time.perf_counter()
+    cpu, _, cpu_routes, _ = wide_sessions(p, ro, sig, m.ReservoirEngine,
+                                          "cpu")
+    errs = streams_vs_cpu(card, cpu)
+    res = {"n": n, "d": d, "lanes": nc, "dtype": "float64",
+           "dpg_sigma": WIDE_SIGMA,
+           "layout": {"segs": lay.segs, "warps": lay.warps,
+                      "lanes_a_thread": lay.per, "blocks": WIDE_SLOTS
+                      * lay.segs},
+           "host_build_s": build_s,
+           "wall_s": wall, "wall_s_second_run": wall2,
+           "sessions_per_s": WIDE_SESSIONS / wall2,
+           "decode_waves_by_route": routes, "launches":
+           launches["serve_wide"], "cpu_engine_s": time.perf_counter() - t1,
+           "cpu_decode_waves_by_route": cpu_routes,
+           "max_abs_y": max(float(v[0].abs().max()) for v in card.values()),
+           "vs_cpu": errs}
+    print(json.dumps({"serve_wide": res}), flush=True)
+    del card, cpu
+    release_cache()
+    return res
+
+
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--wide", nargs=2, type=int, metavar=("N", "D"),
+                    help="build the kernels and run only main path 20 at "
+                         "n = N states and D outputs, then stop")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an "
@@ -3573,6 +3819,12 @@ def main() -> None:
     print(json.dumps({"flash_attention_dynamic_smem_bytes": {
         f"{'bf16' if bf16 else 'f32'}_d{d}": smem(bf16, d)
         for bf16 in (0, 1) for d in (32, 64, 128, 256)}}), flush=True)
+    if args.wide:
+        slice16_phases(drive, launches, types.SimpleNamespace(
+            esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
+            ReservoirEngine=ReservoirEngine, Readout=Readout), *args.wide)
+        print(smi_line, flush=True)
+        return
     copy_bw = copy_bandwidth()
     print(json.dumps({"copy_bytes_per_s": copy_bw}), flush=True)
 
@@ -3584,8 +3836,9 @@ def main() -> None:
     phase("4 decode_fused kernel vs plain")
     decode_rows = check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig,
                                      copy_bw)
-    mean_rows = check_mean_cluster(ops, ref, dsk, copy_bw,
-                                   len(decode_spills))
+    cluster_rows = check_decode_cluster(ops, ref, dsk, copy_bw,
+                                        len(decode_spills))
+    seg_sweep = segs_sweep(ref, dsk)
 
     phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
@@ -3917,8 +4170,11 @@ def main() -> None:
         Readout=Readout))
     slice14_phases(launches, types.SimpleNamespace(
         spawn_ranks=spawn_ranks, get_config=get_config, smi_line=smi_line))
+    wide = slice16_phases(drive, launches, types.SimpleNamespace(
+        esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
+        ReservoirEngine=ReservoirEngine, Readout=Readout))
 
-    phase("30 summary")
+    phase("31 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
@@ -3981,13 +4237,18 @@ def main() -> None:
              **count("decode_fused"),
              max_abs_err=dec["max_abs_err"], tol=dec["tol"],
              worst_err_over_tol=max(r["err_over_tol"]
-                                    for r in decode_rows + mean_rows),
+                                    for r in decode_rows + cluster_rows
+                                    if "err_over_tol" in r),
              shape=dec["shape"], dtype="float64",
              **{k: dec[k] for k in keys + (
                  "device_ms", "cuda_launches_per_call", "us_per_step",
                  "warps", "per", "mean_route", "mean_per_slot",
                  "run_decode_fused", "tenant_pool", "shapes")},
-             mean_cluster=mean_rows, library_ms=None),
+             cluster_rows=cluster_rows, segs_sweep=seg_sweep, serve_wide={
+                 k: wide[k] for k in ("lanes", "layout",
+                                      "decode_waves_by_route",
+                                      "sessions_per_s")},
+             library_ms=None),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

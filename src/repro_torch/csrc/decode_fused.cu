@@ -28,34 +28,59 @@
 //     (kernels/diag_scan.py::decode_layout), never from B, so a row's bits
 //     do not depend on the arena's other rows or its size.  A frozen row's
 //     block copies its state and y through and exits.
+//   * A row too wide for one block's 227 KB of shared memory (2 + 4D
+//     values a lane) splits into S <= 16 segments of L = ceil(NC / S)
+//     lanes, segment s on its own block (lanes [s L, (s + 1) L), thread t
+//     lane s L + t + p * 32W), the row's S blocks one thread-block cluster
+//     (grid B x S, cluster dimension S, launched with cudaLaunchKernelEx;
+//     past 8 the non-portable size).  S, W and PER come from NC, D and the
+//     dtype alone, and S = 1 wherever one block holds the row, so those
+//     shapes keep their layout and bits.  Each step the S blocks exchange
+//     their warps' readout partials by the mean route's exchange below,
+//     over the row's (row, segment) units, and every block adds them in
+//     one order, so every block drives its lanes with the same y, bit for
+//     bit; segment 0 adds the row's feedback term and writes the outputs.
+//     The split is a template flag (SPLIT) chosen at launch: an unsplit
+//     launch runs an instantiation whose segment arithmetic folds away,
+//     since in one code path the (row, segment) indexing had slowed the
+//     unsplit mean route by 3-4 % a call on an H100.
+//     (A block that first summed its warps' partials, behind one barrier
+//     a step, and sent one value a block sent fewer messages, but ran the
+//     off route's split rows slower on an H100 and made two
+//     instantiations spill: PERF.md section 6.)  The packed layout's
+//     boundary between real slots and (re, im) pairs may fall in any
+//     segment.  A frozen row's S blocks copy their lanes through
+//     together and meet no barrier.
 //   * ensemble == mean: every step's fed-back y is the mean over all live
 //     rows, so the rows must meet each step.  They are spread over ONE
 //     thread-block cluster of G <= 16 blocks (launched with
 //     cudaLaunchKernelEx and a cluster dimension of G; past 8 the
-//     non-portable size), R rows a block (R = 1 up to 16 rows), each row
+//     non-portable size): R rows a block (R = 1 up to 16 rows), each row
 //     run as the off route runs its one row, at the fewest warps a row
-//     that fit (the exchange grows with W).  A step's exchange: the warp
+//     that fit (the exchange grows with W); or, a row past one block,
+//     G = B x S blocks of one segment each.  A step's exchange: the warp
 //     butterfly leaves every lane with its warp's readout partial; lane g
 //     sends it by st.async into block g's shared slot
-//     part[step & 1][row][warp][e] (distributed shared memory), the bytes
+//     part[step & 1][unit][warp][e] (distributed shared memory; a unit is
+//     a (row, segment) pair, row r's segment s at r S + s), the bytes
 //     completing block g's mbarrier of that parity, whose one local
-//     arrival a phase expects the step's B x W x D values.  No block waits
-//     on a remote load or on a cluster-wide barrier: each waits on its own
-//     mbarrier, then reads the B x W partials from its own shared memory:
-//     lane l takes rows l, l + span, ... (span: B rounded up to a power of
-//     two, at most 32), sums each row's W partials in warp order,
-//     multiplies by the row's 0/1 m and adds its rows in order; a
-//     butterfly of log2(span) shuffle levels then sums the lanes.  Float
-//     addition commutes, so every lane of every warp of every block ends
-//     with the same bits: every member feeds back the same y, as in the
-//     reference.  Two parity slots suffice: a block sends step s + 2's
-//     partials only after its mbarrier saw every block's step s + 1
-//     partials, each sent after that block's reads of step s.  A cluster
-//     barrier before the loop (after the mbarriers' init) keeps every
-//     st.async off a block that has not started, and one after it keeps
-//     every block alive until its sends have landed.  Per-slot operands
-//     take one shared-memory copy a row a block holds, so the 227 KB
-//     budget bounds R rows, not B.  The launcher refuses a layout no
+//     arrival a phase expects the step's units x W x D values.  No block
+//     waits on a remote load or on a cluster-wide barrier: each waits on
+//     its own mbarrier, then reads the units' partials from its own shared
+//     memory: lane l takes units l, l + span, ... (span: the units rounded
+//     up to a power of two, at most 32), sums each unit's W partials in
+//     warp order, multiplies by its row's 0/1 m (mean only) and adds its
+//     units in order; a butterfly of log2(span) shuffle levels then sums
+//     the lanes.  Float addition commutes, so every lane of every warp of
+//     every block ends with the same bits: every member feeds back the
+//     same y, as in the reference.  Two parity slots suffice: a block sends
+//     step s + 2's partials only after its mbarrier saw every block's step
+//     s + 1 partials, each sent after that block's reads of step s.  A
+//     cluster barrier before the loop (after the mbarriers' init) keeps
+//     every st.async off a block that has not started, and one after it
+//     keeps every block alive until its sends have landed.  Per-slot
+//     operands take one shared-memory copy a row a block holds, so the
+//     227 KB budget bounds R rows, not B.  The launcher refuses a layout no
 //     cluster of which fits the card (cudaOccupancyMaxActiveClusters ==
 //     0): no other path is swapped in.
 //   * The coefficients a and the weights wd, wh of a thread's lanes are
@@ -68,7 +93,8 @@
 //     loads of every slot issue ahead of the arithmetic; per-lane branches
 //     had serialised them (on an H100: 0.091 -> 0.062 ms a call at the
 //     serving shape).
-//   * off: one barrier a step: each warp sums its D readout partials with
+//   * off, one block a row: one barrier a step: each warp sums its D
+//     readout partials with
 //     __shfl_xor_sync (warp 0's lane 0 first adds b_out + y . wy), lane 0
 //     writes them into a slot of shared memory double-buffered by
 //     step & 1, one __syncthreads, and every thread re-sums the W partials
@@ -91,15 +117,16 @@
 
 namespace {
 
-// The most threads a block of the <T, PER, DM> instantiation runs, which
-// sets its register cap (65536 / threads, at most 255): the largest at
-// which ptxas held every instantiation without spilling on sm_90a
+// The most threads a block of the <T, PER, DM, SPLIT> instantiation runs,
+// which sets its register cap (65536 / threads, at most 255): the largest
+// at which ptxas held every instantiation without spilling on sm_90a
 // (chip_smoke.py phase 2 fails on a spill).  words = sizeof(T) / 4.  The
 // launcher's rule (kernels/diag_scan.py::decode_max_threads) repeats it.
 __host__ __device__ constexpr int decode_max_threads(int per, int dm,
-                                                     int words) {
+                                                     int words, bool split) {
   if (words == 2)
-    return dm == 1 ? (per <= 10 ? 512 : 256) : (per == 1 ? 512 : 256);
+    return dm == 1 ? (per <= 10 ? 512 : 256)
+                   : (per == 1 && !split ? 512 : 256);
   return dm == 1 ? (per <= 3 ? 1024 : per <= 12 ? 512 : 256) : 512;
 }
 
@@ -122,7 +149,8 @@ struct DecodeArgs {
   T* o_y;
   T* o_ys;
   long long a_sb, h_sb, wd_sb, wd_ld, wy_sb, bo_sb, wh_sb;
-  int n_b, n_c, n_r, packed, n_d, n_k, warps, mean, seed_mean, rows, copies;
+  int n_b, n_c, n_r, packed, n_d, n_k, warps, mean, seed_mean, rows, copies,
+      segs, seg_len;
 };
 
 // The most blocks in the mean route's cluster (the H100's non-portable
@@ -243,9 +271,12 @@ __device__ __forceinline__ T sum_warps(const T* v, int stride, int warps) {
   }
 }
 
-template <typename T, int PER, int DM>
+// SPLIT: a row's lanes split over s.segs > 1 blocks.  Without it the
+// segment arithmetic folds away (one segment, lanes [0, NC)), so the
+// unsplit routes compile to the code they had before the split existed.
+template <typename T, int PER, int DM, bool SPLIT>
 __global__ void __launch_bounds__(
-    decode_max_threads(PER, DM, (int)(sizeof(T) / 4)), 1)
+    decode_max_threads(PER, DM, (int)(sizeof(T) / 4), SPLIT), 1)
 decode_fused_kernel(DecodeArgs<T> s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_d = DM == 1 ? 1 : s.n_d;
@@ -256,39 +287,52 @@ decode_fused_kernel(DecodeArgs<T> s) {
   const int t = tid - lr * tpr;
   const int w = t >> 5, lane = tid & 31;
   const int rows = s.mean ? s.rows : 1;    // rows a block
-  const int r = blockIdx.x * rows + lr;    // slot row
+  const int segs = SPLIT ? s.segs : 1;     // blocks a row (segments)
+  // The cluster exchange: the mean route, or a row split over blocks.
+  const bool xchg = SPLIT || s.mean;
+  const int blk = SPLIT ? blockIdx.x / segs : blockIdx.x;
+  const int sg = SPLIT ? blockIdx.x - blk * segs : 0;  // this segment
+  const int r = blk * rows + lr;           // slot row
   // The mean route's last block may hold padding rows past B: they hold no
   // lanes, write nothing and only meet the cluster's barriers.
   const bool valid = r < s.n_b;
-  const int n_c = valid ? s.n_c : 0;
+  // This block's lanes of the row: [lo, lo + n_seg).
+  const int lo = SPLIT ? sg * s.seg_len : 0;
+  const int n_seg = !valid ? 0
+                    : SPLIT ? max(0, min(s.seg_len, s.n_c - lo)) : s.n_c;
   const int nfb = n_d * n_d + n_d;
   const int copy_sz = PER * nv * tpr;
-  // Shared memory: mean: two mbarriers (16 bytes); lane operands
-  // [copies][PER][nv][tpr]; wy, b_out
-  // [rows][nfb]; the 0/1 mask of every row [B] (mean; 1 slot off);
-  // readout partials [2][B][W][D] (mean: every row of the cluster) or
-  // [2][W][D] (off).
+  // The (row, segment) units whose partials a step exchanges: every row of
+  // the cluster for mean, this row's segments off; this block's unit.
+  const int units = (s.mean ? s.n_b : 1) * segs;
+  const int unit = (s.mean ? r : 0) * segs + sg;
+  // Shared memory: the exchange's two mbarriers (16 bytes); lane operands
+  // [copies][PER][nv][tpr]; wy, b_out [rows][nfb]; each unit's row's 0/1
+  // mask [units] (1 off); readout partials [2][units][W][D] (the exchange)
+  // or [2][W][D] (off, one block a row).
   unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem_raw);
-  T* lane_s = reinterpret_cast<T*>(smem_raw + (s.mean ? 16 : 0));
+  T* lane_s = reinterpret_cast<T*>(smem_raw + (xchg ? 16 : 0));
   T* fb_s = lane_s + s.copies * copy_sz;
   T* m_s = fb_s + rows * nfb;
-  T* part_s = m_s + (s.mean ? s.n_b : 1);
+  T* part_s = m_s + units;
 
   const bool live = valid && s.mask[r] != 0;
   const long long hrow = (long long)r * s.h_sb;
   if (!s.mean && !live) {
-    // A frozen row keeps its state and y for all K steps.
+    // A frozen row keeps its state and y for all K steps (each of its
+    // blocks copies its own lanes; segment 0 the outputs).
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
-      const int j = t + p * tpr;
-      if (j < n_c) {
+      const int jl = t + p * tpr;
+      if (jl < n_seg) {
         int ore, oim;
         bool him;
-        lane_offsets(j, s.n_r, s.packed, ore, oim, him);
+        lane_offsets(lo + jl, s.n_r, s.packed, ore, oim, him);
         s.o_h_re[hrow + ore] = s.h_re[hrow + ore];
         if (him) s.o_h_im[hrow + oim] = s.h_im[hrow + oim];
       }
     }
+    if (SPLIT && sg != 0) return;
     for (int i = t; i < s.n_k * n_d; i += tpr) {
       const int step = i / n_d, e = i - step * n_d;
       s.o_ys[((long long)step * s.n_b + r) * n_d + e] = s.y0[r * n_d + e];
@@ -308,11 +352,11 @@ decode_fused_kernel(DecodeArgs<T> s) {
     const T* wh_im = s.wh_im + r * s.wh_sb;
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
-      const int j = t + p * tpr;
-      const bool ok = j < n_c;  // a padded slot holds zeros
+      const int jl = t + p * tpr;
+      const bool ok = jl < n_seg;  // a padded slot holds zeros
       int ore = 0, oim = 0;
       bool him = false;
-      if (ok) lane_offsets(j, s.n_r, s.packed, ore, oim, him);
+      if (ok) lane_offsets(lo + jl, s.n_r, s.packed, ore, oim, him);
       T* q = q0 + p * nv * tpr;
       q[0] = ok ? a_re[ore] : T(0);
       q[tpr] = ok && him ? a_im[oim] : T(0);
@@ -335,21 +379,21 @@ decode_fused_kernel(DecodeArgs<T> s) {
     }
     fb_s[lr * nfb + i] = v;
   }
-  if (s.mean) {
-    for (int i = tid; i < s.n_b; i += blockDim.x)
-      m_s[i] = s.mask[i] != 0 ? T(1) : T(0);
+  if (xchg) {  // off: a live row's units (a frozen row has left)
+    for (int i = tid; i < units; i += blockDim.x)
+      m_s[i] = !s.mean || s.mask[i / segs] != 0 ? T(1) : T(0);
   }
 
   // The row's state lanes and carried y, in registers for all K steps.
   T hr[PER], hi[PER];
 #pragma unroll
   for (int p = 0; p < PER; ++p) {
-    const int j = t + p * tpr;
+    const int jl = t + p * tpr;
     hr[p] = hi[p] = T(0);
-    if (j < n_c) {
+    if (jl < n_seg) {
       int ore, oim;
       bool him;
-      lane_offsets(j, s.n_r, s.packed, ore, oim, him);
+      lane_offsets(lo + jl, s.n_r, s.packed, ore, oim, him);
       hr[p] = s.h_re[hrow + ore];
       if (him) hi[p] = s.h_im[hrow + oim];
     }
@@ -376,11 +420,11 @@ decode_fused_kernel(DecodeArgs<T> s) {
       }
     }
   }
-  // The mean route's first cluster barrier: no block stores into another
+  // The exchange's first cluster barrier: no block stores into another
   // block's shared memory, or arrives on its mbarriers, before that block
   // runs and has initialised them.
   namespace cg = cooperative_groups;
-  if (s.mean) {
+  if (xchg) {
     if (tid == 0) {
       mbar_init(mbar, 1);
       mbar_init(mbar + 1, 1);
@@ -390,17 +434,26 @@ decode_fused_kernel(DecodeArgs<T> s) {
   } else {
     __syncthreads();
   }
+  // The units a step exchanges and this block's (unsplit, the exchange is
+  // the mean route's: its B rows, this row), so that the unsplit loop
+  // indexes as before the split existed.
+  const int xu = SPLIT ? units : s.n_b;
+  const int xme = SPLIT ? unit : r;
   // The bytes of a step's partials that land in each block.
   const unsigned step_bytes =
-      (unsigned)(s.n_b * s.warps * n_d * (int)sizeof(T));
+      (unsigned)(xu * s.warps * n_d * (int)sizeof(T));
 
-  int span = 1;  // mean: the rows a lane group covers (a power of two)
-  while (span < s.n_b && span < 32) span <<= 1;
+  int span = 1;  // the units a lane group covers (a power of two)
+  while (span < xu && span < 32) span <<= 1;
+  // Lane g of each warp sends to block g of the cluster.
+  const bool sender =
+      valid && lane < (SPLIT && !s.mean ? segs : (int)gridDim.x);
+  const bool lead = t == 0 && (!SPLIT || sg == 0);  // adds the feedback
   const T* lq = lane_s + (s.copies > 1 ? lr : 0) * copy_sz + t;
   const T* fb = fb_s + lr * nfb;
   bool ok[PER];  // which slots hold a lane; the rest stay 0 and add 0
 #pragma unroll
-  for (int p = 0; p < PER; ++p) ok[p] = t + p * tpr < n_c;
+  for (int p = 0; p < PER; ++p) ok[p] = t + p * tpr < n_seg;
   for (int step = 0; step < s.n_k; ++step) {
     // Drive from the carried y, then the masked complex update.  Straight
     // line over every slot (selects, no branches), so the shared loads of
@@ -434,7 +487,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
 #pragma unroll
         for (int k = 0; k < DM; ++k)
           if (k < n_d) f += y[k] * fb[k * n_d + e];
-        acc[e] = t == 0 ? f : T(0);
+        acc[e] = lead ? f : T(0);
       }
     }
 #pragma unroll
@@ -456,33 +509,35 @@ decode_fused_kernel(DecodeArgs<T> s) {
       }
     }
     // The new y (frozen rows keep theirs).
-    if (s.mean) {
+    if (xchg) {
       // The butterfly left every lane of the warp with its partial: lane g
       // sends it by st.async into block g's parity slot, completing block
       // g's mbarrier of that parity; each block waits on its own mbarrier
-      // and reads the B x W partials of the step from its own shared
+      // and reads the units x W partials of the step from its own shared
       // memory, reduced in one fixed order.  A block sends step s + 2's
       // partials only after every block has sent step s + 1's, each after
       // its reads of step s, so the parity slot is free again.
       const int par = step & 1;
-      T* pb = part_s + par * s.n_b * s.warps * n_d;
+      T* pb = part_s + par * xu * s.warps * n_d;
       if (tid == 0) mbar_expect(mbar + par, step_bytes);
-      if (valid && lane < (int)gridDim.x) {
+      if (sender) {
 #pragma unroll
         for (int e = 0; e < DM; ++e)
           if (e < n_d)
-            st_async(pb + (r * s.warps + w) * n_d + e, acc[e], mbar + par,
-                     (unsigned)lane);
+            st_async(pb + (xme * s.warps + w) * n_d + e, acc[e],
+                     mbar + par, (unsigned)lane);
       }
       mbar_wait(mbar + par, (unsigned)((step >> 1) & 1));
-      // Lane l takes rows l, l + span, ... (span: the rows, rounded up to a
-      // power of two, at most 32), so the butterfly needs log2(span)
-      // levels and every group of span lanes ends with the same sum.
+      // Lane l takes units l, l + span, ... (span: the units, rounded up
+      // to a power of two, at most 32), each its W partials in warp order
+      // times its row's m (1 off), so the butterfly needs log2(span)
+      // levels and every group of span lanes ends with the same sum; off,
+      // m and denom are 1 and change no bit.
 #pragma unroll
       for (int e = 0; e < DM; ++e) {
         if (e >= n_d) continue;
         T v = T(0);
-        for (int i = lane & (span - 1); i < s.n_b; i += span)
+        for (int i = lane & (span - 1); i < xu; i += span)
           v += sum_warps(pb + i * s.warps * n_d + e, n_d, s.warps) * m_s[i];
         for (int o = span >> 1; o > 0; o >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -507,7 +562,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
       for (int e = 0; e < DM; ++e)
         if (e < n_d && live) y[e] = sum_warps(pb + e, n_d, s.warps);
     }
-    if (t == 0 && valid) {
+    if (lead && valid) {
       T* ys = s.o_ys + ((long long)step * s.n_b + r) * n_d;
 #pragma unroll
       for (int e = 0; e < DM; ++e)
@@ -515,32 +570,32 @@ decode_fused_kernel(DecodeArgs<T> s) {
     }
   }
   // No block exits while its own st.async may still be in flight.
-  if (s.mean) cg::this_cluster().sync();
+  if (xchg) cg::this_cluster().sync();
 
 #pragma unroll
   for (int p = 0; p < PER; ++p) {
-    const int j = t + p * tpr;
-    if (j < n_c) {
+    const int jl = t + p * tpr;
+    if (jl < n_seg) {
       int ore, oim;
       bool him;
-      lane_offsets(j, s.n_r, s.packed, ore, oim, him);
+      lane_offsets(lo + jl, s.n_r, s.packed, ore, oim, him);
       s.o_h_re[hrow + ore] = hr[p];
       if (him) s.o_h_im[hrow + oim] = hi[p];
     }
   }
-  if (t == 0 && valid) {
+  if (lead && valid) {
 #pragma unroll
     for (int e = 0; e < DM; ++e)
       if (e < n_d) s.o_y[r * n_d + e] = y[e];
   }
 }
 
-template <typename T, int PER, int DM>
+template <typename T, int PER, int DM, bool SPLIT>
 int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
               cudaStream_t stream) {
-  auto kernel = decode_fused_kernel<T, PER, DM>;
+  auto kernel = decode_fused_kernel<T, PER, DM, SPLIT>;
   const int threads = (s.mean ? s.rows : 1) * s.warps * 32;
-  if (threads > decode_max_threads(PER, DM, (int)(sizeof(T) / 4)))
+  if (threads > decode_max_threads(PER, DM, (int)(sizeof(T) / 4), SPLIT))
     return (int)cudaErrorInvalidValue;
   static int smem_set = 48 * 1024;  // the most this kernel may use
   if (smem > smem_set) {
@@ -549,14 +604,25 @@ int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  if (!s.mean) {
+  if ((s.segs > 1) != SPLIT || s.segs > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (!s.mean && !SPLIT) {
     kernel<<<s.n_b, threads, smem, stream>>>(s);
     return (int)cudaGetLastError();
   }
-  // The mean route: the whole grid is one cluster of `blocks` blocks.
-  if (s.rows < 1 || blocks < 1 || blocks > kMaxCluster ||
-      (long long)blocks * s.rows < s.n_b)
-    return (int)cudaErrorInvalidValue;
+  // The mean route: the whole grid is one cluster of `blocks` blocks, R
+  // rows a block, or (a row split over S blocks) one segment a block.  The
+  // off route with a row split: B clusters of S blocks.
+  long long grid = blocks;
+  if (s.mean) {
+    if (s.rows < 1 || blocks < 1 || blocks > kMaxCluster ||
+        (s.segs > 1 ? s.rows != 1 || blocks != s.n_b * s.segs
+                    : (long long)blocks * s.rows < s.n_b))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    if (blocks != s.segs) return (int)cudaErrorInvalidValue;
+    grid = (long long)s.n_b * s.segs;
+  }
   static bool non_portable = false;
   if (blocks > 8 && !non_portable) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -570,13 +636,13 @@ int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // Refuse a cluster the card cannot hold; checked once a layout.
+  // Refuse a cluster the card cannot hold; checked once a cluster shape.
   static long long fits = -1;
   const long long key =
       ((long long)blocks << 40) | ((long long)threads << 20) | smem;
@@ -602,7 +668,8 @@ int decode_per(const DecodeArgs<T>& s, int per, int blocks, int smem,
   switch (per) {
 #define DECODE_CASE(P) \
   case P:              \
-    return decode_go<T, P, DM>(s, blocks, smem, stream);
+    return s.segs > 1 ? decode_go<T, P, DM, true>(s, blocks, smem, stream) \
+                      : decode_go<T, P, DM, false>(s, blocks, smem, stream);
     DECODE_PER_LIST(DECODE_CASE)
 #undef DECODE_CASE
     default:
@@ -615,24 +682,26 @@ int decode_per(const DecodeArgs<T>& s, int per, int blocks, int smem,
 // The entry points take one argument: a block of 64-bit integers (pointers
 // as integers, 0 for none) in the field order of DecodeCall, which
 // kernels/diag_scan.py packs.  In the packed layout the _im pointers equal
-// the _re ones.  warps, per, rows (a block), blocks (the mean route's
-// cluster), copies and smem come from the launcher's rule; the entry
+// the _re ones.  warps, per, rows (a block), blocks (the blocks of one
+// cluster: the mean route's whole grid, or a split row's segments), copies,
+// segs (blocks a row) and smem come from the launcher's rule; the entry
 // refuses (cudaErrorInvalidValue) a per that is not instantiated, n_d > 8,
 // a block larger than the instantiation allows, or a cluster of more than
-// 16 blocks or too few for B rows; and (kNoCluster) a cluster the card
+// 16 blocks or other than B rows need; and (kNoCluster) a cluster the card
 // cannot hold.
 struct DecodeCall {
   long long a_re, a_im, a_sb, h_re, h_im, h_sb, y0, wd_re, wd_im, wd_sb,
       wd_ld, wy, wy_sb, b_out, bo_sb, wh_re, wh_im, wh_sb, mask, o_h_re,
       o_h_im, o_y, o_ys, n_b, n_c, n_r, packed, n_d, n_k, warps, per, mean,
-      seed_mean, rows, blocks, copies, smem, stream;
+      seed_mean, rows, blocks, copies, segs, smem, stream;
 };
 
 namespace {
 
 template <typename T>
 int decode_call(const DecodeCall* c) {
-  if (c->n_d < 1 || c->n_d > 8) return (int)cudaErrorInvalidValue;
+  if (c->n_d < 1 || c->n_d > 8 || c->segs < 1)
+    return (int)cudaErrorInvalidValue;
   if (c->n_b == 0) return (int)cudaGetLastError();
   auto cp = [](long long v) { return reinterpret_cast<const T*>(v); };
   auto mp = [](long long v) { return reinterpret_cast<T*>(v); };
@@ -645,7 +714,8 @@ int decode_call(const DecodeCall* c) {
                   c->wh_sb, (int)c->n_b, (int)c->n_c, (int)c->n_r,
                   (int)c->packed, (int)c->n_d, (int)c->n_k, (int)c->warps,
                   (int)c->mean, (int)c->seed_mean, (int)c->rows,
-                  (int)c->copies};
+                  (int)c->copies, (int)c->segs,
+                  (int)((c->n_c + c->segs - 1) / c->segs)};
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(c->stream);
   const int per = (int)c->per, blocks = (int)c->blocks, smem = (int)c->smem;
   return c->n_d == 1 ? decode_per<T, 1>(s, per, blocks, smem, stream)

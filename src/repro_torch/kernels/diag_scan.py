@@ -57,6 +57,7 @@ DECODE_MAX_D = 8
 DECODE_MAX_WARPS = 32
 DECODE_MAX_SMEM_BYTES = 232448
 DECODE_MAX_CLUSTER = 16
+DECODE_WARPS = (1, 2, 4, 8, 16, 32)
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -309,12 +310,14 @@ def diag_scan_lanes_bwd_cuda(a_re, a_im, h_re, h_im, g_re, g_im, h0_re=None,
 # B2: decode_fused (csrc/decode_fused.cu)                                      #
 # --------------------------------------------------------------------------- #
 class DecodeLayout(NamedTuple):
-    """How one decode call runs: ``warps`` a slot row, ``per`` lanes a
-    thread (the instantiation, rounded up), ``copies`` of the lane operands
-    in shared memory, ``smem`` its dynamic shared memory in bytes,
-    ``threads`` a block, ``rows`` a block and ``cluster``, the blocks of the
-    ``mean`` route's one thread-block cluster (the ``off`` route launches
-    one plain block a row: ``rows`` and ``cluster`` 1)."""
+    """How one decode call runs: ``warps`` a row (a row's segment where it
+    is split), ``per`` lanes a thread (the instantiation, rounded up),
+    ``copies`` of the lane operands in shared memory, ``smem`` its dynamic
+    shared memory in bytes, ``threads`` a block, ``rows`` a block,
+    ``cluster``, the blocks of one thread-block cluster (``mean``: the
+    whole grid; ``off``: the blocks of one row, 1 for an unsplit row), and
+    ``segs``, the blocks a row's lanes are split over (1: the whole row in
+    one block)."""
     warps: int
     per: int
     copies: int
@@ -322,80 +325,142 @@ class DecodeLayout(NamedTuple):
     threads: int
     rows: int = 1
     cluster: int = 1
+    segs: int = 1
 
 
-def decode_max_threads(per: int, d: int, itemsize: int) -> int:
+def decode_max_threads(per: int, d: int, itemsize: int,
+                       split: bool = False) -> int:
     """The most threads a block of the ``per``-lane instantiation runs at D
     outputs — the largest at which ptxas held it without spilling on the
-    card (``chip_smoke.py`` phase 2 fails on a spill).  Repeats
-    ``decode_max_threads`` in ``csrc/decode_fused.cu``, which bounds each
-    instantiation with it."""
+    card (``chip_smoke.py`` phase 2 fails on a spill); ``split``: the
+    instantiation of a row split over blocks (at float64, D > 1, one lane
+    a thread it spilled at 512).  Repeats ``decode_max_threads`` in
+    ``csrc/decode_fused.cu``, which bounds each instantiation with it."""
     if itemsize == 8:
         if d == 1:
             return 512 if per <= 10 else 256
-        return 512 if per == 1 else 256
+        return 512 if per == 1 and not split else 256
     if d == 1:
         return 1024 if per <= 3 else 512 if per <= 12 else 256
     return 512
 
 
-def _decode_fit(warps, nc, d, itemsize, rows, copies, seen=1, header=0):
-    """The layout of ``warps`` warps a row and ``rows`` rows a block, or
+def _decode_fit(warps, nc, d, itemsize, rows, copies, seen=1, header=0,
+                segs=1):
+    """The layout of ``warps`` warps a row and ``rows`` rows a block, a
+    row's NC lanes split over ``segs`` blocks of ceil(NC / segs) lanes, or
     None if it does not fit; ``seen``: the rows whose mask and readout
     partials a block keeps (every row of the cluster for ``mean``);
-    ``header``: bytes ahead of them (``mean``'s two mbarriers)."""
-    need = -(-nc // (32 * warps))
+    ``header``: bytes ahead of them (the exchange's two mbarriers)."""
+    need = -(-_seg_lanes(nc, segs) // (32 * warps))
     per = next((p for p in DECODE_PER if p >= need), None)
     threads = rows * 32 * warps
     if per is None or rows * warps > DECODE_MAX_WARPS or \
-            threads > decode_max_threads(per, d, itemsize):
+            threads > decode_max_threads(per, d, itemsize, segs > 1):
         return None
-    # Shared lane operands: ``per`` slots a thread (padded ones zero).
+    # Shared lane operands: ``per`` slots a thread (padded ones zero); a
+    # mask slot and the warps' partials (two parity slots) of every (row,
+    # segment) of the cluster.
     smem = header + itemsize * (copies * per * (2 + 4 * d) * 32 * warps
-                                + rows * (d * d + d) + seen
-                                + 2 * seen * warps * d)
+                                + rows * (d * d + d) + seen * segs
+                                + 2 * seen * segs * warps * d)
     if smem > DECODE_MAX_SMEM_BYTES:
         return None
-    return DecodeLayout(warps, per, copies, smem, threads, rows)
+    return DecodeLayout(warps, per, copies, smem, threads, rows, 1, segs)
 
 
-def _mean_fits(b, nc, d, itemsize, batched, rows, options):
-    """The ``mean`` layouts of B rows at ``rows`` rows a block (default:
-    one while B <= DECODE_MAX_CLUSTER, else the fewest that keep the
-    cluster at DECODE_MAX_CLUSTER blocks), one per W in ``options`` that
-    fits."""
-    r = rows or -(-b // DECODE_MAX_CLUSTER)
-    g = -(-b // r)
-    if not 1 <= r <= b or g > DECODE_MAX_CLUSTER:
-        return []
+def _seg_lanes(nc: int, segs: int) -> int:
+    """Lanes of each of a row's ``segs`` segments (the last holds the
+    rest): ceil(NC / segs)."""
+    return -(-nc // segs)
+
+
+def _mean_fits(b, nc, d, itemsize, batched, rows, options, segs=1):
+    """The ``mean`` layouts of B rows, one per W in ``options`` that fits.
+    A row in one block (``segs`` 1): ``rows`` rows a block (default: one
+    while B <= DECODE_MAX_CLUSTER, else the fewest that keep the cluster
+    at DECODE_MAX_CLUSTER blocks).  A row over ``segs`` > 1 blocks: one
+    row a block, B x ``segs`` <= DECODE_MAX_CLUSTER blocks."""
+    if segs > 1:
+        if rows not in (None, 1) or b * segs > DECODE_MAX_CLUSTER:
+            return []
+        r, g = 1, b * segs
+    else:
+        r = rows or -(-b // DECODE_MAX_CLUSTER)
+        g = -(-b // r)
+        if not 1 <= r <= b or g > DECODE_MAX_CLUSTER:
+            return []
     return [lay._replace(cluster=g) for w in options
             if (lay := _decode_fit(w, nc, d, itemsize, r,
-                                   r if batched else 1, seen=b, header=16))]
+                                   r if batched else 1, seen=b, header=16,
+                                   segs=segs))]
+
+
+def _off_fits(nc, d, itemsize, options, segs):
+    """The ``off`` layouts of a row's NC lanes over ``segs`` blocks (past
+    one block, the row's blocks form one cluster), one per W in
+    ``options`` that fits."""
+    return [lay._replace(cluster=segs) for w in options
+            if (lay := _decode_fit(w, nc, d, itemsize, 1, 1,
+                                   header=16 if segs > 1 else 0,
+                                   segs=segs))]
+
+
+def _pick(b, nc, d, itemsize, mean, batched, options, rows, seg_options):
+    """The rule's layout, or None if none fits: the fewest segments a row
+    that fit, then W nearest the aim in powers of two (the larger on a
+    tie)."""
+    for segs in seg_options:
+        if mean:
+            aim = DECODE_MEAN_AIM_WARPS
+            fits = _mean_fits(b, nc, d, itemsize, batched, rows, options,
+                              segs)
+        else:
+            lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
+            while aim < DECODE_AIM_WARPS and \
+                    32 * aim * lanes < _seg_lanes(nc, segs):
+                aim *= 2
+            fits = _off_fits(nc, d, itemsize, options, segs)
+        if fits:
+            return min(fits, key=lambda lay: (abs(lay.warps.bit_length()
+                                                  - aim.bit_length()),
+                                              -lay.warps))
+    return None
 
 
 @functools.lru_cache(maxsize=1024)
 def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
                   ensemble: str = "off", batched: bool = False,
                   warps: Optional[int] = None,
-                  rows: Optional[int] = None) -> DecodeLayout:
+                  rows: Optional[int] = None,
+                  segs: Optional[int] = None) -> DecodeLayout:
     """The decode kernel's layout for B rows of NC lanes and D outputs, or
     a ValueError naming the limit the shape exceeds.
 
-    ``ensemble="off"``: one block a row, so the layout depends on NC, D and
-    the dtype, never on B.  The rule aims at DECODE_LANES_PER_THREAD lanes a
-    thread (8 for D = 1, 4 above): W = the smallest power of two with
-    NC <= 32 W x that, at most DECODE_AIM_WARPS (past it more lanes a
-    thread cost less than a wider barrier) — or, where that W does not fit
-    (registers, lanes a thread, shared memory), the nearest one that does.
+    A row's lanes sit in one block (S = 1 segment) wherever that fits.
+    Past it they split into the fewest S <= DECODE_MAX_CLUSTER segments of
+    ceil(NC / S) lanes whose block fits (lanes a thread, registers, shared
+    memory): segment s holds lanes [s L, (s + 1) L) on one block, and a
+    row's S blocks exchange each step's readout partials through
+    distributed shared memory within one thread-block cluster.
+    ``ensemble="off"``: one block a segment, so the layout depends on NC,
+    D and the dtype, never on B.  The rule aims at DECODE_LANES_PER_THREAD
+    lanes a thread (8 for D = 1, 4 above): W = the smallest power of two
+    with ceil(NC / S) <= 32 W x that, at most DECODE_AIM_WARPS (past it
+    more lanes a thread cost less than a wider barrier) — or, where that W
+    does not fit, the nearest one that does.  A split row is one cluster
+    of S blocks, B clusters in all.
     ``ensemble="mean"``: the rows spread over one thread-block cluster of
-    G = ceil(B / R) <= DECODE_MAX_CLUSTER blocks of R rows (R = 1 while
-    B <= DECODE_MAX_CLUSTER, else the fewest that keep G there), R x W <=
-    DECODE_MAX_WARPS, W the nearest fitting one to DECODE_MEAN_AIM_WARPS
-    (the fewest); per-slot (``batched``) operands take one shared-memory
-    copy a row of a block.  At NC = 525 (n = 1024), float64, D = 1 that
-    is W = 2 and holds 128 rows.  ``warps`` forces W and ``rows`` forces R
-    (``chip_smoke.py``'s sweeps; ``rows=B`` is the one-block layout).
-    Cached: a serving loop asks for the same few shapes every call."""
+    G <= DECODE_MAX_CLUSTER blocks: with S = 1, G = ceil(B / R) blocks of
+    R rows (R = 1 while B <= DECODE_MAX_CLUSTER, else the fewest that keep
+    G there), R x W <= DECODE_MAX_WARPS; with S > 1, G = B x S blocks of
+    one segment each.  W is the nearest fitting one to
+    DECODE_MEAN_AIM_WARPS (the fewest); per-slot (``batched``) operands
+    take one shared-memory copy a row of a block.  At NC = 525 (n = 1024),
+    float64, D = 1 that is W = 2 and holds 128 rows.  ``warps`` forces W
+    and ``rows`` forces R, at the rule's S unless ``segs`` forces S too
+    (``chip_smoke.py``'s sweeps; ``rows=B`` is the one-block layout).  Cached: a serving loop asks for
+    the same few shapes every call."""
     if ensemble not in ("off", "mean"):
         raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
     if not 1 <= d <= DECODE_MAX_D:
@@ -408,46 +473,48 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
     if rows is not None and not mean:
         raise ValueError("decode_fused kernel: rows= applies to "
                          "ensemble='mean' only")
-    options = [w for w in (1, 2, 4, 8, 16, 32) if warps in (None, w)]
-    if mean:
-        aim = DECODE_MEAN_AIM_WARPS
-        fits = _mean_fits(b, nc, d, itemsize, batched, rows, options)
-    else:
-        lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
-        while aim < DECODE_AIM_WARPS and 32 * aim * lanes < nc:
-            aim *= 2
-        fits = [lay for w in options
-                if (lay := _decode_fit(w, nc, d, itemsize, 1, 1))]
-    if fits:
-        # Nearest to the aim in powers of two; the larger on a tie.
-        return min(fits, key=lambda lay: (abs(lay.warps.bit_length()
-                                              - aim.bit_length()),
-                                          -lay.warps))
-    if warps is not None or rows is not None:
+    if segs is not None and not 1 <= segs <= DECODE_MAX_CLUSTER:
+        raise ValueError(f"decode_fused kernel: segs={segs} is not in "
+                         f"1..{DECODE_MAX_CLUSTER}")
+    every = range(1, DECODE_MAX_CLUSTER + 1)
+    seg_options = every if segs is None else (segs,)
+    if segs is None and (warps is not None or rows is not None):
+        # A forced W or R applies at the rule's S.
+        free = _pick(b, nc, d, itemsize, mean, batched, DECODE_WARPS, None,
+                     every)
+        seg_options = (free.segs,) if free else ()
+    lay = _pick(b, nc, d, itemsize, mean, batched,
+                [w for w in DECODE_WARPS if warps in (None, w)], rows,
+                seg_options)
+    if lay is not None:
+        return lay
+    if warps is not None or rows is not None or segs is not None:
         forced = ", ".join(f"{k}={v}" for k, v in (("warps", warps),
-                                                   ("rows", rows))
+                                                   ("rows", rows),
+                                                   ("segs", segs))
                            if v is not None)
         raise ValueError(f"decode_fused kernel: {forced} does not fit "
                          f"B={b}, NC={nc}, D={d} ({ensemble})")
+    limits = (f"at most {DECODE_MAX_CLUSTER} blocks, each of at most "
+              f"{DECODE_MAX_WARPS} warps, {max(DECODE_PER)} lanes a thread, "
+              f"the registers of an SM and {DECODE_MAX_SMEM_BYTES} bytes of "
+              f"shared memory")
     if mean:
-        most = _most(lambda m: _mean_fits(m, nc, d, itemsize, batched, None,
-                                          options), DECODE_MAX_CLUSTER
-                     * DECODE_MAX_WARPS)
+        most = _most(lambda m: _pick(m, nc, d, itemsize, True, batched,
+                                     DECODE_WARPS, None, every) is not None,
+                     DECODE_MAX_CLUSTER * DECODE_MAX_WARPS)
         raise ValueError(
             f"decode_fused kernel with ensemble='mean' spreads the rows over "
-            f"one cluster of at most {DECODE_MAX_CLUSTER} blocks, each of at "
-            f"most {DECODE_MAX_WARPS} warps, {max(DECODE_PER)} lanes a "
-            f"thread, the registers of an SM and {DECODE_MAX_SMEM_BYTES} "
-            f"bytes of shared memory: B={b}, NC={nc}, D={d} "
+            f"one cluster of {limits} (a row's lanes over S of them, B x S "
+            f"<= {DECODE_MAX_CLUSTER}): B={b}, NC={nc}, D={d} "
             f"({'per-slot' if batched else 'shared'} weights, "
             f"{8 * itemsize}-bit) does not fit: B <= {most} fits")
-    most = _most(lambda m: any(_decode_fit(w, m, d, itemsize, 1, 1)
-                               for w in (1, 2, 4, 8, 16, 32)), nc)
+    most = _most(lambda m: _pick(1, m, d, itemsize, False, False,
+                                 DECODE_WARPS, None, every) is not None, nc)
     raise ValueError(
-        f"decode_fused kernel holds a row's lanes in one block (at most "
-        f"{max(DECODE_PER)} lanes a thread, the registers of an SM, "
-        f"{DECODE_MAX_SMEM_BYTES} bytes of shared memory): NC={nc} with "
-        f"D={d} ({8 * itemsize}-bit) exceeds it: NC <= {most} fits")
+        f"decode_fused kernel splits a row's lanes over one cluster of "
+        f"{limits}: NC={nc} with D={d} ({8 * itemsize}-bit) exceeds it: "
+        f"NC <= {most} fits")
 
 
 def _most(fits, hi: int) -> int:
@@ -520,7 +587,7 @@ def _decode_launch(dtype, layout, dev, *fields):
     ``seed_mean``), the layout and the stream packed into one int64
     block."""
     block = array("q", (*fields, layout.rows, layout.cluster, layout.copies,
-                        layout.smem, _stream(dev)))
+                        layout.segs, layout.smem, _stream(dev)))
     _check(_entry("decode_fused", dtype)(block.buffer_info()[0]),
            "decode_fused")
 
@@ -528,13 +595,15 @@ def _decode_launch(dtype, layout, dev, *fields):
 def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
                       wh_re, wh_im, mask, *, k: int, ensemble: str = "off",
                       warps: Optional[int] = None,
-                      rows: Optional[int] = None):
+                      rows: Optional[int] = None,
+                      segs: Optional[int] = None):
     """K closed-loop decode steps through the CUDA kernel, on split lanes.
 
     Same operands and result as ``ref.decode_fused_ref``: ``h_*`` (B, NC),
     ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).
-    ``warps`` / ``rows``: force W / the ``mean`` route's rows a block
-    (default :func:`decode_layout`'s rule).
+    ``warps`` / ``rows`` / ``segs``: force W / the ``mean`` route's rows a
+    block / the blocks a row is split over (default
+    :func:`decode_layout`'s rule).
     Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D)."""
     dev, dtype = _decode_operands(y0, ensemble, k)
     (b, d), nc = y0.shape, h_re.shape[-1]
@@ -547,7 +616,7 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     m = _mask_bytes(mask, b, dev)
     layout = decode_layout(b, nc, d, y0.element_size(), ensemble=ensemble,
                            batched=bool(a_sb or wd_sb or wh_sb), warps=warps,
-                           rows=rows)
+                           rows=rows, segs=segs)
     o_h_re = torch.empty_like(h_re)
     o_h_im = torch.empty_like(h_re)
     o_y = torch.empty_like(y0)

@@ -356,6 +356,9 @@ def serve_sessions(engine, args, sig, train_t: int) -> dict:
     print(f"  decode  {decode_tokens} tok in {t_decode:.3f}s "
           f"({res['decode_tok_s']:.0f} tok/s, closed loop)")
     st = engine.stats()
+    res["decode_waves_by_route"] = routes = st.decode_waves_by_route
+    print(f"  decode waves by route: {routes['fused']} fused (K tokens a "
+          f"launch), {routes['step']} step at a time")
     if args.autotune:
         lat = st.wave_us_mean
         print(f"  autotune: {st.waves_total} waves, mean occupancy "

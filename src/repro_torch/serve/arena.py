@@ -310,19 +310,24 @@ def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
     fused K-token decode kernel) or ``"step"`` (:func:`closed_loop`, one
     step at a time on the same device).  ``weighted`` voting takes the
     step path everywhere (the kernel reduces by plain mean only, as in the
-    JAX package).  On CUDA, ``mean`` spreads the rows over one
-    thread-block cluster of the kernel, so an arena whose B rows of NC
-    lanes exceed it (``kernels.diag_scan.decode_layout``: at n = 1024,
-    float64, more than 128 slots) takes the step path; the plain version
-    on the CPU has no such limit.  Decided before any launch, never by
-    catching a launch's error."""
+    JAX package).  On CUDA the shape must have a layout of the kernel
+    (``kernels.diag_scan.decode_layout``: a row's lanes over at most 16
+    blocks of one thread-block cluster, D <= 8).  ``off`` is fused at every
+    shape that has one, and past it (float64, D = 1: NC > 73728; D > 8)
+    ``decode_layout``'s ``ValueError``, which names the limit, propagates
+    before any launch.  ``mean`` spreads its B rows over one cluster, so an
+    arena past it (at n = 1024, float64: more than 128 slots) takes the
+    step path.  The plain version on the CPU has no such limit.  Decided
+    from the shapes, never by catching a launch's error."""
     if ensemble == "weighted":
         return "step"
-    if device_type == "cuda" and ensemble == "mean":
+    if device_type == "cuda":
         try:
-            decode_layout(b, nc, d, itemsize, ensemble="mean",
+            decode_layout(b, nc, d, itemsize, ensemble=ensemble,
                           batched=per_slot)
         except ValueError:
+            if ensemble != "mean":
+                raise
             return "step"
     return "fused"
 
@@ -355,7 +360,7 @@ def closed_loop_fused(params, w_out, arena: SlotArena, mask, n_steps: int,
     there), including the ``mean`` ensemble's reduce and seed.  Where
     :func:`closed_loop_route` says ``"step"`` (dense params, a missing
     readout, ``weighted`` voting, a ``mean`` arena past the kernel's
-    cluster limit) it runs :func:`closed_loop` instead; the fused path
+    cluster) it runs :func:`closed_loop` instead; the fused path
     reads ``batched`` from the shape of ``lam_q``.  A sharded arena on the
     fused route runs it once a cell."""
     if isinstance(arena, ShardedArena):

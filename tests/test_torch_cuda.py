@@ -517,6 +517,132 @@ def test_decode_mean_cluster_at_the_limit(dev, b, batched):
     assert ops.decode_fused.launches == before
 
 
+# (B, NC, D) past one block: a row's lanes split over S blocks of one
+# thread-block cluster (float64: S = 2, 2, 11 and 2; the served model at
+# n = 16384 has 8244 lanes).
+SPLIT_SHAPES = [(3, 4609, 1), (8, 8244, 1), (2, 8244, 8), (4, 2561, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("b,nc,d", SPLIT_SHAPES)
+def test_decode_split_rows_match_plain(dev, b, nc, d, ensemble, batched,
+                                       dtype):
+    """B2 with a row's lanes split over a cluster, through both entries
+    (split lanes, packed Q), against the plain version with row 1 frozen:
+    one launch a call, 2e-4 (float32) or 1e-9 (float64) of max(|ref|, 1),
+    the frozen row's state and outputs kept, and with ``mean`` every live
+    row fed back the same y, bit for bit.  A ``mean`` shape whose B x S
+    passes 16 blocks is refused before any launch."""
+    args = [v.to(dtype) for v in decode_inputs(b, nc, d, batched, dev)]
+    nr = nc // 7
+    packed = [v.to(dtype) if torch.is_tensor(v) else v
+              for v in packed_inputs(b, nr, nc - nr, d, batched, dev)]
+    mask = torch.arange(b, device=dev) != 1
+    kw = dict(k=128, ensemble=ensemble)
+    pkw = dict(kw, use_bias=True, use_feedback=True)
+    try:
+        decode_layout(b, nc, d, args[0].element_size(), ensemble=ensemble,
+                      batched=batched)
+    except ValueError:
+        assert ensemble == "mean"
+        before = ops.decode_fused.launches
+        with pytest.raises(ValueError, match="B x S <= 16"):
+            ops.decode_fused(*args, mask, **kw)
+        with pytest.raises(ValueError, match="B x S <= 16"):
+            ops.decode_fused_packed(*packed, mask, **pkw)
+        assert ops.decode_fused.launches == before
+        return
+    before = ops.decode_fused.launches
+    got = ops.decode_fused(*args, mask, **kw)
+    pgot = ops.decode_fused_packed(*packed, mask, **pkw)
+    assert ops.decode_fused.launches == before + 2
+    torch.cuda.synchronize()
+    want = ref.decode_fused_ref(*args, mask, **kw)
+    pwant = ref.decode_fused_packed_ref(*packed, mask, **pkw)
+    for g_, w_ in zip(got + pgot, want + pwant):
+        assert bool(torch.isfinite(g_).all())
+        _close_scaled(g_, w_, dtype)
+    assert torch.equal(got[0][1], args[2][1])
+    assert torch.equal(got[3][:, 1], args[4][1].expand(128, d))
+    assert torch.equal(pgot[0][1], packed[4][1])
+    if ensemble == "mean":
+        live = mask.nonzero()[:, 0]
+        for ys in (got[3], pgot[2]):
+            assert torch.equal(ys[:, live], ys[:, live[:1]].expand(
+                -1, len(live), -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_decode_split_row_bits_independent_of_arena(dev, dtype):
+    """ensemble="off" with a row split over two blocks (8244 lanes): a
+    row's bits are the same alone and among 8 rows, whatever the other
+    rows hold; two runs are bit-identical."""
+    lam, nr, w_drive, w_out, states, y_prev = [
+        v.to(dtype) if torch.is_tensor(v) else v
+        for v in packed_inputs(8, 1177, 7067, 1, False, dev)]
+    assert decode_layout(8, 8244, 1, lam.element_size()).segs > 1 or \
+        dtype == torch.float32
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    kw = dict(k=128, use_bias=True, use_feedback=True)
+    full = ops.decode_fused_packed(lam, nr, w_drive, w_out, states, y_prev,
+                                   mask, **kw)
+    again = ops.decode_fused_packed(lam, nr, w_drive, w_out, states, y_prev,
+                                    mask, **kw)
+    for a_, b_ in zip(full, again):
+        assert torch.equal(a_, b_)
+    one = ops.decode_fused_packed(lam, nr, w_drive, w_out, states[5:6],
+                                  y_prev[5:6], mask[5:6], **kw)
+    other = states.clone()
+    other[:5] = torch.randn_like(other[:5])
+    other[6:] *= -3.0
+    moved = ops.decode_fused_packed(lam, nr, w_drive, w_out, other, y_prev,
+                                    mask, **kw)
+    for got in (one, moved):
+        row = 0 if got is one else 5
+        assert torch.equal(got[0][row], full[0][5])
+        assert torch.equal(got[1][row], full[1][5])
+        assert torch.equal(got[2][:, row], full[2][:, 5])
+
+
+@pytest.mark.parametrize("segs", [2, 4, 12])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+def test_decode_split_blocks_feed_back_one_y(dev, ensemble, segs):
+    """Every block of a split row drives its lanes with the same y: the
+    row's S segments hold copies of one segment's lanes (a, wd, h), so
+    with one y fed back in every block they end bit-equal, though each
+    block sums the exchanged partials itself."""
+    nc = 8244                           # 2 x 4122, 4 x 2061, 12 x 687
+    args = decode_inputs(2, nc, 1, False, dev)
+    seg = nc // segs
+    for i in (0, 1, 2, 3, 5, 6):
+        v = args[i]
+        for s_ in range(1, segs):
+            v[..., s_ * seg:(s_ + 1) * seg] = v[..., :seg]
+    mask = torch.ones(2, dtype=torch.bool, device=dev)
+    if ensemble == "mean" and 2 * segs > 16:
+        with pytest.raises(ValueError, match=f"segs={segs} does not fit"):
+            decode_fused_cuda(*args, mask, k=128, ensemble=ensemble,
+                              segs=segs)
+        return
+    assert decode_layout(2, nc, 1, 8, ensemble=ensemble,
+                         segs=segs).cluster == (2 * segs if ensemble == "mean"
+                                                else segs)
+    got = decode_fused_cuda(*args, mask, k=128, ensemble=ensemble, segs=segs)
+    torch.cuda.synchronize()
+    for s_ in range(1, segs):
+        assert torch.equal(got[0][:, s_ * seg:(s_ + 1) * seg],
+                           got[0][:, :seg])
+        assert torch.equal(got[1][:, s_ * seg:(s_ + 1) * seg],
+                           got[1][:, :seg])
+    want = ref.decode_fused_ref(*args, mask, k=128, ensemble=ensemble)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+
+
 def test_run_decode_fused_is_one_launch(dev):
     """The engine's decode call at the serving shape makes exactly one CUDA
     kernel launch: no lane copies around the kernel."""

@@ -21,6 +21,7 @@ from repro.serve.engine import ReservoirEngine as JaxEngine
 from repro_torch.core import esn as tesn
 from repro_torch.core import params as tparams
 from repro_torch.data.signals import mso_series
+from repro_torch.kernels.diag_scan import decode_layout
 from repro_torch.launch import serve as tserve
 from repro_torch.serve import arena as tarena
 from repro_torch.serve.engine import ReservoirEngine
@@ -288,6 +289,46 @@ def test_decode_route_is_a_function_of_the_shapes(slots, per_slot, route):
                                per_slot=per_slot) == "fused"
     assert tarena.decode_route(slots, 525, 1, 8, "cuda", ensemble="weighted",
                                per_slot=per_slot) == "step"
+
+
+# ------------------------------------- the route follows the layout (C11)
+@pytest.mark.parametrize("per_slot", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("d", [1, 2, 8, 9])
+@pytest.mark.parametrize("nc", [525, 4608, 4609, 8244, 80000])
+@pytest.mark.parametrize("b", [1, 8, 17])
+def test_decode_route_is_fused_exactly_where_the_kernel_has_a_layout(
+        b, nc, d, itemsize, ensemble, per_slot):
+    """On CUDA, ``off`` and ``mean`` take the fused route exactly where
+    ``decode_layout`` gives the shape a layout.  Where it has none (D > 8,
+    a row past the split limit, ``mean`` rows past the cluster), ``off``
+    raises ``decode_layout``'s ``ValueError``, which names the limit, and
+    ``mean`` takes the step route, both before any launch; the CPU's plain
+    version takes the fused route at every shape.  (The ``off`` route used
+    to say ``"fused"`` at every shape, so the card raised at its first
+    wide decode wave.)"""
+    try:
+        decode_layout(b, nc, d, itemsize, ensemble=ensemble,
+                      batched=per_slot)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    kw = dict(ensemble=ensemble, per_slot=per_slot)
+    if err is None:
+        assert tarena.decode_route(b, nc, d, itemsize, "cuda", **kw) == "fused"
+    elif ensemble == "off":
+        with pytest.raises(ValueError) as got:
+            tarena.decode_route(b, nc, d, itemsize, "cuda", **kw)
+        assert str(got.value) == err
+        assert "fits" in err or "D <= 8" in err
+    else:
+        assert tarena.decode_route(b, nc, d, itemsize, "cuda", **kw) == "step"
+    assert tarena.decode_route(b, nc, d, itemsize, "cpu", **kw) == "fused"
+    if d <= 8 and nc <= 8244 and ensemble == "off":
+        assert err is None          # the split covers n = 16384 at D <= 8
+    if ensemble == "off" and (d == 9 or (nc == 80000 and itemsize == 8)):
+        assert err is not None      # past the limits: raised, never stepped
 
 
 def _port_batch(b, n=48):

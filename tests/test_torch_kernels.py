@@ -206,13 +206,17 @@ DECODE_NAMES = ("a_re", "a_im", "h_re", "h_im", "y0", "wd_re", "wd_im", "wy",
 @pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
 @pytest.mark.parametrize("b,ensemble", [(4, "off"), (4, "mean"),
                                         (16, "mean"), (17, "mean")])
-@pytest.mark.parametrize("d", [1, 2])
-def test_decode_fused_wrapper_matches_jax_kernel(batched, b, ensemble, d):
+@pytest.mark.parametrize("d,nc", [(1, 20), (2, 20), (2, 800), (8, 800)],
+                         ids=["1", "2", "2-nc800", "8-nc800"])
+def test_decode_fused_wrapper_matches_jax_kernel(batched, b, ensemble, d, nc):
     """The plain version against the JAX kernel (interpret mode) with a
     frozen row (row 1); B = 16 and 17 are the ``mean`` route's largest
-    one-row-a-block cluster and its first two-rows-a-block one."""
+    one-row-a-block cluster and its first two-rows-a-block one; at 800
+    lanes and D = 8 the card splits a row over two blocks."""
     rng = np.random.default_rng(1)
-    ops = _decode_case(rng, b=b, d=d, batched=batched)
+    ops = _decode_case(rng, b=b, nc=nc, d=d, batched=batched)
+    for k in ("wh_re", "wh_im"):
+        ops[k] *= 20 / nc     # the loop's gain as at 20 lanes
     mask = np.arange(b) != 1
     want = jops.decode_fused(*[_j(ops[k]) for k in DECODE_NAMES],
                              jnp.asarray(mask), k=9, ensemble=ensemble)
@@ -297,6 +301,7 @@ def test_decode_layout_limits():
     """The decode kernel's layout rule and limits (``decode_layout``)."""
     lay = decode_layout(8, 525, 1, 8)
     assert (lay.warps, lay.per, lay.copies, lay.threads) == (4, 5, 1, 128)
+    assert (lay.segs, lay.cluster) == (1, 1)
     # ensemble="off": one block a row, so the layout never depends on B.
     for b in (1, 8, 16, 4096):
         assert decode_layout(b, 525, 1, 8) == lay
@@ -308,10 +313,27 @@ def test_decode_layout_limits():
     assert decode_layout(4, 4608, 1, 8)[:2] == (16, 9)
     assert decode_layout(4, 525, 8, 8).warps == 8
     assert decode_layout(3, 40, 2, 8)[:2] == (1, 2)
-    with pytest.raises(ValueError, match="NC <= 4608 fits"):
-        decode_layout(4, 8192, 1, 8)
+    # Every shape that fits one block keeps its one-block layout (S = 1).
+    for shape in ((16, 525, 1, 8), (8, 1043, 1, 8), (4, 4096, 1, 8),
+                  (4, 4608, 1, 8), (4, 525, 8, 8), (3, 40, 2, 8)):
+        assert (decode_layout(*shape).segs,
+                decode_layout(*shape).cluster) == (1, 1)
+    # Past one block a row's lanes split over S blocks of one cluster: at
+    # 8192 lanes two segments of 4096, laid out as 4096 lanes in one block.
+    split = decode_layout(4, 8192, 1, 8)
+    assert (split.segs, split.cluster) == (2, 2)
+    assert split[:2] == decode_layout(4, 4096, 1, 8)[:2]
+    with pytest.raises(ValueError, match="NC <= 73728 fits"):
+        decode_layout(4, 73729, 1, 8)
+    assert decode_layout(4, 73728, 1, 8).segs == 16
+    with pytest.raises(ValueError, match="NC <= 24576 fits"):
+        decode_layout(1, 24577, 8, 4)
+    with pytest.raises(ValueError, match="segs=1 does not fit"):
+        decode_layout(4, 8192, 1, 8, segs=1)
     with pytest.raises(ValueError, match="1 <= D <= 8"):
         decode_layout(4, 64, 9, 8)
+    with pytest.raises(ValueError, match="1 <= D <= 8"):
+        decode_layout(4, 8244, 9, 8)
     # ensemble="mean": the rows over one cluster of G <= 16 blocks of R
     # rows, R x W <= 32 warps, W the fewest that fit; R = 1 up to 16 rows.
     # rows=B forces the one-block layout (G = 1).
@@ -339,12 +361,38 @@ def test_decode_layout_limits():
         with pytest.raises(ValueError, match=r"one cluster of at most 16 "
                                              r"blocks.*B <= 128 fits"):
             decode_layout(129, 525, 1, 8, ensemble="mean", batched=batched)
+    # The mean route splits rows too, one segment a block, B x S <= 16.
+    wide = decode_layout(8, 8244, 1, 8, ensemble="mean", batched=True)
+    assert (wide.segs, wide.cluster, wide.rows, wide.copies) == (2, 16, 1, 1)
+    assert wide.smem <= DECODE_MAX_SMEM_BYTES
+    assert decode_layout(1, 8244, 8, 8, ensemble="mean").cluster == 11
+    with pytest.raises(ValueError, match="B x S <= 16.*B <= 8 fits"):
+        decode_layout(9, 8244, 1, 8, ensemble="mean", batched=True)
+    with pytest.raises(ValueError, match="B <= 1 fits"):
+        decode_layout(2, 8244, 8, 8, ensemble="mean")
     with pytest.raises(ValueError, match="warps=1 does not fit"):
         decode_layout(8, 525, 1, 8, warps=1)
     with pytest.raises(ValueError, match="rows=3 does not fit"):
         decode_layout(64, 525, 1, 8, ensemble="mean", rows=3)
     with pytest.raises(ValueError, match="ensemble='mean' only"):
         decode_layout(8, 525, 1, 8, rows=1)
+
+
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+def test_decode_layout_splits_n16384(d, itemsize):
+    """NC = 8244 (the port's DPG at n = 16384) fits at every D <= 8 in
+    both dtypes, ``off``: the fewest segments S whose block fits (S - 1
+    does not), S blocks a cluster, the layout the same at every B."""
+    lay = decode_layout(1, 8244, d, itemsize)
+    assert 1 < lay.segs <= DECODE_MAX_CLUSTER and lay.cluster == lay.segs
+    assert lay.smem <= DECODE_MAX_SMEM_BYTES
+    assert lay.threads <= decode_max_threads(lay.per, d, itemsize)
+    assert 32 * lay.warps * lay.per * lay.segs >= 8244
+    with pytest.raises(ValueError, match="does not fit"):
+        decode_layout(1, 8244, d, itemsize, segs=lay.segs - 1)
+    for b in (8, 17, 4096):
+        assert decode_layout(b, 8244, d, itemsize) == lay
 
 
 @pytest.mark.parametrize("per,d,itemsize,threads", [
@@ -355,6 +403,24 @@ def test_decode_max_threads_mirrors_the_kernel_bounds(per, d, itemsize,
     """The launcher's thread bounds, which ``csrc/decode_fused.cu`` repeats
     in each instantiation's ``__launch_bounds__``."""
     assert decode_max_threads(per, d, itemsize) == threads
+
+
+@pytest.mark.parametrize("per,d,itemsize,threads", [
+    (1, 8, 8, 256), (1, 2, 8, 256), (2, 8, 8, 256), (1, 1, 8, 512),
+    (16, 1, 4, 256), (1, 8, 4, 512)])
+def test_decode_max_threads_of_split_rows(per, d, itemsize, threads):
+    """The split instantiations' thread bounds: as the unsplit ones but
+    256 at float64, D > 1, one lane a thread (512 spilled), so no split
+    layout launches a block past them."""
+    assert decode_max_threads(per, d, itemsize, True) == threads
+    for nc, segs in ((2600, 11), (8244, 2), (8244, 16)):
+        for w in (1, 2, 4, 8, 16):
+            try:
+                lay = decode_layout(2, nc, d, itemsize, segs=segs, warps=w)
+            except ValueError:
+                continue
+            assert lay.threads <= decode_max_threads(lay.per, d, itemsize,
+                                                     True)
 
 
 def test_wrappers_reject_other_devices():
