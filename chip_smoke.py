@@ -15,16 +15,18 @@ its entries (split lanes, the engine's packed layout), with a sweep of its
 warps a row at five shapes, its mean route on a thread-block cluster at 8,
 16 and 32 slots (and, at 2, 4 and 8, beside the whole arena in one block),
 a row's lanes split over a cluster at four wide shapes (``off`` and
-``mean``) with a sweep of the segments a row, and the engine's call shown
-to be one launch — and fails if a decode
-instantiation spills; the scan and its backward also with real per-timestep gates
+``mean``) with a sweep of the segments a row, its mean route past one
+cluster on a grid of clusters at six shapes with a sweep of the blocks a
+cluster, and the engine's call shown to be one launch — and fails if a
+decode instantiation spills, or if the card holds fewer clusters at once
+than the grid's rule counts on; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
 head_dim 256 (recurrentgemma's local layer, both band chunks in float32
 and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
 printed, and a spill fails the build phase), and at whisper-tiny's encoder
 (1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
-32:8, head_dim 128); then drives the port's twenty main paths and two
+32:8, head_dim 128); then drives the port's twenty-one main paths and two
 more phases on the card, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -63,7 +65,9 @@ it and read just after:
    every wave through one B2 launch on its thread-block cluster, no wave
    on the step route; both fused ensembles held against the CPU engine,
    ``mean`` at 8 and 16 slots, the 16-slot wave timed beside the step
-   route it took before the cluster;
+   route it took before the cluster; and path 21 below; the 256-slot
+   wave on B2's grid of clusters timed beside the step route from the
+   same arena;
 8. the decode-SLO interleave (two protected decoders, chunked prompts,
    8-token decode waves) bit-exact against the decode-blind schedule on
    the card; main path 1 through the driver under ``--decode-slo 2000
@@ -184,7 +188,15 @@ its own process on its default device; then
    teacher-forced prompts, 128 closed-loop tokens, DPG noise 0.01 and a
    readout drawn from a seed — every decode wave one B2 launch that splits
    each row's 4133 lanes over a thread-block cluster, the streams held
-   against the CPU engine elementwise at 1e-9 * max(|ref|, 1).
+   against the CPU engine elementwise at 1e-9 * max(|ref|, 1);
+21. (run in phase 15) a ``mean`` ensemble past one thread-block cluster:
+   160 DPG members at the serving profile (n = 1024, float64, 1024-token
+   prompts, 128 closed-loop tokens; a member whose ridge fit ROADMAP C12
+   stops gets a zero readout and is listed) through
+   ``ReservoirEngine.from_param_batch``, its closed loop one B2 launch on
+   a grid of clusters (no wave on the step route), the streams held
+   against the CPU engine elementwise at 1e-9 * max(|ref|, 1), its
+   128-token wave timed beside the step route.
 
 ``--wide N D`` builds the kernels and runs only path 20 at n = N with D
 outputs (``--wide 16384 1``: 8244 lanes, a DPG build of minutes on the
@@ -349,8 +361,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: The script's start on the host's monotonic clock: each phase's header
+#: carries the seconds since, so the log shows where the run's time goes.
+START = time.monotonic()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.monotonic() - START:.1f} s)", flush=True)
 
 
 def max_err(got, want):
@@ -490,16 +507,20 @@ def cuda_events(fn, calls: int = 20):
     return got
 
 
-def kernel_calls(fn, calls: int = 20, windows: int = 1):
+def kernel_calls(fn, calls: int = 20, windows: int = 5):
     """Device time and CUDA launches per call of ``fn`` in a
     ``torch.profiler`` window of ``calls`` calls: the sum of the port's own
     kernels' times (``OWN_KERNELS``) and their count, each over ``calls``.
-    With ``windows`` > 1, a window with fewer of them than calls (the
-    tracer dropped some, see ``device_kernels``) is taken again, up to
-    ``windows`` in all."""
+    A window with fewer of them than calls (the tracer dropped some, or a
+    whole window's, as it did once on torch 2.11; see ``device_kernels``)
+    is taken again, up to ``windows`` in all, and the fullest one kept.
+    Only where every window came back empty is the time "not measured"."""
+    own = []
     for _ in range(windows):
-        own = [e for e in cuda_events(fn, calls)
+        got = [e for e in cuda_events(fn, calls)
                if any(f"::{n}_kernel" in e.name for n in OWN_KERNELS)]
+        if len(got) > len(own):
+            own = got
         if len(own) >= calls:
             break
     if not own:
@@ -508,6 +529,14 @@ def kernel_calls(fn, calls: int = 20, windows: int = 1):
     us = sum(e.time_range.end - e.time_range.start for e in own)
     return {"device_ms": us / 1e3 / calls,
             "cuda_launches_per_call": len(own) / calls}
+
+
+def us_per_step(device_ms, k: int):
+    """Device microseconds a step of a K-step call, or the tracer's
+    "not measured" as it came."""
+    if isinstance(device_ms, str):
+        return device_ms
+    return device_ms * 1e3 / k
 
 
 def host_us(fn, calls: int = 200, repeats: int = 10):
@@ -805,13 +834,22 @@ def device_kernels(fn, calls: int = 20, windows: int = 3):
 MEAN_SLOTS = (8, 16, 32)
 MEAN_VS_ONE_BLOCK = (2, 4, 8)
 SPLIT_SHAPES = [(8, 8244, 1), (8, 4133, 2), (3, 4609, 1), (2, 8244, 8)]
+#: The ``mean`` route past one cluster, per-slot, float64: a grid of
+#: clusters at n = 1024 (256, 512 and the served phase's 160 slots),
+#: n = 8192 at D = 2 and n = 16384; 32 rows of n = 4096 still fit one
+#: cluster.  Each also timed at a forced
+#: grid of clusters of at most GRID_CLUSTER_SWEEP blocks.
+GRID_SHAPES = [(256, 525, 1), (512, 525, 1), (32, 2074, 1), (32, 4133, 2),
+               (32, 8244, 1), (160, 525, 1)]
+GRID_CLUSTER_SWEEP = (1, 2, 4, 8, 16)
 #: Phase 4's cluster cases, (B, NC, D, ensemble, per-slot), float64.
 CLUSTER_CASES = (
     [(b, 525, 1, "mean", batched)
      for b in sorted(set(MEAN_SLOTS + MEAN_VS_ONE_BLOCK))
      for batched in (True, False)]
     + [(b, nc, d, ensemble, True) for b, nc, d in SPLIT_SHAPES
-       for ensemble in ("off", "mean")])
+       for ensemble in ("off", "mean")]
+    + [(b, nc, d, "mean", True) for b, nc, d in GRID_SHAPES])
 #: The S sweep at B = 8, ``off``, float64: (D, NC, the segment counts S)
 #: timed beside each other (n = 4096, 8192 and 16384), each at the rule's W
 #: for that S and at every W of SEG_SWEEP_WARPS.
@@ -822,17 +860,20 @@ SEG_SWEEP_WARPS = (4,)
 
 def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
     """B2's thread-block cluster routes at every case of ``cases``: the
-    ``mean`` route's rows over one cluster, and a row's lanes split over S
-    blocks (``off``: a cluster a row; ``mean``: B x S blocks).  Float64,
+    ``mean`` route's rows over one cluster or, past it, a grid of clusters
+    that meet once a step, and a row's lanes split over S blocks (``off``:
+    a cluster a row; ``mean``: B x S blocks a cluster).  Float64,
     K = 128: both entries (split lanes, packed Q) against their plain
     versions with row 1 frozen (its state and outputs kept; with ``mean``
     every live row fed back the same y, bit for bit), then with every row
     live its kernel ms (CUDA events), device ms and CUDA launches a call
     (profiler; one, or the phase fails), µs a step, the layout launched,
-    the bound and the plain version's time.  A ``mean`` case whose B x S
-    passes 16 blocks is refused before any launch.  At MEAN_VS_ONE_BLOCK
-    slots also the one-block layout, in the same call, and at 16 per-slot
-    rows every W that fits."""
+    the bound and the plain version's time.  A ``mean`` case past the
+    grid's limit is refused before any launch.  At MEAN_VS_ONE_BLOCK
+    slots also the one-block layout, in the same call, at 16 per-slot
+    rows every W that fits, and at GRID_SHAPES a grid forced to clusters
+    of each size in GRID_CLUSTER_SWEEP.  Then no grid launch waited past
+    its bound (``decode_grid_check``)."""
     import torch
     k, out = DECODE_K, []
     for b, nc, d, ensemble, batched in cases:
@@ -873,18 +914,20 @@ def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
                "layout": {"segs": lay.segs, "warps_a_row": lay.warps,
                           "lanes_a_thread": lay.per,
                           "rows_a_block": lay.rows, "cluster": lay.cluster,
-                          "blocks": (lay.cluster if ensemble == "mean"
+                          "grid": lay.grid,
+                          "blocks": (lay.cluster * lay.grid
+                                     if ensemble == "mean"
                                      else b * lay.segs),
                           "threads_a_block": lay.threads,
                           "smem_a_block": lay.smem},
                "ptxas_decode_instantiations_spilling": spills,
-               "ms": time_ms(call, reps=50), **kernel_calls(call, windows=3),
+               "ms": time_ms(call, reps=50), **kernel_calls(call),
                "plain_ms": time_ms(lambda: ref.decode_fused_ref(
                    *args, live, k=k, ensemble=ensemble), reps=2, warmup=1)}
         if row["cuda_launches_per_call"] != 1:
             fail(f"decode_fused {case}: {row['cuda_launches_per_call']} "
                  f"CUDA launches a call, expected 1")
-        row["us_per_step"] = row["device_ms"] * 1e3 / k
+        row["us_per_step"] = us_per_step(row["device_ms"], k)
         nbytes, flops, cflops = decode_cost(args, live, k)
         if ensemble == "mean":
             # the step's mean over the live rows: a sum and a scale an output
@@ -905,11 +948,11 @@ def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
                 if e > t:
                     fail(f"decode_fused {case} in one block: {e:.3e} > "
                          f"{t:.3e}")
-            oc = kernel_calls(one_call, windows=3)
+            oc = kernel_calls(one_call)
             row["one_block"] = {
                 "warps_a_row": one.warps, "threads": one.threads,
                 **worst_of(oerrs), "ms": time_ms(one_call, reps=50), **oc,
-                "us_per_step": oc["device_ms"] * 1e3 / k}
+                "us_per_step": us_per_step(oc["device_ms"], k)}
         if ensemble == "mean" and nc == 525 and b == 16 and batched:
             # The rule takes the fewest warps a row that fit
             # (DECODE_MEAN_AIM_WARPS): every W beside it.
@@ -922,11 +965,36 @@ def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
                     sweep[w] = "does not fit"
                     continue
                 sweep[w] = kernel_calls(lambda: dsk.decode_fused_cuda(
-                    *args, live, k=k, ensemble="mean", warps=w),
-                    windows=3)["device_ms"]
+                    *args, live, k=k, ensemble="mean", warps=w))["device_ms"]
             row["warps_sweep_device_ms"] = sweep
+        if (b, nc, d) in GRID_SHAPES and ensemble == "mean":
+            # Grids of clusters of 8 (portable) and of 16 blocks.
+            sweep = {}
+            for c in GRID_CLUSTER_SWEEP:
+                forced = dsk.decode_layout(b, nc, d, 8, ensemble="mean",
+                                           batched=batched, cluster=c)
+
+                def forced_call():
+                    return dsk.decode_fused_cuda(*args, live, k=k,
+                                                 ensemble="mean", cluster=c)
+                ferrs = [max_err(g, w) for g, w in zip(
+                    dsk.decode_fused_cuda(*args, frozen, k=k,
+                                          ensemble="mean", cluster=c),
+                    want)]
+                for e, t in ferrs:
+                    if e > t:
+                        fail(f"decode_fused {case} in clusters of {c}: "
+                             f"{e:.3e} > {t:.3e}")
+                dev = kernel_calls(forced_call)["device_ms"]
+                sweep[c] = {"grid": forced.grid, "cluster": forced.cluster,
+                            "rows_a_block": forced.rows, "device_ms": dev,
+                            "us_per_step": us_per_step(dev, k),
+                            **worst_of(ferrs)}
+            row["grid_cluster_sweep"] = sweep
         out.append(row)
         print(json.dumps({"decode_fused_cluster": row}), flush=True)
+    torch.cuda.synchronize()
+    dsk.decode_grid_check()
     return out
 
 
@@ -961,12 +1029,13 @@ def segs_sweep(ref, dsk, sweep=SEG_SWEEP, warps=SEG_SWEEP_WARPS):
                     if e > t:
                         fail(f"decode_fused D {d} NC {nc} at S {segs} x W "
                              f"{lay.warps}: {e:.3e} > {t:.3e}")
-                dev = kernel_calls(call, windows=3)["device_ms"]
+                dev = kernel_calls(call)["device_ms"]
                 by.append({"segs": segs, "warps": lay.warps,
                            "lanes_a_thread": lay.per,
                            "rule": (segs, lay.warps) == (rule.segs,
                                                          rule.warps),
-                           "device_ms": dev, "us_per_step": dev * 1e3 / k,
+                           "device_ms": dev,
+                           "us_per_step": us_per_step(dev, k),
                            **worst_of(errs)})
         out[f"D{d}-NC{nc}"] = by
         print(json.dumps({"decode_fused_segs_sweep": {f"D{d}-NC{nc}": by}}),
@@ -1029,7 +1098,7 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
     row.update(warps=layout.warps, per=layout.per)
     row["ms"] = time_ms(call, reps=50)
     row.update(kernel_calls(call))
-    row["us_per_step"] = row["device_ms"] * 1e3 / k
+    row["us_per_step"] = us_per_step(row["device_ms"], k)
     row["plain_ms"] = time_ms(lambda: ref.decode_fused_ref(*args, mask, k=k),
                               reps=2, warmup=1)
     nbytes, flops, cflops = decode_cost(args, mask, k)
@@ -1040,7 +1109,7 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
     mean = kernel_calls(shared_mean)
     row["mean_route"] = {"warps": dsk.decode_layout(
         b, nc, d, 8, ensemble="mean").warps, **mean,
-        "us_per_step": mean["device_ms"] * 1e3 / k,
+        "us_per_step": us_per_step(mean["device_ms"], k),
         "ms": time_ms(shared_mean, reps=50),
         "plain_ms": time_ms(lambda: ref.decode_fused_ref(
             *args, mask, k=k, ensemble="mean"), reps=2, warmup=1)}
@@ -1057,7 +1126,7 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
             "ms": time_ms(mean_call, reps=50), **kernel_calls(mean_call),
             "plain_ms": time_ms(lambda: ref.decode_fused_ref(
                 *bargs, mask, k=k, ensemble="mean"), reps=2, warmup=1)}
-    mrow["us_per_step"] = mrow["device_ms"] * 1e3 / k
+    mrow["us_per_step"] = us_per_step(mrow["device_ms"], k)
     nbytes, flops, cflops = decode_cost(bargs, mask, k)
     # plus the step's mean over the live rows: a sum and a scale per output
     mrow.update(bound(nbytes, flops + k * (b + 1) * d, "float64", copy_bw,
@@ -1079,11 +1148,12 @@ def check_decode_fused(ops, ref, dsk, dispatch, esn, ESNConfig, copy_bw):
             sweep[w] = kernel_calls(lambda: dsk.decode_fused_cuda(
                 *sargs, smask, k=k, warps=w))["device_ms"]
         timed = {w: v for w, v in sweep.items() if isinstance(v, float)}
-        best = min(timed, key=timed.get)
+        best = min(timed, key=timed.get) if timed else None
         srow = {"shape": [sb, snc, sd, k], "rule_warps": pick.warps,
                 "per": pick.per, "device_ms": sweep[pick.warps],
-                "us_per_step": sweep[pick.warps] * 1e3 / k,
-                "fastest_warps": best, "fastest_device_ms": timed[best],
+                "us_per_step": us_per_step(sweep[pick.warps], k),
+                "fastest_warps": best,
+                "fastest_device_ms": timed.get(best, "not measured"),
                 "sweep_device_ms": sweep}
         shapes.append(srow)
         print(json.dumps({"decode_fused_shape": srow}), flush=True)
@@ -1708,14 +1778,17 @@ ENS_ARGS = ["--reservoir", "--n", "1024", "--slots", "8", "--prompt-len",
 def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble,
                     slots=8):
     """A param-batched engine (``slots`` dpg reservoirs at the serving
-    profile, readouts fitted on the card) on the card and the CPU: prefill
+    profile, readouts fitted on the card; a member whose fit C12 stops
+    gets a zero readout, and is listed) on the card and the CPU: prefill
     slots x 1024 (B1 with per-row coefficients), one open-loop step,
     ``observe``, 128 closed-loop tokens (``mean``: B2's ensemble route on
-    its thread-block cluster; ``weighted``: the step-at-a-time path) —
-    held at 1e-9 max(|ref|, 1); with the card's time of the closed loop
-    and, for ``mean``, of the same 128-token wave on the step route
-    (``arena.closed_loop``, which ``mean`` past 8 slots took before the
-    cluster) from the same arena."""
+    its thread-block cluster, or past it its grid of clusters;
+    ``weighted``: the step-at-a-time path) — held at 1e-9 max(|ref|, 1);
+    the closed loop's decode waves by route; with the card's time of the
+    closed loop and, for ``mean``, of the same 128-token wave on the step
+    route (``arena.closed_loop``, which ``mean`` past 8 slots took before
+    the cluster, and past one cluster before the grid) from the same
+    arena."""
     import dataclasses
     import torch
     from repro_torch.core.params import Readout, stack_params
@@ -1724,12 +1797,29 @@ def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble,
     cfg = serving_profile(ESNConfig)
     sig = mso_series(3, 2601)
     u, y = sig[:-1, None], sig[1:, None]
+    t0 = time.perf_counter()
     ps = [esn.dpg_params(dataclasses.replace(cfg, seed=i), "noisy_golden",
                          sigma=0.1, device="cuda") for i in range(slots)]
-    ro = Readout(torch.stack([esn.fit(p, u[:2000], y[:2000],
-                                      washout=100).w_out for p in ps]))
+    t1 = time.perf_counter()
+
+    def readout(i, p):
+        try:
+            return esn.fit(p, u[:2000], y[:2000], washout=100).w_out
+        except torch.linalg.LinAlgError:
+            # ROADMAP C12: this member's regularised Gram is not positive
+            # definite (the JAX package's fit returns NaN there); it takes
+            # a zero readout, so it runs but votes 0 (a readout drawn from
+            # a seed would feed its growing states, C5, into the mean).
+            unfitted.append(i)
+            return torch.zeros((p.cfg.n_features, y.shape[1]),
+                               dtype=torch.float64, device="cuda")
+    unfitted = []
+    ro = Readout(torch.stack([readout(i, p) for i, p in enumerate(ps)]))
     params = stack_params(ps)
-    outs, res = {}, {"slots": slots}
+    torch.cuda.synchronize()
+    outs, res = {}, {"slots": slots, "dpg_build_s": t1 - t0,
+                     "fit_s": time.perf_counter() - t1,
+                     "c12_members_with_a_zero_readout": unfitted}
     for device in ("cuda", "cpu"):
         eng = ReservoirEngine.from_param_batch(params, ro, ensemble=ensemble,
                                                device=device)
@@ -1742,12 +1832,15 @@ def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble,
                                 for i in range(slots)})
         eng.observe(3, [0.5])
         counts = ops.decode_fused.launches
+        waves = dict(eng.stats().decode_waves_by_route)
         ys = eng.decode_closed_loop(128)
         if device == "cuda":
             torch.cuda.synchronize()
             res["decode_fused_launches_in_closed_loop"] = (
                 ops.decode_fused.launches - counts)
-            res["decode_waves_by_route"] = eng.stats().decode_waves_by_route
+            res["decode_waves_by_route"] = {
+                k: v - waves[k]
+                for k, v in eng.stats().decode_waves_by_route.items()}
             res["closed_loop_128_ms"] = wall_ms(
                 lambda: eng.decode_closed_loop(128))
             if ensemble == "mean":
@@ -1767,6 +1860,73 @@ def ensemble_vs_cpu(esn, ESNConfig, mso_series, ReservoirEngine, ensemble,
                                                outs["cpu"][i]))]
         res[name] = max(errs, key=lambda e: e["max_rel_err"])
     return res
+
+
+def grid_wave_vs_step(esn, ESNConfig, mso_series, ReservoirEngine,
+                      slots=GRID_SHAPES[0][0]):
+    """The ``mean`` route's 128-token wave at ``slots`` per-slot members of
+    the serving profile (one DPG member stacked ``slots`` times, its
+    readout fitted on the card; 64-token prompts): the wall ms of one B2
+    launch on its grid of clusters beside the step route
+    (``arena.closed_loop``, which ``mean`` past one cluster took before
+    the grid) from the same arena, and the two waves' largest difference
+    (elementwise against max(|step|, 1))."""
+    import torch
+    from repro_torch.core.params import Readout, stack_params
+    from repro_torch.kernels import ops
+    from repro_torch.serve import arena as arena_mod
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    cfg = serving_profile(ESNConfig)
+    sig = mso_series(3, 2601)
+    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device="cuda")
+    w = esn.fit(p, sig[:2000, None], sig[1:2001, None], washout=100).w_out
+    params = stack_params([p] * slots)
+    eng = ReservoirEngine.from_param_batch(
+        params, Readout(w.expand(slots, -1, -1).contiguous()),
+        ensemble="mean", device="cuda")
+    for i in range(slots):
+        eng.submit(i, sig[4 * i:4 * i + 64, None])
+    eng.flush()
+    params, a, wo = eng.params, eng.arena, eng.w_out
+    mask = torch.ones(slots, dtype=torch.bool, device="cuda")
+    lay = dsk.decode_layout(slots, 525, 1, 8, ensemble="mean",
+                            batched=True)._asdict()
+    counts = ops.decode_fused.launches
+    fused = arena_mod.closed_loop_fused(params, wo, a, mask, 128,
+                                        batched=True, ensemble="mean")[1]
+    launched = ops.decode_fused.launches - counts
+    step = arena_mod.closed_loop(params, wo, a, mask, 128, batched=True,
+                                 ensemble="mean")[1]
+    torch.cuda.synchronize()
+    dsk.decode_grid_check()
+    rel = float(((fused - step).abs() / step.abs().clamp(min=1.0)).max())
+    if launched != 1 or not rel <= F64_TOL:
+        fail(f"the {slots}-slot mean wave: {launched} B2 launches, "
+             f"{rel:.3e} from the step route (tol {F64_TOL:.0e})")
+    return {"slots": slots, "layout": lay, "b2_launches": launched,
+            "max_rel_diff_vs_step": rel,
+            "wave_128_fused_ms": wall_ms(lambda: arena_mod.closed_loop_fused(
+                params, wo, a, mask, 128, batched=True, ensemble="mean")),
+            "wave_128_step_route_ms": wall_ms(lambda: arena_mod.closed_loop(
+                params, wo, a, mask, 128, batched=True, ensemble="mean"))}
+
+
+def check_grid_table(build, dsk):
+    """The most clusters of C = 1..16 blocks the card holds at once at one
+    block an SM (``cudaOccupancyMaxActiveClusters``) against the table the
+    ``mean`` grid's rule reads (``DECODE_MAX_GRID_CLUSTERS``): fails where
+    the card holds fewer than the table says."""
+    import ctypes
+    fn = build.library("decode_fused").decode_max_active_clusters
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    card = [fn(c) for c in range(1, dsk.DECODE_MAX_CLUSTER + 1)]
+    table = list(dsk.DECODE_MAX_GRID_CLUSTERS)
+    out = {"card": card, "table": table, "equal": card == table}
+    print(json.dumps({"decode_max_active_clusters": out}), flush=True)
+    if any(h < t for h, t in zip(card, table)):
+        fail(f"the card holds fewer clusters at once than "
+             f"DECODE_MAX_GRID_CLUSTERS says: card {card}, table {table}")
+    return out
 
 
 #: The interleave phase's decode SLO (microseconds of prefill cost, planned
@@ -3810,6 +3970,7 @@ def main(argv=None) -> None:
                      if "decode_fused_kernel" in f}
     if decode_spills:
         fail(f"decode_fused instantiations spill: {decode_spills}")
+    grid_table = check_grid_table(build, dsk)
     wide = wide_route_report(build.build_log("flash_attention"))
     print(json.dumps({"flash_attention_d256_route_ptxas": wide}), flush=True)
     if not wide or any(r["spill"] != "0 bytes spill stores, 0 loads"
@@ -4004,12 +4165,33 @@ def main(argv=None) -> None:
                  f"launches {launches[path]}; expected one B2 launch a "
                  f"wave (2), no step wave, a finite continuation within "
                  f"0.1")
-    for ensemble, slots in (("mean", 8), ("weighted", 8), ("mean", 16)):
+    for ensemble, slots in (("mean", 8), ("weighted", 8), ("mean", 16),
+                            ("mean", 160)):
         name = f"ensemble_{ensemble}_vs_cpu" + (
             f"_{slots}_slots" if slots != 8 else "")
-        print(json.dumps({name: ensemble_vs_cpu(
-            esn, ESNConfig, mso_series, ReservoirEngine, ensemble, slots)}),
-            flush=True)
+        if slots == 160:
+            # Main path 21: a mean arena past one cluster (128 rows at
+            # n = 1024) on B2's grid of clusters, one launch a wave.
+            res = drive("serve_ensemble_mean_160_slots",
+                        lambda: ensemble_vs_cpu(
+                            esn, ESNConfig, mso_series, ReservoirEngine,
+                            ensemble, slots), ("diag_scan", "decode_fused"))
+            res["launches"] = launches["serve_ensemble_mean_160_slots"]
+        else:
+            res = ensemble_vs_cpu(esn, ESNConfig, mso_series,
+                                  ReservoirEngine, ensemble, slots)
+        print(json.dumps({name: res}), flush=True)
+        if slots == 160 and (
+                res["decode_waves_by_route"] != {"fused": 1, "step": 0}
+                or res["decode_fused_launches_in_closed_loop"] != 1):
+            # Past one cluster (128 rows at n = 1024): B2 on a grid of
+            # clusters, one launch a wave, no step wave.
+            fail(f"{name}: decode waves by route "
+                 f"{res['decode_waves_by_route']}, "
+                 f"{res['decode_fused_launches_in_closed_loop']} B2 "
+                 f"launches, expected one fused launch and no step wave")
+    print(json.dumps({"grid_wave_vs_step": grid_wave_vs_step(
+        esn, ESNConfig, mso_series, ReservoirEngine)}), flush=True)
 
     phase("16 main path 8: decode-SLO interleave (8 slots, 2 protected "
           "decoders, 4 x 1024-token prompts in 256-token chunks, 8-token "
@@ -4244,7 +4426,8 @@ def main(argv=None) -> None:
                  "device_ms", "cuda_launches_per_call", "us_per_step",
                  "warps", "per", "mean_route", "mean_per_slot",
                  "run_decode_fused", "tenant_pool", "shapes")},
-             cluster_rows=cluster_rows, segs_sweep=seg_sweep, serve_wide={
+             cluster_rows=cluster_rows, segs_sweep=seg_sweep,
+             grid_max_active_clusters=grid_table, serve_wide={
                  k: wide[k] for k in ("lanes", "layout",
                                       "decode_waves_by_route",
                                       "sessions_per_s")},

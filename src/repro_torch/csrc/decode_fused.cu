@@ -2,9 +2,17 @@
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (src/repro_torch/kernels/build.py).  The entry point launches
-// on the stream it is given, never synchronises, allocates nothing (the
-// Python wrapper allocates outputs with torch.empty), and returns
+// on the stream it is given, never synchronises, allocates nothing but the
+// grid route's 4-byte error word in mapped host memory, once (the Python
+// wrapper allocates outputs and scratch with torch.empty), and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
+//
+// Parts: the instantiations fall into four parts, one for each (T, DM)
+// pair.  The build compiles this file once a part, in parallel
+// (-DDECODE_PART=0..3; the compile time grows with the instantiations, 144
+// in all), and links the objects into one library; part 0 (double, DM 1)
+// also holds the grid route's process state and the C entry points.
+// Without DECODE_PART the file holds every part, as one translation unit.
 //
 // ---------------------------------------------------------------------------
 // decode_fused: K closed-loop decode steps in one launch.
@@ -83,6 +91,38 @@
 //     227 KB budget bounds R rows, not B.  The launcher refuses a layout no
 //     cluster of which fits the card (cudaOccupancyMaxActiveClusters ==
 //     0): no other path is swapped in.
+//   * ensemble == mean past one cluster (GRID, a template flag, so the
+//     one-cluster loop compiles as before): G clusters of C blocks (C <= 2
+//     where the rows allow; a split row's S segments share one), cluster
+//     c holding rows [c Bc, (c + 1) Bc) laid out as above, every block
+//     keeping the mask and partials of its own cluster's rows only.  A
+//     step's exchange runs within the cluster as above, which leaves every
+//     block with its cluster's sum of m_r y_r; then the cluster's rank-0
+//     block writes it into slot part[x & 1][c] of a global scratch and
+//     adds one to the arrival counter (red.release.gpu); every lane of
+//     warp 0 of every block waits (ld.acquire.gpu) until the counter reads
+//     G (x + 1), reads the G sums (L2, __ldcg) and adds them in one fixed
+//     order (a butterfly over cluster order), so every block of every
+//     cluster has the same bits; one barrier hands them to the block, and
+//     y = sum / max(sum m, 1) (the block counts the whole mask once, an
+//     integer).  x counts the exchanges: the seed (the live rows' mean of
+//     y0) runs as exchange 0 when the packed entry asks for it, through
+//     the same path.  Two parity slots suffice: a leader writes
+//     part[(x + 2) & 1] only after exchange x + 1's count completed, which
+//     needs every cluster's leader to have published x + 1, after its
+//     cluster's exchange x + 1, which needs every block of that cluster to
+//     have sent its step-(x + 1) partials, each after its reads of
+//     exchange x.  The G clusters must all run at once: the rule's G is at
+//     most the clusters of C blocks the card holds at one block an SM
+//     (kernels/diag_scan.py::DECODE_MAX_GRID_CLUSTERS), the launcher
+//     refuses a grid cudaOccupancyMaxActiveClusters says the card cannot
+//     hold and launches it cooperatively (the runtime refuses one it
+//     cannot hold at once), after the device's last grid launch on any
+//     stream, with the counter zeroed on the stream.  A wait has a bound:
+//     past it the block sets an error word in mapped host memory and stops
+//     waiting (past a shorter one it also gives up once another block
+//     set it), so no grid hangs the card; the next grid launch, or
+//     kernels/diag_scan.py::decode_grid_check after a synchronise, raises.
 //   * The coefficients a and the weights wd, wh of a thread's lanes are
 //     loaded once, before the K loop, into shared memory laid out so that
 //     thread t reads column t (conflict-free); wy and b_out too.  Nothing is
@@ -115,19 +155,59 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#ifdef DECODE_PART
+#define DECODE_PART_HAS(p) (DECODE_PART == (p))
+#else
+#define DECODE_PART_HAS(p) 1
+#endif
+
+// The arguments of one call, as the launcher packs them (described beside
+// the entry points below).
+struct DecodeCall {
+  long long a_re, a_im, a_sb, h_re, h_im, h_sb, y0, wd_re, wd_im, wd_sb,
+      wd_ld, wy, wy_sb, b_out, bo_sb, wh_re, wh_im, wh_sb, mask, o_h_re,
+      o_h_im, o_y, o_ys, n_b, n_c, n_r, packed, n_d, n_k, warps, per, mean,
+      seed_mean, rows, blocks, copies, segs, smem, stream, grid, crows,
+      scratch;
+};
+
+// What the parts share: the grid route's state in this process (defined
+// in part 0) and one entry a part.
+namespace decode_parts {
+constexpr int kMaxDevices = 64;
+struct GridState {
+  int* err_host = nullptr;
+  int* err_dev = nullptr;
+  cudaEvent_t done[kMaxDevices] = {};
+  cudaStream_t on[kMaxDevices] = {};
+};
+extern GridState g_grid;
+int grid_error_word();
+int call_f64_d1(const DecodeCall* c);
+int call_f64_d8(const DecodeCall* c);
+int call_f32_d1(const DecodeCall* c);
+int call_f32_d8(const DecodeCall* c);
+}  // namespace decode_parts
+
 namespace {
 
-// The most threads a block of the <T, PER, DM, SPLIT> instantiation runs,
-// which sets its register cap (65536 / threads, at most 255): the largest
-// at which ptxas held every instantiation without spilling on sm_90a
-// (chip_smoke.py phase 2 fails on a spill).  words = sizeof(T) / 4.  The
-// launcher's rule (kernels/diag_scan.py::decode_max_threads) repeats it.
+using decode_parts::g_grid;
+using decode_parts::grid_error_word;
+
+// The most threads a block of the <T, PER, DM, SPLIT, GRID> instantiation
+// runs, which sets its register cap (65536 / threads, at most 255): the
+// largest at which ptxas held every instantiation without spilling on
+// sm_90a (chip_smoke.py phase 2 fails on a spill).  words = sizeof(T) / 4.
+// The launcher's rule (kernels/diag_scan.py::decode_max_threads) repeats
+// it.
 __host__ __device__ constexpr int decode_max_threads(int per, int dm,
-                                                     int words, bool split) {
+                                                     int words, bool split,
+                                                     bool grid = false) {
   if (words == 2)
     return dm == 1 ? (per <= 10 ? 512 : 256)
                    : (per == 1 && !split ? 512 : 256);
-  return dm == 1 ? (per <= 3 ? 1024 : per <= 12 ? 512 : 256) : 512;
+  return dm == 1 ? (per <= 3 ? 1024 : per <= (grid ? 10 : 12) ? 512 : 256)
+                 : 512;
 }
 
 template <typename T>
@@ -151,13 +231,30 @@ struct DecodeArgs {
   long long a_sb, h_sb, wd_sb, wd_ld, wy_sb, bo_sb, wh_sb;
   int n_b, n_c, n_r, packed, n_d, n_k, warps, mean, seed_mean, rows, copies,
       segs, seg_len;
+  // The mean route's grid (GRID): clusters, blocks a cluster, rows a
+  // cluster (the last may hold fewer), the arrival counter and the
+  // clusters' sums [2][grid][D] in global scratch, and the error word (in
+  // mapped host memory) a wait past its bound sets.
+  int grid, cluster, crows;
+  unsigned* counter;
+  T* gpart;
+  volatile int* err;
 };
 
 // The most blocks in the mean route's cluster (the H100's non-portable
-// cluster size), and the code the entry returns when no cluster of the
-// layout fits the card (not a CUDA error code; cuda_error_string names it).
+// cluster size), and the codes the entry returns when no cluster of the
+// layout fits the card, when the card cannot hold a grid's clusters at
+// once, and when an earlier grid launch's wait passed its bound (not CUDA
+// error codes; cuda_error_string names them).
 constexpr int kMaxCluster = 16;
 constexpr int kNoCluster = 10000;
+constexpr int kGridTooLarge = 10001;
+constexpr int kGridTimedOut = 10002;
+// A grid block's wait for the step's clusters: past kGridSlowNs it also
+// reads the error word (another block gave up), past kGridSpinNs it gives
+// up itself.  A step takes microseconds.
+constexpr unsigned long long kGridSlowNs = 100000ull;
+constexpr unsigned long long kGridSpinNs = 200000000ull;
 
 // PTX wrappers: the mean route's exchange through distributed shared
 // memory.  A block's two mbarriers (one a parity) each count one local
@@ -227,7 +324,47 @@ __device__ __forceinline__ void st_async(float* dst, float v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
       "[%2];" :: "r"(d), "r"(__float_as_uint(v)), "r"(b) : "memory");
 }
+
+// The grid's arrival counter: a cluster's release add after writing its
+// sum, and the acquire loads that wait for every cluster's.
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 // End of the PTX wrappers.
+
+// Until *counter reaches target (true), or false once the wait passed
+// kGridSpinNs (setting *err) or, past kGridSlowNs, found *err set by
+// another block: a grid whose clusters cannot all run at once then ends
+// (its outputs invalid, the next launch raises) instead of hanging.
+__device__ bool grid_wait(const unsigned* counter, unsigned target,
+                          volatile int* err) {
+  if (ld_acquire(counter) >= target) return true;
+  const unsigned long long t0 = global_ns();
+  for (;;) {
+    if (ld_acquire(counter) >= target) return true;
+    const unsigned long long dt = global_ns() - t0;
+    if (dt > kGridSlowNs && *err != 0) return false;
+    if (dt > kGridSpinNs) {
+      *err = 1;
+      __threadfence_system();
+      return false;
+    }
+  }
+}
 
 // Offsets of lane j's re and im parts along a lane row.  Split lanes: j in
 // separate re / im arrays.  Packed Q: a real slot j < n_r at j (no im),
@@ -274,9 +411,12 @@ __device__ __forceinline__ T sum_warps(const T* v, int stride, int warps) {
 // SPLIT: a row's lanes split over s.segs > 1 blocks.  Without it the
 // segment arithmetic folds away (one segment, lanes [0, NC)), so the
 // unsplit routes compile to the code they had before the split existed.
-template <typename T, int PER, int DM, bool SPLIT>
+// GRID (with SPLIT, s.segs >= 1): the mean route over s.grid clusters that
+// meet once a step through global memory; without it every grid term folds
+// away, so the one-cluster routes compile to the code they had before.
+template <typename T, int PER, int DM, bool SPLIT, bool GRID>
 __global__ void __launch_bounds__(
-    decode_max_threads(PER, DM, (int)(sizeof(T) / 4), SPLIT), 1)
+    decode_max_threads(PER, DM, (int)(sizeof(T) / 4), SPLIT, GRID), 1)
 decode_fused_kernel(DecodeArgs<T> s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_d = DM == 1 ? 1 : s.n_d;
@@ -290,12 +430,20 @@ decode_fused_kernel(DecodeArgs<T> s) {
   const int segs = SPLIT ? s.segs : 1;     // blocks a row (segments)
   // The cluster exchange: the mean route, or a row split over blocks.
   const bool xchg = SPLIT || s.mean;
-  const int blk = SPLIT ? blockIdx.x / segs : blockIdx.x;
-  const int sg = SPLIT ? blockIdx.x - blk * segs : 0;  // this segment
-  const int r = blk * rows + lr;           // slot row
-  // The mean route's last block may hold padding rows past B: they hold no
-  // lanes, write nothing and only meet the cluster's barriers.
-  const bool valid = r < s.n_b;
+  // GRID: this block's cluster, its rank there, the cluster's first row
+  // and its rows (the last cluster may hold fewer than s.crows).
+  const int cl = GRID ? (int)blockIdx.x / s.cluster : 0;
+  const int bic = GRID ? (int)blockIdx.x - cl * s.cluster : (int)blockIdx.x;
+  const int r0 = GRID ? cl * s.crows : 0;
+  const int nbc = GRID ? min(s.crows, s.n_b - r0) : s.n_b;
+  const int blk = SPLIT ? bic / segs : bic;
+  const int sg = SPLIT ? bic - blk * segs : 0;  // this segment
+  const int rc = blk * rows + lr;          // row within the cluster
+  const int r = r0 + rc;                   // slot row
+  // The mean route's last block (of a cluster) may hold padding rows past
+  // its rows: they hold no lanes, write nothing and only meet the
+  // cluster's barriers.
+  const bool valid = rc < nbc;
   // This block's lanes of the row: [lo, lo + n_seg).
   const int lo = SPLIT ? sg * s.seg_len : 0;
   const int n_seg = !valid ? 0
@@ -304,12 +452,12 @@ decode_fused_kernel(DecodeArgs<T> s) {
   const int copy_sz = PER * nv * tpr;
   // The (row, segment) units whose partials a step exchanges: every row of
   // the cluster for mean, this row's segments off; this block's unit.
-  const int units = (s.mean ? s.n_b : 1) * segs;
-  const int unit = (s.mean ? r : 0) * segs + sg;
+  const int units = (s.mean ? nbc : 1) * segs;
+  const int unit = (s.mean ? rc : 0) * segs + sg;
   // Shared memory: the exchange's two mbarriers (16 bytes); lane operands
   // [copies][PER][nv][tpr]; wy, b_out [rows][nfb]; each unit's row's 0/1
   // mask [units] (1 off); readout partials [2][units][W][D] (the exchange)
-  // or [2][W][D] (off, one block a row).
+  // or [2][W][D] (off, one block a row); GRID: the step's y [2][D].
   unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem_raw);
   T* lane_s = reinterpret_cast<T*>(smem_raw + (xchg ? 16 : 0));
   T* fb_s = lane_s + s.copies * copy_sz;
@@ -381,7 +529,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
   }
   if (xchg) {  // off: a live row's units (a frozen row has left)
     for (int i = tid; i < units; i += blockDim.x)
-      m_s[i] = !s.mean || s.mask[i / segs] != 0 ? T(1) : T(0);
+      m_s[i] = !s.mean || s.mask[r0 + i / segs] != 0 ? T(1) : T(0);
   }
 
   // The row's state lanes and carried y, in registers for all K steps.
@@ -399,7 +547,15 @@ decode_fused_kernel(DecodeArgs<T> s) {
     }
   }
   T denom = T(1);
-  if (s.mean) {
+  if (GRID) {
+    // The block counts the live rows of the whole mask together (an
+    // integer, so every block of every cluster has the same denom).
+    int live_rows = 0;
+    for (int i = 0; i < s.n_b; i += (int)blockDim.x)
+      live_rows += __syncthreads_count(i + tid < s.n_b &&
+                                       s.mask[i + tid] != 0);
+    denom = live_rows > 1 ? T(live_rows) : T(1);
+  } else if (s.mean) {
     T msum = T(0);
     for (int i = 0; i < s.n_b; ++i) msum += s.mask[i] != 0 ? T(1) : T(0);
     denom = msum > T(1) ? msum : T(1);
@@ -410,7 +566,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
     y[e] = T(0);
     if (e < n_d && valid) {
       y[e] = s.y0[r * n_d + e];
-      if (s.seed_mean && live) {
+      if (!GRID && s.seed_mean && live) {
         // Seed parity with the engine's closed loop: every live row starts
         // from the mean of the live rows' outputs.
         T acc = T(0);
@@ -447,18 +603,25 @@ decode_fused_kernel(DecodeArgs<T> s) {
   while (span < xu && span < 32) span <<= 1;
   // Lane g of each warp sends to block g of the cluster.
   const bool sender =
-      valid && lane < (SPLIT && !s.mean ? segs : (int)gridDim.x);
+      valid && lane < (SPLIT && !s.mean ? segs
+                       : GRID ? s.cluster : (int)gridDim.x);
   const bool lead = t == 0 && (!SPLIT || sg == 0);  // adds the feedback
   const T* lq = lane_s + (s.copies > 1 ? lr : 0) * copy_sz + t;
   const T* fb = fb_s + lr * nfb;
   bool ok[PER];  // which slots hold a lane; the rest stay 0 and add 0
 #pragma unroll
   for (int p = 0; p < PER; ++p) ok[p] = t + p * tpr < n_seg;
-  for (int step = 0; step < s.n_k; ++step) {
+  // GRID: the seed (the live rows' mean of y0) runs as step -1 through the
+  // same exchange; x counts the exchanges (its parity picks the slots).
+  const int first = GRID && s.seed_mean ? -1 : 0;
+  T* gy = part_s + 2 * xu * s.warps * n_d;  // GRID: the step's y [2][D]
+  bool gave_up = false;                     // GRID: a wait passed its bound
+  for (int step = first; step < s.n_k; ++step) {
+    const int x = step - first;
     // Drive from the carried y, then the masked complex update.  Straight
     // line over every slot (selects, no branches), so the shared loads of
     // all slots issue ahead of the arithmetic.
-    if (live) {
+    if (live && (!GRID || step >= 0)) {
 #pragma unroll
       for (int p = 0; p < PER; ++p) {
         const T* q = lq + p * nv * tpr;
@@ -478,6 +641,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
       }
     }
     // Readout partials on the new state; the feedback term joins once.
+    // (The seed's: the row's y0, once.)
     T acc[DM];
 #pragma unroll
     for (int e = 0; e < DM; ++e) {
@@ -488,16 +652,19 @@ decode_fused_kernel(DecodeArgs<T> s) {
         for (int k = 0; k < DM; ++k)
           if (k < n_d) f += y[k] * fb[k * n_d + e];
         acc[e] = lead ? f : T(0);
+        if (GRID && step < 0) acc[e] = lead && valid ? y[e] : T(0);
       }
     }
+    if (!GRID || step >= 0) {
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const T* q = lq + p * nv * tpr;
+      for (int p = 0; p < PER; ++p) {
+        const T* q = lq + p * nv * tpr;
 #pragma unroll
-      for (int e = 0; e < DM; ++e) {
-        if (e < n_d)
-          acc[e] += hr[p] * q[(4 + 4 * e) * tpr] +
-                    hi[p] * q[(5 + 4 * e) * tpr];
+        for (int e = 0; e < DM; ++e) {
+          if (e < n_d)
+            acc[e] += hr[p] * q[(4 + 4 * e) * tpr] +
+                      hi[p] * q[(5 + 4 * e) * tpr];
+        }
       }
     }
 #pragma unroll
@@ -517,7 +684,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
       // memory, reduced in one fixed order.  A block sends step s + 2's
       // partials only after every block has sent step s + 1's, each after
       // its reads of step s, so the parity slot is free again.
-      const int par = step & 1;
+      const int par = x & 1;
       T* pb = part_s + par * xu * s.warps * n_d;
       if (tid == 0) mbar_expect(mbar + par, step_bytes);
       if (sender) {
@@ -527,7 +694,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
             st_async(pb + (xme * s.warps + w) * n_d + e, acc[e],
                      mbar + par, (unsigned)lane);
       }
-      mbar_wait(mbar + par, (unsigned)((step >> 1) & 1));
+      mbar_wait(mbar + par, (unsigned)((x >> 1) & 1));
       // Lane l takes units l, l + span, ... (span: the units, rounded up
       // to a power of two, at most 32), each its W partials in warp order
       // times its row's m (1 off), so the butterfly needs log2(span)
@@ -541,7 +708,49 @@ decode_fused_kernel(DecodeArgs<T> s) {
           v += sum_warps(pb + i * s.warps * n_d + e, n_d, s.warps) * m_s[i];
         for (int o = span >> 1; o > 0; o >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (live) y[e] = v / denom;
+        if (GRID)
+          acc[e] = v;  // the cluster's sum
+        else if (live)
+          y[e] = v / denom;
+      }
+      if (GRID) {
+        // Across the clusters: the cluster's rank-0 block publishes its
+        // sum into slot part[x & 1][cl] and adds one to the counter
+        // (release); warp 0 of every block waits (acquire) until all
+        // s.grid clusters have added theirs this exchange, reads the
+        // s.grid sums, lane l clusters l, l + gspan, ..., and sums them in
+        // one fixed order (a butterfly), so every block of every cluster
+        // ends with the same bits; one barrier hands them to the block.
+        T* slot = s.gpart + par * s.grid * n_d;
+        if (tid == 0 && bic == 0) {
+#pragma unroll
+          for (int e = 0; e < DM; ++e)
+            if (e < n_d) slot[cl * n_d + e] = acc[e];
+          red_release_add(s.counter, 1u);
+        }
+        if (tid < 32) {
+          // Each lane waits itself (one coalesced load a poll), so each
+          // lane's own acquire orders its reads of the sums.
+          if (!gave_up)
+            gave_up = !grid_wait(s.counter,
+                                 (unsigned)(s.grid * (x + 1)), s.err);
+          int gspan = 1;
+          while (gspan < s.grid && gspan < 32) gspan <<= 1;
+#pragma unroll
+          for (int e = 0; e < DM; ++e) {
+            if (e >= n_d) continue;
+            T v = T(0);
+            for (int i = lane & (gspan - 1); i < s.grid; i += gspan)
+              v += __ldcg(slot + i * n_d + e);
+            for (int o = gspan >> 1; o > 0; o >>= 1)
+              v += __shfl_xor_sync(0xffffffffu, v, o);
+            if (lane == 0) gy[par * n_d + e] = v;
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < DM; ++e)
+          if (e < n_d && live) y[e] = gy[par * n_d + e] / denom;
       }
     } else if (s.warps == 1) {
       // One warp: lane 0's sum, by shuffle; no barrier.
@@ -562,7 +771,7 @@ decode_fused_kernel(DecodeArgs<T> s) {
       for (int e = 0; e < DM; ++e)
         if (e < n_d && live) y[e] = sum_warps(pb + e, n_d, s.warps);
     }
-    if (lead && valid) {
+    if (lead && valid && (!GRID || step >= 0)) {
       T* ys = s.o_ys + ((long long)step * s.n_b + r) * n_d;
 #pragma unroll
       for (int e = 0; e < DM; ++e)
@@ -590,12 +799,13 @@ decode_fused_kernel(DecodeArgs<T> s) {
   }
 }
 
-template <typename T, int PER, int DM, bool SPLIT>
+template <typename T, int PER, int DM, bool SPLIT, bool GRID>
 int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
               cudaStream_t stream) {
-  auto kernel = decode_fused_kernel<T, PER, DM, SPLIT>;
+  auto kernel = decode_fused_kernel<T, PER, DM, SPLIT, GRID>;
   const int threads = (s.mean ? s.rows : 1) * s.warps * 32;
-  if (threads > decode_max_threads(PER, DM, (int)(sizeof(T) / 4), SPLIT))
+  if (threads >
+      decode_max_threads(PER, DM, (int)(sizeof(T) / 4), SPLIT, GRID))
     return (int)cudaErrorInvalidValue;
   static int smem_set = 48 * 1024;  // the most this kernel may use
   if (smem > smem_set) {
@@ -604,17 +814,28 @@ int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  if ((s.segs > 1) != SPLIT || s.segs > kMaxCluster)
+  if ((GRID ? s.segs < 1 : (s.segs > 1) != SPLIT) || s.segs > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   if (!s.mean && !SPLIT) {
     kernel<<<s.n_b, threads, smem, stream>>>(s);
     return (int)cudaGetLastError();
   }
-  // The mean route: the whole grid is one cluster of `blocks` blocks, R
-  // rows a block, or (a row split over S blocks) one segment a block.  The
-  // off route with a row split: B clusters of S blocks.
+  // The mean route: one cluster of `blocks` blocks, R rows a block, or (a
+  // row split over S blocks) one segment a block; GRID: s.grid such
+  // clusters, each of s.crows rows.  The off route with a row split: B
+  // clusters of S blocks.
   long long grid = blocks;
-  if (s.mean) {
+  if (GRID) {
+    if (!s.mean || s.rows < 1 || blocks < 1 || blocks > kMaxCluster ||
+        blocks != s.cluster || s.grid < 2 || s.crows < 1 ||
+        (long long)(s.grid - 1) * s.crows >= s.n_b ||
+        (long long)s.grid * s.crows < s.n_b ||
+        (s.segs > 1 ? s.rows != 1 || blocks != s.crows * s.segs
+                    : (long long)blocks * s.rows < s.crows) ||
+        s.counter == nullptr || s.gpart == nullptr || s.err == nullptr)
+      return (int)cudaErrorInvalidValue;
+    grid = (long long)s.grid * blocks;
+  } else if (s.mean) {
     if (s.rows < 1 || blocks < 1 || blocks > kMaxCluster ||
         (s.segs > 1 ? s.rows != 1 || blocks != s.n_b * s.segs
                     : (long long)blocks * s.rows < s.n_b))
@@ -630,7 +851,7 @@ int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
     if (err != cudaSuccess) return (int)err;
     non_portable = true;
   }
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)blocks;
   attr[0].val.clusterDim.y = 1;
@@ -642,8 +863,10 @@ int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // Refuse a cluster the card cannot hold; checked once a cluster shape.
+  // Refuse a cluster the card cannot hold, and a grid whose clusters it
+  // cannot hold at once; asked once a cluster shape.
   static long long fits = -1;
+  static int held = 0;
   const long long key =
       ((long long)blocks << 40) | ((long long)threads << 20) | smem;
   if (key != fits) {
@@ -652,10 +875,44 @@ int decode_go(const DecodeArgs<T>& s, int blocks, int smem,
     if (err != cudaSuccess) return (int)err;
     if (clusters < 1) return kNoCluster;
     fits = key;
+    held = clusters;
   }
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, s);
+  if (!GRID) {
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  if (held < s.grid) return kGridTooLarge;
+  // A grid: after the device's last grid launch, the counter zeroed on
+  // this stream, launched cooperatively (the runtime refuses, with
+  // cudaErrorCooperativeLaunchTooLarge, a grid it cannot hold at once).
+  if (*g_grid.err_host != 0) {
+    *g_grid.err_host = 0;
+    return kGridTimedOut;
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (dev < 0 || dev >= decode_parts::kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (g_grid.done[dev] == nullptr) {
+    err = cudaEventCreateWithFlags(&g_grid.done[dev], cudaEventDisableTiming);
+    if (err != cudaSuccess) return (int)err;
+  } else if (g_grid.on[dev] != stream) {
+    err = cudaStreamWaitEvent(stream, g_grid.done[dev], 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaMemsetAsync(s.counter, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  g_grid.on[dev] = stream;
+  return (int)cudaEventRecord(g_grid.done[dev], stream);
 }
 
 // Lanes a thread, instantiated: the launcher rounds up to the next of these.
@@ -666,10 +923,13 @@ template <typename T, int DM>
 int decode_per(const DecodeArgs<T>& s, int per, int blocks, int smem,
                cudaStream_t stream) {
   switch (per) {
-#define DECODE_CASE(P) \
-  case P:              \
-    return s.segs > 1 ? decode_go<T, P, DM, true>(s, blocks, smem, stream) \
-                      : decode_go<T, P, DM, false>(s, blocks, smem, stream);
+#define DECODE_CASE(P)                                                     \
+  case P:                                                                  \
+    return s.grid > 1                                                      \
+               ? decode_go<T, P, DM, true, true>(s, blocks, smem, stream)  \
+           : s.segs > 1                                                    \
+               ? decode_go<T, P, DM, true, false>(s, blocks, smem, stream) \
+               : decode_go<T, P, DM, false, false>(s, blocks, smem, stream);
     DECODE_PER_LIST(DECODE_CASE)
 #undef DECODE_CASE
     default:
@@ -683,26 +943,28 @@ int decode_per(const DecodeArgs<T>& s, int per, int blocks, int smem,
 // as integers, 0 for none) in the field order of DecodeCall, which
 // kernels/diag_scan.py packs.  In the packed layout the _im pointers equal
 // the _re ones.  warps, per, rows (a block), blocks (the blocks of one
-// cluster: the mean route's whole grid, or a split row's segments), copies,
-// segs (blocks a row) and smem come from the launcher's rule; the entry
+// cluster: the mean route's cluster, or a split row's segments), copies,
+// segs (blocks a row), smem, grid (the mean route's clusters) and crows
+// (rows a cluster) come from the launcher's rule; scratch is the grid's
+// global scratch (the counter, then its sums 128 bytes in).  The entry
 // refuses (cudaErrorInvalidValue) a per that is not instantiated, n_d > 8,
 // a block larger than the instantiation allows, or a cluster of more than
-// 16 blocks or other than B rows need; and (kNoCluster) a cluster the card
-// cannot hold.
-struct DecodeCall {
-  long long a_re, a_im, a_sb, h_re, h_im, h_sb, y0, wd_re, wd_im, wd_sb,
-      wd_ld, wy, wy_sb, b_out, bo_sb, wh_re, wh_im, wh_sb, mask, o_h_re,
-      o_h_im, o_y, o_ys, n_b, n_c, n_r, packed, n_d, n_k, warps, per, mean,
-      seed_mean, rows, blocks, copies, segs, smem, stream;
-};
+// 16 blocks or other than its rows need; (kNoCluster) a cluster the card
+// cannot hold; (kGridTooLarge) a grid whose clusters the card cannot hold
+// at once; and (kGridTimedOut) any grid launch after one whose wait passed
+// its bound.
 
 namespace {
 
-template <typename T>
+template <typename T, int DM>
 int decode_call(const DecodeCall* c) {
-  if (c->n_d < 1 || c->n_d > 8 || c->segs < 1)
+  if (c->n_d < 1 || c->n_d > 8 || c->segs < 1 || c->grid < 1)
     return (int)cudaErrorInvalidValue;
   if (c->n_b == 0) return (int)cudaGetLastError();
+  if (c->grid > 1) {
+    const int err = grid_error_word();
+    if (err != 0) return err;
+  }
   auto cp = [](long long v) { return reinterpret_cast<const T*>(v); };
   auto mp = [](long long v) { return reinterpret_cast<T*>(v); };
   DecodeArgs<T> s{cp(c->a_re), cp(c->a_im), cp(c->h_re), cp(c->h_im),
@@ -715,25 +977,113 @@ int decode_call(const DecodeCall* c) {
                   (int)c->packed, (int)c->n_d, (int)c->n_k, (int)c->warps,
                   (int)c->mean, (int)c->seed_mean, (int)c->rows,
                   (int)c->copies, (int)c->segs,
-                  (int)((c->n_c + c->segs - 1) / c->segs)};
+                  (int)((c->n_c + c->segs - 1) / c->segs), (int)c->grid,
+                  (int)c->blocks, (int)c->crows,
+                  reinterpret_cast<unsigned*>(c->scratch),
+                  c->scratch ? mp(c->scratch + 128) : nullptr,
+                  g_grid.err_dev};
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(c->stream);
-  const int per = (int)c->per, blocks = (int)c->blocks, smem = (int)c->smem;
-  return c->n_d == 1 ? decode_per<T, 1>(s, per, blocks, smem, stream)
-                     : decode_per<T, 8>(s, per, blocks, smem, stream);
+  return decode_per<T, DM>(s, (int)c->per, (int)c->blocks, (int)c->smem,
+                           stream);
 }
 
 }  // namespace
 
+// Each part's entry; D = 1 runs the DM = 1 instantiations, D = 2..8 the
+// DM = 8 ones.
+namespace decode_parts {
+#if DECODE_PART_HAS(0)
+int call_f64_d1(const DecodeCall* c) { return decode_call<double, 1>(c); }
+
+// The grid route's state in this process: its error word (mapped host
+// memory, allocated once: the kernel sets it, the host reads and clears
+// it), and a device's last grid launch (its stream and an event after it),
+// so that grid launches never run at once, whatever their streams: two
+// grids sharing the card might each keep the other's clusters waiting.
+GridState g_grid;
+
+int grid_error_word() {
+  if (g_grid.err_host != nullptr) return 0;
+  cudaError_t err = cudaHostAlloc(reinterpret_cast<void**>(&g_grid.err_host),
+                                  sizeof(int), cudaHostAllocMapped);
+  if (err != cudaSuccess) return (int)err;
+  *g_grid.err_host = 0;
+  return (int)cudaHostGetDevicePointer(
+      reinterpret_cast<void**>(&g_grid.err_dev), g_grid.err_host, 0);
+}
+#endif
+#if DECODE_PART_HAS(1)
+int call_f64_d8(const DecodeCall* c) { return decode_call<double, 8>(c); }
+#endif
+#if DECODE_PART_HAS(2)
+int call_f32_d1(const DecodeCall* c) { return decode_call<float, 1>(c); }
+#endif
+#if DECODE_PART_HAS(3)
+int call_f32_d8(const DecodeCall* c) { return decode_call<float, 8>(c); }
+#endif
+}  // namespace decode_parts
+
+#if DECODE_PART_HAS(0)
 extern "C" {
 
 const char* cuda_error_string(int err) {
   if (err == kNoCluster)
     return "no cluster of this decode_fused layout fits the card "
            "(cudaOccupancyMaxActiveClusters is 0)";
+  if (err == kGridTooLarge)
+    return "the card cannot hold this decode_fused grid's clusters at once "
+           "(cudaOccupancyMaxActiveClusters is below the grid's clusters)";
+  if (err == kGridTimedOut)
+    return "an earlier decode_fused grid launch waited past its bound for "
+           "its clusters (they did not all run at once): its outputs are "
+           "not valid";
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int decode_fused_f32(const DecodeCall* c) { return decode_call<float>(c); }
-int decode_fused_f64(const DecodeCall* c) { return decode_call<double>(c); }
+int decode_fused_f32(const DecodeCall* c) {
+  return c->n_d == 1 ? decode_parts::call_f32_d1(c)
+                     : decode_parts::call_f32_d8(c);
+}
+int decode_fused_f64(const DecodeCall* c) {
+  return c->n_d == 1 ? decode_parts::call_f64_d1(c)
+                     : decode_parts::call_f64_d8(c);
+}
+
+// 1 (and cleared) if a grid launch's wait passed its bound since the last
+// ask, else 0; the host asks after synchronising.
+int decode_grid_timed_out() {
+  int* err = decode_parts::g_grid.err_host;
+  if (err == nullptr || *err == 0) return 0;
+  *err = 0;
+  return 1;
+}
+
+// The most clusters of `cluster` blocks the card holds at once at one
+// block an SM (the grid instantiation at 64 threads and the most dynamic
+// shared memory), or a negative CUDA error code.
+int decode_max_active_clusters(int cluster) {
+  auto kernel = decode_fused_kernel<double, 1, 1, true, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3(64);
+  cfg.dynamicSmemBytes = 232448;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
 
 }  // extern "C"
+#endif

@@ -37,7 +37,8 @@ __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
            "DECODE_LANES_PER_THREAD", "DECODE_AIM_WARPS",
            "DECODE_MEAN_AIM_WARPS", "DECODE_PER",
            "DECODE_MAX_D", "DECODE_MAX_WARPS", "DECODE_MAX_SMEM_BYTES",
-           "DECODE_MAX_CLUSTER"]
+           "DECODE_MAX_CLUSTER", "DECODE_GRID_CLUSTER",
+           "DECODE_MAX_GRID_CLUSTERS", "decode_grid_check"]
 
 #: B2's layout rule (:func:`decode_layout`): the lanes a thread it aims at
 #: for D = 1 and for D > 1 and the most warps a row it aims at
@@ -49,6 +50,17 @@ __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
 #: next), the most outputs D, warps a block and dynamic shared memory a
 #: block (227 KB) it takes, and the most blocks in the ``mean`` route's
 #: thread-block cluster (the H100's non-portable cluster size).
+#: DECODE_GRID_CLUSTER: the most blocks a cluster of the ``mean`` route's
+#: grid (past one cluster) takes, unless one row's segments need more:
+#: of clusters of at most 1, 2, 4, 8 and 16 blocks, 2 ran the grid's steps
+#: fastest or within 1.3 % of the fastest at every shape swept on an H100,
+#: up to 2.2x faster than 16 (each block takes fewer partials a step;
+#: PERF.md section 6).  DECODE_MAX_GRID_CLUSTERS[C - 1]: the
+#: most clusters of C blocks an H100 SXM (132 SMs) holds at once at one
+#: block an SM, from ``cudaOccupancyMaxActiveClusters`` on the card
+#: (``chip_smoke.py`` phase 2 asks it again and fails where the card holds
+#: fewer): the grid's clusters must all run at once, since they meet every
+#: step.
 DECODE_LANES_PER_THREAD = (8, 4)
 DECODE_AIM_WARPS = 8
 DECODE_MEAN_AIM_WARPS = 1
@@ -57,6 +69,9 @@ DECODE_MAX_D = 8
 DECODE_MAX_WARPS = 32
 DECODE_MAX_SMEM_BYTES = 232448
 DECODE_MAX_CLUSTER = 16
+DECODE_GRID_CLUSTER = 2
+DECODE_MAX_GRID_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7,
+                            7, 7, 7)
 DECODE_WARPS = (1, 2, 4, 8, 16, 32)
 
 _VP = ctypes.c_void_p
@@ -314,10 +329,11 @@ class DecodeLayout(NamedTuple):
     is split), ``per`` lanes a thread (the instantiation, rounded up),
     ``copies`` of the lane operands in shared memory, ``smem`` its dynamic
     shared memory in bytes, ``threads`` a block, ``rows`` a block,
-    ``cluster``, the blocks of one thread-block cluster (``mean``: the
-    whole grid; ``off``: the blocks of one row, 1 for an unsplit row), and
+    ``cluster``, the blocks of one thread-block cluster (``mean``: a
+    cluster's rows; ``off``: the blocks of one row, 1 for an unsplit row),
     ``segs``, the blocks a row's lanes are split over (1: the whole row in
-    one block)."""
+    one block), and ``grid``, the ``mean`` route's clusters (1: the whole
+    arena in one cluster), each of ``ceil(B / grid)`` rows but the last."""
     warps: int
     per: int
     copies: int
@@ -326,44 +342,53 @@ class DecodeLayout(NamedTuple):
     rows: int = 1
     cluster: int = 1
     segs: int = 1
+    grid: int = 1
 
 
 def decode_max_threads(per: int, d: int, itemsize: int,
-                       split: bool = False) -> int:
+                       split: bool = False, grid: bool = False) -> int:
     """The most threads a block of the ``per``-lane instantiation runs at D
     outputs — the largest at which ptxas held it without spilling on the
     card (``chip_smoke.py`` phase 2 fails on a spill); ``split``: the
     instantiation of a row split over blocks (at float64, D > 1, one lane
-    a thread it spilled at 512).  Repeats ``decode_max_threads`` in
-    ``csrc/decode_fused.cu``, which bounds each instantiation with it."""
+    a thread it spilled at 512); ``grid``: the ``mean`` grid's (split too;
+    at float32, D = 1, 12 lanes a thread it spilled at 512).  Repeats
+    ``decode_max_threads`` in ``csrc/decode_fused.cu``, which bounds each
+    instantiation with it."""
     if itemsize == 8:
         if d == 1:
             return 512 if per <= 10 else 256
         return 512 if per == 1 and not split else 256
     if d == 1:
-        return 1024 if per <= 3 else 512 if per <= 12 else 256
+        return 1024 if per <= 3 else 512 if per <= (10 if grid else 12) \
+            else 256
     return 512
 
 
 def _decode_fit(warps, nc, d, itemsize, rows, copies, seen=1, header=0,
-                segs=1):
+                segs=1, grid=False):
     """The layout of ``warps`` warps a row and ``rows`` rows a block, a
     row's NC lanes split over ``segs`` blocks of ceil(NC / segs) lanes, or
     None if it does not fit; ``seen``: the rows whose mask and readout
     partials a block keeps (every row of the cluster for ``mean``);
-    ``header``: bytes ahead of them (the exchange's two mbarriers)."""
+    ``header``: bytes ahead of them (the exchange's two mbarriers);
+    ``grid``: a cluster of the ``mean`` route's grid, whose instantiation
+    carries the split's arithmetic (and its thread bound) and whose block
+    keeps the grid's y (two parity slots of D values)."""
     need = -(-_seg_lanes(nc, segs) // (32 * warps))
     per = next((p for p in DECODE_PER if p >= need), None)
     threads = rows * 32 * warps
     if per is None or rows * warps > DECODE_MAX_WARPS or \
-            threads > decode_max_threads(per, d, itemsize, segs > 1):
+            threads > decode_max_threads(per, d, itemsize, segs > 1 or grid,
+                                         grid):
         return None
     # Shared lane operands: ``per`` slots a thread (padded ones zero); a
     # mask slot and the warps' partials (two parity slots) of every (row,
     # segment) of the cluster.
     smem = header + itemsize * (copies * per * (2 + 4 * d) * 32 * warps
                                 + rows * (d * d + d) + seen * segs
-                                + 2 * seen * segs * warps * d)
+                                + 2 * seen * segs * warps * d
+                                + (2 * d if grid else 0))
     if smem > DECODE_MAX_SMEM_BYTES:
         return None
     return DecodeLayout(warps, per, copies, smem, threads, rows, 1, segs)
@@ -375,25 +400,28 @@ def _seg_lanes(nc: int, segs: int) -> int:
     return -(-nc // segs)
 
 
-def _mean_fits(b, nc, d, itemsize, batched, rows, options, segs=1):
-    """The ``mean`` layouts of B rows, one per W in ``options`` that fits.
-    A row in one block (``segs`` 1): ``rows`` rows a block (default: one
-    while B <= DECODE_MAX_CLUSTER, else the fewest that keep the cluster
-    at DECODE_MAX_CLUSTER blocks).  A row over ``segs`` > 1 blocks: one
-    row a block, B x ``segs`` <= DECODE_MAX_CLUSTER blocks."""
+def _mean_fits(b, nc, d, itemsize, batched, rows, options, segs=1,
+               most=DECODE_MAX_CLUSTER, grid=False):
+    """The ``mean`` layouts of B rows in one cluster of at most ``most``
+    blocks, one per W in ``options`` that fits (``grid``: as a cluster of
+    the grid).  A row in one block (``segs`` 1): ``rows`` rows a block
+    (default: one while B <= ``most``, else the fewest that keep the
+    cluster at ``most`` blocks).  A row over ``segs`` > 1 blocks: one row a
+    block, B x ``segs`` <= max(``most``, ``segs``) blocks (a row's
+    segments always share a cluster)."""
     if segs > 1:
-        if rows not in (None, 1) or b * segs > DECODE_MAX_CLUSTER:
+        if rows not in (None, 1) or b * segs > max(most, segs):
             return []
         r, g = 1, b * segs
     else:
-        r = rows or -(-b // DECODE_MAX_CLUSTER)
+        r = rows or -(-b // most)
         g = -(-b // r)
-        if not 1 <= r <= b or g > DECODE_MAX_CLUSTER:
+        if not 1 <= r <= b or g > most:
             return []
     return [lay._replace(cluster=g) for w in options
             if (lay := _decode_fit(w, nc, d, itemsize, r,
                                    r if batched else 1, seen=b, header=16,
-                                   segs=segs))]
+                                   segs=segs, grid=grid))]
 
 
 def _off_fits(nc, d, itemsize, options, segs):
@@ -406,15 +434,16 @@ def _off_fits(nc, d, itemsize, options, segs):
                                    segs=segs))]
 
 
-def _pick(b, nc, d, itemsize, mean, batched, options, rows, seg_options):
+def _pick(b, nc, d, itemsize, mean, batched, options, rows, seg_options,
+          most=DECODE_MAX_CLUSTER, grid=False):
     """The rule's layout, or None if none fits: the fewest segments a row
     that fit, then W nearest the aim in powers of two (the larger on a
-    tie)."""
+    tie); ``most`` and ``grid`` as for :func:`_mean_fits`."""
     for segs in seg_options:
         if mean:
             aim = DECODE_MEAN_AIM_WARPS
             fits = _mean_fits(b, nc, d, itemsize, batched, rows, options,
-                              segs)
+                              segs, most, grid)
         else:
             lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
             while aim < DECODE_AIM_WARPS and \
@@ -428,12 +457,61 @@ def _pick(b, nc, d, itemsize, mean, batched, options, rows, seg_options):
     return None
 
 
+def _pick_grid(b, nc, d, itemsize, batched, options, rows, segs, most):
+    """The ``mean`` route's grid layout of B rows, or None: the fewest
+    clusters G >= 2 whose share of the rows, ceil(B / G), has a layout of
+    one cluster of at most ``most`` blocks (the rule of :func:`_pick`, its
+    mask and partials those of the cluster's rows) and whose G clusters of
+    that size the card holds at once (DECODE_MAX_GRID_CLUSTERS).  A forced
+    ``segs`` applies as given; a forced W or R at the cluster's free S."""
+    every = range(1, DECODE_MAX_CLUSTER + 1)
+    forced = len(options) < len(DECODE_WARPS) or rows is not None
+    for g in range(2, min(b, max(DECODE_MAX_GRID_CLUSTERS)) + 1):
+        bc = -(-b // g)
+        if -(-b // bc) != g:        # fewer clusters hold these rows
+            continue
+        seg_options = every if segs is None else (segs,)
+        if segs is None and forced:
+            free = _pick(bc, nc, d, itemsize, True, batched, DECODE_WARPS,
+                         None, every, most, True)
+            seg_options = (free.segs,) if free else ()
+        lay = _pick(bc, nc, d, itemsize, True, batched, options, rows,
+                    seg_options, most, True)
+        if lay is not None and g <= DECODE_MAX_GRID_CLUSTERS[lay.cluster - 1]:
+            return lay._replace(grid=g)
+    return None
+
+
+def _mean_layout(b, nc, d, itemsize, batched, options, rows, segs,
+                 cluster):
+    """The ``mean`` rule: one cluster wherever it holds the B rows (the
+    layout of :func:`_pick`), else the grid of :func:`_pick_grid`.  A
+    forced W, R or S applies within the rule's choice of one cluster or a
+    grid; ``cluster`` forces a grid."""
+    every = range(1, DECODE_MAX_CLUSTER + 1)
+    if cluster is None:
+        free = _pick(b, nc, d, itemsize, True, batched, DECODE_WARPS, None,
+                     every)
+        if free is not None:
+            if segs is not None:
+                seg_options = (segs,)
+            elif len(options) < len(DECODE_WARPS) or rows is not None:
+                seg_options = (free.segs,)  # a forced W or R: the rule's S
+            else:
+                return free
+            return _pick(b, nc, d, itemsize, True, batched, options, rows,
+                         seg_options)
+    return _pick_grid(b, nc, d, itemsize, batched, options, rows, segs,
+                      cluster or DECODE_GRID_CLUSTER)
+
+
 @functools.lru_cache(maxsize=1024)
 def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
                   ensemble: str = "off", batched: bool = False,
                   warps: Optional[int] = None,
                   rows: Optional[int] = None,
-                  segs: Optional[int] = None) -> DecodeLayout:
+                  segs: Optional[int] = None,
+                  cluster: Optional[int] = None) -> DecodeLayout:
     """The decode kernel's layout for B rows of NC lanes and D outputs, or
     a ValueError naming the limit the shape exceeds.
 
@@ -451,15 +529,22 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
     does not fit, the nearest one that does.  A split row is one cluster
     of S blocks, B clusters in all.
     ``ensemble="mean"``: the rows spread over one thread-block cluster of
-    G <= DECODE_MAX_CLUSTER blocks: with S = 1, G = ceil(B / R) blocks of
+    C <= DECODE_MAX_CLUSTER blocks: with S = 1, C = ceil(B / R) blocks of
     R rows (R = 1 while B <= DECODE_MAX_CLUSTER, else the fewest that keep
-    G there), R x W <= DECODE_MAX_WARPS; with S > 1, G = B x S blocks of
+    C there), R x W <= DECODE_MAX_WARPS; with S > 1, C = B x S blocks of
     one segment each.  W is the nearest fitting one to
     DECODE_MEAN_AIM_WARPS (the fewest); per-slot (``batched``) operands
     take one shared-memory copy a row of a block.  At NC = 525 (n = 1024),
-    float64, D = 1 that is W = 2 and holds 128 rows.  ``warps`` forces W
-    and ``rows`` forces R, at the rule's S unless ``segs`` forces S too
-    (``chip_smoke.py``'s sweeps; ``rows=B`` is the one-block layout).  Cached: a serving loop asks for
+    float64, D = 1 that is W = 2 and holds 128 rows.  Past one cluster the
+    rows spread over a grid of G clusters (``grid``): the fewest G whose
+    share of the rows, ceil(B / G), has such a cluster of at most
+    DECODE_GRID_CLUSTER blocks, its mask and partials those of its own
+    rows, with G <= DECODE_MAX_GRID_CLUSTERS[C - 1] (the card holds every
+    cluster at once).  Every shape one cluster holds keeps that layout
+    (``grid`` 1).  ``warps`` forces W and ``rows`` forces R, at the rule's
+    S unless ``segs`` forces S too, and ``cluster`` forces a grid of
+    clusters of at most that many blocks (``chip_smoke.py``'s sweeps;
+    ``rows=B`` is the one-block layout).  Cached: a serving loop asks for
     the same few shapes every call."""
     if ensemble not in ("off", "mean"):
         raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
@@ -470,28 +555,37 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
         raise ValueError(f"decode_fused kernel needs B >= 1 and NC >= 1, "
                          f"got B={b}, NC={nc}")
     mean = ensemble == "mean"
-    if rows is not None and not mean:
-        raise ValueError("decode_fused kernel: rows= applies to "
+    if (rows is not None or cluster is not None) and not mean:
+        raise ValueError("decode_fused kernel: rows= and cluster= apply to "
                          "ensemble='mean' only")
     if segs is not None and not 1 <= segs <= DECODE_MAX_CLUSTER:
         raise ValueError(f"decode_fused kernel: segs={segs} is not in "
                          f"1..{DECODE_MAX_CLUSTER}")
+    if cluster is not None and not 1 <= cluster <= DECODE_MAX_CLUSTER:
+        raise ValueError(f"decode_fused kernel: cluster={cluster} is not in "
+                         f"1..{DECODE_MAX_CLUSTER}")
     every = range(1, DECODE_MAX_CLUSTER + 1)
-    seg_options = every if segs is None else (segs,)
-    if segs is None and (warps is not None or rows is not None):
-        # A forced W or R applies at the rule's S.
-        free = _pick(b, nc, d, itemsize, mean, batched, DECODE_WARPS, None,
-                     every)
-        seg_options = (free.segs,) if free else ()
-    lay = _pick(b, nc, d, itemsize, mean, batched,
-                [w for w in DECODE_WARPS if warps in (None, w)], rows,
-                seg_options)
+    options = [w for w in DECODE_WARPS if warps in (None, w)]
+    if mean:
+        lay = _mean_layout(b, nc, d, itemsize, batched, options, rows, segs,
+                           cluster)
+    else:
+        seg_options = every if segs is None else (segs,)
+        if segs is None and warps is not None:
+            # A forced W applies at the rule's S.
+            free = _pick(b, nc, d, itemsize, False, batched, DECODE_WARPS,
+                         None, every)
+            seg_options = (free.segs,) if free else ()
+        lay = _pick(b, nc, d, itemsize, False, batched, options, None,
+                    seg_options)
     if lay is not None:
         return lay
-    if warps is not None or rows is not None or segs is not None:
+    if warps is not None or rows is not None or segs is not None or \
+            cluster is not None:
         forced = ", ".join(f"{k}={v}" for k, v in (("warps", warps),
                                                    ("rows", rows),
-                                                   ("segs", segs))
+                                                   ("segs", segs),
+                                                   ("cluster", cluster))
                            if v is not None)
         raise ValueError(f"decode_fused kernel: {forced} does not fit "
                          f"B={b}, NC={nc}, D={d} ({ensemble})")
@@ -500,13 +594,16 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
               f"the registers of an SM and {DECODE_MAX_SMEM_BYTES} bytes of "
               f"shared memory")
     if mean:
-        most = _most(lambda m: _pick(m, nc, d, itemsize, True, batched,
-                                     DECODE_WARPS, None, every) is not None,
-                     DECODE_MAX_CLUSTER * DECODE_MAX_WARPS)
+        most = _most(lambda m: _mean_layout(
+            m, nc, d, itemsize, batched, DECODE_WARPS, None, None,
+            None) is not None, _MEAN_MAX_ROWS)
         raise ValueError(
             f"decode_fused kernel with ensemble='mean' spreads the rows over "
             f"one cluster of {limits} (a row's lanes over S of them, B x S "
-            f"<= {DECODE_MAX_CLUSTER}): B={b}, NC={nc}, D={d} "
+            f"<= {DECODE_MAX_CLUSTER}), and past it over a grid of G "
+            f"clusters of C <= {DECODE_GRID_CLUSTER} blocks, G <= "
+            f"{DECODE_MAX_GRID_CLUSTERS[:DECODE_GRID_CLUSTER]}[C - 1] (the "
+            f"clusters the card holds at once): B={b}, NC={nc}, D={d} "
             f"({'per-slot' if batched else 'shared'} weights, "
             f"{8 * itemsize}-bit) does not fit: B <= {most} fits")
     most = _most(lambda m: _pick(1, m, d, itemsize, False, False,
@@ -515,6 +612,12 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
         f"decode_fused kernel splits a row's lanes over one cluster of "
         f"{limits}: NC={nc} with D={d} ({8 * itemsize}-bit) exceeds it: "
         f"NC <= {most} fits")
+
+
+#: Past this many rows no ``mean`` layout fits (R x W <= 32 rows a block,
+#: at most C x DECODE_MAX_GRID_CLUSTERS[C - 1] blocks at once).
+_MEAN_MAX_ROWS = DECODE_MAX_WARPS * max(
+    c * g for c, g in enumerate(DECODE_MAX_GRID_CLUSTERS, 1))
 
 
 def _most(fits, hi: int) -> int:
@@ -584,25 +687,49 @@ def _mask_bytes(mask, b, dev):
 
 def _decode_launch(dtype, layout, dev, *fields):
     """Call ``decode_fused_<f32|f64>`` with ``fields`` (``DecodeCall`` up to
-    ``seed_mean``), the layout and the stream packed into one int64
-    block."""
+    ``seed_mean``), the layout, the stream and (a grid) the rows a cluster
+    and the grid's scratch packed into one int64 block.  The scratch — the
+    arrival counter, which the entry zeroes on the stream, then two parity
+    slots of each cluster's D sums, 128 bytes in — is allocated here for
+    the launch."""
+    b, d = fields[23], fields[27]   # DecodeCall's n_b and n_d
+    scratch, crows = None, b
+    if layout.grid > 1:
+        crows = -(-b // layout.grid)
+        itemsize = 8 if dtype == torch.float64 else 4
+        scratch = torch.empty(128 + 2 * layout.grid * d * itemsize,
+                              dtype=torch.uint8, device=dev)
     block = array("q", (*fields, layout.rows, layout.cluster, layout.copies,
-                        layout.segs, layout.smem, _stream(dev)))
+                        layout.segs, layout.smem, _stream(dev), layout.grid,
+                        crows, _ptr(scratch)))
     _check(_entry("decode_fused", dtype)(block.buffer_info()[0]),
            "decode_fused")
+
+
+def decode_grid_check() -> None:
+    """Raise if a ``mean`` grid launch since the last check waited past its
+    bound for its clusters (they did not all run at once; its outputs are
+    not valid).  Call after synchronising; the next grid launch raises too.
+    """
+    lib = build.library("decode_fused")
+    lib.decode_grid_timed_out.restype = ctypes.c_int
+    if lib.decode_grid_timed_out():
+        _check(10002, "decode_fused")
 
 
 def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
                       wh_re, wh_im, mask, *, k: int, ensemble: str = "off",
                       warps: Optional[int] = None,
                       rows: Optional[int] = None,
-                      segs: Optional[int] = None):
+                      segs: Optional[int] = None,
+                      cluster: Optional[int] = None):
     """K closed-loop decode steps through the CUDA kernel, on split lanes.
 
     Same operands and result as ``ref.decode_fused_ref``: ``h_*`` (B, NC),
     ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).
-    ``warps`` / ``rows`` / ``segs``: force W / the ``mean`` route's rows a
-    block / the blocks a row is split over (default
+    ``warps`` / ``rows`` / ``segs`` / ``cluster``: force W / the ``mean``
+    route's rows a block / the blocks a row is split over / a ``mean`` grid
+    of clusters of at most that many blocks (default
     :func:`decode_layout`'s rule).
     Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D)."""
     dev, dtype = _decode_operands(y0, ensemble, k)
@@ -616,7 +743,7 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     m = _mask_bytes(mask, b, dev)
     layout = decode_layout(b, nc, d, y0.element_size(), ensemble=ensemble,
                            batched=bool(a_sb or wd_sb or wh_sb), warps=warps,
-                           rows=rows, segs=segs)
+                           rows=rows, segs=segs, cluster=cluster)
     o_h_re = torch.empty_like(h_re)
     o_h_im = torch.empty_like(h_re)
     o_y = torch.empty_like(y0)

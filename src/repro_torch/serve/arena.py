@@ -310,25 +310,21 @@ def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
     fused K-token decode kernel) or ``"step"`` (:func:`closed_loop`, one
     step at a time on the same device).  ``weighted`` voting takes the
     step path everywhere (the kernel reduces by plain mean only, as in the
-    JAX package).  On CUDA the shape must have a layout of the kernel
-    (``kernels.diag_scan.decode_layout``: a row's lanes over at most 16
-    blocks of one thread-block cluster, D <= 8).  ``off`` is fused at every
-    shape that has one, and past it (float64, D = 1: NC > 73728; D > 8)
-    ``decode_layout``'s ``ValueError``, which names the limit, propagates
-    before any launch.  ``mean`` spreads its B rows over one cluster, so an
-    arena past it (at n = 1024, float64: more than 128 slots) takes the
-    step path.  The plain version on the CPU has no such limit.  Decided
-    from the shapes, never by catching a launch's error."""
+    JAX package).  On CUDA ``off`` and ``mean`` are fused at every shape
+    that has a layout of the kernel (``kernels.diag_scan.decode_layout``:
+    a row's lanes over at most 16 blocks of one thread-block cluster,
+    D <= 8; ``mean``'s rows over one cluster, or past it over a grid of
+    clusters the card holds at once), and past it (``off`` at float64,
+    D = 1: NC > 73728; ``mean`` at n = 1024, float64: more than 1056 slots;
+    D > 8) ``decode_layout``'s ``ValueError``, which names the limit,
+    propagates before any launch: nothing steps in plain PyTorch on the
+    card.  The plain version on the CPU has no such limit.  Decided from
+    the shapes, never by catching a launch's error."""
     if ensemble == "weighted":
         return "step"
     if device_type == "cuda":
-        try:
-            decode_layout(b, nc, d, itemsize, ensemble=ensemble,
-                          batched=per_slot)
-        except ValueError:
-            if ensemble != "mean":
-                raise
-            return "step"
+        decode_layout(b, nc, d, itemsize, ensemble=ensemble,
+                      batched=per_slot)
     return "fused"
 
 
@@ -359,8 +355,10 @@ def closed_loop_fused(params, w_out, arena: SlotArena, mask, n_steps: int,
     CUDA kernel on the GPU, the plain version elsewhere; ``method`` as
     there), including the ``mean`` ensemble's reduce and seed.  Where
     :func:`closed_loop_route` says ``"step"`` (dense params, a missing
-    readout, ``weighted`` voting, a ``mean`` arena past the kernel's
-    cluster) it runs :func:`closed_loop` instead; the fused path
+    readout, ``weighted`` voting, as in the JAX package; on a sharded arena
+    a split model axis, or a reduce across split data shards) it runs
+    :func:`closed_loop` instead; past the kernel's limits on the card it
+    raises ``decode_layout``'s ``ValueError``; the fused path
     reads ``batched`` from the shape of ``lam_q``.  A sharded arena on the
     fused route runs it once a cell."""
     if isinstance(arena, ShardedArena):

@@ -492,15 +492,17 @@ def test_decode_mean_cluster_matches_plain(dev, b, batched, d, dtype):
 @pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_slot"])
 @pytest.mark.parametrize("b", [64, 128])
 def test_decode_mean_cluster_at_the_limit(dev, b, batched):
-    """The rule's largest ``mean`` layouts at n = 1024 (525 float64 lanes):
-    64 rows at 4 a block and 128 at 8 a block (W = 2; 221 KB of shared
-    memory a block with per-slot operands), 16 blocks a cluster — the card
-    holds the cluster (the launcher raises if it does not) and the kernel
-    matches the plain version; 129 rows are refused before any launch."""
+    """The rule's largest one-cluster ``mean`` layouts at n = 1024 (525
+    float64 lanes): 64 rows at 4 a block and 128 at 8 a block (W = 2; 221
+    KB of shared memory a block with per-slot operands), 16 blocks a
+    cluster — the card holds the cluster (the launcher raises if it does
+    not) and the kernel matches the plain version; 129 rows take a grid of
+    nine clusters (one launch), and past the grid's limit (1056 rows) the
+    shape is refused before any launch."""
     args = decode_inputs(b, 525, 1, batched, dev)
     mask = torch.arange(b, device=dev) % 7 != 1
     lay = decode_layout(b, 525, 1, 8, ensemble="mean", batched=batched)
-    assert (lay.cluster, lay.rows) == (16, b // 16)
+    assert (lay.cluster, lay.rows, lay.grid) == (16, b // 16, 1)
     got = ops.decode_fused(*args, mask, k=128, ensemble="mean")
     torch.cuda.synchronize()
     want = ref.decode_fused_ref(*args, mask, k=128, ensemble="mean")
@@ -510,11 +512,122 @@ def test_decode_mean_cluster_at_the_limit(dev, b, batched):
     assert torch.equal(got[3][:, live], got[3][:, live[:1]].expand(
         -1, len(live), -1))
     more = decode_inputs(129, 525, 1, batched, dev)
+    live = torch.ones(129, dtype=torch.bool, device=dev)
+    assert decode_layout(129, 525, 1, 8, ensemble="mean",
+                         batched=batched).grid == 9
     before = ops.decode_fused.launches
-    with pytest.raises(ValueError, match="B <= 128 fits"):
-        ops.decode_fused(*more, torch.ones(129, dtype=torch.bool, device=dev),
+    got = ops.decode_fused(*more, live, k=8, ensemble="mean")
+    assert ops.decode_fused.launches == before + 1
+    want = ref.decode_fused_ref(*more, live, k=8, ensemble="mean")
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    most = decode_inputs(1057, 525, 1, batched, dev)
+    with pytest.raises(ValueError, match="B <= 1056 fits"):
+        ops.decode_fused(*most, torch.ones(1057, dtype=torch.bool, device=dev),
                          k=8, ensemble="mean")
-    assert ops.decode_fused.launches == before
+    assert ops.decode_fused.launches == before + 1
+
+
+# (B, NC, D) of the mean route past one cluster, float64 at n = 1024, 4096,
+# 8192 (D = 2), 16384: a grid of G clusters that meet once a step (32 rows
+# of 2074 lanes still fit one cluster).
+GRID_SHAPES = [(129, 525, 1), (160, 525, 1), (256, 525, 1), (512, 525, 1),
+               (17, 4133, 1), (9, 8244, 1), (32, 2074, 1), (32, 4133, 2),
+               (32, 8244, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("b,nc,d", GRID_SHAPES)
+def test_decode_mean_grid_matches_plain(dev, b, nc, d, batched, dtype):
+    """B2's ``mean`` route on a grid of thread-block clusters, through both
+    entries (split lanes, packed Q with its seeded mean), against the plain
+    version at K = 128 with row 1 frozen: one launch a call, 2e-4 (float32)
+    or 1e-9 (float64) of max(|ref|, 1), the frozen row's state and outputs
+    kept, and every live row of every cluster fed back the same y, bit for
+    bit; then no grid launch waited past its bound."""
+    from repro_torch.kernels.diag_scan import decode_grid_check
+    args = [v.to(dtype) for v in decode_inputs(b, nc, d, batched, dev)]
+    nr = nc // 7
+    packed = [v.to(dtype) if torch.is_tensor(v) else v
+              for v in packed_inputs(b, nr, nc - nr, d, batched, dev)]
+    lay = decode_layout(b, nc, d, args[0].element_size(), ensemble="mean",
+                        batched=batched)
+    assert lay.grid > 1 or (b, nc) == (32, 2074)
+    mask = torch.arange(b, device=dev) != 1
+    kw = dict(k=128, ensemble="mean")
+    pkw = dict(kw, use_bias=True, use_feedback=True)
+    before = ops.decode_fused.launches
+    got = ops.decode_fused(*args, mask, **kw)
+    pgot = ops.decode_fused_packed(*packed, mask, **pkw)
+    assert ops.decode_fused.launches == before + 2
+    torch.cuda.synchronize()
+    decode_grid_check()
+    want = ref.decode_fused_ref(*args, mask, **kw)
+    pwant = ref.decode_fused_packed_ref(*packed, mask, **pkw)
+    for g_, w_ in zip(got + pgot, want + pwant):
+        assert bool(torch.isfinite(g_).all())
+        _close_scaled(g_, w_, dtype)
+    assert torch.equal(got[0][1], args[2][1])
+    assert torch.equal(got[3][:, 1], args[4][1].expand(128, d))
+    assert torch.equal(pgot[0][1], packed[4][1])
+    live = mask.nonzero()[:, 0]
+    for ys, y in ((got[3], got[2]), (pgot[2], pgot[1])):
+        assert torch.equal(ys[:, live], ys[:, live[:1]].expand(
+            -1, len(live), -1))
+        assert torch.equal(y[live], y[live[:1]].expand(len(live), -1))
+
+
+def test_decode_mean_grid_is_one_kernel_a_call(dev):
+    """A grid call at 256 per-slot rows makes one kernel launch (beside a
+    4-byte memset of its arrival counter), repeats bit for bit, and a grid
+    whose clusters the card cannot hold at once is refused at launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import importlib
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    args = decode_inputs(256, 525, 1, True, dev)
+    mask = torch.ones(256, dtype=torch.bool, device=dev)
+    first = ops.decode_fused(*args, mask, k=128, ensemble="mean")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = ops.decode_fused(*args, mask, k=128, ensemble="mean")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if "decode_fused_kernel" in n]
+    assert len(kernels) == 1, names
+    assert all("decode_fused_kernel" in n or "emset" in n for n in names)
+    for a_, b_ in zip(first, again):
+        assert torch.equal(a_, b_)
+    # 8 clusters of 16 blocks: one more than the card holds at once.
+    lay = decode_layout(128, 525, 1, 8, ensemble="mean",
+                        batched=True)._replace(grid=8)
+    big = decode_inputs(1024, 525, 1, True, dev)
+    with pytest.raises(RuntimeError, match="cannot hold this decode_fused "
+                                           "grid"):
+        dsk._decode_launch(torch.float64, lay, big[0].device,
+                           *_fields(big, 1024, 525, 1, 128))
+    dsk.decode_grid_check()
+
+
+def _fields(args, b, nc, d, k):
+    """``DecodeCall``'s fields up to ``seed_mean`` for split-lane operands
+    (shared ``a``, per-slot weights), as ``decode_fused_cuda`` packs them
+    at W = 2, 9 lanes a thread, every row live; the mask and outputs
+    allocated here and kept alive in ``_fields.keep``."""
+    a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re, wh_im = args
+    m = torch.ones(b, dtype=torch.bool, device=y0.device)
+    out = [torch.empty_like(h_re), torch.empty_like(h_re),
+           torch.empty_like(y0), y0.new_empty((k, b, d))]
+    _fields.keep = (m, out)
+
+    def p(v):
+        return v.data_ptr()
+    return (p(a_re), p(a_im), 0, p(h_re), p(h_im), nc, p(y0),
+            p(wd_re), p(wd_im), wd_re[0].numel(), nc, p(wy), wy[0].numel(),
+            p(b_out), b_out[0].numel(), p(wh_re), p(wh_im), wh_re[0].numel(),
+            p(m), *(p(v) for v in out), b, nc, 0, 0, d, k, 2, 9, 1, 0)
 
 
 # (B, NC, D) past one block: a row's lanes split over S blocks of one
@@ -808,8 +921,16 @@ def _ensemble(slots, n):
     sig = mso_series(3, 2001)
     ps = [esn.dpg_params(dataclasses.replace(cfg, seed=i), "noisy_golden",
                          sigma=0.1, device="cpu") for i in range(slots)]
-    w = torch.stack([esn.fit(p, sig[:-1, None], sig[1:, None],
-                             washout=100).w_out for p in ps])
+
+    def readout(i, p):
+        try:
+            return esn.fit(p, sig[:-1, None], sig[1:, None],
+                           washout=100).w_out
+        except torch.linalg.LinAlgError:
+            # ROADMAP C12 (seeds 53 and 109 of the first 130 at n = 1024):
+            # a zero readout, so the member runs but votes 0.
+            return torch.zeros((p.cfg.n_features, 1), dtype=torch.float64)
+    w = torch.stack([readout(i, p) for i, p in enumerate(ps)])
     return stack_params(ps), Readout(w), sig
 
 
@@ -877,6 +998,37 @@ def test_mean_ensemble_of_16_slots_at_n1024_raises_the_limit(dev):
             g_, w_ = g_.cpu(), w_.cpu()
             assert bool(((g_ - w_).abs()
                          <= 1e-9 * w_.abs().clamp(min=1.0)).all()), slots
+
+
+def test_mean_ensemble_past_one_cluster_is_one_launch_a_wave(dev):
+    """130 per-slot members of 525 float64 lanes, two more than one
+    thread-block cluster holds: the engine decodes each wave with ONE B2
+    launch on a grid of nine clusters, counts it under ``fused`` and holds
+    against the CPU engine elementwise at 1e-9 max(|ref|, 1)."""
+    from repro_torch.kernels.diag_scan import decode_grid_check
+    slots = 130
+    params, ro, sig = _ensemble(slots, 1024)
+    assert decode_layout(slots, 525, 1, 8, ensemble="mean",
+                         batched=True).grid == 9
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        eng = ReservoirEngine.from_param_batch(params, ro, ensemble="mean",
+                                               device=device)
+        for i in range(slots):
+            eng.submit(i, sig[8 * i:8 * i + 256, None])
+        eng.flush()
+        before = ops.decode_fused.launches
+        ys = eng.decode_closed_loop(8)
+        outs[device.type] = ([ys[i].cpu() for i in range(slots)]
+                             + [eng.states.cpu(), eng.y_prev.cpu()],
+                             ops.decode_fused.launches - before,
+                             eng.stats().decode_waves_by_route)
+    decode_grid_check()
+    assert outs["cuda"][1] == 1
+    assert outs["cuda"][2] == {"fused": 1, "step": 0}
+    for g_, w_ in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert bool(torch.isfinite(g_).all())
+        assert bool(((g_ - w_).abs() <= 1e-9 * w_.abs().clamp(min=1.0)).all())
 
 
 # --------------------------------------------------------------------------- #

@@ -113,3 +113,32 @@ def test_cpu_routes_take_the_packed_plain_version():
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert tops.decode_fused.launches == before
+
+
+def test_packed_plain_past_one_cluster_matches_jax():
+    """A ``mean`` arena past one thread-block cluster of the card's kernel
+    (160 per-slot members of n = 1024, 525 lanes: a grid of ten clusters
+    there) through the plain version the grid route is held against on the
+    card, against the JAX funnel's plain route (``method="ref"``; its
+    interpret-mode kernel at this size is minutes), K = 8, float64, with
+    rows 3 and 100 frozen."""
+    rng = np.random.default_rng(160)
+    nr, npairs = 26, 499                  # n = 1024, NC = 525
+    ops = _packed_case(rng, 160, nr, npairs, 1, True, bias=True, fb=True)
+    ops[2][..., 2:, :] *= 5.0 / (nr + 2 * npairs)   # keep the loop's gain < 1
+    mask = np.ones(160, dtype=bool)
+    mask[[3, 100]] = False
+    kw = dict(use_bias=True, use_feedback=True, ensemble="mean")
+    t = [torch.tensor(v) for v in ops]
+    got = tref.decode_fused_packed_ref(t[0], nr, *t[1:], torch.tensor(mask),
+                                       k=8, **kw)
+    want = jdispatch.run_decode_fused(
+        jnp.asarray(ops[0]), nr, *map(jnp.asarray, (*ops[1:], mask)), 8,
+        method="ref", **kw)
+    for g, w in zip(got, want):
+        assert g.shape == tuple(np.shape(w))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+    np.testing.assert_array_equal(got[0][[3, 100]].numpy(), ops[3][[3, 100]])
+    np.testing.assert_array_equal(got[1][[3, 100]].numpy(), ops[4][[3, 100]])
+    live = np.flatnonzero(mask)
+    assert bool((got[2][:, live] == got[2][:, live[:1]]).all())

@@ -21,7 +21,11 @@ from repro.serve.engine import ReservoirEngine as JaxEngine
 from repro_torch.core import esn as tesn
 from repro_torch.core import params as tparams
 from repro_torch.data.signals import mso_series
-from repro_torch.kernels.diag_scan import decode_layout
+from repro_torch.kernels.diag_scan import (DECODE_GRID_CLUSTER,
+                                          DECODE_MAX_CLUSTER,
+                                          DECODE_MAX_GRID_CLUSTERS,
+                                          DECODE_MAX_SMEM_BYTES,
+                                          decode_layout, decode_max_threads)
 from repro_torch.launch import serve as tserve
 from repro_torch.serve import arena as tarena
 from repro_torch.serve.engine import ReservoirEngine
@@ -275,13 +279,14 @@ def test_closed_loop_fused_method_matches_jax(method):
 @pytest.mark.parametrize("slots, per_slot, route", [
     (16, True, "fused"), (8, True, "fused"), (16, False, "fused"),
     (9, True, "fused"), (32, True, "fused"), (32, False, "fused"),
-    (128, True, "fused"), (129, True, "step"), (129, False, "step")])
+    (128, True, "fused"), (129, True, "fused"), (129, False, "fused")])
 def test_decode_route_is_a_function_of_the_shapes(slots, per_slot, route):
     """The route chooser, asked for a CUDA device with no card present:
-    ``mean`` over B rows of 525 float64 lanes (n = 1024) takes B2 while
-    the rows fit its thread-block cluster (128 rows) and the step path
-    past it; the CPU's plain version and ``off`` take the fused path at
-    every B; ``weighted`` always steps."""
+    ``mean`` over B rows of 525 float64 lanes (n = 1024) takes B2 on its
+    thread-block cluster up to 128 rows and on a grid of clusters past it
+    (it took the step path there before the grid); the CPU's plain
+    version and ``off`` take the fused path at every B; ``weighted``
+    always steps."""
     kw = dict(ensemble="mean", per_slot=per_slot)
     assert tarena.decode_route(slots, 525, 1, 8, "cuda", **kw) == route
     assert tarena.decode_route(slots, 525, 1, 8, "cpu", **kw) == "fused"
@@ -302,12 +307,13 @@ def test_decode_route_is_fused_exactly_where_the_kernel_has_a_layout(
         b, nc, d, itemsize, ensemble, per_slot):
     """On CUDA, ``off`` and ``mean`` take the fused route exactly where
     ``decode_layout`` gives the shape a layout.  Where it has none (D > 8,
-    a row past the split limit, ``mean`` rows past the cluster), ``off``
-    raises ``decode_layout``'s ``ValueError``, which names the limit, and
-    ``mean`` takes the step route, both before any launch; the CPU's plain
-    version takes the fused route at every shape.  (The ``off`` route used
-    to say ``"fused"`` at every shape, so the card raised at its first
-    wide decode wave.)"""
+    a row past the split limit, ``mean`` rows past the grid of clusters),
+    both raise ``decode_layout``'s ``ValueError``, which names the limit,
+    before any launch; neither steps in plain PyTorch on the card.  The
+    CPU's plain version takes the fused route at every shape.  (The
+    ``off`` route used to say ``"fused"`` at every shape, so the card
+    raised at its first wide decode wave; ``mean`` past one cluster used
+    to step.)"""
     try:
         decode_layout(b, nc, d, itemsize, ensemble=ensemble,
                       batched=per_slot)
@@ -317,18 +323,131 @@ def test_decode_route_is_fused_exactly_where_the_kernel_has_a_layout(
     kw = dict(ensemble=ensemble, per_slot=per_slot)
     if err is None:
         assert tarena.decode_route(b, nc, d, itemsize, "cuda", **kw) == "fused"
-    elif ensemble == "off":
+    else:
         with pytest.raises(ValueError) as got:
             tarena.decode_route(b, nc, d, itemsize, "cuda", **kw)
         assert str(got.value) == err
         assert "fits" in err or "D <= 8" in err
-    else:
-        assert tarena.decode_route(b, nc, d, itemsize, "cuda", **kw) == "step"
     assert tarena.decode_route(b, nc, d, itemsize, "cpu", **kw) == "fused"
     if d <= 8 and nc <= 8244 and ensemble == "off":
         assert err is None          # the split covers n = 16384 at D <= 8
     if ensemble == "off" and (d == 9 or (nc == 80000 and itemsize == 8)):
         assert err is not None      # past the limits: raised, never stepped
+
+
+# ------------------------------------- the mean route's grid of clusters
+#: (B, NC, D, itemsize, per-slot, the parent rule's DecodeLayout fields:
+#: warps, per, copies, smem, threads, rows, cluster, segs), written from a
+#: run of ``decode_layout(..., ensemble="mean")`` on the tree before the
+#: grid: every shape one cluster held keeps its layout.
+ONE_CLUSTER_LAYOUTS = [
+    (1, 525, 1, 8, True, (2, 9, 1, 27720, 64, 1, 1, 1)),
+    (2, 525, 1, 8, True, (2, 9, 1, 27760, 64, 1, 2, 1)),
+    (3, 525, 1, 8, True, (2, 9, 1, 27800, 64, 1, 3, 1)),
+    (8, 525, 1, 8, True, (2, 9, 1, 28000, 64, 1, 8, 1)),
+    (16, 525, 1, 8, True, (2, 9, 1, 28320, 64, 1, 16, 1)),
+    (17, 525, 1, 8, True, (2, 9, 2, 56024, 128, 2, 9, 1)),
+    (32, 525, 1, 8, True, (2, 9, 2, 56624, 128, 2, 16, 1)),
+    (64, 525, 1, 8, True, (2, 9, 4, 113232, 256, 4, 16, 1)),
+    (100, 525, 1, 8, True, (2, 9, 7, 197664, 448, 7, 15, 1)),
+    (128, 525, 1, 8, True, (2, 9, 8, 226448, 512, 8, 16, 1)),
+    (16, 525, 1, 8, False, (2, 9, 1, 28320, 64, 1, 16, 1)),
+    (128, 525, 1, 8, False, (2, 9, 1, 32912, 512, 8, 16, 1)),
+    (8, 1037, 1, 8, True, (4, 9, 1, 55904, 128, 1, 8, 1)),
+    (64, 1037, 1, 8, True, (4, 9, 4, 225872, 512, 4, 16, 1)),
+    (16, 2074, 1, 8, True, (8, 9, 1, 112800, 256, 1, 16, 1)),
+    (32, 2074, 1, 8, True, (8, 9, 2, 225584, 512, 2, 16, 1)),
+    (8, 4133, 1, 8, True, (16, 9, 1, 223328, 512, 1, 8, 1)),
+    (16, 4133, 1, 8, True, (16, 9, 1, 225440, 512, 1, 16, 1)),
+    (1, 8244, 1, 8, True, (16, 9, 1, 221744, 512, 1, 2, 2)),
+    (8, 8244, 1, 8, True, (16, 9, 1, 225440, 512, 1, 16, 2)),
+    (8, 4133, 2, 8, True, (8, 9, 1, 188608, 256, 1, 16, 2)),
+    (16, 2074, 2, 8, True, (8, 9, 1, 188608, 256, 1, 16, 1)),
+    (8, 525, 3, 8, True, (2, 9, 1, 65456, 64, 1, 8, 1)),
+    (17, 525, 3, 8, False, (2, 9, 1, 66488, 128, 2, 9, 1)),
+    (1, 8244, 8, 8, False, (2, 12, 1, 212392, 64, 1, 11, 11)),
+    (128, 525, 1, 4, True, (2, 9, 8, 113232, 512, 8, 16, 1)),
+    (8, 8244, 1, 4, True, (16, 9, 1, 112728, 512, 1, 16, 2)),
+    (16, 4133, 2, 4, True, (16, 9, 1, 188520, 512, 1, 16, 1)),
+    (3, 40, 2, 8, True, (1, 2, 1, 5304, 32, 1, 3, 1)),
+    (100, 40, 8, 4, False, (1, 2, 1, 17536, 224, 7, 15, 1)),
+]
+
+
+@pytest.mark.parametrize("b, nc, d, itemsize, per_slot, fields",
+                         ONE_CLUSTER_LAYOUTS)
+def test_mean_shapes_one_cluster_held_keep_their_layout(b, nc, d, itemsize,
+                                                        per_slot, fields):
+    """Every ``mean`` shape that one thread-block cluster held before the
+    grid keeps that layout, field for field, in one cluster (``grid`` 1),
+    so it keeps its instantiation and its bits."""
+    lay = decode_layout(b, nc, d, itemsize, ensemble="mean",
+                        batched=per_slot)
+    assert tuple(lay)[:8] == fields
+    assert lay.grid == 1
+
+
+@pytest.mark.parametrize("per_slot", [True, False],
+                         ids=["per_slot", "shared"])
+@pytest.mark.parametrize("b, nc, d, grid, cluster, rows, segs", [
+    (129, 525, 1, 9, 2, 8, 1), (256, 525, 1, 16, 2, 8, 1),
+    (17, 4133, 1, 9, 2, 1, 1), (9, 8244, 1, 9, 2, 1, 2),
+    (512, 525, 1, 32, 2, 8, 1), (32, 8244, 1, 32, 2, 1, 2),
+    (32, 4133, 2, 32, 2, 1, 2), (160, 525, 1, 10, 2, 8, 1),
+    (2, 8244, 8, 2, 11, 1, 11)])
+def test_mean_past_one_cluster_takes_a_grid(b, nc, d, grid, cluster, rows,
+                                            segs, per_slot):
+    """Past one cluster (129 rows of 525 float64 lanes, 17 of 4133, 9 of
+    8244) the ``mean`` rows spread over the fewest clusters G of at most
+    DECODE_GRID_CLUSTER blocks (more only where one row's segments need
+    them) that fit, G x ceil(B / G) rows, each cluster laid out by the
+    one-cluster rule's terms (R rows a block, or a row's S segments), with
+    the grid's y slots in shared memory and the grid instantiation's
+    thread bound, and the card holds the G clusters at once.  The CUDA
+    route takes it."""
+    lay = decode_layout(b, nc, d, 8, ensemble="mean", batched=per_slot)
+    assert (lay.grid, lay.cluster, lay.rows, lay.segs) == (grid, cluster,
+                                                            rows, segs)
+    assert lay.cluster <= max(DECODE_GRID_CLUSTER, lay.segs)
+    assert lay.cluster <= DECODE_MAX_CLUSTER
+    assert lay.grid <= DECODE_MAX_GRID_CLUSTERS[lay.cluster - 1]
+    crows = -(-b // grid)
+    assert -(-b // crows) == grid               # no cluster is empty
+    if segs > 1:
+        assert cluster == crows * segs
+    else:
+        assert cluster == -(-crows // rows) and rows * lay.warps <= 32
+    assert lay.copies == (rows if per_slot else 1)
+    assert lay.smem <= DECODE_MAX_SMEM_BYTES
+    assert lay.threads <= decode_max_threads(lay.per, d, 8, True, True)
+    # A grid forced to clusters of DECODE_GRID_CLUSTER blocks is the rule's.
+    assert decode_layout(b, nc, d, 8, ensemble="mean", batched=per_slot,
+                         cluster=DECODE_GRID_CLUSTER) == lay
+    assert tarena.decode_route(b, nc, d, 8, "cuda", ensemble="mean",
+                               per_slot=per_slot) == "fused"
+
+
+@pytest.mark.parametrize("per_slot", [True, False],
+                         ids=["per_slot", "shared"])
+@pytest.mark.parametrize("nc, d, least, most", [
+    (525, 1, 512, 1056), (2074, 1, 32, 264), (8244, 1, 32, 66),
+    (4133, 2, 32, 66)])
+def test_mean_grid_limits(nc, d, least, most, per_slot):
+    """The ``mean`` route's limits in float64 (n = 1024, 4096, 16384 at
+    D = 1; n = 8192 at D = 2): it holds at least ``least`` rows and
+    exactly ``most`` (the clusters the card holds at once bound it); one
+    row more raises, before any launch, a ``ValueError`` that names the
+    limit, through ``decode_route`` on CUDA too."""
+    for b in (least, most):
+        assert decode_layout(b, nc, d, 8, ensemble="mean",
+                             batched=per_slot).grid >= 1
+    with pytest.raises(ValueError, match=rf"grid of G clusters.*"
+                                         rf"B <= {most} fits") as err:
+        decode_layout(most + 1, nc, d, 8, ensemble="mean", batched=per_slot)
+    with pytest.raises(ValueError) as route:
+        tarena.decode_route(most + 1, nc, d, 8, "cuda", ensemble="mean",
+                            per_slot=per_slot)
+    assert str(route.value) == str(err.value)
 
 
 def _port_batch(b, n=48):

@@ -357,19 +357,27 @@ def test_decode_layout_limits():
         :3] == (2, 9, 4)
     assert decode_layout(128, 525, 1, 8, ensemble="mean", batched=True)[
         :3] == (2, 9, 8)
+    # Past one cluster's 128 rows a grid of clusters of 2 blocks, up to the
+    # clusters the card holds at once (66 of 2 blocks: 1056 rows).
     for batched in (True, False):
+        assert decode_layout(129, 525, 1, 8, ensemble="mean",
+                             batched=batched)[5:] == (8, 2, 1, 9)
         with pytest.raises(ValueError, match=r"one cluster of at most 16 "
-                                             r"blocks.*B <= 128 fits"):
-            decode_layout(129, 525, 1, 8, ensemble="mean", batched=batched)
-    # The mean route splits rows too, one segment a block, B x S <= 16.
+                                             r"blocks.*grid.*B <= 1056 fits"):
+            decode_layout(1057, 525, 1, 8, ensemble="mean", batched=batched)
+    # The mean route splits rows too, one segment a block, B x S <= 16 a
+    # cluster.
     wide = decode_layout(8, 8244, 1, 8, ensemble="mean", batched=True)
     assert (wide.segs, wide.cluster, wide.rows, wide.copies) == (2, 16, 1, 1)
     assert wide.smem <= DECODE_MAX_SMEM_BYTES
     assert decode_layout(1, 8244, 8, 8, ensemble="mean").cluster == 11
-    with pytest.raises(ValueError, match="B x S <= 16.*B <= 8 fits"):
-        decode_layout(9, 8244, 1, 8, ensemble="mean", batched=True)
-    with pytest.raises(ValueError, match="B <= 1 fits"):
-        decode_layout(2, 8244, 8, 8, ensemble="mean")
+    assert decode_layout(9, 8244, 1, 8, ensemble="mean",
+                         batched=True).grid == 9
+    with pytest.raises(ValueError, match="B x S <= 16.*B <= 66 fits"):
+        decode_layout(67, 8244, 1, 8, ensemble="mean", batched=True)
+    assert decode_layout(2, 8244, 8, 8, ensemble="mean")[6:] == (11, 11, 2)
+    with pytest.raises(ValueError, match="B <= 7 fits"):
+        decode_layout(8, 8244, 8, 8, ensemble="mean")
     with pytest.raises(ValueError, match="warps=1 does not fit"):
         decode_layout(8, 525, 1, 8, warps=1)
     with pytest.raises(ValueError, match="rows=3 does not fit"):
@@ -421,6 +429,21 @@ def test_decode_max_threads_of_split_rows(per, d, itemsize, threads):
                 continue
             assert lay.threads <= decode_max_threads(lay.per, d, itemsize,
                                                      True)
+
+
+@pytest.mark.parametrize("per,d,itemsize,threads", [
+    (12, 1, 4, 256), (10, 1, 4, 512), (3, 1, 4, 1024), (1, 8, 8, 256),
+    (9, 1, 8, 512), (12, 1, 8, 256)])
+def test_decode_max_threads_of_grid_clusters(per, d, itemsize, threads):
+    """The ``mean`` grid's instantiations carry the split's arithmetic and
+    its bounds, and at float32, D = 1, 12 lanes a thread 256 (512
+    spilled); no grid layout launches a block past them."""
+    assert decode_max_threads(per, d, itemsize, True, True) == threads
+    for b, nc in ((129, 525), (600, 40), (30, 3000), (5, 8244)):
+        lay = decode_layout(b, nc, d, itemsize, ensemble="mean",
+                            batched=True)
+        assert lay.threads <= decode_max_threads(lay.per, d, itemsize,
+                                                 True, lay.grid > 1)
 
 
 def test_wrappers_reject_other_devices():
