@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide 16384 1
+    python3 chip_smoke.py --wide 1024 64
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel (the diagonal scan, its backward, the fused decode, flash attention)
@@ -17,7 +18,9 @@ warps a row at five shapes, its mean route on a thread-block cluster at 8,
 a row's lanes split over a cluster at four wide shapes (``off`` and
 ``mean``) with a sweep of the segments a row, its mean route past one
 cluster on a grid of clusters at six shapes with a sweep of the blocks a
-cluster, and the engine's call shown to be one launch — and fails if a
+cluster, past 8 outputs (the wide family) at five shapes beside the step
+route's wave from the same arena, at D <= 8 on both families, and the
+engine's call shown to be one launch — and fails if a
 decode instantiation spills, or if the card holds fewer clusters at once
 than the grid's rule counts on; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
@@ -26,7 +29,7 @@ and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
 printed, and a spill fails the build phase), and at whisper-tiny's encoder
 (1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
-32:8, head_dim 128); then drives the port's twenty-one main paths and two
+32:8, head_dim 128); then drives the port's twenty-two main paths and two
 more phases on the card, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -196,12 +199,17 @@ its own process on its default device; then
    ``ReservoirEngine.from_param_batch``, its closed loop one B2 launch on
    a grid of clusters (no wave on the step route), the streams held
    against the CPU engine elementwise at 1e-9 * max(|ref|, 1), its
-   128-token wave timed beside the step route.
+   128-token wave timed beside the step route;
+22. path 20 at n = 1024 with D = 64 outputs fed back (a readout drawn from
+   a seed, its feedback and state rows scaled so that the loop's gain
+   stays below one): every decode wave one launch of B2's wide family,
+   each row's 525 lanes split over a cluster, the streams held against
+   the CPU engine elementwise at 1e-9 * max(|ref|, 1).
 
-``--wide N D`` builds the kernels and runs only path 20 at n = N with D
-outputs (``--wide 16384 1``: 8244 lanes, a DPG build of minutes on the
-host), prints the card's name and power limit, and stops without the
-device line.
+``--wide N D`` builds the kernels and runs only path 20 (path 22 past 8
+outputs: ``--wide 1024 64``) at n = N with D outputs (``--wide 16384 1``:
+8244 lanes, a DPG build of minutes on the host), prints the card's name
+and power limit, and stops without the device line.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -767,7 +775,10 @@ def decode_inputs(b, nc, d, batched, seed=1):
     ph = torch.rand(nc, generator=g, dtype=torch.float64) * np.pi
     return [(mag * torch.cos(ph)).to("cuda"), (mag * torch.sin(ph)).to("cuda"),
             r(b, nc), r(b, nc), r(b, d), r(*lead, d, nc, s=0.3),
-            r(*lead, d, nc, s=0.3), r(*lead, d, d, s=0.2), r(*lead, d, s=0.1),
+            r(*lead, d, nc, s=0.3),
+            # past 8 outputs the feedback y . wy shrinks as 1 / D, so its
+            # gain (~ scale x 2 sqrt(D)) stays below one
+            r(*lead, d, d, s=0.2 if d <= 8 else 0.5 / d), r(*lead, d, s=0.1),
             # readout weights ~1/NC keep the closed loop's gain below one
             r(*lead, nc, d, s=0.5 / nc), r(*lead, nc, d, s=0.5 / nc)]
 
@@ -803,6 +814,8 @@ def packed_decode_inputs(b, nc, d, batched, seed=2):
     lam = np.concatenate([rng.uniform(-0.95, 0.95, lead + (nr,)), pairs], -1)
     w_out = 0.1 * rng.normal(size=lead + (n + 1 + d, d))
     w_out[..., 1 + d:, :] *= 5.0 / n
+    if d > 8:
+        w_out[..., 1:1 + d, :] *= 8.0 / d    # the feedback's gain below one
 
     def t(v):
         return torch.tensor(v, dtype=torch.float64, device="cuda")
@@ -842,6 +855,17 @@ SPLIT_SHAPES = [(8, 8244, 1), (8, 4133, 2), (3, 4609, 1), (2, 8244, 8)]
 GRID_SHAPES = [(256, 525, 1), (512, 525, 1), (32, 2074, 1), (32, 4133, 2),
                (32, 8244, 1), (160, 525, 1)]
 GRID_CLUSTER_SWEEP = (1, 2, 4, 8, 16)
+#: Past 8 outputs, B2's wide family, float64, K = 128 (B, NC, D, ensemble,
+#: per-slot): n = 1024 at D = 16, 64 and 128 and n = 8192 at D = 16,
+#: ``off``, shared weights; 16 per-slot members of n = 1024 at D = 64,
+#: ``mean``.  Each row also times the step route's 128-token wave
+#: (``arena.closed_loop``) from the same arena (``wave_vs_step``).
+WIDE_SHAPES = [(8, 525, 16, "off", False), (8, 525, 64, "off", False),
+               (8, 525, 128, "off", False), (8, 4133, 16, "off", False),
+               (16, 525, 64, "mean", True)]
+#: (B, NC, D) timed on both families at D <= 8, ``off``: the DM = 8
+#: instantiations the rule runs and the wide family forced.
+FAMILY_SHAPES = [(8, 2074, 2), (8, 525, 2), (4, 525, 8)]
 #: Phase 4's cluster cases, (B, NC, D, ensemble, per-slot), float64.
 CLUSTER_CASES = (
     [(b, 525, 1, "mean", batched)
@@ -849,7 +873,8 @@ CLUSTER_CASES = (
      for batched in (True, False)]
     + [(b, nc, d, ensemble, True) for b, nc, d in SPLIT_SHAPES
        for ensemble in ("off", "mean")]
-    + [(b, nc, d, "mean", True) for b, nc, d in GRID_SHAPES])
+    + [(b, nc, d, "mean", True) for b, nc, d in GRID_SHAPES]
+    + WIDE_SHAPES)
 #: The S sweep at B = 8, ``off``, float64: (D, NC, the segment counts S)
 #: timed beside each other (n = 4096, 8192 and 16384), each at the rule's W
 #: for that S and at every W of SEG_SWEEP_WARPS.
@@ -919,7 +944,7 @@ def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
                                      if ensemble == "mean"
                                      else b * lay.segs),
                           "threads_a_block": lay.threads,
-                          "smem_a_block": lay.smem},
+                          "smem_a_block": lay.smem, "wide": lay.wide},
                "ptxas_decode_instantiations_spilling": spills,
                "ms": time_ms(call, reps=50), **kernel_calls(call),
                "plain_ms": time_ms(lambda: ref.decode_fused_ref(
@@ -991,10 +1016,62 @@ def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
                             "us_per_step": us_per_step(dev, k),
                             **worst_of(ferrs)}
             row["grid_cluster_sweep"] = sweep
+        if d > 8:
+            row["step_route"] = wave_vs_step(b, nc, d, ensemble, batched)
         out.append(row)
         print(json.dumps({"decode_fused_cluster": row}), flush=True)
     torch.cuda.synchronize()
     dsk.decode_grid_check()
+    return out
+
+
+def wave_vs_step(b, nc, d, ensemble, batched):
+    """``fused_vs_step`` on one arena: the packed operands of
+    ``packed_decode_inputs`` as a diag model fed back, every slot live."""
+    import torch
+    from repro_torch.core.params import DiagParams, ESNConfig
+    from repro_torch.serve import arena as arena_mod
+    lam, nr, w_drive, w_out, states, y_prev = packed_decode_inputs(
+        b, nc, d, batched)
+    cfg = ESNConfig(n=states.shape[-1], d_in=d, d_out=d, use_feedback=True)
+    params = DiagParams(lam_q=lam, win_q=w_drive,
+                        wfb_q=torch.zeros_like(w_drive), qtq=None, cfg=cfg,
+                        n_real=nr)
+    a = arena_mod.SlotArena(states, y_prev,
+                            torch.ones(b, dtype=torch.bool, device="cuda"))
+    return fused_vs_step(params, w_out, a, a.active, batched, ensemble,
+                         f"the ({b}, {nc}, {d}) {ensemble} wave")
+
+
+def families_at_narrow_d(ref, dsk, shapes=FAMILY_SHAPES):
+    """At D <= 8, ``off``, float64, K = 128, shared weights: the device ms
+    of the instantiations the rule runs (DM = 1 or 8) beside the wide
+    family forced (``wide=True``), each first held against the plain
+    version."""
+    import torch
+    k, out = DECODE_K, []
+    for b, nc, d in shapes:
+        args = decode_inputs(b, nc, d, False)
+        live = torch.ones(b, dtype=torch.bool, device="cuda")
+        want = ref.decode_fused_ref(*args, live, k=k)
+        row = {"shape": [b, nc, d, k]}
+        for name, wide in (("rule", None), ("wide", True)):
+            lay = dsk.decode_layout(b, nc, d, 8, wide=wide)
+
+            def call():
+                return dsk.decode_fused_cuda(*args, live, k=k, wide=wide)
+            errs = [max_err(g, w) for g, w in zip(call(), want)]
+            for e, t in errs:
+                if e > t:
+                    fail(f"decode_fused ({b}, {nc}, {d}) {name} family: "
+                         f"{e:.3e} > {t:.3e}")
+            dev = kernel_calls(call)["device_ms"]
+            row[name] = {"wide": lay.wide, "segs": lay.segs,
+                         "warps": lay.warps, "lanes_a_thread": lay.per,
+                         "device_ms": dev, "us_per_step": us_per_step(dev, k),
+                         **worst_of(errs)}
+        out.append(row)
+        print(json.dumps({"decode_fused_families": row}), flush=True)
     return out
 
 
@@ -1873,8 +1950,6 @@ def grid_wave_vs_step(esn, ESNConfig, mso_series, ReservoirEngine,
     (elementwise against max(|step|, 1))."""
     import torch
     from repro_torch.core.params import Readout, stack_params
-    from repro_torch.kernels import ops
-    from repro_torch.serve import arena as arena_mod
     dsk = importlib.import_module("repro_torch.kernels.diag_scan")
     cfg = serving_profile(ESNConfig)
     sig = mso_series(3, 2601)
@@ -1887,28 +1962,41 @@ def grid_wave_vs_step(esn, ESNConfig, mso_series, ReservoirEngine,
     for i in range(slots):
         eng.submit(i, sig[4 * i:4 * i + 64, None])
     eng.flush()
-    params, a, wo = eng.params, eng.arena, eng.w_out
     mask = torch.ones(slots, dtype=torch.bool, device="cuda")
     lay = dsk.decode_layout(slots, 525, 1, 8, ensemble="mean",
                             batched=True)._asdict()
+    return {"slots": slots, "layout": lay, **fused_vs_step(
+        eng.params, eng.w_out, eng.arena, mask, True, "mean",
+        f"the {slots}-slot mean wave")}
+
+
+def fused_vs_step(params, w_out, a, mask, batched, ensemble, name,
+                  k=DECODE_K):
+    """One arena's K-token wave through the fused route (one B2 launch)
+    and through the step route (``arena.closed_loop``: a step of plain
+    PyTorch a token): B2's launches, their largest difference
+    (elementwise against max(|step|, 1)) and each's wall ms; fails unless
+    one launch and within ``F64_TOL``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import arena as arena_mod
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    kw = dict(batched=batched, ensemble=ensemble)
     counts = ops.decode_fused.launches
-    fused = arena_mod.closed_loop_fused(params, wo, a, mask, 128,
-                                        batched=True, ensemble="mean")[1]
+    fused = arena_mod.closed_loop_fused(params, w_out, a, mask, k, **kw)[1]
     launched = ops.decode_fused.launches - counts
-    step = arena_mod.closed_loop(params, wo, a, mask, 128, batched=True,
-                                 ensemble="mean")[1]
+    step = arena_mod.closed_loop(params, w_out, a, mask, k, **kw)[1]
     torch.cuda.synchronize()
     dsk.decode_grid_check()
     rel = float(((fused - step).abs() / step.abs().clamp(min=1.0)).max())
     if launched != 1 or not rel <= F64_TOL:
-        fail(f"the {slots}-slot mean wave: {launched} B2 launches, "
-             f"{rel:.3e} from the step route (tol {F64_TOL:.0e})")
-    return {"slots": slots, "layout": lay, "b2_launches": launched,
-            "max_rel_diff_vs_step": rel,
+        fail(f"{name}: {launched} B2 launches, {rel:.3e} from the step "
+             f"route (tol {F64_TOL:.0e})")
+    return {"b2_launches": launched, "max_rel_diff_vs_step": rel,
             "wave_128_fused_ms": wall_ms(lambda: arena_mod.closed_loop_fused(
-                params, wo, a, mask, 128, batched=True, ensemble="mean")),
+                params, w_out, a, mask, k, **kw)),
             "wave_128_step_route_ms": wall_ms(lambda: arena_mod.closed_loop(
-                params, wo, a, mask, 128, batched=True, ensemble="mean"))}
+                params, w_out, a, mask, k, **kw))}
 
 
 def check_grid_table(build, dsk):
@@ -3757,6 +3845,11 @@ def slice14_phases(launches, m):
 #: would feed back without bound.
 WIDE_N, WIDE_D, WIDE_SLOTS, WIDE_SESSIONS = 8192, 2, 8, 16
 WIDE_PROMPT, WIDE_GEN, WIDE_SIGMA = 1024, 128, 0.01
+#: Main path 22: the same phase at n = 1024 (the serving profile's width)
+#: with D = 64 outputs fed back (a field of 64 points forecast in closed
+#: loop), every decode wave one launch of B2's wide family, each row split
+#: over a cluster.
+FIELD_N, FIELD_D = 1024, 64
 
 
 def wide_profile(ESNConfig, n=WIDE_N, d=WIDE_D):
@@ -3765,19 +3858,25 @@ def wide_profile(ESNConfig, n=WIDE_N, d=WIDE_D):
 
 
 def wide_signal(mso_series, d=WIDE_D, t=2001):
-    """``d`` MSO channels (3, 5, ... sines): the model's input and output,
+    """``d`` MSO channels (3, 5, 7, 9, 11 sines, each group of five one
+    step later than the one before): the model's input and output,
     (t, d)."""
-    return np.stack([mso_series(3 + 2 * i, t) for i in range(d)], -1)
+    return np.stack([mso_series(3 + 2 * (i % 5), t + i // 5)[i // 5:]
+                     for i in range(d)], -1)
 
 
 def wide_readout(Readout, p, seed=20):
     """A readout drawn from ``seed`` as the JAX package's D = 2 decode
     tests draw theirs (normal, scale 0.1), its state rows scaled by 5 / n
-    so that the closed loop's gain stays below one."""
+    so that the closed loop's gain stays below one; past 8 outputs its
+    feedback and state rows also by 8 / D (the loop's gain grows with the
+    outputs fed back)."""
     import torch
     f, n, d = p.cfg.n_features, p.cfg.n, p.cfg.d_out
     w = np.random.default_rng(seed).normal(0.0, 0.1, (f, d))
     w[f - n:] *= 5.0 / n
+    if d > 8:
+        w[f - n - d:] *= 8.0 / d
     return Readout(torch.tensor(w, dtype=torch.float64))
 
 
@@ -3835,12 +3934,16 @@ def streams_vs_cpu(card, cpu, tol=F64_TOL, name="path 20"):
     return worst
 
 
-def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D):
+def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D, path=20):
     """Main path 20 (phase 30): the wide reservoir (n states, D outputs)
     on the card, every decode wave one B2 launch that splits each row over
-    a cluster, held against the CPU engine on the same parameters."""
-    phase(f"30 main path 20: a wide reservoir served end to end — n = "
-          f"{n}, D = {d}{' fed back' if d > 1 else ''}, float64, "
+    a cluster, held against the CPU engine on the same parameters.  Main
+    path 22 (phase 31) is the same at n = 1024, D = 64 (B2's wide
+    family)."""
+    key = "serve_wide" if path == 20 else f"serve_wide_path{path}"
+    phase(f"{30 if path == 20 else 31} main path {path}: a wide reservoir "
+          f"served end to "
+          f"end — n = {n}, D = {d}{' fed back' if d > 1 else ''}, float64, "
           f"{WIDE_SLOTS} slots, "
           f"{WIDE_SESSIONS} sessions, {WIDE_PROMPT}-token prompts, "
           f"{WIDE_GEN} closed-loop tokens, against the CPU engine")
@@ -3855,34 +3958,33 @@ def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D):
     nc = (n + int(p.n_real)) // 2
     lay = dsk.decode_layout(WIDE_SLOTS, nc, d, 8)
     if lay.segs < 2:
-        fail(f"path 20's {nc} lanes at D = {d} do not split: {lay}")
+        fail(f"path {path}'s {nc} lanes at D = {d} do not split: {lay}")
     card, wall, routes, _ = drive(
-        "serve_wide", lambda: wide_sessions(p, ro, sig, m.ReservoirEngine,
-                                            "cuda"),
+        key, lambda: wide_sessions(p, ro, sig, m.ReservoirEngine, "cuda"),
         ("diag_scan", "decode_fused"))
-    b2 = launches["serve_wide"]["decode_fused"]
+    b2 = launches[key]["decode_fused"]
     if routes["step"] or routes["fused"] < 1 or b2 != routes["fused"]:
-        fail(f"path 20: decode waves by route {routes}, {b2} B2 launches "
-             f"(every wave must be one B2 launch)")
+        fail(f"path {path}: decode waves by route {routes}, {b2} B2 "
+             f"launches (every wave must be one B2 launch)")
     _, wall2, _, _ = wide_sessions(p, ro, sig, m.ReservoirEngine, "cuda")
     t1 = time.perf_counter()
     cpu, _, cpu_routes, _ = wide_sessions(p, ro, sig, m.ReservoirEngine,
                                           "cpu")
-    errs = streams_vs_cpu(card, cpu)
-    res = {"n": n, "d": d, "lanes": nc, "dtype": "float64",
+    errs = streams_vs_cpu(card, cpu, name=f"path {path}")
+    res = {"path": path, "n": n, "d": d, "lanes": nc, "dtype": "float64",
            "dpg_sigma": WIDE_SIGMA,
            "layout": {"segs": lay.segs, "warps": lay.warps,
                       "lanes_a_thread": lay.per, "blocks": WIDE_SLOTS
-                      * lay.segs},
+                      * lay.segs, "wide": lay.wide},
            "host_build_s": build_s,
            "wall_s": wall, "wall_s_second_run": wall2,
            "sessions_per_s": WIDE_SESSIONS / wall2,
            "decode_waves_by_route": routes, "launches":
-           launches["serve_wide"], "cpu_engine_s": time.perf_counter() - t1,
+           launches[key], "cpu_engine_s": time.perf_counter() - t1,
            "cpu_decode_waves_by_route": cpu_routes,
            "max_abs_y": max(float(v[0].abs().max()) for v in card.values()),
            "vs_cpu": errs}
-    print(json.dumps({"serve_wide": res}), flush=True)
+    print(json.dumps({key: res}), flush=True)
     del card, cpu
     release_cache()
     return res
@@ -3892,8 +3994,9 @@ def main(argv=None) -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--wide", nargs=2, type=int, metavar=("N", "D"),
-                    help="build the kernels and run only main path 20 at "
-                         "n = N states and D outputs, then stop")
+                    help="build the kernels and run only main path 20 "
+                         "(22 past 8 outputs) at n = N states and D "
+                         "outputs, then stop")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3983,7 +4086,8 @@ def main(argv=None) -> None:
     if args.wide:
         slice16_phases(drive, launches, types.SimpleNamespace(
             esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
-            ReservoirEngine=ReservoirEngine, Readout=Readout), *args.wide)
+            ReservoirEngine=ReservoirEngine, Readout=Readout), *args.wide,
+            path=22 if args.wide[1] > dsk.DECODE_NARROW_D else 20)
         print(smi_line, flush=True)
         return
     copy_bw = copy_bandwidth()
@@ -4000,6 +4104,7 @@ def main(argv=None) -> None:
     cluster_rows = check_decode_cluster(ops, ref, dsk, copy_bw,
                                         len(decode_spills))
     seg_sweep = segs_sweep(ref, dsk)
+    family_rows = families_at_narrow_d(ref, dsk)
 
     phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
@@ -4352,11 +4457,13 @@ def main(argv=None) -> None:
         Readout=Readout))
     slice14_phases(launches, types.SimpleNamespace(
         spawn_ranks=spawn_ranks, get_config=get_config, smi_line=smi_line))
-    wide = slice16_phases(drive, launches, types.SimpleNamespace(
+    wide_m = types.SimpleNamespace(
         esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
-        ReservoirEngine=ReservoirEngine, Readout=Readout))
+        ReservoirEngine=ReservoirEngine, Readout=Readout)
+    wide = slice16_phases(drive, launches, wide_m)
+    field = slice16_phases(drive, launches, wide_m, FIELD_N, FIELD_D, path=22)
 
-    phase("31 summary")
+    phase("32 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
@@ -4427,10 +4534,13 @@ def main(argv=None) -> None:
                  "warps", "per", "mean_route", "mean_per_slot",
                  "run_decode_fused", "tenant_pool", "shapes")},
              cluster_rows=cluster_rows, segs_sweep=seg_sweep,
-             grid_max_active_clusters=grid_table, serve_wide={
-                 k: wide[k] for k in ("lanes", "layout",
-                                      "decode_waves_by_route",
-                                      "sessions_per_s")},
+             families_at_narrow_d=family_rows,
+             grid_max_active_clusters=grid_table, **{
+                 f"serve_wide_path{r['path']}": {
+                     k: r[k] for k in ("n", "d", "lanes", "layout",
+                                       "decode_waves_by_route",
+                                       "sessions_per_s")}
+                 for r in (wide, field)},
              library_ms=None),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]

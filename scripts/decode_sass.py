@@ -3,11 +3,12 @@
 across checkouts of the port, on the GPU host.
 
     python3 scripts/decode_sass.py --src A/src --src B/src [--per 9]
-        [--d 1] [--dtype f64] [--split 0]
+        [--d 1] [--dtype f64] [--split 0] [--grid 0]
 
 Builds each checkout's kernels (``repro_torch.kernels.build.build_all``,
 in a subprocess a checkout, all at once), dumps the SASS of the
-``decode_fused_kernel<T, PER, DM[, SPLIT[, GRID = false]]>`` instantiation
+``decode_fused_kernel<T, PER, DM[, SPLIT[, GRID]]>`` instantiation (GRID
+false unless ``--grid 1``, which implies SPLIT)
 from its library with ``cuobjdump -sass``, and prints one JSON line: for
 each checkout its instruction count and count by opcode; for each pair
 the instructions that differ once addresses, encodings and constant-bank
@@ -77,9 +78,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", action="append", required=True)
     ap.add_argument("--per", type=int, default=9)
-    ap.add_argument("--d", type=int, default=1, help="DM: 1 or 8")
+    ap.add_argument("--d", type=int, default=1,
+                    help="DM: 1 or 8 (0: the wide family)")
     ap.add_argument("--dtype", choices=("f64", "f32"), default="f64")
     ap.add_argument("--split", type=int, default=0)
+    ap.add_argument("--grid", type=int, default=0)
     args = ap.parse_args()
     srcs = [Path(s).resolve() for s in args.src]
     for proc in [build(s) for s in srcs]:
@@ -88,7 +91,8 @@ def main():
     t = "d" if args.dtype == "f64" else "f"
     # Checkouts before the split have no SPLIT argument, before the grid
     # no GRID argument (false wherever present).
-    b = "Lb1E(Lb0E)?" if args.split else "(Lb0E){0,2}"
+    b = ("Lb1ELb1E" if args.grid else "Lb1E(Lb0E)?" if args.split
+         else "(Lb0E){0,2}")
     pat = re.compile(rf"decode_fused_kernelI{t}Li{args.per}ELi{args.d}E"
                      rf"{b}EEv")
     out, code = {"instantiation": pat.pattern, "checkouts": {}}, {}

@@ -2,23 +2,28 @@
 """Time the fused decode kernel (B2) of one checkout of the port on the GPU.
 
     python3 scripts/decode_turns.py --src path/to/checkout/src [--label NAME]
+        [--shape B NC D] [--mean]
 
 Imports ``repro_torch`` from ``--src`` (this checkout's ``src`` by default),
 builds its kernels, and at the reservoir serving loop's shape (8 slots,
-n = 1024: 525 lanes, D = 1, K = 128 steps, float64) prints one JSON line:
+n = 1024: 525 lanes, D = 1, K = 128 steps, float64; ``--shape`` another
+B, NC, D) prints one JSON line:
 
 * ``kernel_ms``: ``ops.decode_fused`` (split lanes), CUDA events over 50
   back-to-back calls; ``device_ms``: the sum of its kernels' times per call
   in a ``torch.profiler`` window of 20 calls;
 * ``run_decode_fused``: the engine's call (``core.dispatch``, packed Q
-  layout) — its device kernels per call (count and names), its device ms,
+  layout; the serving profile's DPG model at 525 lanes, else packed
+  operands drawn from a seed with NC // 7 real slots) — its device kernels
+  per call (count and names), its device ms,
   and its host µs a call (least and median of 10 repeats of 200 calls)
   beside the host µs of one ``torch.add`` in the same run;
 * the card's name and power limit.
 
 With ``--mean`` it prints instead the ``ensemble="mean"`` route with
 per-slot members (drive, feedback and readout weights a slot) at 525
-lanes, D = 1, K = 128, float64, for B in ``MEAN_SLOTS``: ``kernel_ms``,
+lanes (``--shape``: NC), D = 1 (D), K = 128, float64, for B in
+``MEAN_SLOTS``: ``kernel_ms``,
 ``device_ms`` and kernels a call as above, µs a step, or the checkout's
 refusal (its ValueError) where its layout rule refuses B.
 
@@ -85,7 +90,7 @@ def kernel_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def mean_rows(ops, nc, k, dev):
+def mean_rows(ops, nc, k, dev, d=1):
     """The ``mean`` route at every B of ``MEAN_SLOTS``, per-slot members."""
     import torch
     rows = []
@@ -95,10 +100,10 @@ def mean_rows(ops, nc, k, dev):
         def r(*shape, s=1.0):
             return (s * torch.randn(shape, generator=g,
                                     dtype=torch.float64)).to(dev)
-        lanes = [r(nc, s=0.5), r(nc, s=0.5), r(b, nc), r(b, nc), r(b, 1),
-                 r(b, 1, nc, s=0.3), r(b, 1, nc, s=0.3), r(b, 1, 1, s=0.2),
-                 r(b, 1, s=0.1), r(b, nc, 1, s=0.5 / nc),
-                 r(b, nc, 1, s=0.5 / nc)]
+        lanes = [r(nc, s=0.5), r(nc, s=0.5), r(b, nc), r(b, nc), r(b, d),
+                 r(b, d, nc, s=0.3), r(b, d, nc, s=0.3), r(b, d, d, s=0.2),
+                 r(b, d, s=0.1), r(b, nc, d, s=0.5 / nc),
+                 r(b, nc, d, s=0.5 / nc)]
         mask = torch.ones(b, dtype=torch.bool, device=dev)
 
         def call():
@@ -122,6 +127,8 @@ def main():
     ap.add_argument("--label", default="")
     ap.add_argument("--mean", action="store_true",
                     help="time the ensemble='mean' route at MEAN_SLOTS")
+    ap.add_argument("--shape", nargs=3, type=int, default=(8, 525, 1),
+                    metavar=("B", "NC", "D"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -131,19 +138,23 @@ def main():
     from repro_torch.core.params import ESNConfig
     from repro_torch.kernels import ops
 
-    b, k, dev = 8, 128, "cuda"
+    (b, nc, d), k, dev = args.shape, 128, "cuda"
     cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, seed=0)
-    p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device=dev)
-    n = p.lam_q.shape[-1]
-    nc = (n + p.n_real) // 2
+    if nc == 525:
+        p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device=dev)
+        n, n_real = p.lam_q.shape[-1], p.n_real
+        lam_q, w_drive = p.lam_q, p.win_q
+    else:
+        n_real = nc // 7
+        n = 2 * nc - n_real
     g = torch.Generator().manual_seed(1)
 
     def r(*shape, s=1.0):
         return (s * torch.randn(shape, generator=g,
                                 dtype=torch.float64)).to(dev)
-    lanes = [r(nc, s=0.5), r(nc, s=0.5), r(b, nc), r(b, nc), r(b, 1),
-             r(1, nc, s=0.3), r(1, nc, s=0.3), r(1, 1, s=0.2), r(1, s=0.1),
-             r(nc, 1, s=0.5 / nc), r(nc, 1, s=0.5 / nc)]
+    lanes = [r(nc, s=0.5), r(nc, s=0.5), r(b, nc), r(b, nc), r(b, d),
+             r(d, nc, s=0.3), r(d, nc, s=0.3), r(d, d, s=0.2), r(d, s=0.1),
+             r(nc, d, s=0.5 / nc), r(nc, d, s=0.5 / nc)]
     mask = torch.ones(b, dtype=torch.bool, device=dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -151,18 +162,20 @@ def main():
     card = smi.splitlines()[0] if smi else "nvidia-smi: no output"
     if args.mean:
         print(json.dumps({"label": args.label, "src": args.src,
-                          "mean": mean_rows(ops, nc, k, dev),
-                          "lanes": nc, "d": 1, "k": k, "dtype": "float64",
+                          "mean": mean_rows(ops, nc, k, dev, d),
+                          "lanes": nc, "d": d, "k": k, "dtype": "float64",
                           "card": card}), flush=True)
         return
 
     def split():
         return ops.decode_fused(*lanes, mask, k=k)
-    w_drive = p.win_q + p.wfb_q if cfg.use_feedback else p.win_q
-    w_out, states, y_prev = r(1 + n, 1, s=1.0 / n), r(b, n), r(b, 1)
+    if nc != 525:
+        lam_q = torch.cat([r(n_real, s=0.5), r(n - n_real, s=0.5)])
+        w_drive = r(d, n, s=0.3)
+    w_out, states, y_prev = r(1 + n, d, s=1.0 / n), r(b, n), r(b, d)
 
     def packed():
-        return dispatch.run_decode_fused(p.lam_q, p.n_real, w_drive, w_out,
+        return dispatch.run_decode_fused(lam_q, n_real, w_drive, w_out,
                                          states, y_prev, mask, k,
                                          use_bias=True, use_feedback=False)
     split()
@@ -174,7 +187,7 @@ def main():
         split()
     end.record()
     torch.cuda.synchronize()
-    out = {"label": args.label, "src": args.src, "shape": [b, nc, 1, k],
+    out = {"label": args.label, "src": args.src, "shape": [b, nc, d, k],
            "dtype": "float64", "kernel_ms": start.elapsed_time(end) / 50}
     out["device_ms"], out["kernels_per_call"], _ = device_kernels(split)
     ms, per_call, names = device_kernels(packed)

@@ -6,7 +6,7 @@ libraries land in ``build/repro_torch_kernels/`` at the checkout root, named
 by a hash of every source and flag, so an edited source rebuilds and an
 unchanged one loads at once.  All sources compile in parallel (one ``nvcc``
 each, or one a part for a source listed in ``PARTS``: the decode kernel's
-instantiations, compiled a quarter at a time and linked into its one
+instantiations, compiled a sixth at a time and linked into its one
 library), and each splits its device code over the host's cores
 (``--split-compile=0``).  Importing this module needs no ``nvcc``.
 """
@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: Sources compiled in parts: ``{stem: (macro, parts)}``.  Each part is one
 #: ``nvcc -c -D<macro>=<i>`` of the whole source, all run at once, and the
 #: objects are linked into the source's one library.
-PARTS = {"decode_fused": ("DECODE_PART", 4)}
+PARTS = {"decode_fused": ("DECODE_PART", 6)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

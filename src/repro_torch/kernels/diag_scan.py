@@ -32,11 +32,14 @@ from .ref import chunk_layout, live_mask
 
 __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
            "decode_fused_cuda", "decode_fused_packed_cuda", "decode_layout",
-           "decode_max_threads", "DecodeLayout", "scan_chunks",
+           "decode_max_threads", "DecodeLayout", "WideDecodeLayout",
+           "scan_chunks",
            "SCAN_TARGET_THREADS", "SCAN_MIN_CHUNK",
            "DECODE_LANES_PER_THREAD", "DECODE_AIM_WARPS",
            "DECODE_MEAN_AIM_WARPS", "DECODE_PER",
-           "DECODE_MAX_D", "DECODE_MAX_WARPS", "DECODE_MAX_SMEM_BYTES",
+           "DECODE_MAX_D", "DECODE_NARROW_D", "DECODE_WIDE_PER",
+           "DECODE_MAX_WARPS",
+           "DECODE_MAX_SMEM_BYTES",
            "DECODE_MAX_CLUSTER", "DECODE_GRID_CLUSTER",
            "DECODE_MAX_GRID_CLUSTERS", "decode_grid_check"]
 
@@ -50,6 +53,12 @@ __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
 #: next), the most outputs D, warps a block and dynamic shared memory a
 #: block (227 KB) it takes, and the most blocks in the ``mean`` route's
 #: thread-block cluster (the H100's non-portable cluster size).
+#: DECODE_NARROW_D: the most outputs of the families that hold y in
+#: registers (DM = 1 for D = 1, DM = 8 up to 8); past it the wide family
+#: (DM = 0: D read at run time, y in shared memory) takes D up to
+#: DECODE_MAX_D, its lanes-a-thread instantiations DECODE_WIDE_PER (its
+#: rule takes the fewest lanes a thread, at most 4 wherever it has a
+#: layout; at 16, float64, its grid instantiation spilled).
 #: DECODE_GRID_CLUSTER: the most blocks a cluster of the ``mean`` route's
 #: grid (past one cluster) takes, unless one row's segments need more:
 #: of clusters of at most 1, 2, 4, 8 and 16 blocks, 2 ran the grid's steps
@@ -65,7 +74,9 @@ DECODE_LANES_PER_THREAD = (8, 4)
 DECODE_AIM_WARPS = 8
 DECODE_MEAN_AIM_WARPS = 1
 DECODE_PER = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16)
-DECODE_MAX_D = 8
+DECODE_MAX_D = 128
+DECODE_NARROW_D = 8
+DECODE_WIDE_PER = (1, 2, 3, 4, 6, 8, 12)
 DECODE_MAX_WARPS = 32
 DECODE_MAX_SMEM_BYTES = 232448
 DECODE_MAX_CLUSTER = 16
@@ -333,7 +344,10 @@ class DecodeLayout(NamedTuple):
     cluster's rows; ``off``: the blocks of one row, 1 for an unsplit row),
     ``segs``, the blocks a row's lanes are split over (1: the whole row in
     one block), and ``grid``, the ``mean`` route's clusters (1: the whole
-    arena in one cluster), each of ``ceil(B / grid)`` rows but the last."""
+    arena in one cluster), each of ``ceil(B / grid)`` rows but the last.
+    ``wide`` (not a field, so a layout's fields are those it had before
+    the family existed): whether it runs the wide family
+    (:class:`WideDecodeLayout`)."""
     warps: int
     per: int
     copies: int
@@ -343,18 +357,30 @@ class DecodeLayout(NamedTuple):
     cluster: int = 1
     segs: int = 1
     grid: int = 1
+    wide = False
+
+
+class WideDecodeLayout(DecodeLayout):
+    """A layout of B2's wide family (y in shared memory, D read at run
+    time): every D > DECODE_NARROW_D, or a D <= 8 that asks for it."""
+    __slots__ = ()
+    wide = True
 
 
 def decode_max_threads(per: int, d: int, itemsize: int,
-                       split: bool = False, grid: bool = False) -> int:
+                       split: bool = False, grid: bool = False,
+                       wide: bool = False) -> int:
     """The most threads a block of the ``per``-lane instantiation runs at D
     outputs — the largest at which ptxas held it without spilling on the
     card (``chip_smoke.py`` phase 2 fails on a spill); ``split``: the
     instantiation of a row split over blocks (at float64, D > 1, one lane
     a thread it spilled at 512); ``grid``: the ``mean`` grid's (split too;
-    at float32, D = 1, 12 lanes a thread it spilled at 512).  Repeats
-    ``decode_max_threads`` in ``csrc/decode_fused.cu``, which bounds each
-    instantiation with it."""
+    at float32, D = 1, 12 lanes a thread it spilled at 512); ``wide`` (or
+    D > DECODE_NARROW_D): the wide family's, 256 (at 512 float32 split
+    instantiations spilled).  Repeats ``decode_max_threads`` in
+    ``csrc/decode_fused.cu``, which bounds each instantiation with it."""
+    if wide or d > DECODE_NARROW_D:
+        return 256
     if itemsize == 8:
         if d == 1:
             return 512 if per <= 10 else 256
@@ -366,7 +392,7 @@ def decode_max_threads(per: int, d: int, itemsize: int,
 
 
 def _decode_fit(warps, nc, d, itemsize, rows, copies, seen=1, header=0,
-                segs=1, grid=False):
+                segs=1, grid=False, wide=False):
     """The layout of ``warps`` warps a row and ``rows`` rows a block, a
     row's NC lanes split over ``segs`` blocks of ceil(NC / segs) lanes, or
     None if it does not fit; ``seen``: the rows whose mask and readout
@@ -374,24 +400,38 @@ def _decode_fit(warps, nc, d, itemsize, rows, copies, seen=1, header=0,
     ``header``: bytes ahead of them (the exchange's two mbarriers);
     ``grid``: a cluster of the ``mean`` route's grid, whose instantiation
     carries the split's arithmetic (and its thread bound) and whose block
-    keeps the grid's y (two parity slots of D values)."""
-    need = -(-_seg_lanes(nc, segs) // (32 * warps))
-    per = next((p for p in DECODE_PER if p >= need), None)
+    keeps the grid's y (two parity slots of D values); ``wide``: the wide
+    family (implied past DECODE_NARROW_D outputs)."""
+    wide = wide or d > DECODE_NARROW_D
+    lanes = _seg_lanes(nc, segs)
+    need = -(-lanes // (32 * warps))
+    per = next((p for p in (DECODE_WIDE_PER if wide else DECODE_PER)
+                if p >= need), None)
     threads = rows * 32 * warps
     if per is None or rows * warps > DECODE_MAX_WARPS or \
             threads > decode_max_threads(per, d, itemsize, segs > 1 or grid,
-                                         grid):
+                                         grid, wide):
         return None
-    # Shared lane operands: ``per`` slots a thread (padded ones zero); a
-    # mask slot and the warps' partials (two parity slots) of every (row,
-    # segment) of the cluster.
-    smem = header + itemsize * (copies * per * (2 + 4 * d) * 32 * warps
-                                + rows * (d * d + d) + seen * segs
-                                + 2 * seen * segs * warps * d
-                                + (2 * d if grid else 0))
+    if wide:
+        # Lane operands unpadded (the segment's L lanes); each row's share
+        # of wy (D x ceil(D / S)), b_out and carried y; a mask slot and the
+        # warps' partials (two parity slots) of every (row, segment).
+        smem = header + itemsize * (copies * (2 + 4 * d) * lanes
+                                    + rows * (d * -(-d // segs) + 2 * d)
+                                    + seen * segs
+                                    + 2 * seen * segs * warps * d)
+    else:
+        # Shared lane operands: ``per`` slots a thread (padded ones zero);
+        # a mask slot and the warps' partials (two parity slots) of every
+        # (row, segment) of the cluster.
+        smem = header + itemsize * (copies * per * (2 + 4 * d) * 32 * warps
+                                    + rows * (d * d + d) + seen * segs
+                                    + 2 * seen * segs * warps * d
+                                    + (2 * d if grid else 0))
     if smem > DECODE_MAX_SMEM_BYTES:
         return None
-    return DecodeLayout(warps, per, copies, smem, threads, rows, 1, segs)
+    return (WideDecodeLayout if wide else DecodeLayout)(
+        warps, per, copies, smem, threads, rows, 1, segs)
 
 
 def _seg_lanes(nc: int, segs: int) -> int:
@@ -401,7 +441,7 @@ def _seg_lanes(nc: int, segs: int) -> int:
 
 
 def _mean_fits(b, nc, d, itemsize, batched, rows, options, segs=1,
-               most=DECODE_MAX_CLUSTER, grid=False):
+               most=DECODE_MAX_CLUSTER, grid=False, wide=False):
     """The ``mean`` layouts of B rows in one cluster of at most ``most``
     blocks, one per W in ``options`` that fits (``grid``: as a cluster of
     the grid).  A row in one block (``segs`` 1): ``rows`` rows a block
@@ -421,35 +461,47 @@ def _mean_fits(b, nc, d, itemsize, batched, rows, options, segs=1,
     return [lay._replace(cluster=g) for w in options
             if (lay := _decode_fit(w, nc, d, itemsize, r,
                                    r if batched else 1, seen=b, header=16,
-                                   segs=segs, grid=grid))]
+                                   segs=segs, grid=grid, wide=wide))]
 
 
-def _off_fits(nc, d, itemsize, options, segs):
+def _off_fits(nc, d, itemsize, options, segs, wide=False):
     """The ``off`` layouts of a row's NC lanes over ``segs`` blocks (past
     one block, the row's blocks form one cluster), one per W in
     ``options`` that fits."""
     return [lay._replace(cluster=segs) for w in options
             if (lay := _decode_fit(w, nc, d, itemsize, 1, 1,
                                    header=16 if segs > 1 else 0,
-                                   segs=segs))]
+                                   segs=segs, wide=wide))]
 
 
 def _pick(b, nc, d, itemsize, mean, batched, options, rows, seg_options,
-          most=DECODE_MAX_CLUSTER, grid=False):
+          most=DECODE_MAX_CLUSTER, grid=False, wide=False):
     """The rule's layout, or None if none fits: the fewest segments a row
     that fit, then W nearest the aim in powers of two (the larger on a
-    tie); ``most`` and ``grid`` as for :func:`_mean_fits`."""
+    tie); ``most``, ``grid`` and ``wide`` as for :func:`_mean_fits`.  The
+    wide family (D > DECODE_NARROW_D, or ``wide``): the fewest lanes a
+    thread, then the fewest segments, then the fewest warps — on an H100
+    its step shortens with a thread's lanes, which each read 4 D shared
+    values a step, more than with anything else the choice trades
+    (PERF.md section 6)."""
+    if wide or d > DECODE_NARROW_D:
+        fits = [lay for segs in seg_options for lay in (
+            _mean_fits(b, nc, d, itemsize, batched, rows, options, segs,
+                       most, grid, True) if mean else
+            _off_fits(nc, d, itemsize, options, segs, True))]
+        return min(fits, key=lambda lay: (lay.per, lay.segs, lay.warps),
+                   default=None)
     for segs in seg_options:
         if mean:
             aim = DECODE_MEAN_AIM_WARPS
             fits = _mean_fits(b, nc, d, itemsize, batched, rows, options,
-                              segs, most, grid)
+                              segs, most, grid, wide)
         else:
             lanes, aim = DECODE_LANES_PER_THREAD[d > 1], 1
             while aim < DECODE_AIM_WARPS and \
                     32 * aim * lanes < _seg_lanes(nc, segs):
                 aim *= 2
-            fits = _off_fits(nc, d, itemsize, options, segs)
+            fits = _off_fits(nc, d, itemsize, options, segs, wide)
         if fits:
             return min(fits, key=lambda lay: (abs(lay.warps.bit_length()
                                                   - aim.bit_length()),
@@ -457,33 +509,37 @@ def _pick(b, nc, d, itemsize, mean, batched, options, rows, seg_options,
     return None
 
 
-def _pick_grid(b, nc, d, itemsize, batched, options, rows, segs, most):
+def _pick_grid(b, nc, d, itemsize, batched, options, rows, segs, most,
+               wide=False):
     """The ``mean`` route's grid layout of B rows, or None: the fewest
     clusters G >= 2 whose share of the rows, ceil(B / G), has a layout of
     one cluster of at most ``most`` blocks (the rule of :func:`_pick`, its
     mask and partials those of the cluster's rows) and whose G clusters of
     that size the card holds at once (DECODE_MAX_GRID_CLUSTERS).  A forced
     ``segs`` applies as given; a forced W or R at the cluster's free S."""
-    every = range(1, DECODE_MAX_CLUSTER + 1)
     forced = len(options) < len(DECODE_WARPS) or rows is not None
     for g in range(2, min(b, max(DECODE_MAX_GRID_CLUSTERS)) + 1):
         bc = -(-b // g)
         if -(-b // bc) != g:        # fewer clusters hold these rows
             continue
+        # A split row is a cluster of its S segments: those S of which the
+        # card holds g clusters at once.
+        every = [s_ for s_ in range(1, DECODE_MAX_CLUSTER + 1)
+                 if s_ == 1 or g <= DECODE_MAX_GRID_CLUSTERS[s_ - 1]]
         seg_options = every if segs is None else (segs,)
         if segs is None and forced:
             free = _pick(bc, nc, d, itemsize, True, batched, DECODE_WARPS,
-                         None, every, most, True)
+                         None, every, most, True, wide)
             seg_options = (free.segs,) if free else ()
         lay = _pick(bc, nc, d, itemsize, True, batched, options, rows,
-                    seg_options, most, True)
+                    seg_options, most, True, wide)
         if lay is not None and g <= DECODE_MAX_GRID_CLUSTERS[lay.cluster - 1]:
             return lay._replace(grid=g)
     return None
 
 
 def _mean_layout(b, nc, d, itemsize, batched, options, rows, segs,
-                 cluster):
+                 cluster, wide=False):
     """The ``mean`` rule: one cluster wherever it holds the B rows (the
     layout of :func:`_pick`), else the grid of :func:`_pick_grid`.  A
     forced W, R or S applies within the rule's choice of one cluster or a
@@ -491,7 +547,7 @@ def _mean_layout(b, nc, d, itemsize, batched, options, rows, segs,
     every = range(1, DECODE_MAX_CLUSTER + 1)
     if cluster is None:
         free = _pick(b, nc, d, itemsize, True, batched, DECODE_WARPS, None,
-                     every)
+                     every, wide=wide)
         if free is not None:
             if segs is not None:
                 seg_options = (segs,)
@@ -500,9 +556,9 @@ def _mean_layout(b, nc, d, itemsize, batched, options, rows, segs,
             else:
                 return free
             return _pick(b, nc, d, itemsize, True, batched, options, rows,
-                         seg_options)
+                         seg_options, wide=wide)
     return _pick_grid(b, nc, d, itemsize, batched, options, rows, segs,
-                      cluster or DECODE_GRID_CLUSTER)
+                      cluster or DECODE_GRID_CLUSTER, wide)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -511,9 +567,18 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
                   warps: Optional[int] = None,
                   rows: Optional[int] = None,
                   segs: Optional[int] = None,
-                  cluster: Optional[int] = None) -> DecodeLayout:
+                  cluster: Optional[int] = None,
+                  wide: Optional[bool] = None) -> DecodeLayout:
     """The decode kernel's layout for B rows of NC lanes and D outputs, or
     a ValueError naming the limit the shape exceeds.
+
+    D = 1 runs the instantiations that hold y in a register, D = 2..8
+    those that hold 8 values of it, and D = 9..DECODE_MAX_D the wide
+    family (``wide``): y in shared memory, the lane operands unpadded
+    (2 + 4D values a lane, so a row needs ceil(NC (2 + 4D) itemsize /
+    budget) segments), the readout summed in tiles of 8 outputs.
+    ``wide=True`` forces the wide family at D <= 8 (to time it there; the
+    rule never picks it below 9).
 
     A row's lanes sit in one block (S = 1 segment) wherever that fits.
     Past it they split into the fewest S <= DECODE_MAX_CLUSTER segments of
@@ -551,6 +616,10 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
     if not 1 <= d <= DECODE_MAX_D:
         raise ValueError(f"decode_fused kernel takes 1 <= D <= "
                          f"{DECODE_MAX_D} outputs, got D={d}")
+    if wide is False and d > DECODE_NARROW_D:
+        raise ValueError(f"decode_fused kernel: D={d} > {DECODE_NARROW_D} "
+                         f"runs the wide family only (wide=False)")
+    wide = bool(wide) or d > DECODE_NARROW_D
     if b < 1 or nc < 1:
         raise ValueError(f"decode_fused kernel needs B >= 1 and NC >= 1, "
                          f"got B={b}, NC={nc}")
@@ -568,16 +637,16 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
     options = [w for w in DECODE_WARPS if warps in (None, w)]
     if mean:
         lay = _mean_layout(b, nc, d, itemsize, batched, options, rows, segs,
-                           cluster)
+                           cluster, wide)
     else:
         seg_options = every if segs is None else (segs,)
         if segs is None and warps is not None:
             # A forced W applies at the rule's S.
             free = _pick(b, nc, d, itemsize, False, batched, DECODE_WARPS,
-                         None, every)
+                         None, every, wide=wide)
             seg_options = (free.segs,) if free else ()
         lay = _pick(b, nc, d, itemsize, False, batched, options, None,
-                    seg_options)
+                    seg_options, wide=wide)
     if lay is not None:
         return lay
     if warps is not None or rows is not None or segs is not None or \
@@ -590,13 +659,15 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
         raise ValueError(f"decode_fused kernel: {forced} does not fit "
                          f"B={b}, NC={nc}, D={d} ({ensemble})")
     limits = (f"at most {DECODE_MAX_CLUSTER} blocks, each of at most "
-              f"{DECODE_MAX_WARPS} warps, {max(DECODE_PER)} lanes a thread, "
+              f"{DECODE_MAX_WARPS} warps, "
+              f"{max(DECODE_WIDE_PER if wide else DECODE_PER)} lanes a "
+              f"thread, "
               f"the registers of an SM and {DECODE_MAX_SMEM_BYTES} bytes of "
               f"shared memory")
     if mean:
         most = _most(lambda m: _mean_layout(
             m, nc, d, itemsize, batched, DECODE_WARPS, None, None,
-            None) is not None, _MEAN_MAX_ROWS)
+            None, wide) is not None, _MEAN_MAX_ROWS)
         raise ValueError(
             f"decode_fused kernel with ensemble='mean' spreads the rows over "
             f"one cluster of {limits} (a row's lanes over S of them, B x S "
@@ -607,7 +678,8 @@ def decode_layout(b: int, nc: int, d: int, itemsize: int, *,
             f"({'per-slot' if batched else 'shared'} weights, "
             f"{8 * itemsize}-bit) does not fit: B <= {most} fits")
     most = _most(lambda m: _pick(1, m, d, itemsize, False, False,
-                                 DECODE_WARPS, None, every) is not None, nc)
+                                 DECODE_WARPS, None, every,
+                                 wide=wide) is not None, nc)
     raise ValueError(
         f"decode_fused kernel splits a row's lanes over one cluster of "
         f"{limits}: NC={nc} with D={d} ({8 * itemsize}-bit) exceeds it: "
@@ -687,8 +759,8 @@ def _mask_bytes(mask, b, dev):
 
 def _decode_launch(dtype, layout, dev, *fields):
     """Call ``decode_fused_<f32|f64>`` with ``fields`` (``DecodeCall`` up to
-    ``seed_mean``), the layout, the stream and (a grid) the rows a cluster
-    and the grid's scratch packed into one int64 block.  The scratch — the
+    ``seed_mean``), the layout (its family last), the stream and (a grid)
+    the rows a cluster and the grid's scratch packed into one int64 block.  The scratch — the
     arrival counter, which the entry zeroes on the stream, then two parity
     slots of each cluster's D sums, 128 bytes in — is allocated here for
     the launch."""
@@ -701,7 +773,7 @@ def _decode_launch(dtype, layout, dev, *fields):
                               dtype=torch.uint8, device=dev)
     block = array("q", (*fields, layout.rows, layout.cluster, layout.copies,
                         layout.segs, layout.smem, _stream(dev), layout.grid,
-                        crows, _ptr(scratch)))
+                        crows, _ptr(scratch), int(layout.wide)))
     _check(_entry("decode_fused", dtype)(block.buffer_info()[0]),
            "decode_fused")
 
@@ -722,15 +794,16 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
                       warps: Optional[int] = None,
                       rows: Optional[int] = None,
                       segs: Optional[int] = None,
-                      cluster: Optional[int] = None):
+                      cluster: Optional[int] = None,
+                      wide: Optional[bool] = None):
     """K closed-loop decode steps through the CUDA kernel, on split lanes.
 
     Same operands and result as ``ref.decode_fused_ref``: ``h_*`` (B, NC),
     ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).
-    ``warps`` / ``rows`` / ``segs`` / ``cluster``: force W / the ``mean``
-    route's rows a block / the blocks a row is split over / a ``mean`` grid
-    of clusters of at most that many blocks (default
-    :func:`decode_layout`'s rule).
+    ``warps`` / ``rows`` / ``segs`` / ``cluster`` / ``wide``: force W / the
+    ``mean`` route's rows a block / the blocks a row is split over / a
+    ``mean`` grid of clusters of at most that many blocks / the wide
+    family at D <= 8 (default :func:`decode_layout`'s rule).
     Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D)."""
     dev, dtype = _decode_operands(y0, ensemble, k)
     (b, d), nc = y0.shape, h_re.shape[-1]
@@ -743,7 +816,7 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     m = _mask_bytes(mask, b, dev)
     layout = decode_layout(b, nc, d, y0.element_size(), ensemble=ensemble,
                            batched=bool(a_sb or wd_sb or wh_sb), warps=warps,
-                           rows=rows, segs=segs, cluster=cluster)
+                           rows=rows, segs=segs, cluster=cluster, wide=wide)
     o_h_re = torch.empty_like(h_re)
     o_h_im = torch.empty_like(h_re)
     o_y = torch.empty_like(y0)

@@ -313,12 +313,13 @@ def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
     JAX package).  On CUDA ``off`` and ``mean`` are fused at every shape
     that has a layout of the kernel (``kernels.diag_scan.decode_layout``:
     a row's lanes over at most 16 blocks of one thread-block cluster,
-    D <= 8; ``mean``'s rows over one cluster, or past it over a grid of
-    clusters the card holds at once), and past it (``off`` at float64,
-    D = 1: NC > 73728; ``mean`` at n = 1024, float64: more than 1056 slots;
-    D > 8) ``decode_layout``'s ``ValueError``, which names the limit,
-    propagates before any launch: nothing steps in plain PyTorch on the
-    card.  The plain version on the CPU has no such limit.  Decided from
+    D <= 128, past 8 outputs through the kernel's wide family; ``mean``'s
+    rows over one cluster, or past it over a grid of clusters the card
+    holds at once), and past it (``off`` at float64, D = 1: NC > 73728,
+    D = 64: NC > 1648; ``mean`` at n = 1024, float64: more than 1056
+    slots at D = 1; D > 128) ``decode_layout``'s ``ValueError``, which
+    names the limit, propagates before any launch: nothing steps in plain
+    PyTorch on the card.  The plain version on the CPU has no such limit.  Decided from
     the shapes, never by catching a launch's error."""
     if ensemble == "weighted":
         return "step"

@@ -25,6 +25,7 @@ from repro_torch.core.params import ESNConfig
 from repro_torch.data.signals import mso_series
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.diag_scan import (decode_fused_cuda, decode_layout,
+                                          decode_grid_check,
                                           diag_scan_lanes_bwd_cuda,
                                           diag_scan_lanes_cuda)
 from repro_torch.kernels import ops, ref
@@ -292,7 +293,10 @@ def decode_inputs(b, nc, d, batched, device, seed=1):
     ph = torch.rand(nc, generator=g, dtype=torch.float64) * np.pi
     return [(mag * torch.cos(ph)).to(device), (mag * torch.sin(ph)).to(device),
             r(b, nc), r(b, nc), r(b, d), r(*lead, d, nc, s=0.3),
-            r(*lead, d, nc, s=0.3), r(*lead, d, d, s=0.2), r(*lead, d, s=0.1),
+            r(*lead, d, nc, s=0.3),
+            # past 8 outputs the feedback y . wy shrinks as 1 / D, so its
+            # gain (~ scale x 2 sqrt(D)) stays below one
+            r(*lead, d, d, s=0.2 if d <= 8 else 0.5 / d), r(*lead, d, s=0.1),
             # readout weights ~1/NC keep the closed loop's gain below one
             r(*lead, nc, d, s=0.5 / nc), r(*lead, nc, d, s=0.5 / nc)]
 
@@ -312,6 +316,8 @@ def packed_inputs(b, nr, npairs, d, batched, device, *, bias=True, fb=True,
     f = n + int(bias) + (d if fb else 0)
     w_out = rng.normal(size=lead + (f, d)) * 0.1
     w_out[..., f - n:, :] *= 5.0 / n    # keep the closed loop's gain below 1
+    if fb and d > 8:
+        w_out[..., f - n - d:f - n, :] *= 8.0 / d   # and the feedback's
 
     def t(v):
         return torch.tensor(v, dtype=torch.float64, device=device)
@@ -754,6 +760,146 @@ def test_decode_split_blocks_feed_back_one_y(dev, ensemble, segs):
     want = ref.decode_fused_ref(*args, mask, k=128, ensemble=ensemble)
     for g_, w_ in zip(got, want):
         _close(g_, w_)
+
+
+# (B, NC, D, ensemble) past 8 outputs, through the wide family: n = 1024
+# (525 lanes) at D = 16, 64 and 128, n = 8192 (4133 lanes) and n = 2048
+# (1037 lanes) off; 16 members at n = 1024 and 8 at n = 4096 (2074 lanes)
+# mean, each row split over a cluster of a grid.
+WIDE_SHAPES = [(8, 525, 16, "off"), (8, 525, 64, "off"), (8, 525, 128, "off"),
+               (8, 4133, 16, "off"), (8, 1037, 64, "off"),
+               (16, 525, 64, "mean"), (8, 2074, 16, "mean")]
+
+
+def _cuda_kernels(fn, windows=5):
+    """The names of the CUDA kernels one call of ``fn`` launches: the
+    fullest of up to ``windows`` profiler windows (the tracer can drop a
+    window's events, never add any: ``chip_smoke.py::device_kernels``),
+    taken until one holds B2's kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    best = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(names) > len(best):
+            best = names
+        if any("decode_fused_kernel" in n for n in best):
+            break
+    return best
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("b,nc,d,ensemble", WIDE_SHAPES)
+def test_decode_wide_d_matches_plain(dev, b, nc, d, ensemble, batched,
+                                     dtype):
+    """B2 past 8 outputs (the wide family), through both entries, against
+    the plain version with row 1 frozen: one kernel a call (beside a grid's
+    4-byte memset), 2e-4 (float32) or 1e-9 (float64) of max(|ref|, 1), the
+    frozen row's state and outputs kept, and with ``mean`` every live row
+    fed back the same y, bit for bit."""
+    args = [v.to(dtype) for v in decode_inputs(b, nc, d, batched, dev)]
+    nr = nc // 7
+    packed = [v.to(dtype) if torch.is_tensor(v) else v
+              for v in packed_inputs(b, nr, nc - nr, d, batched, dev)]
+    lay = decode_layout(b, nc, d, args[0].element_size(), ensemble=ensemble,
+                        batched=batched)
+    assert lay.wide
+    mask = torch.arange(b, device=dev) != 1
+    kw = dict(k=128, ensemble=ensemble)
+    pkw = dict(kw, use_bias=True, use_feedback=True)
+    before = ops.decode_fused.launches
+    got = ops.decode_fused(*args, mask, **kw)
+    pgot = ops.decode_fused_packed(*packed, mask, **pkw)
+    assert ops.decode_fused.launches == before + 2
+    torch.cuda.synchronize()
+    decode_grid_check()
+    for fn in (lambda: ops.decode_fused(*args, mask, **kw),
+               lambda: ops.decode_fused_packed(*packed, mask, **pkw)):
+        names = _cuda_kernels(fn)
+        assert [n for n in names if "decode_fused_kernel" in n] == \
+            [n for n in names if "emset" not in n], names
+        assert sum("decode_fused_kernel" in n for n in names) == 1, names
+    want = ref.decode_fused_ref(*args, mask, **kw)
+    pwant = ref.decode_fused_packed_ref(*packed, mask, **pkw)
+    for g_, w_ in zip(got + pgot, want + pwant):
+        assert bool(torch.isfinite(g_).all())
+        _close_scaled(g_, w_, dtype)
+    assert torch.equal(got[0][1], args[2][1])
+    assert torch.equal(got[3][:, 1], args[4][1].expand(128, d))
+    assert torch.equal(pgot[0][1], packed[4][1])
+    assert torch.equal(pgot[2][:, 1], packed[5][1].expand(128, d))
+    if ensemble == "mean":
+        live = mask.nonzero()[:, 0]
+        for ys in (got[3], pgot[2]):
+            assert torch.equal(ys[:, live], ys[:, live[:1]].expand(
+                -1, len(live), -1))
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_decode_wide_row_bits_independent_of_arena(dev, d):
+    """``off`` past 8 outputs (a row split over a cluster): a row's bits
+    are the same alone and among 8 rows, whatever the other rows hold; two
+    runs are bit-identical."""
+    lam, nr, w_drive, w_out, states, y_prev = packed_inputs(
+        8, 75, 450, d, False, dev)                      # 525 lanes
+    assert decode_layout(8, 525, d, 8).segs > 1
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    kw = dict(k=128, use_bias=True, use_feedback=True)
+    full = ops.decode_fused_packed(lam, nr, w_drive, w_out, states, y_prev,
+                                   mask, **kw)
+    again = ops.decode_fused_packed(lam, nr, w_drive, w_out, states, y_prev,
+                                    mask, **kw)
+    for a_, b_ in zip(full, again):
+        assert torch.equal(a_, b_)
+    one = ops.decode_fused_packed(lam, nr, w_drive, w_out, states[5:6],
+                                  y_prev[5:6], mask[5:6], **kw)
+    other = states.clone()
+    other[:5] = torch.randn_like(other[:5])
+    other[6:] *= -3.0
+    moved = ops.decode_fused_packed(lam, nr, w_drive, w_out, other, y_prev,
+                                    mask, **kw)
+    for got, row in ((one, 0), (moved, 5)):
+        assert torch.equal(got[0][row], full[0][5])
+        assert torch.equal(got[1][row], full[1][5])
+        assert torch.equal(got[2][:, row], full[2][:, 5])
+
+
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+def test_decode_wide_family_at_two_outputs(dev, ensemble):
+    """The wide family forced at D = 2 (``wide=True``; the rule keeps the
+    DM = 8 family there) agrees with the plain version and with the DM = 8
+    family at 1e-9 of max(|ref|, 1)."""
+    args = decode_inputs(8, 2074, 2, False, dev)
+    mask = torch.arange(8, device=dev) != 1
+    kw = dict(k=128, ensemble=ensemble)
+    assert decode_layout(8, 2074, 2, 8, ensemble=ensemble, wide=True).wide
+    assert not decode_layout(8, 2074, 2, 8, ensemble=ensemble).wide
+    got = decode_fused_cuda(*args, mask, wide=True, **kw)
+    narrow = decode_fused_cuda(*args, mask, **kw)
+    want = ref.decode_fused_ref(*args, mask, **kw)
+    for g_, n_, w_ in zip(got, narrow, want):
+        _close_scaled(g_, w_, torch.float64)
+        _close_scaled(g_, n_, torch.float64)
+
+
+def test_decode_past_the_wide_limits_raises_before_a_launch(dev):
+    """Past the wide family's limits ``decode_layout`` raises, naming them,
+    before any launch: D = 129, and ``off`` rows too wide for a cluster."""
+    for b, nc, d, match in ((2, 64, 129, "1 <= D <= 128"),
+                            (2, 4133, 64, "NC <= ")):
+        args = decode_inputs(b, nc, d, False, dev)
+        mask = torch.ones(b, dtype=torch.bool, device=dev)
+        before = ops.decode_fused.launches
+        with pytest.raises(ValueError, match=match):
+            ops.decode_fused(*args, mask, k=4)
+        assert ops.decode_fused.launches == before
 
 
 def test_run_decode_fused_is_one_launch(dev):

@@ -73,6 +73,26 @@ def test_packed_plain_matches_jax_kernel(batched, ensemble, k, d):
     np.testing.assert_array_equal(got[1][4].numpy(), ops[4][4])
 
 
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("d", [16, 64])
+def test_packed_plain_matches_jax_kernel_past_8_outputs(batched, ensemble, d):
+    """D = 16 and 64 (the card runs them through B2's wide family; the JAX
+    kernel pads D to a multiple of 128), K = 6, a partial mask."""
+    rng = np.random.default_rng(100 + d)
+    nr, b = 3, 5
+    ops = _packed_case(rng, b, nr, 7, d, batched, bias=True, fb=True)
+    ops[2][..., 1:1 + d, :] *= 8.0 / d      # the feedback's gain below one
+    mask = np.array([True, False, True, True, False])
+    got, want = _both(ops, nr, mask, 6, use_bias=True, use_feedback=True,
+                      ensemble=ensemble)
+    for g, w in zip(got, want):
+        assert g.shape == tuple(np.shape(w))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+    np.testing.assert_array_equal(got[0][1].numpy(), ops[3][1])
+    np.testing.assert_array_equal(got[1][4].numpy(), ops[4][4])
+
+
 @pytest.mark.parametrize("use_bias,use_feedback",
                          [(False, False), (True, False), (False, True)])
 def test_packed_plain_readout_rows_match_jax(use_bias, use_feedback):

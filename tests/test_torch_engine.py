@@ -268,3 +268,42 @@ def test_paged_serve_driver_on_cpu_restores_its_snapshot(tmp_path):
         tserve.main(["--reservoir", "--device", "cpu", "--n", "32",
                      "--slots", "2", "--ensemble", "mean",
                      "--park-host-rows", "2"])
+
+
+def test_engine_matches_jax_engine_at_16_outputs():
+    """A closed loop of 16 outputs fed back (the card serves it through
+    B2's wide family): the port's engine against the JAX engine on the
+    CPU, 4 slots of teacher-forced prompts then 6 closed-loop tokens, every
+    stream and released state within 1e-9 x max(|ref|, 1)."""
+    d, t = 16, 2001
+    sig = np.stack([mso_series(1 + i % 12, t + i)[i:] for i in range(d)], -1)
+    jc = jparams.ESNConfig(n=40, d_in=d, d_out=d, leak=0.9,
+                           input_scaling=0.5, use_feedback=True,
+                           feedback_scaling=0.3, seed=4)
+    jp = jesn.dpg_params(jc, sigma=0.1)
+    jr = jesn.fit(jp, sig[:-1], sig[1:], washout=100)
+    arrays = {k: np.asarray(getattr(jp, k))
+              for k in ("lam_q", "win_q", "wfb_q", "qtq")}
+    tp = tparams.params_from_numpy(jp.mode, arrays, dataclasses.asdict(jc),
+                                   n_real=jp.n_real, device="cpu")
+    tr = tparams.readout_from_numpy(np.asarray(jr.w_out), device="cpu")
+
+    def run(engine):
+        rec = []
+        for i in range(4):
+            lo = 37 * i
+            engine.submit(i, sig[lo:lo + 60], y_teacher=sig[lo + 1:lo + 61])
+        engine.flush()
+        ys = engine.decode_closed_loop(6)
+        rec += [_np(ys[s]) for s in sorted(ys)]
+        for sid in range(4):
+            rec += [_np(v) for v in engine.release(sid)]
+        return rec
+    want = run(JaxEngine(jp, 4, readout=jr))
+    got = run(ReservoirEngine(tp, 4, readout=tr, device="cpu"))
+    assert len(got) == len(want) == 12
+    assert want[0].shape == (6, d)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-9 * max(np.abs(w).max(), 1.0))

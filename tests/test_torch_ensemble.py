@@ -306,14 +306,14 @@ def test_decode_route_is_a_function_of_the_shapes(slots, per_slot, route):
 def test_decode_route_is_fused_exactly_where_the_kernel_has_a_layout(
         b, nc, d, itemsize, ensemble, per_slot):
     """On CUDA, ``off`` and ``mean`` take the fused route exactly where
-    ``decode_layout`` gives the shape a layout.  Where it has none (D > 8,
-    a row past the split limit, ``mean`` rows past the grid of clusters),
-    both raise ``decode_layout``'s ``ValueError``, which names the limit,
+    ``decode_layout`` gives the shape a layout.  Where it has none (a row
+    past the split limit, ``mean`` rows past the grid of clusters), both
+    raise ``decode_layout``'s ``ValueError``, which names the limit,
     before any launch; neither steps in plain PyTorch on the card.  The
     CPU's plain version takes the fused route at every shape.  (The
     ``off`` route used to say ``"fused"`` at every shape, so the card
     raised at its first wide decode wave; ``mean`` past one cluster used
-    to step.)"""
+    to step; D > 8 raised everywhere before the wide family.)"""
     try:
         decode_layout(b, nc, d, itemsize, ensemble=ensemble,
                       batched=per_slot)
@@ -327,11 +327,11 @@ def test_decode_route_is_fused_exactly_where_the_kernel_has_a_layout(
         with pytest.raises(ValueError) as got:
             tarena.decode_route(b, nc, d, itemsize, "cuda", **kw)
         assert str(got.value) == err
-        assert "fits" in err or "D <= 8" in err
+        assert "fits" in err
     assert tarena.decode_route(b, nc, d, itemsize, "cpu", **kw) == "fused"
-    if d <= 8 and nc <= 8244 and ensemble == "off":
-        assert err is None          # the split covers n = 16384 at D <= 8
-    if ensemble == "off" and (d == 9 or (nc == 80000 and itemsize == 8)):
+    if nc <= 8244 and ensemble == "off":
+        assert err is None          # the split covers n = 16384 at D <= 9
+    if ensemble == "off" and nc == 80000 and (itemsize == 8 or d == 9):
         assert err is not None      # past the limits: raised, never stepped
 
 

@@ -330,10 +330,14 @@ def test_decode_layout_limits():
         decode_layout(1, 24577, 8, 4)
     with pytest.raises(ValueError, match="segs=1 does not fit"):
         decode_layout(4, 8192, 1, 8, segs=1)
-    with pytest.raises(ValueError, match="1 <= D <= 8"):
-        decode_layout(4, 64, 9, 8)
-    with pytest.raises(ValueError, match="1 <= D <= 8"):
-        decode_layout(4, 8244, 9, 8)
+    # D = 9 runs the wide family: 64 lanes in one block, 8244 split over
+    # 12 blocks; past 128 outputs the rule raises.
+    assert decode_layout(4, 64, 9, 8).wide
+    assert decode_layout(4, 64, 9, 8)[7:] == (1, 1)
+    assert decode_layout(4, 8244, 9, 8).wide
+    assert decode_layout(4, 8244, 9, 8)[6:] == (12, 12, 1)
+    with pytest.raises(ValueError, match="1 <= D <= 128"):
+        decode_layout(4, 64, 129, 8)
     # ensemble="mean": the rows over one cluster of G <= 16 blocks of R
     # rows, R x W <= 32 warps, W the fewest that fit; R = 1 up to 16 rows.
     # rows=B forces the one-block layout (G = 1).
