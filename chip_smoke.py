@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --wide 16384 1
     python3 chip_smoke.py --wide 1024 64
+    python3 chip_smoke.py --wide 5000 64
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel (the diagonal scan, its backward, the fused decode, flash attention)
@@ -20,16 +21,17 @@ a row's lanes split over a cluster at four wide shapes (``off`` and
 cluster on a grid of clusters at six shapes with a sweep of the blocks a
 cluster, past 8 outputs (the wide family) at five shapes beside the step
 route's wave from the same arena, at D <= 8 on both families, and the
-engine's call shown to be one launch — and fails if a
-decode instantiation spills, or if the card holds fewer clusters at once
-than the grid's rule counts on; the scan and its backward also with real per-timestep gates
+engine's call shown to be one launch; its streamed route (past the
+layouts of ``csrc/decode_fused.cu``) at eight shapes through both entries
+— and fails if a decode instantiation spills, or if the card holds fewer
+clusters, or streamed blocks, at once than the rules count on; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
 head_dim 256 (recurrentgemma's local layer, both band chunks in float32
 and chunk 1 in bfloat16, through the route that splits the head dim
 between two warpgroups; its ptxas registers, spills and shared memory are
 printed, and a spill fails the build phase), and at whisper-tiny's encoder
 (1500 frames, non-causal) and llava-next-mistral-7b's band chunks (GQA
-32:8, head_dim 128); then drives the port's twenty-two main paths and two
+32:8, head_dim 128); then drives the port's twenty-three main paths and two
 more phases on the card, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -204,12 +206,19 @@ its own process on its default device; then
    a seed, its feedback and state rows scaled so that the loop's gain
    stays below one): every decode wave one launch of B2's wide family,
    each row's 525 lanes split over a cluster, the streams held against
-   the CPU engine elementwise at 1e-9 * max(|ref|, 1).
+   the CPU engine elementwise at 1e-9 * max(|ref|, 1);
+23. path 20 at n = 5000 with D = 64 outputs fed back (the size of Pathak
+   et al.'s closed-loop field forecaster, 2562 lanes): every decode wave
+   one launch of B2's streamed route (``csrc/decode_stream.cu``: past one
+   cluster's shared memory), ``{"fused": 2, "step": 0}`` and 2 streamed
+   launches, the streams held against the CPU engine elementwise at
+   1e-9 * max(|ref|, 1).
 
 ``--wide N D`` builds the kernels and runs only path 20 (path 22 past 8
-outputs: ``--wide 1024 64``) at n = N with D outputs (``--wide 16384 1``:
-8244 lanes, a DPG build of minutes on the host), prints the card's name
-and power limit, and stops without the device line.
+outputs: ``--wide 1024 64``; path 23 where B2 streams the shape: ``--wide
+5000 64``) at n = N with D outputs (``--wide 16384 1``: 8244 lanes, a DPG
+build of minutes on the host), prints the card's name and power limit,
+and stops without the device line.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -321,8 +330,8 @@ KIMI_SERVE_ARGS = ["--arch", "kimi-k2-1t-a32b", "--smoke", "--batch", "4",
 LLAVA_LAYERS, LLAVA_BATCH, LLAVA_SEQ, LLAVA_CHECK_SEQ = 2, 2, 2048, 256
 #: The port's kernels, by their CUDA function names (profile summaries).
 OWN_KERNELS = ("diag_scan_chunk", "diag_scan", "diag_scan_bwd_chunk",
-               "diag_scan_bwd", "decode_fused", "flash_attention_fwd",
-               "flash_attention_fwd_wide")
+               "diag_scan_bwd", "decode_fused", "decode_stream",
+               "flash_attention_fwd", "flash_attention_fwd_wide")
 
 
 def ptxas_spills(log: str) -> dict:
@@ -1022,6 +1031,144 @@ def check_decode_cluster(ops, ref, dsk, copy_bw, spills, cases=CLUSTER_CASES):
         print(json.dumps({"decode_fused_cluster": row}), flush=True)
     torch.cuda.synchronize()
     dsk.decode_grid_check()
+    return out
+
+
+#: B2's streamed route (``csrc/decode_stream.cu``), K = 128: (B, NC, D,
+#: ensemble, per-slot, dtype).  Main path 23's shape (n = 5000, 2562 lanes,
+#: D = 64; float32 fits a wide-family layout there, so the route is forced),
+#: shared and per-slot in float64 and float32; 16 per-slot mean members of
+#: it; D = 256 at n = 1024; 80000 lanes at D = 1; 1100 per-slot mean
+#: members at n = 1024 (past the grid's 1056).
+STREAM_SHAPES = [(8, 2562, 64, "off", False, "float64"),
+                 (8, 2562, 64, "off", True, "float64"),
+                 (8, 2562, 64, "off", False, "float32"),
+                 (8, 2562, 64, "off", True, "float32"),
+                 (16, 2562, 64, "mean", True, "float64"),
+                 (8, 525, 256, "off", False, "float64"),
+                 (2, 80000, 1, "off", False, "float64"),
+                 (1100, 525, 1, "mean", True, "float64")]
+#: The segments S forced at the first STREAM_SHAPES row (its rule's S
+#: beside them): the exchange reads S R D partials a block a step, the
+#: operands shrink as 1 / S.
+STREAM_SEG_SWEEP = (4, 8, 16, 66, 132)
+
+
+def check_decode_stream(ops, ref, dsk, copy_bw, shapes=STREAM_SHAPES):
+    """B2's streamed route at every shape of ``shapes``, K = 128: both
+    entries (``ops.decode_stream`` on split lanes, the packed entry forced
+    onto the route) against their plain versions with row 1 frozen (its
+    state and outputs kept; with ``mean`` every live row fed back the same
+    y, bit for bit); then with every row live the kernel ms (CUDA events),
+    device ms and CUDA launches a call (profiler; one, or the phase
+    fails), µs a step, the layout, whether ``decode_plan`` takes the route
+    by itself, the bound and the plain version's time; at the first shape
+    also the device ms at each S of STREAM_SEG_SWEEP (each held against
+    the plain version) and of a K = 0 call.  Then no launch waited past
+    its bound (``decode_grid_check``)."""
+    import torch
+    k, out = DECODE_K, []
+    for b, nc, d, ensemble, batched, dtype in shapes:
+        tdt = getattr(torch, dtype)
+        case = (f"{ensemble}-{'per_slot' if batched else 'shared'}-B{b}-"
+                f"NC{nc}-D{d}-{dtype}")
+        args = [v.to(tdt) for v in decode_inputs(b, nc, d, batched)]
+        itemsize = args[0].element_size()
+        lay = dsk.decode_stream_layout(b, nc, d, itemsize, ensemble=ensemble,
+                                       batched=batched)
+        frozen = torch.arange(b, device="cuda") != 1
+        live = torch.ones(b, dtype=torch.bool, device="cuda")
+        got = ops.decode_stream(*args, frozen, k=k, ensemble=ensemble)
+        want = ref.decode_fused_ref(*args, frozen, k=k, ensemble=ensemble)
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        packed = [v.to(tdt) if torch.is_tensor(v) else v
+                  for v in packed_decode_inputs(b, nc, d, batched)]
+        kw = dict(k=k, use_bias=True, use_feedback=True, ensemble=ensemble)
+        pgot = dsk.decode_fused_packed_cuda(*packed, frozen, **kw,
+                                            stream=True)
+        errs += [max_err(g, w) for g, w in zip(
+            pgot, ref.decode_fused_packed_ref(*packed, frozen, **kw))]
+        for e, t in errs:
+            if e > t:
+                fail(f"decode_stream {case}: {e:.3e} > {t:.3e}")
+        if not (torch.equal(got[0][1], args[2][1]) and torch.equal(
+                got[3][:, 1], args[4][1].expand(k, d)) and torch.equal(
+                pgot[0][1], packed[4][1])):
+            fail(f"decode_stream {case}: the frozen row moved")
+        keep = frozen.nonzero()[:, 0]
+        if ensemble == "mean" and not all(torch.equal(
+                ys[:, keep], ys[:, keep[:1]].expand(-1, len(keep), -1))
+                for ys in (got[3], pgot[2])):
+            fail(f"decode_stream {case}: live rows fed back different y")
+
+        def call():
+            return ops.decode_stream(*args, live, k=k, ensemble=ensemble)
+        row = {"case": case, "shape": [b, nc, d, k], "dtype": dtype,
+               **worst_of(errs), "layout": lay._asdict(),
+               "routed_by_decode_plan": dsk.decode_plan(
+                   b, nc, d, itemsize, ensemble=ensemble,
+                   batched=batched).streamed,
+               "ms": time_ms(call, reps=20), **kernel_calls(call),
+               "plain_ms": time_ms(lambda: ref.decode_fused_ref(
+                   *args, live, k=k, ensemble=ensemble), reps=2, warmup=1),
+               "library_ms": None}
+        if row["cuda_launches_per_call"] != 1:
+            fail(f"decode_stream {case}: {row['cuda_launches_per_call']} "
+                 f"CUDA launches a call, expected 1")
+        row["us_per_step"] = us_per_step(row["device_ms"], k)
+        if not out:
+            sweep = {}
+            for segs in STREAM_SEG_SWEEP:
+                forced = dsk.decode_stream_layout(
+                    b, nc, d, itemsize, ensemble=ensemble, batched=batched,
+                    segs=segs)
+
+                def forced_call():
+                    return dsk.decode_fused_cuda(*args, live, k=k,
+                                                 ensemble=ensemble,
+                                                 stream=forced)
+                want_live = ref.decode_fused_ref(*args, live, k=k,
+                                                 ensemble=ensemble)
+                ferrs = [max_err(g, w) for g, w in zip(forced_call(),
+                                                       want_live)]
+                for e, t in ferrs:
+                    if e > t:
+                        fail(f"decode_stream {case} at S {segs}: {e:.3e} > "
+                             f"{t:.3e}")
+                dev = kernel_calls(forced_call)["device_ms"]
+                sweep[segs] = {"blocks": forced.blocks, "lanes": forced.lanes,
+                               "qa": forced.qa, "device_ms": dev,
+                               "us_per_step": us_per_step(dev, k)}
+            row["segs_sweep"] = sweep
+            row["k0_device_ms"] = kernel_calls(lambda: ops.decode_stream(
+                *args, live, k=0, ensemble=ensemble))["device_ms"]
+        nbytes, flops, cflops = decode_cost(args, live, k)
+        nbytes = nbytes * itemsize // 8
+        if ensemble == "mean":
+            flops += k * (b + 1) * d
+        row.update(bound(nbytes, flops, dtype, copy_bw,
+                         contract_flops=cflops))
+        out.append(row)
+        print(json.dumps({"decode_stream": row}), flush=True)
+    torch.cuda.synchronize()
+    dsk.decode_grid_check()
+    return out
+
+
+def check_stream_blocks(build, dsk):
+    """The blocks of the streamed route the card holds at once
+    (``decode_stream_max_blocks``: its SMs times the blocks an SM holds)
+    against the most its rule launches (``DECODE_STREAM_MAX_BLOCKS``):
+    fails where the card holds fewer."""
+    import ctypes
+    fn = build.library("decode_stream").decode_stream_max_blocks
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    card = {"float64": fn(1), "float32": fn(0)}
+    out = {"card": card, "rule": dsk.DECODE_STREAM_MAX_BLOCKS}
+    print(json.dumps({"decode_stream_max_blocks": out}), flush=True)
+    if min(card.values()) < dsk.DECODE_STREAM_MAX_BLOCKS:
+        fail(f"the card holds fewer streamed blocks at once than "
+             f"DECODE_STREAM_MAX_BLOCKS: {out}")
     return out
 
 
@@ -3218,6 +3365,31 @@ SLICE12_FLASH_PATHS = {"whisper-encoder": "train_whisper",
                        "llava-chunk1": "llava_embeds"}
 
 
+def stream_summary(rows, counts, pathak, blocks, keys):
+    """The ``kernels`` entry of B2's streamed route: its numbers at main
+    path 23's shape (the first STREAM_SHAPES row: 8 shared rows of 2562
+    float64 lanes, D = 64), every row of phase 4's check, the blocks the
+    card holds at once, and path 23's serve."""
+    main = rows[0]
+    return dict(
+        name="decode_stream", route="cuda",
+        source="src/repro_torch/csrc/decode_stream.cu",
+        replaces="src/repro/kernels/diag_scan.py:157",
+        replaces_note="decode_fused_pallas_raw, body _decode_kernel "
+                      "(src/repro/kernels/diag_scan.py:110-154, pallas_call "
+                      ":181), at the shapes csrc/decode_fused.cu has no "
+                      "layout for",
+        **counts, max_abs_err=main["max_abs_err"], tol=main["tol"],
+        worst_err_over_tol=max(r["err_over_tol"] for r in rows),
+        shape=main["shape"], dtype=main["dtype"],
+        **{k: main[k] for k in keys + ("device_ms", "cuda_launches_per_call",
+                                       "us_per_step", "layout")},
+        library_ms=None, stream_rows=rows, max_blocks=blocks,
+        serve_wide_path23={k: pathak[k] for k in (
+            "n", "d", "lanes", "layout", "decode_waves_by_route",
+            "sessions_per_s")})
+
+
 def flash_summary(rows, counts, keys):
     """The ``kernels`` entry of B3: the timed chunk-1 launch at top level
     (q_offset 1024 against 2048 keys, float32), chunk 0 and chunk 1 in
@@ -3656,6 +3828,7 @@ def sharded_lm_rank(rank, shape, steps):
     from repro_torch.tree import flatten
     counters = {"diag_scan": ops.diag_scan, "diag_scan_bwd": ops.diag_scan_bwd,
                 "decode_fused": ops.decode_fused,
+                "decode_stream": ops.decode_stream,
                 "flash_attention_fwd": ops.flash_attention_fwd}
     mesh = make_lm_mesh(shape, device_type="cuda")
     cfg = dataclasses.replace(get_config("linear-esn"), dtype="float32")
@@ -3850,6 +4023,23 @@ WIDE_PROMPT, WIDE_GEN, WIDE_SIGMA = 1024, 128, 0.01
 #: loop), every decode wave one launch of B2's wide family, each row split
 #: over a cluster.
 FIELD_N, FIELD_D = 1024, 64
+#: Main path 23: the same phase at n = 5000 with D = 64 fed back, the size
+#: of Pathak et al.'s closed-loop forecaster of a 64-point
+#: Kuramoto-Sivashinsky field (Chaos 27, 121102, 2017; one reservoir of
+#: thousands of nodes; the repo has no KS data, and the 64 MSO channels of
+#: ``wide_signal`` give the kernels the same work).  Its 2562 float64 lanes
+#: at D = 64 are past one cluster's shared memory (2 + 4D values a lane),
+#: so every decode wave is one launch of B2's streamed route.
+PATHAK_N, PATHAK_D = 5000, 64
+
+
+def wide_path(dsk, n, d):
+    """The main path ``--wide N D`` runs: 23 where B2 streams the shape
+    even at its fewest lanes (NC = N / 2, no real slots), else 22 past 8
+    outputs and 20 at most 8."""
+    if dsk.decode_plan(WIDE_SLOTS, n // 2, d, 8).streamed:
+        return 23
+    return 22 if d > dsk.DECODE_NARROW_D else 20
 
 
 def wide_profile(ESNConfig, n=WIDE_N, d=WIDE_D):
@@ -3939,9 +4129,11 @@ def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D, path=20):
     on the card, every decode wave one B2 launch that splits each row over
     a cluster, held against the CPU engine on the same parameters.  Main
     path 22 (phase 31) is the same at n = 1024, D = 64 (B2's wide
-    family)."""
+    family), main path 23 (phase 32) at n = 5000, D = 64, every decode
+    wave one launch of B2's streamed route."""
     key = "serve_wide" if path == 20 else f"serve_wide_path{path}"
-    phase(f"{30 if path == 20 else 31} main path {path}: a wide reservoir "
+    phase(f"{ {20: 30, 22: 31, 23: 32}[path]} main path {path}: a wide "
+          f"reservoir "
           f"served end to "
           f"end — n = {n}, D = {d}{' fed back' if d > 1 else ''}, float64, "
           f"{WIDE_SLOTS} slots, "
@@ -3956,16 +4148,23 @@ def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D, path=20):
     build_s = time.perf_counter() - t0
     ro = wide_readout(m.Readout, p)
     nc = (n + int(p.n_real)) // 2
-    lay = dsk.decode_layout(WIDE_SLOTS, nc, d, 8)
+    lay = dsk.decode_plan(WIDE_SLOTS, nc, d, 8)
     if lay.segs < 2:
         fail(f"path {path}'s {nc} lanes at D = {d} do not split: {lay}")
+    if lay.streamed != (path == 23):
+        fail(f"path {path}'s {nc} lanes at D = {d} take the wrong B2 route: "
+             f"{lay}")
     card, wall, routes, _ = drive(
         key, lambda: wide_sessions(p, ro, sig, m.ReservoirEngine, "cuda"),
-        ("diag_scan", "decode_fused"))
+        ("diag_scan", "decode_fused")
+        + (("decode_stream",) if lay.streamed else ()))
     b2 = launches[key]["decode_fused"]
-    if routes["step"] or routes["fused"] < 1 or b2 != routes["fused"]:
+    streamed = launches[key]["decode_stream"]
+    if routes["step"] or routes["fused"] < 1 or b2 != routes["fused"] or \
+            streamed != (b2 if lay.streamed else 0):
         fail(f"path {path}: decode waves by route {routes}, {b2} B2 "
-             f"launches (every wave must be one B2 launch)")
+             f"launches, {streamed} of its streamed route (every wave must "
+             f"be one B2 launch{', streamed' if lay.streamed else ''})")
     _, wall2, _, _ = wide_sessions(p, ro, sig, m.ReservoirEngine, "cuda")
     t1 = time.perf_counter()
     cpu, _, cpu_routes, _ = wide_sessions(p, ro, sig, m.ReservoirEngine,
@@ -3973,9 +4172,10 @@ def slice16_phases(drive, launches, m, n=WIDE_N, d=WIDE_D, path=20):
     errs = streams_vs_cpu(card, cpu, name=f"path {path}")
     res = {"path": path, "n": n, "d": d, "lanes": nc, "dtype": "float64",
            "dpg_sigma": WIDE_SIGMA,
-           "layout": {"segs": lay.segs, "warps": lay.warps,
-                      "lanes_a_thread": lay.per, "blocks": WIDE_SLOTS
-                      * lay.segs, "wide": lay.wide},
+           "layout": {**lay._asdict(), "streamed": True} if lay.streamed
+           else {"segs": lay.segs, "warps": lay.warps,
+                 "lanes_a_thread": lay.per, "blocks": WIDE_SLOTS * lay.segs,
+                 "wide": lay.wide},
            "host_build_s": build_s,
            "wall_s": wall, "wall_s_second_run": wall2,
            "sessions_per_s": WIDE_SESSIONS / wall2,
@@ -4025,6 +4225,7 @@ def main(argv=None) -> None:
                                            loss_and_grads)
     counters = {"diag_scan": ops.diag_scan, "diag_scan_bwd": ops.diag_scan_bwd,
                 "decode_fused": ops.decode_fused,
+                "decode_stream": ops.decode_stream,
                 "flash_attention_fwd": ops.flash_attention_fwd}
 
     def drive(path, fn, expected):
@@ -4062,7 +4263,8 @@ def main(argv=None) -> None:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": compiled}), flush=True)
     spills = {}
-    for stem in ("diag_scan", "decode_fused", "flash_attention"):
+    for stem in ("diag_scan", "decode_fused", "decode_stream",
+                 "flash_attention"):
         log = build.build_log(stem)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -4073,7 +4275,12 @@ def main(argv=None) -> None:
                      if "decode_fused_kernel" in f}
     if decode_spills:
         fail(f"decode_fused instantiations spill: {decode_spills}")
+    stream_spills = {f: v for f, v in spills.items()
+                     if "decode_stream_kernel" in f}
+    if stream_spills:
+        fail(f"decode_stream instantiations spill: {stream_spills}")
     grid_table = check_grid_table(build, dsk)
+    stream_blocks = check_stream_blocks(build, dsk)
     wide = wide_route_report(build.build_log("flash_attention"))
     print(json.dumps({"flash_attention_d256_route_ptxas": wide}), flush=True)
     if not wide or any(r["spill"] != "0 bytes spill stores, 0 loads"
@@ -4087,7 +4294,7 @@ def main(argv=None) -> None:
         slice16_phases(drive, launches, types.SimpleNamespace(
             esn=esn, ESNConfig=ESNConfig, mso_series=mso_series,
             ReservoirEngine=ReservoirEngine, Readout=Readout), *args.wide,
-            path=22 if args.wide[1] > dsk.DECODE_NARROW_D else 20)
+            path=wide_path(dsk, *args.wide))
         print(smi_line, flush=True)
         return
     copy_bw = copy_bandwidth()
@@ -4105,6 +4312,7 @@ def main(argv=None) -> None:
                                         len(decode_spills))
     seg_sweep = segs_sweep(ref, dsk)
     family_rows = families_at_narrow_d(ref, dsk)
+    stream_rows = check_decode_stream(ops, ref, dsk, copy_bw)
 
     phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
@@ -4462,8 +4670,10 @@ def main(argv=None) -> None:
         ReservoirEngine=ReservoirEngine, Readout=Readout)
     wide = slice16_phases(drive, launches, wide_m)
     field = slice16_phases(drive, launches, wide_m, FIELD_N, FIELD_D, path=22)
+    pathak = slice16_phases(drive, launches, wide_m, PATHAK_N, PATHAK_D,
+                            path=23)
 
-    phase("32 summary")
+    phase("33 summary")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms")
     rows = {r["case"]: r for r in scan_rows}
     wave, fit, fwd_train = rows["wave"], rows["fit"], rows["train"]
@@ -4542,6 +4752,8 @@ def main(argv=None) -> None:
                                        "sessions_per_s")}
                  for r in (wide, field)},
              library_ms=None),
+        stream_summary(stream_rows, count("decode_stream"), pathak,
+                       stream_blocks, keys),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

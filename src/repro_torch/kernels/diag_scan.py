@@ -1,5 +1,5 @@
-"""Launchers of the Hopper kernels in ``csrc/diag_scan.cu`` and
-``csrc/decode_fused.cu``.
+"""Launchers of the Hopper kernels in ``csrc/diag_scan.cu``,
+``csrc/decode_fused.cu`` and ``csrc/decode_stream.cu``.
 
 ``diag_scan_lanes_cuda`` (the scan on split (re, im) lanes),
 ``diag_scan_lanes_bwd_cuda`` (its gradient, in reverse time),
@@ -11,7 +11,8 @@ with ``torch.empty``, and launch on PyTorch's current stream without
 synchronising.  A scan cuts time into the chunks that :func:`scan_chunks`
 picks from the shape and makes two launches (reduce, then scan with the
 composed carry), or one when it picks one chunk; a decode makes one, laid
-out by :func:`decode_layout`.  They
+out by :func:`decode_plan`: B2's layout (:func:`decode_layout`) wherever
+it has one, else its streamed route's (:func:`decode_stream_layout`).  They
 raise when the C entry point reports a CUDA error.  They are raw
 launchers: they record nothing for autograd (``kernels.ops`` wraps
 the scan and its backward in a ``torch.autograd.Function``) and route
@@ -41,7 +42,10 @@ __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
            "DECODE_MAX_WARPS",
            "DECODE_MAX_SMEM_BYTES",
            "DECODE_MAX_CLUSTER", "DECODE_GRID_CLUSTER",
-           "DECODE_MAX_GRID_CLUSTERS", "decode_grid_check"]
+           "DECODE_MAX_GRID_CLUSTERS", "decode_grid_check",
+           "decode_plan", "decode_stream_layout", "DecodeStreamLayout",
+           "DECODE_STREAM_THREADS", "DECODE_STREAM_ROWS",
+           "DECODE_STREAM_MAX_BLOCKS"]
 
 #: B2's layout rule (:func:`decode_layout`): the lanes a thread it aims at
 #: for D = 1 and for D > 1 and the most warps a row it aims at
@@ -84,6 +88,15 @@ DECODE_GRID_CLUSTER = 2
 DECODE_MAX_GRID_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7,
                             7, 7, 7)
 DECODE_WARPS = (1, 2, 4, 8, 16, 32)
+#: B2's streamed route (``csrc/decode_stream.cu``, :func:`decode_stream_layout`):
+#: the threads of a block (``DECODE_STREAM_THREADS`` there), the rows of
+#: shared weights that share one read of the lane operands (``kRows``), and
+#: the most blocks of its grid: every block must run at once, and an H100
+#: SXM holds one a SM (``chip_smoke.py`` phase 2 asks the card and fails
+#: where it holds fewer).
+DECODE_STREAM_THREADS = 256
+DECODE_STREAM_ROWS = 8
+DECODE_STREAM_MAX_BLOCKS = 132
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -91,10 +104,11 @@ _ARGTYPES = {
     "diag_scan": [_VP],
     "diag_scan_bwd": [_VP],
     "decode_fused": [_VP],
+    "decode_stream": [_VP],
 }
 #: The library (``csrc/<stem>.cu``) of each entry point.
 _LIBRARY = {"diag_scan": "diag_scan", "diag_scan_bwd": "diag_scan",
-            "decode_fused": "decode_fused"}
+            "decode_fused": "decode_fused", "decode_stream": "decode_stream"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _ENTRIES = {}
 
@@ -358,6 +372,7 @@ class DecodeLayout(NamedTuple):
     segs: int = 1
     grid: int = 1
     wide = False
+    streamed = False
 
 
 class WideDecodeLayout(DecodeLayout):
@@ -705,6 +720,106 @@ def _most(fits, hi: int) -> int:
     return lo
 
 
+class DecodeStreamLayout(NamedTuple):
+    """How one call of B2's streamed route runs (``csrc/decode_stream.cu``):
+    a grid of ``blocks`` = ``groups`` x ``segs`` blocks, all resident at
+    once; block g holds row group g // S (``rows`` rows, the last group the
+    rest) and lane segment g % S (``lanes`` lanes, the last the rest);
+    ``qa`` thread groups split each lane's D terms of the drive and ``qb``
+    each output's lanes of the readout; ``threads`` a block."""
+    blocks: int
+    groups: int
+    rows: int
+    segs: int
+    lanes: int
+    qa: int
+    qb: int
+    threads: int = DECODE_STREAM_THREADS
+    streamed = True
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_stream_layout(b: int, nc: int, d: int, itemsize: int, *,
+                         ensemble: str = "off", batched: bool = False,
+                         segs: Optional[int] = None) -> DecodeStreamLayout:
+    """The streamed route's layout for B rows of NC lanes and D outputs: it
+    has one at every shape (only device memory bounds the route), and
+    raises only for what no kernel takes (an unknown ensemble, D, B or
+    NC < 1).
+
+    Rows: with shared weights up to DECODE_STREAM_ROWS rows a group, which
+    share one read of each lane operand a step; per-slot, one a group; in
+    either case at least ceil(B / DECODE_STREAM_MAX_BLOCKS), balanced over
+    the groups.  Segments: a block reads ``(2 + 4D)`` operand values a
+    lane (times its rows, per-slot) and the state's six a lane and row,
+    and a step's exchange reads S x R x D partials a block (``off``: its
+    row group's segments) or G x D (``mean``: every block's); S is where
+    the two meet, sqrt(NC x operands a lane / partials a segment), at most
+    DECODE_STREAM_MAX_BLOCKS // groups and NC, so that the exchange does
+    not grow as G^2 unchecked; ``segs`` forces S (any S >= 1: a grid past
+    the card is refused at launch, code 10001).  S is then the fewest
+    segments of ceil(NC / S) lanes.  ``qa``: the most (a power of two, at
+    most D and 8) that keep a chunk of the drive at least the segment's
+    lanes wide; ``qb``: the block's threads over D rounded up to a power of
+    two.  ``itemsize`` changes nothing (operands and partials scale
+    alike); it is asked for like :func:`decode_layout`'s."""
+    if ensemble not in ("off", "mean"):
+        raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
+    if d < 1:
+        raise ValueError(f"decode_fused kernel takes D >= 1 outputs, got "
+                         f"D={d}")
+    if b < 1 or nc < 1:
+        raise ValueError(f"decode_fused kernel needs B >= 1 and NC >= 1, "
+                         f"got B={b}, NC={nc}")
+    if segs is not None and segs < 1:
+        raise ValueError(f"decode_stream: segs={segs} is not >= 1")
+    most = DECODE_STREAM_MAX_BLOCKS
+    rows = max(1 if batched else min(b, DECODE_STREAM_ROWS), -(-b // most))
+    groups = -(-b // rows)
+    rows = -(-b // groups)
+    if segs is None:
+        per_lane = (2 + 4 * d) * (rows if batched else 1) + 6 * rows
+        per_seg = d * (groups if ensemble == "mean" else rows)
+        segs = max(1, min(round((nc * per_lane / per_seg) ** 0.5),
+                          most // groups, nc))
+    lanes = -(-nc // segs)
+    segs = -(-nc // lanes)
+    t = DECODE_STREAM_THREADS
+    qa = 1
+    while 2 * qa <= min(d, 8) and t // (2 * qa) >= _pow2_at_least(lanes):
+        qa *= 2
+    qb = t // min(_pow2_at_least(d), t)
+    return DecodeStreamLayout(groups * segs, groups, rows, segs, lanes, qa,
+                              qb)
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(b: int, nc: int, d: int, itemsize: int, *,
+                ensemble: str = "off", batched: bool = False):
+    """The layout a decode call of this shape launches: :func:`decode_layout`'s
+    wherever it has one (``csrc/decode_fused.cu``'s routes, unchanged),
+    else :func:`decode_stream_layout`'s — exactly the shapes past
+    ``decode_layout``'s limits.  Decided from the shapes alone, so every
+    ``off`` and ``mean`` shape has a route on the card; raises only for
+    what no kernel takes.  Cached, like both rules."""
+    try:
+        return decode_layout(b, nc, d, itemsize, ensemble=ensemble,
+                             batched=batched)
+    except ValueError:
+        # decode_layout raises for a shape past its limits (the route
+        # below takes it) or for an input no kernel takes (the route below
+        # raises for it in turn).
+        return decode_stream_layout(b, nc, d, itemsize, ensemble=ensemble,
+                                    batched=batched)
+
+
 def _batch_stride(name, w, shared_shape, b, dtype, device) -> int:
     """0 for a shared ``shared_shape`` operand, the slot stride for a
     per-slot ``(b,) + shared_shape`` one; checks dtype, device, layout."""
@@ -778,15 +893,70 @@ def _decode_launch(dtype, layout, dev, *fields):
            "decode_fused")
 
 
+def _stream_launch(dtype, layout, dev, fields, mean, seed_mean):
+    """Call ``decode_stream_<f32|f64>`` with ``fields`` (``DecodeCall`` up
+    to ``n_k``), ``mean``, ``seed_mean``, the streamed layout, its scratch
+    and the stream packed into one int64 block (``StreamCall`` in
+    ``csrc/decode_stream.cu``).  The scratch — the arrival counter, which
+    the entry zeroes on the stream, then 128 bytes in two parity slots of
+    every block's partials (D values a block for ``mean``, rows x D
+    ``off``) and every block's carried y (rows x D) — is allocated here
+    for the launch."""
+    b, d = fields[23], fields[27]   # DecodeCall's n_b and n_d
+    itemsize = 8 if dtype == torch.float64 else 4
+    slot = d if mean else layout.rows * d
+    scratch = torch.empty(128 + itemsize * layout.blocks * (
+        2 * slot + layout.rows * d), dtype=torch.uint8, device=dev)
+    block = array("q", (*fields, mean, seed_mean, layout.blocks,
+                        layout.groups, layout.rows, layout.segs, layout.lanes,
+                        layout.qa, layout.qb, _ptr(scratch), _stream(dev)))
+    _check(_entry("decode_stream", dtype)(block.buffer_info()[0]),
+           "decode_stream")
+
+
+def _launch_decode(dtype, layout, dev, fields, mean, seed_mean):
+    """One decode launch of ``layout``: B2's streamed route for a
+    :class:`DecodeStreamLayout`, else ``csrc/decode_fused.cu``."""
+    if layout.streamed:
+        _stream_launch(dtype, layout, dev, fields, mean, seed_mean)
+    else:
+        _decode_launch(dtype, layout, dev, *fields, layout.warps, layout.per,
+                       mean, seed_mean)
+
+
+def _decode_layout_of(b, nc, d, itemsize, ensemble, batched, stream,
+                      **forced):
+    """The layout a launcher runs: ``stream`` (True: the streamed route's
+    rule; a :class:`DecodeStreamLayout`: that layout) forces the streamed
+    route; a forced W, R, S, cluster or family forces
+    :func:`decode_layout`'s routes (raising where they do not fit);
+    otherwise :func:`decode_plan`."""
+    if any(v is not None for v in forced.values()):
+        if stream:
+            raise ValueError("decode_fused kernel: stream= takes no warps=, "
+                             "rows=, segs=, cluster= or wide=")
+        return decode_layout(b, nc, d, itemsize, ensemble=ensemble,
+                             batched=batched, **forced)
+    if isinstance(stream, DecodeStreamLayout):
+        return stream
+    if stream:
+        return decode_stream_layout(b, nc, d, itemsize, ensemble=ensemble,
+                                    batched=batched)
+    return decode_plan(b, nc, d, itemsize, ensemble=ensemble,
+                       batched=batched)
+
+
 def decode_grid_check() -> None:
-    """Raise if a ``mean`` grid launch since the last check waited past its
-    bound for its clusters (they did not all run at once; its outputs are
-    not valid).  Call after synchronising; the next grid launch raises too.
-    """
-    lib = build.library("decode_fused")
-    lib.decode_grid_timed_out.restype = ctypes.c_int
-    if lib.decode_grid_timed_out():
-        _check(10002, "decode_fused")
+    """Raise if a ``mean`` grid launch, or a launch of the streamed route,
+    since the last check waited past its bound for its clusters or blocks
+    (they did not all run at once; its outputs are not valid).  Call after
+    synchronising; the next such launch raises too."""
+    for stem, ask in (("decode_fused", "decode_grid_timed_out"),
+                      ("decode_stream", "decode_stream_timed_out")):
+        fn = getattr(build.library(stem), ask)
+        fn.restype = ctypes.c_int
+        if fn():
+            _check(10002, stem)
 
 
 def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
@@ -795,16 +965,22 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
                       rows: Optional[int] = None,
                       segs: Optional[int] = None,
                       cluster: Optional[int] = None,
-                      wide: Optional[bool] = None):
+                      wide: Optional[bool] = None, stream=None,
+                      with_layout: bool = False):
     """K closed-loop decode steps through the CUDA kernel, on split lanes.
 
     Same operands and result as ``ref.decode_fused_ref``: ``h_*`` (B, NC),
-    ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).
+    ``y0`` (B, D), shared 2D or per-slot 3D weights, ``mask`` (B,).  The
+    layout is :func:`decode_plan`'s: ``csrc/decode_fused.cu`` wherever
+    :func:`decode_layout` has a layout, else the streamed route.
     ``warps`` / ``rows`` / ``segs`` / ``cluster`` / ``wide``: force W / the
     ``mean`` route's rows a block / the blocks a row is split over / a
     ``mean`` grid of clusters of at most that many blocks / the wide
-    family at D <= 8 (default :func:`decode_layout`'s rule).
-    Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D)."""
+    family at D <= 8 (:func:`decode_layout`, which raises where they do
+    not fit); ``stream``: force the streamed route (True: its rule's
+    layout, or a :class:`DecodeStreamLayout`).
+    Returns ``(h_re, h_im, y, ys)`` with ``ys`` (k, B, D), and with
+    ``with_layout`` the layout launched after them."""
     dev, dtype = _decode_operands(y0, ensemble, k)
     (b, d), nc = y0.shape, h_re.shape[-1]
     _pair_stride("h", h_re, h_im, (b, nc), 0, dtype, dev)
@@ -814,33 +990,37 @@ def decode_fused_cuda(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
     bo_sb = _batch_stride("b_out", b_out, (d,), b, dtype, dev)
     wh_sb = _pair_stride("wh", wh_re, wh_im, (nc, d), b, dtype, dev)
     m = _mask_bytes(mask, b, dev)
-    layout = decode_layout(b, nc, d, y0.element_size(), ensemble=ensemble,
-                           batched=bool(a_sb or wd_sb or wh_sb), warps=warps,
-                           rows=rows, segs=segs, cluster=cluster, wide=wide)
+    layout = _decode_layout_of(b, nc, d, y0.element_size(), ensemble,
+                               bool(a_sb or wd_sb or wh_sb), stream,
+                               warps=warps, rows=rows, segs=segs,
+                               cluster=cluster, wide=wide)
     o_h_re = torch.empty_like(h_re)
     o_h_im = torch.empty_like(h_re)
     o_y = torch.empty_like(y0)
     o_ys = y0.new_empty((int(k), b, d))
-    _decode_launch(dtype, layout, dev,
-                   _ptr(a_re), _ptr(a_im), a_sb, _ptr(h_re), _ptr(h_im), nc,
-                   _ptr(y0), _ptr(wd_re), _ptr(wd_im), wd_sb, nc, _ptr(wy),
-                   wy_sb, _ptr(b_out), bo_sb, _ptr(wh_re), _ptr(wh_im),
-                   wh_sb, _ptr(m), _ptr(o_h_re), _ptr(o_h_im), _ptr(o_y),
-                   _ptr(o_ys), b, nc, 0, 0, d, int(k), layout.warps,
-                   layout.per, int(ensemble == "mean"), 0)
-    return o_h_re, o_h_im, o_y, o_ys
+    _launch_decode(dtype, layout, dev, (
+        _ptr(a_re), _ptr(a_im), a_sb, _ptr(h_re), _ptr(h_im), nc, _ptr(y0),
+        _ptr(wd_re), _ptr(wd_im), wd_sb, nc, _ptr(wy), wy_sb, _ptr(b_out),
+        bo_sb, _ptr(wh_re), _ptr(wh_im), wh_sb, _ptr(m), _ptr(o_h_re),
+        _ptr(o_h_im), _ptr(o_y), _ptr(o_ys), b, nc, 0, 0, d, int(k)),
+        int(ensemble == "mean"), 0)
+    out = (o_h_re, o_h_im, o_y, o_ys)
+    return (*out, layout) if with_layout else out
 
 
 def decode_fused_packed_cuda(lam_q, n_real: int, w_drive, w_out, states,
                              y_prev, mask, *, k: int, use_bias: bool,
                              use_feedback: bool, ensemble: str = "off",
-                             warps: Optional[int] = None):
+                             warps: Optional[int] = None, stream=None,
+                             with_layout: bool = False):
     """K closed-loop decode steps through the CUDA kernel, reading and
     writing the engine's packed Q layout in place: one launch, no lane
     copies.  Same operands and result as ``ref.decode_fused_packed_ref``
     (``w_out``'s bias, feedback and state rows read through row offsets;
     with ``ensemble="mean"`` the kernel seeds every live row with the live
-    rows' mean output).  Returns ``(states', y_prev', ys)``."""
+    rows' mean output).  Layout, ``warps``, ``stream`` and ``with_layout``
+    as for :func:`decode_fused_cuda`.  Returns ``(states', y_prev', ys)``
+    (and the layout)."""
     dev, dtype = _decode_operands(y_prev, ensemble, k)
     (b, d), n, nr = y_prev.shape, states.shape[-1], int(n_real)
     if (n - nr) % 2 or not 0 <= nr <= n:
@@ -853,9 +1033,9 @@ def decode_fused_packed_cuda(lam_q, n_real: int, w_drive, w_out, states,
     wd_sb = _batch_stride("w_drive", w_drive, (d, n), b, dtype, dev)
     wo_sb = _batch_stride("w_out", w_out, (f, d), b, dtype, dev)
     m = _mask_bytes(mask, b, dev)
-    layout = decode_layout(b, nc, d, y_prev.element_size(),
-                           ensemble=ensemble,
-                           batched=bool(a_sb or wd_sb or wo_sb), warps=warps)
+    layout = _decode_layout_of(b, nc, d, y_prev.element_size(), ensemble,
+                               bool(a_sb or wd_sb or wo_sb), stream,
+                               warps=warps)
     wo, row = _ptr(w_out), w_out.element_size() * d
     b_out = wo if use_bias else 0
     wy = wo + int(use_bias) * row if use_feedback else 0
@@ -864,10 +1044,11 @@ def decode_fused_packed_cuda(lam_q, n_real: int, w_drive, w_out, states,
     o_y = torch.empty_like(y_prev)
     o_ys = y_prev.new_empty((int(k), b, d))
     a, h, wd = _ptr(lam_q), _ptr(states), _ptr(w_drive)
-    _decode_launch(dtype, layout, dev,
-                   a, a, a_sb, h, h, n, _ptr(y_prev), wd, wd, wd_sb, n, wy,
-                   wo_sb, b_out, wo_sb, wh, wh, wo_sb, _ptr(m),
-                   _ptr(o_states), _ptr(o_states), _ptr(o_y), _ptr(o_ys), b,
-                   nc, nr, 1, d, int(k), layout.warps, layout.per,
-                   int(ensemble == "mean"), int(ensemble == "mean"))
-    return o_states, o_y, o_ys
+    mean = int(ensemble == "mean")
+    _launch_decode(dtype, layout, dev, (
+        a, a, a_sb, h, h, n, _ptr(y_prev), wd, wd, wd_sb, n, wy, wo_sb,
+        b_out, wo_sb, wh, wh, wo_sb, _ptr(m), _ptr(o_states),
+        _ptr(o_states), _ptr(o_y), _ptr(o_ys), b, nc, nr, 1, d, int(k)),
+        mean, mean)
+    out = (o_states, o_y, o_ys)
+    return (*out, layout) if with_layout else out

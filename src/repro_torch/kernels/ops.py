@@ -19,7 +19,10 @@ The fused decode has one kernel with two entries: :func:`decode_fused` on
 split (re, im) lanes (the JAX package's ``ops.decode_fused``) and
 :func:`decode_fused_packed` on the engine's packed Q layout (what
 ``core.dispatch.run_decode_fused`` calls); both count in
-``decode_fused.launches``.
+``decode_fused.launches``.  Past the limits of ``csrc/decode_fused.cu``'s
+layouts its streamed route (``csrc/decode_stream.cu``) runs the call, still
+one launch, which also counts in ``decode_stream.launches``;
+:func:`decode_stream` forces that route at any shape.
 
 Attention has one kernel, ``flash_attention_fwd`` (``kernels.
 flash_attention``), with two entries: :func:`flash_attention_fwd` returns
@@ -43,7 +46,7 @@ from .flash_attention import flash_attention_fwd_cuda
 
 __all__ = ["shape_only", "diag_scan", "diag_scan_lanes", "diag_scan_bwd",
            "decode_fused",
-           "decode_fused_packed",
+           "decode_fused_packed", "decode_stream",
            "flash_attention_fwd", "flash_attention"]
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
@@ -239,6 +242,15 @@ def _scan_on_local_lanes(a_re, a_im, x_re, x_im, h0_re, h0_im):
     return run(a_re, a_im, x_re, x_im, h0_re, h0_im)
 
 
+def _count_decode(out):
+    """One B2 launch: count it (and its route's) and return its outputs."""
+    *out, layout = out
+    decode_fused.launches += 1
+    if layout.streamed:
+        decode_stream.launches += 1
+    return tuple(out)
+
+
 def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,
                  wh_im, mask, *, k: int, ensemble: str = "off"):
     """K-token fused closed-loop decode on realified lanes (operands as in
@@ -247,9 +259,8 @@ def decode_fused(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,
             wh_im, mask)
     if _route(*args) == "cpu":
         return ref.decode_fused_ref(*args, k=k, ensemble=ensemble)
-    out = decode_fused_cuda(*args, k=k, ensemble=ensemble)
-    decode_fused.launches += 1
-    return out
+    return _count_decode(decode_fused_cuda(*args, k=k, ensemble=ensemble,
+                                           with_layout=True))
 
 
 decode_fused.launches = 0
@@ -267,9 +278,25 @@ def decode_fused_packed(lam_q, n_real: int, w_drive, w_out, states, y_prev,
               ensemble=ensemble)
     if _route(lam_q, w_drive, w_out, states, y_prev, mask) == "cpu":
         return ref.decode_fused_packed_ref(*args, **kw)
-    out = decode_fused_packed_cuda(*args, **kw)
-    decode_fused.launches += 1
-    return out
+    return _count_decode(decode_fused_packed_cuda(*args, **kw,
+                                                  with_layout=True))
+
+
+def decode_stream(a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out,
+                  wh_re, wh_im, mask, *, k: int, ensemble: str = "off"):
+    """:func:`decode_fused` through B2's streamed route at any shape (the
+    route :func:`decode_fused` takes by itself only past the limits of
+    ``kernels.diag_scan.decode_layout``); the plain version on the CPU.
+    Counts in ``decode_stream.launches`` and ``decode_fused.launches``."""
+    args = (a_re, a_im, h_re, h_im, y0, wd_re, wd_im, wy, b_out, wh_re,
+            wh_im, mask)
+    if _route(*args) == "cpu":
+        return ref.decode_fused_ref(*args, k=k, ensemble=ensemble)
+    return _count_decode(decode_fused_cuda(*args, k=k, ensemble=ensemble,
+                                           stream=True, with_layout=True))
+
+
+decode_stream.launches = 0
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, q_offset=0,

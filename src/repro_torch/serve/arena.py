@@ -65,7 +65,7 @@ import torch
 
 from ..core import dispatch as dispatch_mod
 from ..core import esn as esn_fn
-from ..kernels.diag_scan import decode_layout
+from ..kernels.diag_scan import decode_plan
 
 __all__ = [
     "SlotArena",
@@ -310,22 +310,21 @@ def decode_route(b: int, nc: int, d: int, itemsize: int, device_type: str,
     fused K-token decode kernel) or ``"step"`` (:func:`closed_loop`, one
     step at a time on the same device).  ``weighted`` voting takes the
     step path everywhere (the kernel reduces by plain mean only, as in the
-    JAX package).  On CUDA ``off`` and ``mean`` are fused at every shape
-    that has a layout of the kernel (``kernels.diag_scan.decode_layout``:
-    a row's lanes over at most 16 blocks of one thread-block cluster,
-    D <= 128, past 8 outputs through the kernel's wide family; ``mean``'s
-    rows over one cluster, or past it over a grid of clusters the card
-    holds at once), and past it (``off`` at float64, D = 1: NC > 73728,
-    D = 64: NC > 1648; ``mean`` at n = 1024, float64: more than 1056
-    slots at D = 1; D > 128) ``decode_layout``'s ``ValueError``, which
-    names the limit, propagates before any launch: nothing steps in plain
-    PyTorch on the card.  The plain version on the CPU has no such limit.  Decided from
-    the shapes, never by catching a launch's error."""
+    JAX package).  ``off`` and ``mean`` are fused at every B, NC and D:
+    on CUDA through ``csrc/decode_fused.cu`` wherever
+    ``kernels.diag_scan.decode_layout`` has a layout (a row's lanes over
+    at most 16 blocks of one thread-block cluster, D <= 128; ``mean``'s
+    rows over one cluster or a grid of clusters the card holds at once),
+    and past it through B2's streamed route (``csrc/decode_stream.cu``,
+    ``decode_stream_layout``), which only device memory bounds
+    (``kernels.diag_scan.decode_plan``); on the CPU through the plain
+    version.  Nothing steps in plain PyTorch on the card.  Decided from
+    the shapes, never by catching a launch's error; raises only for what
+    no kernel takes (D, B or NC < 1)."""
     if ensemble == "weighted":
         return "step"
     if device_type == "cuda":
-        decode_layout(b, nc, d, itemsize, ensemble=ensemble,
-                      batched=per_slot)
+        decode_plan(b, nc, d, itemsize, ensemble=ensemble, batched=per_slot)
     return "fused"
 
 
@@ -358,8 +357,9 @@ def closed_loop_fused(params, w_out, arena: SlotArena, mask, n_steps: int,
     :func:`closed_loop_route` says ``"step"`` (dense params, a missing
     readout, ``weighted`` voting, as in the JAX package; on a sharded arena
     a split model axis, or a reduce across split data shards) it runs
-    :func:`closed_loop` instead; past the kernel's limits on the card it
-    raises ``decode_layout``'s ``ValueError``; the fused path
+    :func:`closed_loop` instead; ``off`` and ``mean`` are one launch at
+    every shape (past ``csrc/decode_fused.cu``'s layouts its streamed
+    route, :func:`decode_route`); the fused path
     reads ``batched`` from the shape of ``lam_q``.  A sharded arena on the
     fused route runs it once a cell."""
     if isinstance(arena, ShardedArena):

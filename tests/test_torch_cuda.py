@@ -332,19 +332,18 @@ DECODE_SHAPES = [(8, 525, 1), (3, 40, 2), (1, 700, 1), (16, 525, 1),
 
 
 def _decode_or_limit(ensemble, b, nc, d, batched, call):
-    """``call()``, or — where the ``mean`` route's cluster cannot hold the
-    shape — the ValueError that names the limit, before any launch."""
+    """``call()``, whose one launch is B2's streamed route exactly where
+    ``decode_layout`` has no layout for the shape (it used to raise there,
+    before any launch)."""
+    streams = ops.decode_stream.launches
     try:
         decode_layout(b, nc, d, 8, ensemble=ensemble, batched=batched)
+        streamed = 0
     except ValueError:
-        assert ensemble == "mean", "the off route takes every test shape"
-        before = ops.decode_fused.launches
-        with pytest.raises(ValueError, match="ensemble='mean' spreads the "
-                                             "rows over one cluster"):
-            call()
-        assert ops.decode_fused.launches == before
-        return None
-    return call()
+        streamed = 1
+    out = call()
+    assert ops.decode_stream.launches == streams + streamed
+    return out
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["2d", "3d"])
@@ -504,7 +503,7 @@ def test_decode_mean_cluster_at_the_limit(dev, b, batched):
     cluster — the card holds the cluster (the launcher raises if it does
     not) and the kernel matches the plain version; 129 rows take a grid of
     nine clusters (one launch), and past the grid's limit (1056 rows) the
-    shape is refused before any launch."""
+    shape takes B2's streamed route, still one launch."""
     args = decode_inputs(b, 525, 1, batched, dev)
     mask = torch.arange(b, device=dev) % 7 != 1
     lay = decode_layout(b, 525, 1, 8, ensemble="mean", batched=batched)
@@ -529,9 +528,15 @@ def test_decode_mean_cluster_at_the_limit(dev, b, batched):
         _close(g_, w_)
     most = decode_inputs(1057, 525, 1, batched, dev)
     with pytest.raises(ValueError, match="B <= 1056 fits"):
-        ops.decode_fused(*most, torch.ones(1057, dtype=torch.bool, device=dev),
-                         k=8, ensemble="mean")
-    assert ops.decode_fused.launches == before + 1
+        decode_layout(1057, 525, 1, 8, ensemble="mean", batched=batched)
+    streams = ops.decode_stream.launches
+    live = torch.ones(1057, dtype=torch.bool, device=dev)
+    got = ops.decode_fused(*most, live, k=8, ensemble="mean")
+    assert ops.decode_fused.launches == before + 2
+    assert ops.decode_stream.launches == streams + 1
+    want = ref.decode_fused_ref(*most, live, k=8, ensemble="mean")
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
 
 
 # (B, NC, D) of the mean route past one cluster, float64 at n = 1024, 4096,
@@ -771,11 +776,11 @@ WIDE_SHAPES = [(8, 525, 16, "off"), (8, 525, 64, "off"), (8, 525, 128, "off"),
                (16, 525, 64, "mean"), (8, 2074, 16, "mean")]
 
 
-def _cuda_kernels(fn, windows=5):
+def _cuda_kernels(fn, windows=5, kernel="decode_fused_kernel"):
     """The names of the CUDA kernels one call of ``fn`` launches: the
     fullest of up to ``windows`` profiler windows (the tracer can drop a
     window's events, never add any: ``chip_smoke.py::device_kernels``),
-    taken until one holds B2's kernel."""
+    taken until one holds ``kernel`` (B2's by default)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     best = []
@@ -788,7 +793,7 @@ def _cuda_kernels(fn, windows=5):
                  if e.device_type == DeviceType.CUDA]
         if len(names) > len(best):
             best = names
-        if any("decode_fused_kernel" in n for n in best):
+        if any(kernel in n for n in best):
             break
     return best
 
@@ -891,15 +896,169 @@ def test_decode_wide_family_at_two_outputs(dev, ensemble):
 
 def test_decode_past_the_wide_limits_raises_before_a_launch(dev):
     """Past the wide family's limits ``decode_layout`` raises, naming them,
-    before any launch: D = 129, and ``off`` rows too wide for a cluster."""
+    before a launch (D = 129, and ``off`` rows too wide for a cluster);
+    the call then runs B2's streamed route (it used to raise there): one
+    launch, against the plain version."""
     for b, nc, d, match in ((2, 64, 129, "1 <= D <= 128"),
                             (2, 4133, 64, "NC <= ")):
+        with pytest.raises(ValueError, match=match):
+            decode_layout(b, nc, d, 8)
         args = decode_inputs(b, nc, d, False, dev)
         mask = torch.ones(b, dtype=torch.bool, device=dev)
-        before = ops.decode_fused.launches
-        with pytest.raises(ValueError, match=match):
-            ops.decode_fused(*args, mask, k=4)
-        assert ops.decode_fused.launches == before
+        before = (ops.decode_fused.launches, ops.decode_stream.launches)
+        got = ops.decode_fused(*args, mask, k=4)
+        assert (ops.decode_fused.launches, ops.decode_stream.launches) == (
+            before[0] + 1, before[1] + 1)
+        for g_, w_ in zip(got, ref.decode_fused_ref(*args, mask, k=4)):
+            _close_scaled(g_, w_, torch.float64)
+
+
+# (B, NC, D, ensemble, per-slot, dtype) of B2's streamed route
+# (``csrc/decode_stream.cu``): main path 23 (n = 5000, 2562 lanes, D = 64;
+# float32 fits a wide-family layout, so the route is forced there), a
+# 16-member mean arena of it, D = 256, 80000 lanes, and 1100 mean members
+# (past the grid's 1056).
+STREAM_SHAPES = [(8, 2562, 64, "off", False, torch.float64),
+                 (8, 2562, 64, "off", True, torch.float64),
+                 (8, 2562, 64, "off", False, torch.float32),
+                 (8, 2562, 64, "off", True, torch.float32),
+                 (16, 2562, 64, "mean", True, torch.float64),
+                 (8, 525, 256, "off", False, torch.float64),
+                 (2, 80000, 1, "off", False, torch.float64),
+                 (1100, 525, 1, "mean", True, torch.float64)]
+
+
+def _stream_ids(case):
+    b, nc, d, ensemble, batched, dtype = case
+    return (f"{ensemble}-{'per_slot' if batched else 'shared'}-B{b}-NC{nc}-"
+            f"D{d}-{'f64' if dtype == torch.float64 else 'f32'}")
+
+
+@pytest.mark.parametrize("case", STREAM_SHAPES, ids=_stream_ids)
+def test_decode_stream_matches_plain(dev, case):
+    """B2's streamed route through both entries, one launch a call, against
+    the plain version with row 1 frozen (its state and outputs kept): 1e-9
+    (float64) or 2e-4 (float32) of max(|ref|, 1); with ``mean`` every live
+    row fed back the same y, bit for bit.  Where ``decode_layout`` has no
+    layout, ``ops.decode_fused`` takes the route by itself."""
+    b, nc, d, ensemble, batched, dtype = case
+    import importlib
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    args = [v.to(dtype) for v in decode_inputs(b, nc, d, batched, dev)]
+    nr = nc // 7
+    packed = [v.to(dtype) if torch.is_tensor(v) else v
+              for v in packed_inputs(b, nr, nc - nr, d, batched, dev)]
+    itemsize = args[0].element_size()
+    assert dsk.decode_plan(b, nc, d, itemsize, ensemble=ensemble,
+                           batched=batched).streamed == (dtype == torch.float64)
+    mask = torch.arange(b, device=dev) != 1
+    kw = dict(k=128, ensemble=ensemble)
+    pkw = dict(kw, use_bias=True, use_feedback=True)
+    before = (ops.decode_fused.launches, ops.decode_stream.launches)
+    got = ops.decode_stream(*args, mask, **kw)
+    pgot = dsk.decode_fused_packed_cuda(*packed, mask, **pkw, stream=True)
+    assert (ops.decode_fused.launches, ops.decode_stream.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    decode_grid_check()
+    if dtype == torch.float64:
+        again = ops.decode_fused(*args, mask, **kw)
+        assert ops.decode_stream.launches == before[1] + 2
+        for a_, b_ in zip(got, again):
+            assert torch.equal(a_, b_)
+    names = _cuda_kernels(lambda: ops.decode_stream(*args, mask, **kw),
+                          kernel="decode_stream_kernel")
+    assert sum("decode_stream_kernel" in n for n in names) == 1, names
+    assert all("decode_stream_kernel" in n or "emset" in n for n in names)
+    want = ref.decode_fused_ref(*args, mask, **kw)
+    pwant = ref.decode_fused_packed_ref(*packed, mask, **pkw)
+    for g_, w_ in zip(got + pgot, want + pwant):
+        assert bool(torch.isfinite(g_).all())
+        _close_scaled(g_, w_, dtype)
+    assert torch.equal(got[0][1], args[2][1])
+    assert torch.equal(got[1][1], args[3][1])
+    assert torch.equal(got[3][:, 1], args[4][1].expand(128, d))
+    assert torch.equal(pgot[0][1], packed[4][1])
+    assert torch.equal(pgot[2][:, 1], packed[5][1].expand(128, d))
+    if ensemble == "mean":
+        live = mask.nonzero()[:, 0]
+        for ys in (got[3], pgot[2]):
+            assert torch.equal(ys[:, live], ys[:, live[:1]].expand(
+                -1, len(live), -1))
+
+
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("k", [0, 1])
+def test_decode_stream_short_waves(dev, ensemble, k):
+    """K = 0 (the state and y copied through; the packed mean entry's y the
+    seed) and K = 1 on the streamed route, both entries, against the plain
+    version; repeats bit for bit."""
+    import importlib
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    b, nc, d = 8, 2562, 64
+    args = decode_inputs(b, nc, d, ensemble == "mean", dev)
+    packed = packed_inputs(b, nc // 7, nc - nc // 7, d, False, dev)
+    mask = torch.arange(b, device=dev) % 3 != 1
+    kw = dict(k=k, ensemble=ensemble)
+    pkw = dict(kw, use_bias=True, use_feedback=True)
+    got = dsk.decode_fused_cuda(*args, mask, **kw, stream=True)
+    pgot = dsk.decode_fused_packed_cuda(*packed, mask, **pkw, stream=True)
+    assert got[3].shape == (k, b, d) and pgot[2].shape == (k, b, d)
+    for g_, w_ in zip(got + pgot, ref.decode_fused_ref(*args, mask, **kw)
+                      + ref.decode_fused_packed_ref(*packed, mask, **pkw)):
+        _close_scaled(g_, w_, torch.float64)
+    for a_, b_ in zip(got, dsk.decode_fused_cuda(*args, mask, **kw,
+                                                  stream=True)):
+        assert torch.equal(a_, b_)
+    if k == 0:
+        assert torch.equal(got[0], args[2]) and torch.equal(got[2], args[4])
+
+
+def test_decode_stream_past_the_card_raises(dev):
+    """A streamed grid of more blocks than the card holds at once is
+    refused at launch (code 10001), without hanging; the next launch
+    runs."""
+    import importlib
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    args = decode_inputs(2, 80000, 1, False, dev)
+    mask = torch.ones(2, dtype=torch.bool, device=dev)
+    lay = dsk.decode_stream_layout(2, 80000, 1, 8, segs=1000)
+    assert lay.blocks == 1000
+    with pytest.raises(RuntimeError, match="error 10001"):
+        dsk.decode_fused_cuda(*args, mask, k=4, stream=lay)
+    got = dsk.decode_fused_cuda(*args, mask, k=4, stream=True)
+    torch.cuda.synchronize()
+    decode_grid_check()
+    for g_, w_ in zip(got, ref.decode_fused_ref(*args, mask, k=4)):
+        _close_scaled(g_, w_, torch.float64)
+
+
+def test_engine_past_128_outputs_streams(dev):
+    """An engine of 136 outputs fed back (past the wide family's D <= 128):
+    every decode wave one launch of B2's streamed route, the streams
+    within 1e-9 x max(|ref|, 1) of the CPU engine's."""
+    d, n, t = 136, 48, 600
+    sig = np.stack([mso_series(1 + i % 12, t + i)[i:] for i in range(d)], -1)
+    cfg = ESNConfig(n=n, d_in=d, d_out=d, leak=0.9, input_scaling=0.5,
+                    use_feedback=True, feedback_scaling=0.3, seed=4)
+    p = esn.dpg_params(cfg, sigma=0.1, device="cpu")
+    ro = esn.fit(p, sig[:-1], sig[1:], washout=100)
+
+    def run(device):
+        eng = ReservoirEngine(p, 4, readout=ro, device=device)
+        for i in range(4):
+            eng.submit(i, sig[37 * i:37 * i + 60],
+                       y_teacher=sig[37 * i + 1:37 * i + 61])
+        eng.flush()
+        ys = eng.decode_closed_loop(16)
+        return ([ys[s_] for s_ in sorted(ys)], eng.stats().decode_waves_by_route)
+    before = ops.decode_stream.launches
+    card, routes = run("cuda")
+    assert ops.decode_stream.launches == before + 1
+    assert routes["fused"] == 1 and routes["step"] == 0
+    cpu, _ = run("cpu")
+    for g_, w_ in zip(card, cpu):
+        _close_scaled(torch.as_tensor(g_), torch.as_tensor(w_), torch.float64)
 
 
 def test_run_decode_fused_is_one_launch(dev):

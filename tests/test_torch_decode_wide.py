@@ -4,7 +4,8 @@
 ``decode_layout`` has a layout at every shape the wide family is built
 for, within the block's shared memory and its instantiation's thread
 bound, and ``decode_route`` is ``"fused"`` there on CUDA; past the
-limits it raises, naming them, and never steps.  Every D <= 8 shape keeps
+limits it raises, naming them, and ``decode_plan`` takes B2's streamed
+route there instead (``decode_route`` stays ``"fused"``); nothing steps.  Every D <= 8 shape keeps
 the layout it had before the wide family (a list written from a run of the
 rule on the tree before it).
 """
@@ -15,7 +16,8 @@ from repro_torch.kernels.diag_scan import (DECODE_MAX_D,
                                           DECODE_MAX_SMEM_BYTES,
                                           DECODE_NARROW_D,
                                           DECODE_WIDE_PER, decode_layout,
-                                          decode_max_threads)
+                                          decode_max_threads, decode_plan,
+                                          decode_stream_layout)
 from repro_torch.serve import arena as tarena
 
 #: (NC, the largest D) of ``off`` at every B: n = 1024 (525 lanes) up to
@@ -72,8 +74,10 @@ def test_mean_has_a_layout_at_every_wide_shape(itemsize, per_slot):
 @pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
 def test_past_the_wide_limits_raises_naming_them(itemsize):
     """Past D = 128, past the lanes a cluster holds, past the slots a grid
-    holds: ``decode_layout`` raises with the limit, and so does
-    ``decode_route`` on CUDA (the CPU's plain version takes any shape)."""
+    holds: ``decode_layout`` raises with the limit.  ``decode_route`` on
+    CUDA is ``"fused"`` there all the same: the call runs B2's streamed
+    route (``decode_plan``; it used to raise ``decode_layout``'s error).
+    D = 0 no kernel takes, on either route."""
     for b, nc, d, kw, match in (
             (4, 64, DECODE_MAX_D + 1, {}, "1 <= D <= 128 outputs"),
             (4, 64, 0, {}, "1 <= D <= 128 outputs"),
@@ -81,8 +85,14 @@ def test_past_the_wide_limits_raises_naming_them(itemsize):
             (1, 80000, 16, dict(ensemble="mean"), r"B <= \d+ fits")):
         with pytest.raises(ValueError, match=match):
             decode_layout(b, nc, d, itemsize, **kw)
-        with pytest.raises(ValueError, match=match):
-            tarena.decode_route(b, nc, d, itemsize, "cuda", **kw)
+        if d < 1:
+            with pytest.raises(ValueError, match="D >= 1"):
+                tarena.decode_route(b, nc, d, itemsize, "cuda", **kw)
+        else:
+            assert decode_plan(b, nc, d, itemsize, **kw) == \
+                decode_stream_layout(b, nc, d, itemsize, **kw)
+            assert tarena.decode_route(b, nc, d, itemsize, "cuda",
+                                       **kw) == "fused"
         assert tarena.decode_route(b, nc, d, itemsize, "cpu", **kw) == \
             "fused"
     with pytest.raises(ValueError, match="wide family only"):

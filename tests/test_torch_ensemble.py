@@ -25,7 +25,9 @@ from repro_torch.kernels.diag_scan import (DECODE_GRID_CLUSTER,
                                           DECODE_MAX_CLUSTER,
                                           DECODE_MAX_GRID_CLUSTERS,
                                           DECODE_MAX_SMEM_BYTES,
-                                          decode_layout, decode_max_threads)
+                                          DECODE_STREAM_MAX_BLOCKS,
+                                          decode_layout, decode_max_threads,
+                                          decode_plan, decode_stream_layout)
 from repro_torch.launch import serve as tserve
 from repro_torch.serve import arena as tarena
 from repro_torch.serve.engine import ReservoirEngine
@@ -305,34 +307,39 @@ def test_decode_route_is_a_function_of_the_shapes(slots, per_slot, route):
 @pytest.mark.parametrize("b", [1, 8, 17])
 def test_decode_route_is_fused_exactly_where_the_kernel_has_a_layout(
         b, nc, d, itemsize, ensemble, per_slot):
-    """On CUDA, ``off`` and ``mean`` take the fused route exactly where
-    ``decode_layout`` gives the shape a layout.  Where it has none (a row
-    past the split limit, ``mean`` rows past the grid of clusters), both
-    raise ``decode_layout``'s ``ValueError``, which names the limit,
-    before any launch; neither steps in plain PyTorch on the card.  The
-    CPU's plain version takes the fused route at every shape.  (The
-    ``off`` route used to say ``"fused"`` at every shape, so the card
-    raised at its first wide decode wave; ``mean`` past one cluster used
-    to step; D > 8 raised everywhere before the wide family.)"""
+    """On CUDA, ``off`` and ``mean`` take the fused route at every shape:
+    one launch of ``csrc/decode_fused.cu`` exactly where ``decode_layout``
+    gives the shape a layout, and where it has none (a row past the split
+    limit, ``mean`` rows past the grid of clusters; its ``ValueError``
+    names the limit) one launch of B2's streamed route (``decode_plan``);
+    neither steps in plain PyTorch on the card.  The CPU's plain version
+    takes the fused route at every shape.  (The ``off`` route used to say
+    ``"fused"`` at every shape, so the card raised at its first wide
+    decode wave; ``mean`` past one cluster used to step; D > 8 raised
+    everywhere before the wide family; past the layouts both raised
+    before the streamed route.)"""
     try:
-        decode_layout(b, nc, d, itemsize, ensemble=ensemble,
-                      batched=per_slot)
+        lay = decode_layout(b, nc, d, itemsize, ensemble=ensemble,
+                            batched=per_slot)
         err = None
     except ValueError as e:
         err = str(e)
     kw = dict(ensemble=ensemble, per_slot=per_slot)
+    plan = decode_plan(b, nc, d, itemsize, ensemble=ensemble,
+                       batched=per_slot)
+    assert tarena.decode_route(b, nc, d, itemsize, "cuda", **kw) == "fused"
     if err is None:
-        assert tarena.decode_route(b, nc, d, itemsize, "cuda", **kw) == "fused"
+        assert plan == lay and not plan.streamed
     else:
-        with pytest.raises(ValueError) as got:
-            tarena.decode_route(b, nc, d, itemsize, "cuda", **kw)
-        assert str(got.value) == err
         assert "fits" in err
+        assert plan == decode_stream_layout(b, nc, d, itemsize,
+                                            ensemble=ensemble,
+                                            batched=per_slot)
     assert tarena.decode_route(b, nc, d, itemsize, "cpu", **kw) == "fused"
     if nc <= 8244 and ensemble == "off":
         assert err is None          # the split covers n = 16384 at D <= 9
     if ensemble == "off" and nc == 80000 and (itemsize == 8 or d == 9):
-        assert err is not None      # past the limits: raised, never stepped
+        assert err is not None      # past the limits: streamed, never stepped
 
 
 # ------------------------------------- the mean route's grid of clusters
@@ -436,18 +443,23 @@ def test_mean_grid_limits(nc, d, least, most, per_slot):
     """The ``mean`` route's limits in float64 (n = 1024, 4096, 16384 at
     D = 1; n = 8192 at D = 2): it holds at least ``least`` rows and
     exactly ``most`` (the clusters the card holds at once bound it); one
-    row more raises, before any launch, a ``ValueError`` that names the
-    limit, through ``decode_route`` on CUDA too."""
+    row more ``decode_layout`` refuses with a ``ValueError`` that names the
+    limit, and ``decode_plan`` takes B2's streamed route there instead, so
+    ``decode_route`` on CUDA stays ``"fused"`` (it used to raise the same
+    error)."""
     for b in (least, most):
         assert decode_layout(b, nc, d, 8, ensemble="mean",
                              batched=per_slot).grid >= 1
+        assert not decode_plan(b, nc, d, 8, ensemble="mean",
+                               batched=per_slot).streamed
     with pytest.raises(ValueError, match=rf"grid of G clusters.*"
-                                         rf"B <= {most} fits") as err:
+                                         rf"B <= {most} fits"):
         decode_layout(most + 1, nc, d, 8, ensemble="mean", batched=per_slot)
-    with pytest.raises(ValueError) as route:
-        tarena.decode_route(most + 1, nc, d, 8, "cuda", ensemble="mean",
-                            per_slot=per_slot)
-    assert str(route.value) == str(err.value)
+    lay = decode_plan(most + 1, nc, d, 8, ensemble="mean", batched=per_slot)
+    assert lay.streamed and lay.groups * lay.rows >= most + 1
+    assert lay.blocks <= DECODE_STREAM_MAX_BLOCKS
+    assert tarena.decode_route(most + 1, nc, d, 8, "cuda", ensemble="mean",
+                               per_slot=per_slot) == "fused"
 
 
 def _port_batch(b, n=48):
