@@ -5,6 +5,7 @@
     python3 chip_smoke.py --wide 16384 1
     python3 chip_smoke.py --wide 1024 64
     python3 chip_smoke.py --wide 5000 64
+    python3 chip_smoke.py --stream
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel (the diagonal scan, its backward, the fused decode, flash attention)
@@ -23,7 +24,11 @@ cluster, past 8 outputs (the wide family) at five shapes beside the step
 route's wave from the same arena, at D <= 8 on both families, and the
 engine's call shown to be one launch; its streamed route (past the
 layouts of ``csrc/decode_fused.cu``) at eight shapes through both entries
-— and fails if a decode instantiation spills, or if the card holds fewer
+in each mode the shape allows (resident, streamed, direct) and at three
+shapes past a block's shared memory, with a sweep of its blocks in each
+mode and a probe of its exchange alone at one and two rounds — and fails
+if a decode
+instantiation spills, or if the card holds fewer
 clusters, or streamed blocks, at once than the rules count on; the scan and its backward also with real per-timestep gates
 (B, T, N) at the RG-LRU and sLSTM training shapes, and flash attention at
 head_dim 256 (recurrentgemma's local layer, both band chunks in float32
@@ -218,7 +223,9 @@ its own process on its default device; then
 outputs: ``--wide 1024 64``; path 23 where B2 streams the shape: ``--wide
 5000 64``) at n = N with D outputs (``--wide 16384 1``: 8244 lanes, a DPG
 build of minutes on the host), prints the card's name and power limit,
-and stops without the device line.
+and stops without the device line.  ``--stream`` builds the kernels and
+runs only phase 4's check of B2's streamed route and its exchange probe,
+and stops the same way.
 
 Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and its
@@ -1048,24 +1055,77 @@ STREAM_SHAPES = [(8, 2562, 64, "off", False, "float64"),
                  (8, 525, 256, "off", False, "float64"),
                  (2, 80000, 1, "off", False, "float64"),
                  (1100, 525, 1, "mean", True, "float64")]
-#: The segments S forced at the first STREAM_SHAPES row (its rule's S
-#: beside them): the exchange reads S R D partials a block a step, the
-#: operands shrink as 1 / S.
-STREAM_SEG_SWEEP = (4, 8, 16, 66, 132)
+#: The blocks G forced at the first STREAM_SHAPES row (one row group, so
+#: G = S segments) in each mode: resident from the fewest segments whose
+#: share fits (30) to the most its lanes allow (129, the rule's); streamed
+#: from 8.
+STREAM_G_SWEEP = {"resident": (30, 44, 66, 99, 129),
+                  "streamed": (8, 16, 33, 66, 129)}
+#: The rule's layouts past a block's shared memory (float64): the rows'
+#: y, readouts and mask in the global scratch at D = 1500 (resident, 4
+#: lanes a block) and at 16384 shared mean members of D = 100 (streamed,
+#: 125 rows a block); the operands read directly at D = 5000 (direct).
+STREAM_LIMIT_SHAPES = [(8, 525, 1500, "off", False, "float64"),
+                       (16384, 64, 100, "mean", False, "float64"),
+                       (8, 525, 5000, "off", False, "float64")]
+#: The exchange probe: (B, NC, D) shared, ``off``, float64, at one lane a
+#: block (NC = G = 132), so a step is little but its exchange; each at one
+#: and at two rounds.  S R D partials a block in one round: 132, 264, 528,
+#: 1056, 2112, 4224, 8448, 16896, 33792 and 67584 (path 23's B and D),
+#: about the rule's DECODE_STREAM_ONE_ROUND.
+STREAM_EXCHANGE_PROBE = [(1, 132, 1), (2, 132, 1), (4, 132, 1), (2, 132, 4),
+                         (2, 132, 8), (4, 132, 8), (8, 132, 8),
+                         (8, 132, 16), (8, 132, 32), (8, 132, 64)]
 
 
-def check_decode_stream(ops, ref, dsk, copy_bw, shapes=STREAM_SHAPES):
+def _stream_run(dsk, ref, case, args, packed, mask, k, ensemble, lay):
+    """Both entries of the streamed route at layout ``lay`` with row 1
+    frozen, against the plain versions: the (error, tolerance) pairs;
+    fails where one passes its tolerance, the frozen row moved, or (mean)
+    live rows fed back different y."""
+    import torch
+    b, d = args[4].shape
+    got = dsk.decode_fused_cuda(*args, mask, k=k, ensemble=ensemble,
+                                stream=lay)
+    errs = [max_err(g, w) for g, w in zip(
+        got, ref.decode_fused_ref(*args, mask, k=k, ensemble=ensemble))]
+    kw = dict(k=k, use_bias=True, use_feedback=True, ensemble=ensemble)
+    pgot = dsk.decode_fused_packed_cuda(*packed, mask, **kw, stream=lay)
+    errs += [max_err(g, w) for g, w in zip(
+        pgot, ref.decode_fused_packed_ref(*packed, mask, **kw))]
+    for e, t in errs:
+        if e > t:
+            fail(f"decode_stream {case} {lay.mode}: {e:.3e} > {t:.3e}")
+    if not (torch.equal(got[0][1], args[2][1]) and torch.equal(
+            got[3][:, 1], args[4][1].expand(k, d)) and torch.equal(
+            pgot[0][1], packed[4][1])):
+        fail(f"decode_stream {case} {lay.mode}: the frozen row moved")
+    keep = mask.nonzero()[:, 0]
+    if ensemble == "mean" and not all(torch.equal(
+            ys[:, keep], ys[:, keep[:1]].expand(-1, len(keep), -1))
+            for ys in (got[3], pgot[2])):
+        fail(f"decode_stream {case} {lay.mode}: live rows fed back "
+             f"different y")
+    return errs
+
+
+def check_decode_stream(ops, ref, dsk, copy_bw, shapes=STREAM_SHAPES,
+                        sweep_first=True):
     """B2's streamed route at every shape of ``shapes``, K = 128: both
-    entries (``ops.decode_stream`` on split lanes, the packed entry forced
-    onto the route) against their plain versions with row 1 frozen (its
-    state and outputs kept; with ``mean`` every live row fed back the same
-    y, bit for bit); then with every row live the kernel ms (CUDA events),
-    device ms and CUDA launches a call (profiler; one, or the phase
-    fails), µs a step, the layout, whether ``decode_plan`` takes the route
-    by itself, the bound and the plain version's time; at the first shape
-    also the device ms at each S of STREAM_SEG_SWEEP (each held against
-    the plain version) and of a K = 0 call.  Then no launch waited past
-    its bound (``decode_grid_check``)."""
+    entries (split lanes and the packed Q layout, at the rule's layout)
+    against their plain versions with row 1 frozen (its state and outputs
+    kept; with ``mean`` every live row fed back the same y, bit for bit);
+    then with every row live (``ops.decode_stream``) the kernel ms (CUDA
+    events), device ms and CUDA launches a call (profiler; one, or the
+    phase fails), µs a step, the layout and its mode, whether
+    ``decode_plan`` takes the route by itself, the bound and the plain
+    version's time, and where the operands stream (streamed, direct) the
+    bytes a step re-reads and their time at the device memory's rate; the
+    other modes where the shape allows them (forced, held and timed the
+    same way); with ``sweep_first``, at the first shape also the device ms
+    at each G of STREAM_G_SWEEP in each mode (each held against the plain
+    version) and of a K = 0 call.  Then no launch waited past its bound
+    (``decode_grid_check``)."""
     import torch
     k, out = DECODE_K, []
     for b, nc, d, ensemble, batched, dtype in shapes:
@@ -1074,40 +1134,21 @@ def check_decode_stream(ops, ref, dsk, copy_bw, shapes=STREAM_SHAPES):
                 f"NC{nc}-D{d}-{dtype}")
         args = [v.to(tdt) for v in decode_inputs(b, nc, d, batched)]
         itemsize = args[0].element_size()
-        lay = dsk.decode_stream_layout(b, nc, d, itemsize, ensemble=ensemble,
-                                       batched=batched)
+        kw = dict(ensemble=ensemble, batched=batched)
+        lay = dsk.decode_stream_layout(b, nc, d, itemsize, **kw)
         frozen = torch.arange(b, device="cuda") != 1
         live = torch.ones(b, dtype=torch.bool, device="cuda")
-        got = ops.decode_stream(*args, frozen, k=k, ensemble=ensemble)
-        want = ref.decode_fused_ref(*args, frozen, k=k, ensemble=ensemble)
-        errs = [max_err(g, w) for g, w in zip(got, want)]
         packed = [v.to(tdt) if torch.is_tensor(v) else v
                   for v in packed_decode_inputs(b, nc, d, batched)]
-        kw = dict(k=k, use_bias=True, use_feedback=True, ensemble=ensemble)
-        pgot = dsk.decode_fused_packed_cuda(*packed, frozen, **kw,
-                                            stream=True)
-        errs += [max_err(g, w) for g, w in zip(
-            pgot, ref.decode_fused_packed_ref(*packed, frozen, **kw))]
-        for e, t in errs:
-            if e > t:
-                fail(f"decode_stream {case}: {e:.3e} > {t:.3e}")
-        if not (torch.equal(got[0][1], args[2][1]) and torch.equal(
-                got[3][:, 1], args[4][1].expand(k, d)) and torch.equal(
-                pgot[0][1], packed[4][1])):
-            fail(f"decode_stream {case}: the frozen row moved")
-        keep = frozen.nonzero()[:, 0]
-        if ensemble == "mean" and not all(torch.equal(
-                ys[:, keep], ys[:, keep[:1]].expand(-1, len(keep), -1))
-                for ys in (got[3], pgot[2])):
-            fail(f"decode_stream {case}: live rows fed back different y")
+        errs = _stream_run(dsk, ref, case, args, packed, frozen, k,
+                           ensemble, lay)
 
         def call():
             return ops.decode_stream(*args, live, k=k, ensemble=ensemble)
         row = {"case": case, "shape": [b, nc, d, k], "dtype": dtype,
-               **worst_of(errs), "layout": lay._asdict(),
+               **worst_of(errs), "mode": lay.mode, "layout": lay._asdict(),
                "routed_by_decode_plan": dsk.decode_plan(
-                   b, nc, d, itemsize, ensemble=ensemble,
-                   batched=batched).streamed,
+                   b, nc, d, itemsize, **kw).streamed,
                "ms": time_ms(call, reps=20), **kernel_calls(call),
                "plain_ms": time_ms(lambda: ref.decode_fused_ref(
                    *args, live, k=k, ensemble=ensemble), reps=2, warmup=1),
@@ -1116,30 +1157,50 @@ def check_decode_stream(ops, ref, dsk, copy_bw, shapes=STREAM_SHAPES):
             fail(f"decode_stream {case}: {row['cuda_launches_per_call']} "
                  f"CUDA launches a call, expected 1")
         row["us_per_step"] = us_per_step(row["device_ms"], k)
-        if not out:
+        row["other_modes"] = {}
+        for other in dsk.DECODE_STREAM_MODES:
+            try:
+                olay = dsk.decode_stream_layout(b, nc, d, itemsize,
+                                                mode=other, **kw)
+            except ValueError:
+                continue     # the mode's buffers do not fit a block
+            if other == lay.mode:
+                continue
+            oerrs = _stream_run(dsk, ref, case, args, packed, frozen, k,
+                                ensemble, olay)
+            dev = kernel_calls(lambda: dsk.decode_fused_cuda(
+                *args, live, k=k, ensemble=ensemble, stream=olay))
+            row["other_modes"][other] = {
+                "layout": olay._asdict(), **dev,
+                "us_per_step": us_per_step(dev["device_ms"], k),
+                **worst_of(oerrs)}
+        if lay.mode != "resident":
+            # Every row group's blocks re-read their lanes' operands a
+            # step (per-slot: every row's), and the state where it does
+            # not stay on chip (read and written).
+            step = ((b if batched else lay.groups) * nc * (2 + 4 * d)
+                    + (0 if lay.state_on_chip else 4 * b * nc)) * itemsize
+            row["step_bytes"] = step
+            row["step_bytes_ms"] = k * step / PEAK_BYTES_S * 1e3
+        if sweep_first and not out:
             sweep = {}
-            for segs in STREAM_SEG_SWEEP:
-                forced = dsk.decode_stream_layout(
-                    b, nc, d, itemsize, ensemble=ensemble, batched=batched,
-                    segs=segs)
-
-                def forced_call():
-                    return dsk.decode_fused_cuda(*args, live, k=k,
-                                                 ensemble=ensemble,
-                                                 stream=forced)
-                want_live = ref.decode_fused_ref(*args, live, k=k,
-                                                 ensemble=ensemble)
-                ferrs = [max_err(g, w) for g, w in zip(forced_call(),
-                                                       want_live)]
-                for e, t in ferrs:
-                    if e > t:
-                        fail(f"decode_stream {case} at S {segs}: {e:.3e} > "
-                             f"{t:.3e}")
-                dev = kernel_calls(forced_call)["device_ms"]
-                sweep[segs] = {"blocks": forced.blocks, "lanes": forced.lanes,
-                               "qa": forced.qa, "device_ms": dev,
-                               "us_per_step": us_per_step(dev, k)}
-            row["segs_sweep"] = sweep
+            for mode, counts in STREAM_G_SWEEP.items():
+                for segs in counts:
+                    forced = dsk.decode_stream_layout(
+                        b, nc, d, itemsize, segs=segs, mode=mode, **kw)
+                    ferrs = _stream_run(dsk, ref, case, args, packed, frozen,
+                                        k, ensemble, forced)
+                    dev = kernel_calls(lambda: dsk.decode_fused_cuda(
+                        *args, live, k=k, ensemble=ensemble,
+                        stream=forced))["device_ms"]
+                    sweep[f"{mode}-G{forced.blocks}"] = {
+                        "mode": mode, "blocks": forced.blocks,
+                        "lanes": forced.lanes, "tile": forced.tile,
+                        "qa": forced.qa, "rounds": forced.rounds,
+                        "smem": forced.smem, "device_ms": dev,
+                        "us_per_step": us_per_step(dev, k),
+                        **worst_of(ferrs)}
+            row["g_sweep"] = sweep
             row["k0_device_ms"] = kernel_calls(lambda: ops.decode_stream(
                 *args, live, k=0, ensemble=ensemble))["device_ms"]
         nbytes, flops, cflops = decode_cost(args, live, k)
@@ -1150,6 +1211,42 @@ def check_decode_stream(ops, ref, dsk, copy_bw, shapes=STREAM_SHAPES):
                          contract_flops=cflops))
         out.append(row)
         print(json.dumps({"decode_stream": row}), flush=True)
+    torch.cuda.synchronize()
+    dsk.decode_grid_check()
+    return out
+
+
+def stream_exchange_probe(ref, dsk, probe=STREAM_EXCHANGE_PROBE):
+    """The streamed route's exchange alone: at each (B, NC, D) of
+    ``probe`` (one lane a block, so G = NC) the device µs a step at one
+    and at two rounds, K = 128, each held against the plain version first;
+    the two rounds' outputs equal bit for bit (one order of every sum)."""
+    import torch
+    k, out = DECODE_K, []
+    for b, nc, d in probe:
+        args = decode_inputs(b, nc, d, False)
+        mask = torch.ones(b, dtype=torch.bool, device="cuda")
+        want = ref.decode_fused_ref(*args, mask, k=k)
+        row = {"shape": [b, nc, d, k], "rule_rounds": dsk.decode_stream_layout(
+            b, nc, d, 8).rounds, "partials_one_round": nc * b * d}
+        outs = {}
+        for rounds in (1, 2):
+            lay = dsk.decode_stream_layout(b, nc, d, 8, rounds=rounds)
+            outs[rounds] = dsk.decode_fused_cuda(*args, mask, k=k, stream=lay)
+            errs = [max_err(g, w) for g, w in zip(outs[rounds], want)]
+            for e, t in errs:
+                if e > t:
+                    fail(f"decode_stream exchange probe {row['shape']} at "
+                         f"{rounds} rounds: {e:.3e} > {t:.3e}")
+            dev = kernel_calls(lambda: dsk.decode_fused_cuda(
+                *args, mask, k=k, stream=lay))["device_ms"]
+            row[f"rounds{rounds}"] = {"blocks": lay.blocks, "device_ms": dev,
+                                      "us_per_step": us_per_step(dev, k)}
+        if not all(torch.equal(x, y) for x, y in zip(outs[1], outs[2])):
+            fail(f"decode_stream exchange probe {row['shape']}: one and two "
+                 f"rounds differ")
+        out.append(row)
+        print(json.dumps({"decode_stream_exchange": row}), flush=True)
     torch.cuda.synchronize()
     dsk.decode_grid_check()
     return out
@@ -1709,6 +1806,18 @@ def release_cache():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def grow_segments(on: bool) -> None:
+    """Let the allocator's segments grow in place (``expandable_segments``)
+    or not, for the allocations from here on.  Path 12's recurrentgemma-2b
+    trainer peaks at ~59 GB but in fixed segments reserves ~78 GiB of the
+    card's 79 by itself: one run of this script failed there on a 3.9 GiB
+    block with 27 GiB reserved and free in pieces.  Only its phase turns
+    it on: on for the whole run, the later paths took ~200 s more."""
+    import torch
+    torch.cuda.memory._set_allocator_settings(
+        f"expandable_segments:{'True' if on else 'False'}")
 
 
 def profile_train_step(train, Trainer, TrainConfig, MarkovTokens,
@@ -3365,11 +3474,12 @@ SLICE12_FLASH_PATHS = {"whisper-encoder": "train_whisper",
                        "llava-chunk1": "llava_embeds"}
 
 
-def stream_summary(rows, counts, pathak, blocks, keys):
+def stream_summary(rows, counts, pathak, blocks, keys, probe):
     """The ``kernels`` entry of B2's streamed route: its numbers at main
     path 23's shape (the first STREAM_SHAPES row: 8 shared rows of 2562
-    float64 lanes, D = 64), every row of phase 4's check, the blocks the
-    card holds at once, and path 23's serve."""
+    float64 lanes, D = 64), every row of phase 4's check (each with its
+    mode), the exchange probe, the blocks the card holds at once, and path
+    23's serve."""
     main = rows[0]
     return dict(
         name="decode_stream", route="cuda",
@@ -3383,8 +3493,9 @@ def stream_summary(rows, counts, pathak, blocks, keys):
         worst_err_over_tol=max(r["err_over_tol"] for r in rows),
         shape=main["shape"], dtype=main["dtype"],
         **{k: main[k] for k in keys + ("device_ms", "cuda_launches_per_call",
-                                       "us_per_step", "layout")},
-        library_ms=None, stream_rows=rows, max_blocks=blocks,
+                                       "us_per_step", "mode", "layout")},
+        library_ms=None, stream_rows=rows, exchange_probe=probe,
+        max_blocks=blocks,
         serve_wide_path23={k: pathak[k] for k in (
             "n", "d", "lanes", "layout", "decode_waves_by_route",
             "sessions_per_s")})
@@ -4197,6 +4308,10 @@ def main(argv=None) -> None:
                     help="build the kernels and run only main path 20 "
                          "(22 past 8 outputs) at n = N states and D "
                          "outputs, then stop")
+    ap.add_argument("--stream", action="store_true",
+                    help="build the kernels and run only phase 4's check "
+                         "of B2's streamed route and its exchange probe, "
+                         "then stop")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4298,6 +4413,14 @@ def main(argv=None) -> None:
         print(smi_line, flush=True)
         return
     copy_bw = copy_bandwidth()
+    if args.stream:
+        phase("4 decode_stream kernel vs plain")
+        check_decode_stream(ops, ref, dsk, copy_bw)
+        check_decode_stream(ops, ref, dsk, copy_bw, STREAM_LIMIT_SHAPES,
+                            sweep_first=False)
+        stream_exchange_probe(ref, dsk)
+        print(smi_line, flush=True)
+        return
     print(json.dumps({"copy_bytes_per_s": copy_bw}), flush=True)
 
     phase("3 diag_scan kernel vs plain")
@@ -4313,6 +4436,10 @@ def main(argv=None) -> None:
     seg_sweep = segs_sweep(ref, dsk)
     family_rows = families_at_narrow_d(ref, dsk)
     stream_rows = check_decode_stream(ops, ref, dsk, copy_bw)
+    stream_rows += check_decode_stream(ops, ref, dsk, copy_bw,
+                                       STREAM_LIMIT_SHAPES,
+                                       sweep_first=False)
+    stream_probe = stream_exchange_probe(ref, dsk)
 
     phase("5 main path 1: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     res = drive("serve_reservoir", lambda: serve.main(SERVE_ARGS),
@@ -4598,6 +4725,7 @@ def main(argv=None) -> None:
 
     phase("20 main path 12: repro_torch.launch.train "
           + " ".join(RG_TRAIN_ARGS))
+    grow_segments(True)
     rg_cut = get_config("recurrentgemma-2b")
     rg_kinds = [rg_cut.block_pattern[i % 3] for i in range(9)]
     train_path(drive, launches, train, "train_recurrentgemma", RG_TRAIN_ARGS,
@@ -4620,6 +4748,8 @@ def main(argv=None) -> None:
         lm, loss_and_grads, Trainer, TrainConfig, MarkovTokens, get_config,
         tree, arch="recurrentgemma-2b", batch=1, seq=1024, n_layers=3)}),
         flush=True)
+    release_cache()
+    grow_segments(False)
 
     phase("21 main path 13: repro_torch.launch.train "
           + " ".join(XL_TRAIN_ARGS))
@@ -4753,7 +4883,7 @@ def main(argv=None) -> None:
                  for r in (wide, field)},
              library_ms=None),
         stream_summary(stream_rows, count("decode_stream"), pathak,
-                       stream_blocks, keys),
+                       stream_blocks, keys, stream_probe),
         flash_summary(flash_rows, count("flash_attention_fwd"), keys),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

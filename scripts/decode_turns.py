@@ -27,6 +27,12 @@ lanes (``--shape``: NC), D = 1 (D), K = 128, float64, for B in
 ``device_ms`` and kernels a call as above, µs a step, or the checkout's
 refusal (its ValueError) where its layout rule refuses B.
 
+With ``--stream`` it prints instead B2's streamed route
+(``ops.decode_stream``, the checkout's layout rule) at each shape of
+``STREAM_SHAPES`` (B, NC, D, ensemble, per-slot, dtype; K = 128):
+``kernel_ms``, ``device_ms``, kernels a call, µs a step and the layout,
+or the checkout's refusal.
+
 Run two checkouts in turns in one session on one card (parent, change,
 change, parent) to compare them; every number is only comparable with the
 others of the same session.
@@ -73,6 +79,20 @@ def host_us(fn, calls=200, repeats=10):
 
 
 MEAN_SLOTS = (2, 4, 8, 16, 32, 64, 128)
+#: B2's streamed route: main path 23's shape shared and per-slot in
+#: float64, per-slot in float32, 16 per-slot mean members of it, 80000
+#: lanes, 1100 per-slot mean members, then the shapes past a block's
+#: shared memory (D = 1500, 16384 shared mean members of D = 100, D =
+#: 5000).
+STREAM_SHAPES = [(8, 2562, 64, "off", False, "float64"),
+                 (8, 2562, 64, "off", True, "float64"),
+                 (8, 2562, 64, "off", True, "float32"),
+                 (16, 2562, 64, "mean", True, "float64"),
+                 (2, 80000, 1, "off", False, "float64"),
+                 (1100, 525, 1, "mean", True, "float64"),
+                 (8, 525, 1500, "off", False, "float64"),
+                 (16384, 64, 100, "mean", False, "float64"),
+                 (8, 525, 5000, "off", False, "float64")]
 
 
 def kernel_ms(fn, reps=50):
@@ -120,6 +140,45 @@ def mean_rows(ops, nc, k, dev, d=1):
     return rows
 
 
+def stream_rows(ops, dsk, k, dev):
+    """B2's streamed route at every shape of ``STREAM_SHAPES``."""
+    import torch
+    rows = []
+    for b, nc, d, ensemble, per_slot, dtype in STREAM_SHAPES:
+        g = torch.Generator().manual_seed(3)
+        dt = getattr(torch, dtype)
+        lead = (b,) if per_slot else ()
+
+        def r(*shape, s=1.0):
+            return (s * torch.randn(shape, generator=g,
+                                    dtype=torch.float64)).to(dt).to(dev)
+        lanes = [r(nc, s=0.5), r(nc, s=0.5), r(b, nc), r(b, nc), r(b, d),
+                 r(*lead, d, nc, s=0.3), r(*lead, d, nc, s=0.3),
+                 r(*lead, d, d, s=0.5 / d), r(*lead, d, s=0.1),
+                 r(*lead, nc, d, s=0.5 / nc), r(*lead, nc, d, s=0.5 / nc)]
+        mask = torch.ones(b, dtype=torch.bool, device=dev)
+        row = {"shape": [b, nc, d, k], "ensemble": ensemble,
+               "per_slot": per_slot, "dtype": dtype}
+
+        def call():
+            return ops.decode_stream(*lanes, mask, k=k, ensemble=ensemble)
+        try:
+            call()
+        except ValueError as e:
+            rows.append(dict(row, refused=str(e)))
+            continue
+        ms, per_call, _ = device_kernels(call)
+        row.update(kernel_ms=kernel_ms(call, reps=20), device_ms=ms,
+                   kernels_per_call=per_call, us_per_step=ms * 1e3 / k,
+                   layout=dsk.decode_stream_layout(
+                       b, nc, d, lanes[0].element_size(), ensemble=ensemble,
+                       batched=per_slot)._asdict())
+        rows.append(row)
+        del lanes
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
@@ -127,6 +186,8 @@ def main():
     ap.add_argument("--label", default="")
     ap.add_argument("--mean", action="store_true",
                     help="time the ensemble='mean' route at MEAN_SLOTS")
+    ap.add_argument("--stream", action="store_true",
+                    help="time B2's streamed route at STREAM_SHAPES")
     ap.add_argument("--shape", nargs=3, type=int, default=(8, 525, 1),
                     metavar=("B", "NC", "D"))
     args = ap.parse_args()
@@ -139,6 +200,17 @@ def main():
     from repro_torch.kernels import ops
 
     (b, nc, d), k, dev = args.shape, 128, "cuda"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0] if smi else "nvidia-smi: no output"
+    if args.stream:
+        import importlib
+        dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+        print(json.dumps({"label": args.label, "src": args.src,
+                          "stream": stream_rows(ops, dsk, k, dev),
+                          "card": card}), flush=True)
+        return
     cfg = ESNConfig(n=1024, spectral_radius=0.95, leak=0.9, seed=0)
     if nc == 525:
         p = esn.dpg_params(cfg, "noisy_golden", sigma=0.1, device=dev)
@@ -156,10 +228,6 @@ def main():
              r(d, nc, s=0.3), r(d, nc, s=0.3), r(d, d, s=0.2), r(d, s=0.1),
              r(nc, d, s=0.5 / nc), r(nc, d, s=0.5 / nc)]
     mask = torch.ones(b, dtype=torch.bool, device=dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0] if smi else "nvidia-smi: no output"
     if args.mean:
         print(json.dumps({"label": args.label, "src": args.src,
                           "mean": mean_rows(ops, nc, k, dev, d),

@@ -45,7 +45,8 @@ __all__ = ["diag_scan_lanes_cuda", "diag_scan_lanes_bwd_cuda",
            "DECODE_MAX_GRID_CLUSTERS", "decode_grid_check",
            "decode_plan", "decode_stream_layout", "DecodeStreamLayout",
            "DECODE_STREAM_THREADS", "DECODE_STREAM_ROWS",
-           "DECODE_STREAM_MAX_BLOCKS"]
+           "DECODE_STREAM_MAX_BLOCKS", "DECODE_STREAM_MODES",
+           "DECODE_STREAM_ONE_ROUND"]
 
 #: B2's layout rule (:func:`decode_layout`): the lanes a thread it aims at
 #: for D = 1 and for D > 1 and the most warps a row it aims at
@@ -90,13 +91,22 @@ DECODE_MAX_GRID_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7,
 DECODE_WARPS = (1, 2, 4, 8, 16, 32)
 #: B2's streamed route (``csrc/decode_stream.cu``, :func:`decode_stream_layout`):
 #: the threads of a block (``DECODE_STREAM_THREADS`` there), the rows of
-#: shared weights that share one read of the lane operands (``kRows``), and
-#: the most blocks of its grid: every block must run at once, and an H100
-#: SXM holds one a SM (``chip_smoke.py`` phase 2 asks the card and fails
-#: where it holds fewer).
+#: shared weights that share one read of the lane operands (``kRows``),
+#: the most blocks of its grid (every block must run at once, and an H100
+#: SXM holds one an SM at the shared memory a layout takes:
+#: ``chip_smoke.py`` phase 2 asks the card and fails where it holds
+#: fewer), its modes (``kResident``, ``kStreamed``, ``kDirect`` there, in
+#: order), and the most partials a block sums itself in the exchange's
+#: one-round form (past it the rule takes two rounds, a reduce-scatter
+#: then a gather, each block reading O(R D) a step: ``chip_smoke.py``
+#: phase 4's exchange probe times both on the card; on an H100 SXM one
+#: round ran faster up to 4,224 partials a block and slower from 16,896,
+#: the two within 6 % of each other at 8,448, either way round).
 DECODE_STREAM_THREADS = 256
 DECODE_STREAM_ROWS = 8
 DECODE_STREAM_MAX_BLOCKS = 132
+DECODE_STREAM_MODES = ("resident", "streamed", "direct")
+DECODE_STREAM_ONE_ROUND = 7000
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -726,7 +736,18 @@ class DecodeStreamLayout(NamedTuple):
     once; block g holds row group g // S (``rows`` rows, the last group the
     rest) and lane segment g % S (``lanes`` lanes, the last the rest);
     ``qa`` thread groups split each lane's D terms of the drive and ``qb``
-    each output's lanes of the readout; ``threads`` a block."""
+    each output's lanes of the readout.  ``mode``: ``"resident"`` (the
+    block's lane operands and state copied into shared memory once, before
+    step 0), ``"streamed"`` (the operands through a ring of two tiles of
+    ``tile`` lanes, re-read every step) or ``"direct"`` (the operands read
+    from global memory where they are used: not one lane's fit a ring
+    tile); streamed or direct, the state stays in shared memory where
+    ``state_on_chip``, else it rides in a tile beside them;
+    ``y_on_chip``: the rows' carried y, readouts and mask in shared memory
+    (else in the block's slice of the global scratch); ``rounds``: the
+    exchange's grid waits a step (1: every block sums its rows' partials
+    itself; 2: a reduce-scatter, then a gather); ``smem``: a block's
+    dynamic shared memory in bytes; ``threads`` a block."""
     blocks: int
     groups: int
     rows: int
@@ -734,7 +755,13 @@ class DecodeStreamLayout(NamedTuple):
     lanes: int
     qa: int
     qb: int
-    threads: int = DECODE_STREAM_THREADS
+    mode: str
+    tile: int
+    state_on_chip: bool
+    y_on_chip: bool
+    rounds: int
+    smem: int
+    threads: int
     streamed = True
 
 
@@ -745,31 +772,64 @@ def _pow2_at_least(v: int) -> int:
     return p
 
 
+def _stream_smem(rows, lanes, d, itemsize, batched, mode, tile, on_chip,
+                 y_on_chip, threads) -> int:
+    """A streamed-route block's dynamic shared memory in bytes, region by
+    region as ``smem_plan`` in ``csrc/decode_stream.cu`` lays it out (the
+    entry refuses a launch whose ``smem`` differs): the reductions, the
+    rows' carried y, their readouts and their mask (``y_on_chip``), the
+    state (``on_chip``), then the operands: resident, one set of ``lanes``
+    lanes (a row's, per-slot); streamed, the ring's two tiles of ``tile``
+    lanes; direct, none; streamed or direct, with room for a row tile's
+    state in each tile unless ``on_chip``."""
+    nt = 1 if batched else min(rows, DECODE_STREAM_ROWS)
+    values = (2 * DECODE_STREAM_ROWS * threads
+              + ((2 * d + 1) * rows if y_on_chip else 0)
+              + (2 * rows * lanes if on_chip else 0))
+    per_lane = 2 + 4 * d
+    if mode == "resident":
+        values += (rows if batched else 1) * per_lane * lanes
+    else:
+        stage = ((per_lane if mode == "streamed" else 0)
+                 + (0 if on_chip else 2 * nt)) * tile
+        values += (2 if mode == "streamed" else 1) * stage
+    return values * itemsize
+
+
 @functools.lru_cache(maxsize=1024)
 def decode_stream_layout(b: int, nc: int, d: int, itemsize: int, *,
                          ensemble: str = "off", batched: bool = False,
-                         segs: Optional[int] = None) -> DecodeStreamLayout:
-    """The streamed route's layout for B rows of NC lanes and D outputs: it
-    has one at every shape (only device memory bounds the route), and
-    raises only for what no kernel takes (an unknown ensemble, D, B or
-    NC < 1).
+                         segs: Optional[int] = None,
+                         mode: Optional[str] = None,
+                         rounds: Optional[int] = None) -> DecodeStreamLayout:
+    """The streamed route's layout for B rows of NC lanes and D outputs,
+    from the shapes alone: it has one at every shape (only device memory
+    bounds the route), and raises only for what no kernel takes (an
+    unknown ensemble, D, B or NC < 1) or a forced mode that does not fit.
 
     Rows: with shared weights up to DECODE_STREAM_ROWS rows a group, which
     share one read of each lane operand a step; per-slot, one a group; in
     either case at least ceil(B / DECODE_STREAM_MAX_BLOCKS), balanced over
-    the groups.  Segments: a block reads ``(2 + 4D)`` operand values a
-    lane (times its rows, per-slot) and the state's six a lane and row,
-    and a step's exchange reads S x R x D partials a block (``off``: its
-    row group's segments) or G x D (``mean``: every block's); S is where
-    the two meet, sqrt(NC x operands a lane / partials a segment), at most
-    DECODE_STREAM_MAX_BLOCKS // groups and NC, so that the exchange does
-    not grow as G^2 unchecked; ``segs`` forces S (any S >= 1: a grid past
-    the card is refused at launch, code 10001).  S is then the fewest
-    segments of ceil(NC / S) lanes.  ``qa``: the most (a power of two, at
-    most D and 8) that keep a chunk of the drive at least the segment's
-    lanes wide; ``qb``: the block's threads over D rounded up to a power of
-    two.  ``itemsize`` changes nothing (operands and partials scale
-    alike); it is asked for like :func:`decode_layout`'s."""
+    the groups.  Segments: as many as the card holds blocks for,
+    DECODE_STREAM_MAX_BLOCKS // groups (at most NC), so that a block's
+    lane loop is short (the exchange reads O(R D) a block whatever S);
+    ``segs`` forces S (any S >= 1: a grid past the card is refused at
+    launch, code 10001).  S is then the fewest segments of ceil(NC / S)
+    lanes.  Mode: ``"resident"`` wherever a block's share (its lanes'
+    2 + 4D operand values, per row if per-slot, and its rows' state, with
+    the fixed buffers) fits DECODE_MAX_SMEM_BYTES; else ``"streamed"``
+    wherever the ring's two tiles of one lane fit beside the reductions'
+    buffer; else ``"direct"``.  ``mode`` forces it (raising where it does
+    not fit).  Within the mode: resident keeps the rows' y, readouts and
+    mask in shared memory if they fit beside the share; streamed or
+    direct, if that leaves tiles at least half as wide as without them,
+    and then the state likewise; a tile is the most lanes that fit, at
+    most the segment, balanced over it.  Rounds: one where a block's own
+    sums read at most DECODE_STREAM_ONE_ROUND partials (S R D ``off``,
+    G D ``mean``), else two; ``rounds`` forces it.  ``qa``: the most (a
+    power of two, at most D) that leave a chunk of the drive as many lanes
+    as a tile has (up to the block's threads); ``qb``: the block's threads
+    over D rounded up to a power of two."""
     if ensemble not in ("off", "mean"):
         raise ValueError(f"ensemble must be 'off' or 'mean', got {ensemble!r}")
     if d < 1:
@@ -780,24 +840,64 @@ def decode_stream_layout(b: int, nc: int, d: int, itemsize: int, *,
                          f"got B={b}, NC={nc}")
     if segs is not None and segs < 1:
         raise ValueError(f"decode_stream: segs={segs} is not >= 1")
-    most = DECODE_STREAM_MAX_BLOCKS
+    if mode not in (None,) + DECODE_STREAM_MODES:
+        raise ValueError(f"decode_stream: mode must be one of "
+                         f"{DECODE_STREAM_MODES}, got {mode!r}")
+    if rounds not in (None, 1, 2):
+        raise ValueError(f"decode_stream: rounds must be 1 or 2, got "
+                         f"{rounds!r}")
+    t, most = DECODE_STREAM_THREADS, DECODE_STREAM_MAX_BLOCKS
     rows = max(1 if batched else min(b, DECODE_STREAM_ROWS), -(-b // most))
     groups = -(-b // rows)
     rows = -(-b // groups)
     if segs is None:
-        per_lane = (2 + 4 * d) * (rows if batched else 1) + 6 * rows
-        per_seg = d * (groups if ensemble == "mean" else rows)
-        segs = max(1, min(round((nc * per_lane / per_seg) ** 0.5),
-                          most // groups, nc))
+        segs = max(1, min(most // groups, nc))
     lanes = -(-nc // segs)
     segs = -(-nc // lanes)
-    t = DECODE_STREAM_THREADS
+    cap = DECODE_MAX_SMEM_BYTES
+
+    def smem(mode, tile, on_chip, y_on):
+        return _stream_smem(rows, lanes, d, itemsize, batched, mode, tile,
+                            on_chip, y_on, t)
+
+    def widest(mode, on_chip, y_on):
+        return _most(lambda w: smem(mode, w, on_chip, y_on) <= cap, lanes)
+    fits = {"resident": smem("resident", lanes, True, False) <= cap,
+            "streamed": widest("streamed", False, False) >= 1,
+            "direct": widest("direct", False, False) >= 1}
+    if mode is None:
+        mode = next(m for m in DECODE_STREAM_MODES if fits[m])
+    if not fits[mode]:
+        raise ValueError(
+            f"decode_stream: the {mode} mode needs "
+            f"{smem(mode, 1 if mode != 'resident' else lanes, mode == 'resident', False)} "
+            f"bytes of shared memory a block at B={b}, NC={nc}, D={d} "
+            f"({8 * itemsize}-bit, {segs} segments of {lanes} lanes); "
+            f"{cap} fit")
+    if mode == "resident":
+        tile, on_chip = lanes, True
+        y_on = smem(mode, lanes, True, True) <= cap
+    else:
+        full = widest(mode, False, False)
+        y_w = widest(mode, False, True)
+        y_on = y_w >= 1 and 2 * y_w >= full
+        tile = widest(mode, False, y_on)
+        on = widest(mode, True, y_on)
+        on_chip = on >= 1 and 2 * on >= tile
+        if on_chip:
+            tile = on
+        tile = -(-lanes // -(-lanes // tile))
+    if rounds is None:
+        reads = (groups * segs if ensemble == "mean" else segs * rows) * d
+        rounds = 1 if reads <= DECODE_STREAM_ONE_ROUND else 2
+    ca = min(_pow2_at_least(tile), t)
     qa = 1
-    while 2 * qa <= min(d, 8) and t // (2 * qa) >= _pow2_at_least(lanes):
+    while 2 * qa <= min(d, t // ca):
         qa *= 2
     qb = t // min(_pow2_at_least(d), t)
     return DecodeStreamLayout(groups * segs, groups, rows, segs, lanes, qa,
-                              qb)
+                              qb, mode, tile, on_chip, y_on, rounds,
+                              smem(mode, tile, on_chip, y_on), t)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -897,19 +997,28 @@ def _stream_launch(dtype, layout, dev, fields, mean, seed_mean):
     """Call ``decode_stream_<f32|f64>`` with ``fields`` (``DecodeCall`` up
     to ``n_k``), ``mean``, ``seed_mean``, the streamed layout, its scratch
     and the stream packed into one int64 block (``StreamCall`` in
-    ``csrc/decode_stream.cu``).  The scratch — the arrival counter, which
-    the entry zeroes on the stream, then 128 bytes in two parity slots of
-    every block's partials (D values a block for ``mean``, rows x D
-    ``off``) and every block's carried y (rows x D) — is allocated here
-    for the launch."""
+    ``csrc/decode_stream.cu``).  The scratch — a 4-byte arrival flag a
+    block, which the entry zeroes on the stream, then (at a multiple of
+    128 bytes) two parity slots of every block's partials (D values a
+    block for ``mean``, rows x D ``off``, rounded up to 4), the published
+    y (B x D ``off``, D ``mean``) and, unless ``y_on_chip``, each block's
+    rows' y, readouts and mask (2 rows x D + rows) — is allocated here for
+    the launch."""
     b, d = fields[23], fields[27]   # DecodeCall's n_b and n_d
     itemsize = 8 if dtype == torch.float64 else 4
-    slot = d if mean else layout.rows * d
-    scratch = torch.empty(128 + itemsize * layout.blocks * (
-        2 * slot + layout.rows * d), dtype=torch.uint8, device=dev)
+    slot = -(-(d if mean else layout.rows * d) // 4) * 4
+    flags = -(-4 * layout.blocks // 128) * 128
+    rows = 0 if layout.y_on_chip else layout.blocks * (2 * d + 1) * layout.rows
+    scratch = torch.empty(flags + itemsize * (
+        2 * layout.blocks * slot + (d if mean else b * d) + rows),
+        dtype=torch.uint8, device=dev)
     block = array("q", (*fields, mean, seed_mean, layout.blocks,
                         layout.groups, layout.rows, layout.segs, layout.lanes,
-                        layout.qa, layout.qb, _ptr(scratch), _stream(dev)))
+                        layout.qa, layout.qb,
+                        DECODE_STREAM_MODES.index(layout.mode), layout.tile,
+                        int(layout.state_on_chip), int(layout.y_on_chip),
+                        layout.rounds, layout.smem, _ptr(scratch),
+                        _stream(dev)))
     _check(_entry("decode_stream", dtype)(block.buffer_info()[0]),
            "decode_stream")
 

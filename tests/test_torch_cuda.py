@@ -1033,6 +1033,131 @@ def test_decode_stream_past_the_card_raises(dev):
         _close_scaled(g_, w_, torch.float64)
 
 
+# (B, NC, D, ensemble, per-slot, dtype, mode) of B2's streamed route in
+# each mode, forced: path 23's shape (shared float64: resident by the
+# rule, streamed forced; per-slot float64 streamed; per-slot float32
+# resident), 16 per-slot mean members (streamed only), D = 256, 80000
+# lanes, 1100 mean members, and smaller shapes: two row tiles of shared
+# weights (1100 rows, 9 a block), a mean past 8 outputs, and 264 per-slot
+# mean members of 6200 lanes, whose state does not fit a block (it rides
+# in the ring); the direct mode forced at path 23's shape and at small
+# ones; and the rule's layouts where the rows' y does not fit a block's
+# shared memory (STREAM_GLOBAL_Y: D = 1500, 16384 mean members at D =
+# 100) or not one lane's operands fit a ring tile (D = 5000, direct).
+STREAM_GLOBAL_Y = [(8, 525, 1500), (16384, 64, 100), (8, 525, 5000)]
+STREAM_MODE_CASES = [
+    (8, 2562, 64, "off", False, torch.float64, "resident"),
+    (8, 2562, 64, "off", False, torch.float64, "streamed"),
+    (8, 2562, 64, "off", True, torch.float64, "streamed"),
+    (8, 2562, 64, "off", True, torch.float32, "resident"),
+    (8, 2562, 64, "off", True, torch.float32, "streamed"),
+    (16, 2562, 64, "mean", True, torch.float64, "streamed"),
+    (8, 525, 256, "off", False, torch.float64, "resident"),
+    (8, 525, 256, "off", False, torch.float64, "streamed"),
+    (2, 80000, 1, "off", False, torch.float64, "resident"),
+    (2, 80000, 1, "off", False, torch.float64, "streamed"),
+    (1100, 525, 1, "mean", True, torch.float64, "streamed"),
+    (1100, 60, 2, "off", False, torch.float64, "resident"),
+    (1100, 60, 2, "off", False, torch.float64, "streamed"),
+    (5, 700, 12, "mean", True, torch.float64, "resident"),
+    (5, 700, 12, "mean", True, torch.float32, "streamed"),
+    (264, 6200, 1, "mean", True, torch.float64, "streamed"),
+    (8, 2562, 64, "off", False, torch.float64, "direct"),
+    (8, 2562, 64, "off", True, torch.float32, "direct"),
+    (1100, 60, 2, "off", False, torch.float64, "direct"),
+    (5, 700, 12, "mean", True, torch.float64, "direct"),
+    (264, 6200, 1, "mean", True, torch.float64, "direct"),
+    (8, 525, 1500, "off", False, torch.float64, "resident"),
+    (16384, 64, 100, "mean", False, torch.float64, "streamed"),
+    (8, 525, 5000, "off", False, torch.float64, "direct")]
+
+
+@pytest.mark.parametrize("case", STREAM_MODE_CASES, ids=lambda c: (
+    _stream_ids(c[:6]) + "-" + c[6]))
+def test_decode_stream_modes(dev, case):
+    """Each mode of B2's streamed route, forced, and the rule's layouts
+    where the rows' y lives in the global scratch, through both entries
+    against the plain version at K = 0, 1, 5 and 128 with row 1 frozen
+    (its state and outputs kept); with ``mean`` every live row fed back the
+    same y, bit for bit; one and two rounds of the exchange give the same
+    bits; one ``decode_stream_kernel`` launch a call."""
+    b, nc, d, ensemble, batched, dtype, mode = case
+    import importlib
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    args = [v.to(dtype) for v in decode_inputs(b, nc, d, batched, dev)]
+    nr = nc // 7
+    packed = [v.to(dtype) if torch.is_tensor(v) else v
+              for v in packed_inputs(b, nr, nc - nr, d, batched, dev)]
+    itemsize = args[0].element_size()
+    lay = dsk.decode_stream_layout(b, nc, d, itemsize, ensemble=ensemble,
+                                   batched=batched, mode=mode)
+    assert lay.mode == mode
+    if b == 264 and mode == "streamed":
+        assert not lay.state_on_chip
+    if (b, nc, d) in STREAM_GLOBAL_Y:
+        assert not lay.y_on_chip
+        assert lay == dsk.decode_stream_layout(b, nc, d, itemsize,
+                                               ensemble=ensemble,
+                                               batched=batched)
+    mask = torch.arange(b, device=dev) != 1
+    for k in (0, 1, 5, 128):
+        kw = dict(k=k, ensemble=ensemble)
+        pkw = dict(kw, use_bias=True, use_feedback=True)
+        got = dsk.decode_fused_cuda(*args, mask, **kw, stream=lay)
+        pgot = dsk.decode_fused_packed_cuda(*packed, mask, **pkw, stream=lay)
+        for g_, w_ in zip(got + pgot, ref.decode_fused_ref(*args, mask, **kw)
+                          + ref.decode_fused_packed_ref(*packed, mask, **pkw)):
+            assert bool(torch.isfinite(g_).all())
+            _close_scaled(g_, w_, dtype)
+        assert torch.equal(got[0][1], args[2][1])
+        assert torch.equal(got[2][1], args[4][1])
+        assert torch.equal(got[3][:, 1], args[4][1].expand(k, d))
+        assert torch.equal(pgot[0][1], packed[4][1])
+        if ensemble == "mean" and k:
+            live = mask.nonzero()[:, 0]
+            for ys in (got[3], pgot[2]):
+                assert torch.equal(ys[:, live], ys[:, live[:1]].expand(
+                    -1, len(live), -1))
+        if k == 5:
+            other = dsk.decode_stream_layout(
+                b, nc, d, itemsize, ensemble=ensemble, batched=batched,
+                mode=mode, rounds=3 - lay.rounds)
+            for a_, b_ in zip(got, dsk.decode_fused_cuda(*args, mask, **kw,
+                                                          stream=other)):
+                assert torch.equal(a_, b_)
+    torch.cuda.synchronize()
+    decode_grid_check()
+    names = _cuda_kernels(lambda: dsk.decode_fused_cuda(
+        *args, mask, k=4, ensemble=ensemble, stream=lay),
+        kernel="decode_stream_kernel")
+    assert sum("decode_stream_kernel" in n for n in names) == 1, names
+    assert all("decode_stream_kernel" in n or "emset" in n for n in names)
+
+
+def test_decode_stream_refuses_a_layout_off_its_plan(dev):
+    """The entry refuses, before a launch, a layout whose shared memory is
+    not its plan's or whose segments leave one empty, and a resident
+    layout forced where the share does not fit raises in the rule; the
+    next launch runs."""
+    import importlib
+    dsk = importlib.import_module("repro_torch.kernels.diag_scan")
+    args = decode_inputs(8, 2562, 64, True, dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    lay = dsk.decode_stream_layout(8, 2562, 64, 8, batched=True)
+    for bad in (lay._replace(smem=lay.smem + 8),
+                lay._replace(segs=lay.segs + 1, blocks=lay.blocks + 8)):
+        with pytest.raises(RuntimeError, match="error 1 "):
+            dsk.decode_fused_cuda(*args, mask, k=4, stream=bad)
+    with pytest.raises(ValueError, match="resident mode needs"):
+        dsk.decode_stream_layout(8, 2562, 64, 8, batched=True,
+                                 mode="resident")
+    got = dsk.decode_fused_cuda(*args, mask, k=4, stream=lay)
+    torch.cuda.synchronize()
+    decode_grid_check()
+    for g_, w_ in zip(got, ref.decode_fused_ref(*args, mask, k=4)):
+        _close_scaled(g_, w_, torch.float64)
+
+
 def test_engine_past_128_outputs_streams(dev):
     """An engine of 136 outputs fed back (past the wide family's D <= 128):
     every decode wave one launch of B2's streamed route, the streams

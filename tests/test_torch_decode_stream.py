@@ -5,7 +5,10 @@ package.
 ``decode_stream_layout`` gives a layout exactly where ``decode_layout``
 raises for a shape (``decode_plan`` takes it there, and ``decode_layout``'s
 elsewhere), within the blocks the card holds at once, and ``decode_route``
-on CUDA says ``"fused"`` at every ``off`` and ``mean`` shape.  The plain
+on CUDA says ``"fused"`` at every ``off`` and ``mean`` shape.  Its mode is
+resident exactly where a block's share fits the card's shared memory, and
+every forced mode, segment count and round count still covers every row
+and lane.  The plain
 version the route is held against on the card (``ref.
 decode_fused_packed_ref``) agrees with the JAX funnel's plain route and its
 kernel in interpret mode at D = 136 and 200, float64, 1e-12 (the same
@@ -25,10 +28,14 @@ from repro.serve.engine import ReservoirEngine as JaxEngine
 from repro_torch.core import params as tparams
 from repro_torch.data.signals import mso_series
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.diag_scan import (DECODE_STREAM_MAX_BLOCKS,
+from repro_torch.kernels.diag_scan import (DECODE_MAX_SMEM_BYTES,
+                                          DECODE_STREAM_MAX_BLOCKS,
+                                          DECODE_STREAM_MODES,
+                                          DECODE_STREAM_ONE_ROUND,
                                           DECODE_STREAM_THREADS,
-                                          DecodeStreamLayout, decode_layout,
-                                          decode_plan, decode_stream_layout)
+                                          DecodeStreamLayout, _stream_smem,
+                                          decode_layout, decode_plan,
+                                          decode_stream_layout)
 from repro_torch.serve import arena as tarena
 from repro_torch.serve.engine import ReservoirEngine
 
@@ -43,17 +50,35 @@ SHAPES = [(8, 1537, 64), (16, 1537, 64), (8, 2050, 64), (8, 2562, 64),
           (8, 525, 256), (4, 48, 512), (2, 80000, 1), (1100, 525, 1),
           (2048, 525, 1), (2048, 80000, 512), (8, 525, 1), (1, 4609, 1),
           (128, 525, 1), (8, 525, 64), (17, 4133, 2)]
+#: (B, NC, D) where a block's rows' y and readouts do not fit its shared
+#: memory beside its lanes (many rows a block, or a wide D), where not one
+#: lane's operands fit a ring tile (the direct mode), and a mean of
+#: millions of members: the route has a layout at each.
+LIMIT_SHAPES = [(8, 525, 1500), (16384, 64, 100), (16384, 525, 100),
+                (8, 525, 5000), (1, 64, 20000), (3300000, 1, 1)]
 
 
-def _covers(lay, b, nc, d):
+def _covers(lay, b, nc, d, itemsize=8, batched=False):
+    """The layout covers every row and lane with at most
+    DECODE_STREAM_MAX_BLOCKS blocks, its thread groups divide the block,
+    and its shared memory is what its mode takes, within the card's."""
     assert isinstance(lay, DecodeStreamLayout) and lay.streamed
     assert lay.blocks == lay.groups * lay.segs <= DECODE_STREAM_MAX_BLOCKS
     assert lay.groups * lay.rows >= b > (lay.groups - 1) * lay.rows
     assert lay.segs * lay.lanes >= nc > (lay.segs - 1) * lay.lanes
     t = lay.threads
     assert t == DECODE_STREAM_THREADS
-    assert t % lay.qa == 0 and t % lay.qb == 0 and lay.qa <= min(d, 8)
+    assert t % lay.qa == 0 and t % lay.qb == 0 and lay.qa <= d
     assert t // lay.qb >= min(d, t)          # a chunk of outputs spans D
+    assert lay.mode in DECODE_STREAM_MODES and lay.rounds in (1, 2)
+    if lay.mode == "resident":
+        assert lay.tile == lay.lanes and lay.state_on_chip
+    else:
+        assert 1 <= lay.tile <= lay.lanes
+    assert lay.smem == _stream_smem(lay.rows, lay.lanes, d, itemsize,
+                                    batched, lay.mode, lay.tile,
+                                    lay.state_on_chip, lay.y_on_chip, t)
+    assert lay.smem <= DECODE_MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("per_slot", [False, True], ids=["shared", "per_slot"])
@@ -74,7 +99,7 @@ def test_stream_layout_exactly_where_decode_layout_raises(b, nc, d, itemsize,
         lay = None
     plan = decode_plan(b, nc, d, itemsize, **kw)
     stream = decode_stream_layout(b, nc, d, itemsize, **kw)
-    _covers(stream, b, nc, d)
+    _covers(stream, b, nc, d, itemsize, per_slot)
     assert plan == (stream if lay is None else lay)
     assert plan.streamed == (lay is None)
     for dev in ("cuda", "cpu"):
@@ -85,32 +110,127 @@ def test_stream_layout_exactly_where_decode_layout_raises(b, nc, d, itemsize,
                                per_slot=per_slot) == "step"
 
 
+@pytest.mark.parametrize("per_slot", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("b,nc,d", SHAPES)
+def test_stream_mode_resident_exactly_where_it_fits(b, nc, d, itemsize,
+                                                    ensemble, per_slot):
+    """The rule's mode is resident exactly where a block's share (its
+    lanes' operands, its rows' state, the fixed buffers) fits
+    DECODE_MAX_SMEM_BYTES, its rows' y in shared memory exactly where it
+    fits beside them; forcing another mode covers the rows and lanes too
+    (forcing resident where it does not fit raises, naming the bytes);
+    one round exactly where a block's own sums read at most
+    DECODE_STREAM_ONE_ROUND partials; forced segments and rounds cover."""
+    kw = dict(ensemble=ensemble, batched=per_slot)
+    lay = decode_stream_layout(b, nc, d, itemsize, **kw)
+
+    def resident(y_on):
+        return _stream_smem(lay.rows, lay.lanes, d, itemsize, per_slot,
+                            "resident", lay.lanes, True, y_on,
+                            lay.threads) <= DECODE_MAX_SMEM_BYTES
+    fits = resident(False)
+    assert (lay.mode == "resident") == fits
+    if fits:
+        assert lay.y_on_chip == resident(True)
+    reads = (lay.blocks if ensemble == "mean" else lay.segs * lay.rows) * d
+    assert (lay.rounds == 1) == (reads <= DECODE_STREAM_ONE_ROUND)
+    streamed = decode_stream_layout(b, nc, d, itemsize, mode="streamed", **kw)
+    _covers(streamed, b, nc, d, itemsize, per_slot)
+    assert streamed.mode == "streamed"
+    assert streamed[:5] == lay[:5]
+    if fits:
+        assert decode_stream_layout(b, nc, d, itemsize, mode="resident",
+                                    **kw) == lay
+    else:
+        with pytest.raises(ValueError, match="resident mode needs"):
+            decode_stream_layout(b, nc, d, itemsize, mode="resident", **kw)
+    for forced in (dict(rounds=1), dict(rounds=2),
+                   dict(segs=max(1, lay.segs // 3)),
+                   dict(segs=1, mode="streamed"),
+                   dict(mode="direct")):
+        other = decode_stream_layout(b, nc, d, itemsize, **forced, **kw)
+        _covers(other, b, nc, d, itemsize, per_slot)
+        for key, v in forced.items():
+            assert getattr(other, key) == v or key == "segs"
+
+
+@pytest.mark.parametrize("per_slot", [False, True], ids=["shared", "per_slot"])
+@pytest.mark.parametrize("ensemble", ["off", "mean"])
+@pytest.mark.parametrize("itemsize", [8, 4], ids=["f64", "f32"])
+@pytest.mark.parametrize("b,nc,d", LIMIT_SHAPES)
+def test_stream_layout_at_every_shape(b, nc, d, itemsize, ensemble,
+                                      per_slot):
+    """Past a block's shared memory for the rows' y or for one lane's ring
+    tile the route still has a layout (the rows' y in the global scratch,
+    or the operands read directly), within the card's shared memory, and
+    ``decode_route`` on CUDA is ``"fused"``: only device memory bounds it."""
+    kw = dict(ensemble=ensemble, batched=per_slot)
+    lay = decode_stream_layout(b, nc, d, itemsize, **kw)
+    _covers(lay, b, nc, d, itemsize, per_slot)
+    for mode in ("streamed", "direct"):
+        try:
+            forced = decode_stream_layout(b, nc, d, itemsize, mode=mode, **kw)
+        except ValueError as e:
+            assert mode == "streamed" and lay.mode == "direct", e
+            continue
+        _covers(forced, b, nc, d, itemsize, per_slot)
+    assert tarena.decode_route(b, nc, d, itemsize, "cuda", ensemble=ensemble,
+                               per_slot=per_slot) == "fused"
+
+
 def test_stream_layout_rule():
     """The rule's choices at the card's shapes: path 23 (8 shared rows of
-    2562 lanes, D = 64) one row group split where its exchange meets its
-    operand reads; per-slot rows one a group; past 132 groups rows double
-    up; ``segs`` forces S (past the card too, refused at launch); nothing
-    but an input no kernel takes raises."""
-    assert decode_stream_layout(8, 2562, 64, 8) == DecodeStreamLayout(
-        39, 1, 8, 39, 66, 2, 4)
-    assert decode_stream_layout(16, 2562, 64, 8, ensemble="mean",
-                                batched=True) == DecodeStreamLayout(
-        128, 16, 1, 8, 321, 1, 4)
-    assert decode_stream_layout(1100, 525, 1, 8, ensemble="mean",
-                                batched=True) == DecodeStreamLayout(
-        123, 123, 9, 1, 525, 1, 256)
-    assert decode_stream_layout(2, 80000, 1, 8) == DecodeStreamLayout(
-        132, 1, 2, 132, 607, 1, 256)
-    assert decode_stream_layout(8, 525, 256, 8).qb == 1
+    2562 lanes, D = 64) one row group over every SM the lanes allow,
+    resident, two rounds; per-slot rows one a group, streamed past shared
+    memory with the state on chip, one round (16 segments of 64 outputs);
+    1100 mean members 9 rows a group; 80000 lanes one round; the rows' y in the global scratch where it does
+    not fit (D = 1500; 16384 mean members at D = 100); direct past one
+    lane's ring tile (D = 5000); ``segs``, ``mode`` and ``rounds`` force
+    (S past the card too, refused at launch); nothing but an input no
+    kernel takes raises."""
+    def lay(*shape, **kw):
+        return decode_stream_layout(*shape, **kw)[:13]
+    assert lay(8, 2562, 64, 8) == (129, 1, 8, 129, 20, 8, 4, "resident", 20,
+                                   True, True, 2, 84864)
+    assert lay(8, 2562, 64, 8, batched=True) == (
+        128, 8, 1, 16, 161, 4, 4, "streamed", 41, True, True, 1, 205624)
+    assert lay(8, 2562, 64, 4, batched=True)[7] == "resident"
+    assert lay(16, 2562, 64, 8, ensemble="mean", batched=True) == (
+        128, 16, 1, 8, 321, 4, 4, "streamed", 46, True, True, 2, 228824)
+    assert lay(1100, 525, 1, 8, ensemble="mean", batched=True) == (
+        123, 123, 9, 1, 525, 1, 256, "streamed", 525, True, True, 1, 158984)
+    assert lay(2, 80000, 1, 8) == (132, 1, 2, 132, 607, 1, 256, "resident",
+                                   607, True, True, 1, 81376)
+    assert lay(8, 525, 256, 8)[5:8] == (64, 1, "resident")
+    assert lay(2048, 80000, 512, 8, batched=True)[7:11] == ("streamed", 6,
+                                                            False, False)
+    assert lay(8, 525, 1500, 8)[7:11] == ("resident", 4, True, False)
+    assert lay(16384, 64, 100, 8, ensemble="mean")[7:11] == (
+        "streamed", 22, False, False)
+    assert lay(16384, 525, 100, 8, ensemble="mean", batched=True)[7:11] == (
+        "streamed", 30, False, False)
+    assert lay(8, 525, 5000, 8)[7:11] == ("direct", 4, True, False)
+    # The exchange probe's shape: path 23's B and D, one lane a block.
+    assert lay(8, 132, 64, 8)[:5] == (132, 1, 8, 132, 1)
+    assert lay(8, 2562, 64, 8, mode="streamed")[7:9] == ("streamed", 20)
+    assert lay(8, 2562, 64, 8, mode="direct")[7:11] == ("direct", 20, True,
+                                                        True)
+    assert lay(8, 2562, 64, 8, rounds=1)[11] == 1
     assert decode_stream_layout(2, 80000, 1, 8, segs=1000).blocks == 1000
     assert decode_stream_layout(2, 5, 1, 8, segs=1000).segs == 5
     for bad in (dict(d=0), dict(b=0), dict(nc=0), dict(segs=0),
-                dict(ensemble="weighted")):
+                dict(ensemble="weighted"), dict(mode="cluster"),
+                dict(rounds=3)):
         args = dict(b=2, nc=40, d=3, itemsize=8)
         args.update(bad)
-        kw = {k: args.pop(k) for k in ("ensemble", "segs") if k in args}
+        kw = {k: args.pop(k) for k in ("ensemble", "segs", "mode", "rounds")
+              if k in args}
         with pytest.raises(ValueError):
             decode_stream_layout(*args.values(), **kw)
+    with pytest.raises(ValueError, match="streamed mode needs"):
+        decode_stream_layout(8, 525, 5000, 8, mode="streamed")
     with pytest.raises(ValueError, match="D >= 1"):
         tarena.decode_route(4, 64, 0, 8, "cuda")
 
